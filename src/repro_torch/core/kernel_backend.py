@@ -1,0 +1,60 @@
+"""Select kernel implementations per device.
+
+The table kernels run as hand-written CUDA kernels on CUDA tensors and as
+their plain PyTorch versions on CPU tensors: the tensor's device decides,
+never a fallback.  Environment overrides mirror the JAX package's:
+
+* ``REPRO_KERNEL_IMPL`` — table kernels: ``ref | cuda``.  It may only
+  confirm what the device implies; asking for ``cuda`` on a CPU tensor or
+  ``ref`` on a CUDA tensor raises;
+* ``REPRO_JOIN_IMPL``   — local join algorithm: ``sortmerge | hash``;
+* ``REPRO_SORT_IMPL``   — local sort algorithm: ``xla`` (a chain of stable
+  ``torch.sort`` calls; the name is kept for parity with the JAX package).
+  The radix backend belongs to the radix_sort slice and raises here.
+"""
+import os
+
+import torch
+
+RADIX_SORT_SLICE = ("the radix_sort kernel is not ported yet "
+                    "(radix_sort slice of the PyTorch port)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; raises when there is none (the port
+    never moves to the CPU silently — pass ``device="cpu"`` for that)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def table_kernel_impl(device) -> str:
+    """'cuda' for CUDA tensors, 'ref' for CPU tensors."""
+    device = torch.device(device)
+    impl = "cuda" if device.type == "cuda" else "ref"
+    env = os.environ.get("REPRO_KERNEL_IMPL")
+    if env and env != impl:
+        if env not in ("ref", "cuda"):
+            raise ValueError(f"unknown REPRO_KERNEL_IMPL {env!r} "
+                             "(expected 'ref' or 'cuda')")
+        raise ValueError(f"REPRO_KERNEL_IMPL={env} cannot run on a "
+                         f"{device.type} tensor: the kernels run on CUDA "
+                         "tensors and their plain versions on CPU tensors")
+    return impl
+
+
+def join_impl() -> str:
+    """Local join algorithm: 'sortmerge' (default) or 'hash'."""
+    return os.environ.get("REPRO_JOIN_IMPL") or "sortmerge"
+
+
+def sort_impl() -> str:
+    """Local sort algorithm: 'xla' (stable sort chain, default)."""
+    env = os.environ.get("REPRO_SORT_IMPL") or "xla"
+    if env != "xla":
+        raise NotImplementedError(
+            f"REPRO_SORT_IMPL={env}: {RADIX_SORT_SLICE}")
+    return env

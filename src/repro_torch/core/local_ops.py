@@ -1,0 +1,381 @@
+"""Local (single-partition) HPTMT table operators: OrderBy and Join.
+
+PyTorch port of the sort-merge and hash join of ``repro/core/local_ops.py``
+over :class:`repro_torch.core.table.Table`.  Every op is mask-aware (rows
+``>= nvalid`` are padding) and keeps static capacities: overflowing output
+rows are dropped and counted.
+
+The local join has two backends, selected by ``impl`` (default
+``kernel_backend.join_impl()`` / ``REPRO_JOIN_IMPL``):
+
+* ``"sortmerge"`` — a stable sort of the right side plus a binary search
+  per left row;
+* ``"hash"`` — bucketed build + probe on the ``hash_join`` kernel.
+
+Both emit identical output — left-row-major, and within a left row its
+matches in the right table's original row order — and compare every key
+pair in the promoted common dtype.
+
+Planning.  A hash join sizes its slabs from the actual keys when it may
+(``may_plan=True``, the default for a direct call) and its tables are
+larger than ``bucketing.EXACT_SLAB_CAP``; ``dist_join`` passes
+``may_plan=False`` and keeps the sizes it is given, as the reference's
+traced distributed join does.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..kernels import bucketing
+from ..kernels.hash_join import default_hash_join_sizes, hash_join_plan
+from .kernel_backend import RADIX_SORT_SLICE
+from .kernel_backend import join_impl as _default_join_impl
+from .kernel_backend import sort_impl as _default_sort_impl
+from .table import Table, null_like
+
+_I32 = torch.int32
+# (2**31 - 1) as an int32 bit pattern: flips every bit but the sign
+_LOW31 = 0x7FFFFFFF
+
+
+def _sentinel_max(col: torch.Tensor) -> torch.Tensor:
+    if col.dtype.is_floating_point:
+        return torch.tensor(float("inf"), dtype=col.dtype, device=col.device)
+    return torch.tensor(torch.iinfo(col.dtype).max, dtype=col.dtype,
+                        device=col.device)
+
+
+# --------------------------------------------------------------------------
+# OrderBy (sort_values)
+# --------------------------------------------------------------------------
+
+
+def _sort_key(col: torch.Tensor, ascending: bool) -> torch.Tensor:
+    if ascending:
+        return col
+    if col.dtype.is_floating_point:
+        return -col
+    return ~col  # two's complement: exact order reversal, no overflow
+
+
+def _sortable_word(key: torch.Tensor) -> torch.Tensor:
+    """int32 words whose integer order is the stable-sort order of
+    ``key``.  Floats take the total order of a float sort with ``-0.0 ==
+    +0.0`` and every NaN equal and last: zeros and NaNs are made canonical,
+    and a negative float's bits are flipped below the sign."""
+    if not key.dtype.is_floating_point:
+        return key.to(_I32)
+    f = key.to(torch.float32)
+    f = torch.where(f == 0.0, torch.zeros_like(f), f)
+    f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+    bits = f.view(_I32)
+    return torch.where(bits < 0, bits ^ _LOW31, bits)
+
+
+def sort_values(table: Table, by: Sequence[str],
+                ascending: bool | Sequence[bool] = True, *,
+                impl: str | None = None) -> Table:
+    """Paper's OrderBy: stable multi-key sort; padding rows stay at the end.
+
+    ``impl="xla"`` is the port of one stable multi-operand sort over
+    (validity, keys, iota): PyTorch sorts one operand at a time, so it
+    is a chain of stable sorts, least significant key first."""
+    by = list(by)
+    if isinstance(ascending, bool):
+        ascending = [ascending] * len(by)
+    impl = impl or _default_sort_impl()
+    if impl == "radix":
+        raise NotImplementedError(f"sort_values(impl='radix'): "
+                                  f"{RADIX_SORT_SLICE}")
+    if impl != "xla":
+        raise ValueError(f"unknown sort impl {impl!r} (expected 'xla')")
+    keys = [_sort_key(table.columns[k], a) for k, a in zip(by, ascending)]
+    invalid = (~table.valid_mask).to(_I32)
+    perm = torch.arange(table.capacity, device=table.device)
+    for key in reversed([invalid, *keys]):
+        word = _sortable_word(key)[perm]
+        perm = perm[torch.argsort(word, stable=True)]
+    return table.gather_rows(perm, table.nvalid)
+
+
+# --------------------------------------------------------------------------
+# Lexicographic vectorized binary search (exact, multi-key, static shape)
+# --------------------------------------------------------------------------
+
+
+def _tuple_less(a: tuple, b: tuple) -> torch.Tensor:
+    """a < b lexicographically (element-wise over vectors)."""
+    res = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
+    eq = torch.ones(a[0].shape, dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):
+        res = res | (eq & (x < y))
+        eq = eq & (x == y)
+    return res
+
+
+def lex_searchsorted(sorted_keys: tuple, query_keys: tuple,
+                     side: str = "left") -> torch.Tensor:
+    """``searchsorted`` over a tuple of parallel sorted key columns.
+
+    ``sorted_keys[i]`` share shape ``(n,)`` and are lexicographically
+    sorted; ``query_keys[i]`` share shape ``(m,)``.  Returns int32 ``(m,)``
+    insertion points.  Exact (comparison-based), O(m log n)."""
+    n = sorted_keys[0].shape[0]
+    m = query_keys[0].shape[0]
+    dev = query_keys[0].device
+    lo = torch.zeros((m,), dtype=_I32, device=dev)
+    hi = torch.full((m,), n, dtype=_I32, device=dev)
+    if n == 0:
+        return lo
+    for _ in range(int(n - 1).bit_length() + 1):
+        mid = (lo + hi) // 2
+        midc = mid.clamp(0, n - 1)
+        at_mid = tuple(k[midc] for k in sorted_keys)
+        if side == "left":
+            go_right = _tuple_less(at_mid, query_keys)        # k[mid] < q
+        else:
+            go_right = ~_tuple_less(query_keys, at_mid)       # k[mid] <= q
+        go_right = go_right & (mid < hi)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def _sorted_keys_with_sentinel(table: Table, by: Sequence[str]):
+    """Sort table by ``by``; overwrite padding keys with +max sentinels so
+    the full-capacity key arrays are globally sorted."""
+    ts = sort_values(table, by)
+    valid = ts.valid_mask
+    keys = tuple(torch.where(valid, ts.columns[k],
+                             _sentinel_max(ts.columns[k])) for k in by)
+    return ts, keys
+
+
+# --------------------------------------------------------------------------
+# Join (pluggable backend: sort-merge / bucketed hash)
+# --------------------------------------------------------------------------
+
+
+def join(left: Table, right: Table, *,
+         left_on: Sequence[str], right_on: Sequence[str] | None = None,
+         how: str = "inner", out_capacity: int | None = None,
+         suffix: str = "_r", return_overflow: bool = False,
+         impl: str | None = None, num_buckets: int | None = None,
+         bucket_capacity: int | None = None,
+         probe_capacity: int | None = None, may_plan: bool = True):
+    """Paper's Join: inner/left join with static output capacity.
+
+    ``impl`` picks the backend (``"sortmerge"`` or ``"hash"``); both emit
+    identical output.  ``out_capacity`` defaults to ``left.capacity``;
+    overflowing output rows are dropped and counted
+    (``return_overflow=True`` returns the count).  The hash backend adds
+    ``num_buckets`` / ``bucket_capacity`` / ``probe_capacity`` static
+    sizing; rows overflowing a slab are dropped and counted into the same
+    metric.  ``may_plan`` lets the hash backend size its slabs from the
+    actual keys (see the module docstring)."""
+    if how not in ("inner", "left"):
+        raise ValueError("how must be 'inner' or 'left'")
+    impl = impl or _default_join_impl()
+    left_on = list(left_on)
+    right_on = list(right_on) if right_on is not None else left_on
+    out_cap = out_capacity or left.capacity
+    if impl == "sortmerge":
+        return _sortmerge_join(left, right, left_on, right_on, how, out_cap,
+                               suffix, return_overflow)
+    if impl == "hash":
+        return _hash_join(left, right, left_on, right_on, how, out_cap,
+                          suffix, return_overflow, num_buckets,
+                          bucket_capacity, probe_capacity, may_plan)
+    raise ValueError(f"unknown join impl {impl!r} "
+                     "(expected 'sortmerge' or 'hash')")
+
+
+def _emit_layout(match_counts: torch.Tensor, lvalid: torch.Tensor,
+                 how: str):
+    """(inclusive cumsum, exclusive offsets, total) of per-left-row emit
+    counts — the left-row-major layout shared by both join backends (left
+    join emits 1 slot for each ``lvalid`` row with no matches)."""
+    if how == "left":
+        emit = torch.where(lvalid & (match_counts == 0), 1, match_counts)
+    else:
+        emit = match_counts
+    cum = torch.cumsum(emit, 0, dtype=_I32)
+    offs = cum - emit
+    total = cum[-1] if emit.shape[0] > 0 else \
+        torch.zeros((), dtype=_I32, device=emit.device)
+    return cum, offs, total
+
+
+def _promoted_semi_keys(left: Table, right: Table, left_on: list,
+                        right_on: list):
+    """Both sides' key columns cast to their promoted common dtype, so a
+    mixed-dtype probe cannot collide distinct keys (int32 x float32 ->
+    float32)."""
+    q, v = [], []
+    for lk, rk in zip(left_on, right_on):
+        lc, rc = left.columns[lk], right.columns[rk]
+        dt = torch.promote_types(lc.dtype, rc.dtype)
+        q.append(lc.to(dt))
+        v.append(rc.to(dt))
+    return tuple(q), tuple(v)
+
+
+def _assemble(left: Table, right: Table, left_on, right_on, how, suffix,
+              lrow, rrow, matched):
+    """Output columns: left rows ``lrow``, right rows ``rrow`` (nulls where
+    a left join row has no match); the right keys are dropped when both
+    sides use the same key names."""
+    cols: dict[str, torch.Tensor] = {}
+    for n in left.names:
+        cols[n] = left.columns[n][lrow]
+    drop_keys = set(right_on) if left_on == right_on else set()
+    for n in right.names:
+        if n in drop_keys:
+            continue
+        name = n + suffix if n in cols else n
+        v = right.columns[n][rrow]
+        if how == "left":
+            v = torch.where(matched, v, null_like(v))
+        cols[name] = v
+    return cols
+
+
+def _sortmerge_join(left: Table, right: Table, left_on, right_on, how,
+                    out_cap, suffix, return_overflow):
+    """Sort-merge backend: the right table is sorted by its keys; each left
+    row binary-searches its match range ``[lo, hi)``; output slot ``j`` is
+    mapped back to its (left row, match offset) pair with a second search
+    — vectorized, no dynamic shapes."""
+    rs, rkeys = _sorted_keys_with_sentinel(right, right_on)
+    # compare in the promoted common dtype (casting the sorted keys is
+    # order-preserving)
+    dts = tuple(torch.promote_types(left.columns[k].dtype,
+                                    rs.columns[rk].dtype)
+                for k, rk in zip(left_on, right_on))
+    qkeys = tuple(left.columns[k].to(dt) for k, dt in zip(left_on, dts))
+    rkeys = tuple(rk.to(dt) for rk, dt in zip(rkeys, dts))
+    lo = lex_searchsorted(rkeys, qkeys, side="left")
+    hi = lex_searchsorted(rkeys, qkeys, side="right")
+    lo = torch.minimum(lo, right.nvalid)
+    hi = torch.minimum(hi, right.nvalid)
+    lvalid = left.valid_mask
+    match_counts = torch.where(lvalid, hi - lo, 0)
+    cum, offs, total = _emit_layout(match_counts, lvalid, how)
+
+    j = torch.arange(out_cap, dtype=_I32, device=left.device)
+    if left.capacity:
+        lrow = torch.searchsorted(cum, j, right=True, out_int32=True)
+        lrow = lrow.clamp(0, left.capacity - 1)
+    else:
+        lrow = torch.zeros_like(j)
+    within = j - offs[lrow]
+    matched = within < match_counts[lrow]
+    rrow = (lo[lrow] + within).clamp(0, max(right.capacity - 1, 0))
+
+    cols = _assemble(left, rs, left_on, right_on, how, suffix, lrow, rrow,
+                     matched)
+    out = Table(columns=cols, nvalid=torch.clamp(total, max=out_cap))
+    if return_overflow:
+        return out, (total - out_cap).clamp(min=0)
+    return out
+
+
+def _planned_sizes(bplan: bucketing.BucketPlan, nvalid, capacity: int,
+                   num_buckets, explicit_capacity, may_plan: bool):
+    """Slab sizing from the actual keys via the two-pass bucket planner.
+
+    Applies only when the caller may plan, gave no explicit capacity and
+    the tables exceed ``bucketing.EXACT_SLAB_CAP``; returns
+    ``(num_buckets, bucket_capacity)`` or ``None``.  The capacity is
+    rounded up to a power of two, as in the reference."""
+    if not may_plan or explicit_capacity is not None \
+            or capacity <= bucketing.EXACT_SLAB_CAP:
+        return None
+    B, C = bucketing.plan_bucket_sizes(num_buckets=num_buckets, plan=bplan,
+                                       nvalid=int(nvalid))
+    return B, 1 << max(3, (C - 1).bit_length())
+
+
+def _hash_join(left: Table, right: Table, left_on, right_on, how,
+               out_cap, suffix, return_overflow, num_buckets,
+               bucket_capacity, probe_capacity, may_plan):
+    """Hash backend: bucketed build+probe (kernels/hash_join) instead of
+    two sorts.  The plan yields per-left-row match counts plus per (probe
+    slot, chain slot) match ranks; each matched pair goes to output slot
+    offset-of-its-left-row + rank, which reproduces the sort-merge order
+    because chain order is original right-row order."""
+    B, C, Lc = default_hash_join_sizes(left.capacity, right.capacity,
+                                       num_buckets)
+    qkeys, rkeys = _promoted_semi_keys(left, right, list(left_on),
+                                       list(right_on))
+    lbp = bucketing.BucketPlan(qkeys)
+    rbp = bucketing.BucketPlan(rkeys)
+    big = max(left.capacity, right.capacity)
+    built = _planned_sizes(rbp, right.nvalid, big, B, bucket_capacity,
+                           may_plan)
+    if built is not None:
+        C = built[1]
+    probed = _planned_sizes(lbp, left.nvalid, big, B, probe_capacity,
+                            may_plan)
+    if probed is not None:
+        Lc = probed[1]
+    C = bucket_capacity or C
+    Lc = probe_capacity or Lc
+    npairs = B * Lc * C
+    if npairs >= 2 ** 31:
+        raise ValueError(
+            f"hash join pair space B*Lc*C = {B}*{Lc}*{C} = {npairs} "
+            "reaches 2**31: the reference numbers pairs in int32, so this "
+            "size is outside the join's contract (use the sortmerge "
+            "backend, or more buckets)")
+    plan = hash_join_plan(
+        lbp.bits, left.valid_mask, rbp.bits, right.valid_mask,
+        num_buckets=B, bucket_capacity=C, probe_capacity=Lc,
+        left_bid=lbp.bucket_ids_for(B) if probed is not None else None,
+        right_bid=rbp.bucket_ids_for(B) if built is not None else None)
+
+    # a probe-dropped left row's match status is unknown: it is excluded
+    # from emission entirely (counted in probe_dropped)
+    lvalid = left.valid_mask & plan.probed
+    mc = plan.match_counts
+    cum, offs, total = _emit_layout(mc, lvalid, how)
+
+    # scatter only the matched pairs: pair = (b*Lc + l)*C + c goes to
+    # output slot offs[left row] + rank; no two live pairs share a slot,
+    # and every pair past out_cap lands on the trash slot out_cap
+    rank = plan.rank.reshape(-1)
+    pair = torch.nonzero(rank >= 0).reshape(-1)
+    probe_row = plan.probe_row.reshape(-1)
+    slot = offs[probe_row[pair // C]].to(torch.int64) + rank[pair]
+    slot = torch.where(slot < out_cap, slot, out_cap)
+    buf = (torch.full((out_cap + 1,), -1, dtype=torch.int64,
+                      device=left.device)
+           .index_copy_(0, slot, pair)[:out_cap])
+    matched = buf >= 0
+    pp = buf.clamp(min=0)
+    # probe slot index b*Lc+l = pair // C; build slot index b*C + c =
+    # (pair // (Lc*C))*C + pair % C
+    out_lrow = torch.where(matched, probe_row[pp // C], 0)
+    out_rrow = torch.where(
+        matched, plan.build_row.reshape(-1)[(pp // (Lc * C)) * C + pp % C],
+        0)
+    if how == "left":
+        un = lvalid & (mc == 0)
+        flat_u = torch.where(un & (offs < out_cap), offs.to(torch.int64),
+                             out_cap)
+        ubuf = (torch.zeros((out_cap + 1,), dtype=_I32, device=left.device)
+                .index_copy_(0, flat_u, torch.arange(
+                    left.capacity, dtype=_I32, device=left.device))
+                [:out_cap])
+        out_lrow = torch.where(matched, out_lrow, ubuf)
+
+    cols = _assemble(left, right, left_on, right_on, how, suffix, out_lrow,
+                     out_rrow, matched)
+    out = Table(columns=cols, nvalid=torch.clamp(total, max=out_cap))
+    if return_overflow:
+        overflow = ((total - out_cap).clamp(min=0)
+                    + plan.build_dropped + plan.probe_dropped)
+        return out, overflow
+    return out

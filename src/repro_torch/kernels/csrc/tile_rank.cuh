@@ -1,0 +1,106 @@
+// Shared pieces of the table kernels: the launch-error string, and the
+// stable within-tile ranking that hash_partition and fused_bucketing both
+// run.
+//
+// Layout of one tile: a block of kWarps warps ranks kTile consecutive
+// rows.  Warp w owns the contiguous rows [w * kItems * 32, (w + 1) *
+// kItems * 32) of the tile and walks them 32 at a time, lane l on row
+// j * 32 + l of its range, so loads and stores are coalesced.  Within a
+// warp, __match_any_sync groups the lanes that hold the same id and
+// __popc of the lower peers gives each row its rank among the warp's
+// earlier rows; the group's lowest lane then adds the group size to the
+// warp's count for that id in shared memory.  After all warps are done,
+// an exclusive scan over the warps of each id turns the per-warp counts
+// into per-warp offsets (and its total into the tile's histogram), so a
+// row's rank is its warp offset plus its rank inside the warp: stable, in
+// row order.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+namespace repro {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kItems = 4;                  // rows per thread
+constexpr int kTile = kThreads * kItems;   // rows per block
+constexpr int kMaxSharedBytes = 232448;    // 227 KB: Hopper's per-block cap
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Row of the tile that item j of this thread covers.
+__device__ __forceinline__ int64_t tile_row(int j) {
+  return static_cast<int64_t>(blockIdx.x) * kTile +
+         (threadIdx.x >> 5) * (kItems * 32) + j * 32 + (threadIdx.x & 31);
+}
+
+// id[j] is the partition of row tile_row(j) in [0, P), or -1 for a row
+// past n or an id outside [0, P): such a row is not counted and gets
+// rank 0.  Writes this tile's histogram to hist_t[blockIdx.x * P + p] and
+// each row's within-tile rank to rank_out[row].  Needs kWarps * P ints of
+// dynamic shared memory.
+__device__ __forceinline__ void tile_rank(const int (&id)[kItems], int64_t n,
+                                          int P, int* __restrict__ hist_t,
+                                          int* __restrict__ rank_out) {
+  extern __shared__ int cnt[];             // [kWarps][P]
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kWarps * P; i += kThreads) cnt[i] = 0;
+  __syncthreads();
+
+  int* wcnt = cnt + warp * P;
+  const unsigned lt = lanemask_lt();
+  int rank[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int p = id[j];
+    const unsigned peers = __match_any_sync(0xffffffffu, p);
+    const int before = p >= 0 ? wcnt[p] : 0;
+    __syncwarp();
+    if (p >= 0 && (peers & lt) == 0) wcnt[p] = before + __popc(peers);
+    __syncwarp();
+    rank[j] = before + __popc(peers & lt);
+  }
+  __syncthreads();
+
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w * P + p];
+      cnt[w * P + p] = run;
+      run += c;
+    }
+    hist_t[static_cast<int64_t>(blockIdx.x) * P + p] = run;
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int64_t row = tile_row(j);
+    if (row < n) rank_out[row] = id[j] >= 0 ? rank[j] + wcnt[id[j]] : 0;
+  }
+}
+
+// Dynamic shared memory of one ranking block, raising the kernel's limit
+// above the default 48 KB when needed.  Returns a cudaError_t.
+template <typename Kernel>
+inline int prepare_shared(Kernel kernel, int P, size_t* bytes) {
+  *bytes = static_cast<size_t>(kWarps) * P * sizeof(int);
+  if (*bytes > static_cast<size_t>(kMaxSharedBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (*bytes > 48 * 1024)
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(*bytes)));
+  return 0;
+}
+
+}  // namespace repro

@@ -81,3 +81,8 @@ def as_sets(data: dict, cols=None):
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips without one")
