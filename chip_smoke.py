@@ -4,20 +4,32 @@
 
 Phases, each fatal on failure:
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version at the main path's
-   shapes, exactly (they are integer kernels);
+   shapes: the integer outputs exactly; the groupby accumulate's sums
+   within 1e-6 of the group's sum of magnitudes and its mins and maxs as
+   values (NaN == NaN, -0.0 == +0.0);
 3. the paper's Fig. 4 join with the sortmerge backend, 10 M rows per
    side at world 1, checked against the keys and a float64 sum;
 4. the same join with the hash backend at 500 k rows per side, which
    must be bit-identical to a sortmerge run on the same data;
-5. timings: each leg's median of 3 warmed runs and peak memory, and each
-   kernel's CUDA-event time beside its plain version and its bound.
+5. Table 5 GroupBy + Aggregate, 10 M rows over 1 M keys: ``dist_groupby``
+   with the hash backend (65536 buckets) equal to numpy and bit-identical
+   to the sort backend;
+6. Unique: ``dist_unique`` hash == sort on the same table;
+7. OrderBy: ``dist_sort`` over (k, v), 10 M rows, radix == xla == a
+   numpy stable sort;
+8. the broadcast join, 1 M x 100 k rows, bit-identical to the shuffle
+   join;
+9. timings: each leg's median of 3 warmed runs and peak memory, a
+   profile, and each kernel's CUDA-event time beside its plain version,
+   its bound and, where there is one, a library call.
 
 The launch counters are set to 0 just before each leg's first run and
-read just after it.  The line before the last is the kernel table; the
-last line is ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-result when there is no CUDA device.
+read just after it; the new legs must launch exactly the kernels their
+path runs.  The line before the last is the kernel table; the last line
+is ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
+when there is no CUDA device.
 """
 import json
 import subprocess
@@ -31,26 +43,45 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SORTMERGE_ROWS = 10_000_000
 HASH_ROWS = 500_000
+GROUPBY_ROWS = 10_000_000      # Table 5 groupby/unique leg
+GROUPBY_KEYS = 1_000_000       # 10 % key uniqueness, as Fig. 4
+GROUPBY_BUCKETS = 65536
+SORT_ROWS = 10_000_000         # Table 5 OrderBy leg
+BCAST_ROWS = (1_000_000, 100_000)
+AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
 BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
-KERNELS = ("hash_partition", "fused_bucketing", "hash_join")
+KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
+           "hash_groupby")
+JOIN_KERNELS = KERNELS[:3]
+# the __global__ functions of csrc/*.cu, as the profiler names them
+PORT_KERNEL_FNS = ("hash_partition", "fused_bucketing", "hash_join",
+                   "radix_digit", "hash_groupby")
 
 
 def _modules():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import dist_ops
+    from repro_torch.core import local_ops
     from repro_torch.core.context import make_context
-    from repro_torch.kernels import build
+    from repro_torch.kernels import bucketing, build
     from repro_torch.kernels.fused_bucketing import ops as fb_ops
     from repro_torch.kernels.fused_bucketing import ref as fb_ref
+    from repro_torch.kernels.hash_groupby import ops as hg_ops
+    from repro_torch.kernels.hash_groupby import ref as hg_ref
     from repro_torch.kernels.hash_join import ops as hj_ops
     from repro_torch.kernels.hash_join import ref as hj_ref
     from repro_torch.kernels.hash_partition import ops as hp_ops
     from repro_torch.kernels.hash_partition import ref as hp_ref
-    return dict(D=dist_ops, make_context=make_context, build=build,
+    from repro_torch.kernels.radix_sort import ops as rs_ops
+    from repro_torch.kernels.radix_sort import ref as rs_ref
+    return dict(D=dist_ops, L=local_ops, make_context=make_context,
+                build=build, bucketing=bucketing,
                 ops={"hash_partition": hp_ops, "fused_bucketing": fb_ops,
-                     "hash_join": hj_ops},
-                hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref)
+                     "hash_join": hj_ops, "radix_sort": rs_ops,
+                     "hash_groupby": hg_ops},
+                hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
+                hg_ref=hg_ref)
 
 
 def card() -> str:
@@ -75,12 +106,20 @@ def _sync(device) -> None:
 # --------------------------------------------------------------------------
 
 
-def kernel_cases(device, hash_plan, scale=1.0, seed=1):
+def kernel_cases(device, hash_plan, groupby_sizes, groupby_loads, scale=1.0,
+                 seed=1):
     """The inputs each kernel gets on the legs: hash_partition at P = 2
     (the world-1 shuffle's live + trash partitions) on 10 M rows and at
     P = 513 (a 512-bucket ranking) on 625 k rows; fused_bucketing at 512
     buckets on 625 k rows with one int plane and with two float planes
-    (-0.0 and NaN included); hash_join on the 500 k leg's slab shapes."""
+    (-0.0 and NaN included); hash_join on the 500 k leg's slab shapes;
+    radix_sort's digit pass on 20 M rows (the groupby and sort legs'
+    shuffled capacity) at 8 bits, shifts 0 and 24, and its 1-bit pass,
+    at 11 bits on 625 k rows and on one ragged 64-row tile; hash_groupby
+    on slabs shaped and filled as the groupby leg's (``groupby_loads``
+    rows in each bucket), with NaN and -0.0 among the values: once
+    integer-valued, as the leg's, and once normal-distributed, where the
+    sums may round."""
     rng = np.random.default_rng(seed)
     n_big = max(int(SORTMERGE_ROWS * scale), 1)
     n_slab = hash_plan["shuffle_sizes"]["left"][1]
@@ -117,16 +156,55 @@ def kernel_cases(device, hash_plan, scale=1.0, seed=1):
         dev((np.arange(Lc)[None, :] < fill_p[:, None]).astype(np.int32)),
         dev(rng.integers(0, nkeys, (B, 1, C)).astype(np.int32)),
         dev((np.arange(C)[None, :] < fill_b[:, None]).astype(np.int32))))]
+
+    n_sort = max(int(2 * GROUPBY_ROWS * scale), 1)
+    words = dev(rng.integers(-2**31, 2**31, n_sort, dtype=np.int64)
+                .astype(np.int32))
+    cases["radix_sort"] = [
+        dict(shape=f"n={n_sort} bits=8 shift=0", args=(words, 0, 8, 1024)),
+        dict(shape=f"n={n_sort} bits=8 shift=24", args=(words, 24, 8, 1024)),
+        dict(shape=f"n={n_sort} bits=1", args=(
+            dev(rng.integers(0, 2, n_sort).astype(np.int32)), 0, 1, 1024)),
+        dict(shape=f"n={n_slab} bits=11 shift=11", args=(
+            dev(rng.integers(-2**31, 2**31, n_slab, dtype=np.int64)
+                .astype(np.int32)), 11, 11, 1024)),
+        dict(shape="n=64 bits=8 shift=8", args=(words[:64].clone(), 8, 8,
+                                                1024))]
+
+    # each bucket holds as many rows as the leg's keys put in it, ~10 rows
+    # per key
+    B, C = groupby_sizes["num_buckets"], groupby_sizes["bucket_capacity"]
+    B = max(int(B * scale), 1)
+    fill = groupby_loads[:B]
+    vals = rng.integers(-100, 100, (B, 1, C)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.01] = -0.0
+    vals[rng.random(vals.shape) < 0.001] = np.nan
+    keys = rng.integers(0, np.maximum(fill // 10, 1)[:, None, None],
+                        (B, 1, C))
+    normal = rng.normal(size=(B, 1, C)).astype(np.float32)
+    normal[vals == 0] = -0.0
+    normal[np.isnan(vals)] = np.nan
+    kb = dev(keys.astype(np.int32))
+    occ = dev((np.arange(C)[None, :] < fill[:, None]).astype(np.int32))
+    cases["hash_groupby"] = [
+        dict(shape=f"B={B} K=1 V=1 C={C} integer", args=(kb, occ, dev(vals))),
+        dict(shape=f"B={B} K=1 V=1 C={C} normal", args=(kb, occ,
+                                                        dev(normal)))]
     return cases
 
 
 def _plain(m, name, args, chunk=32):
     """The plain version on the same inputs; hash_join in chunks of
-    buckets to bound its memory."""
+    buckets to bound its memory (the radix and groupby plain versions
+    chunk themselves)."""
     if name == "hash_partition":
         return m["hp_ref"].radix_histogram_ranks_ref(*args)
     if name == "fused_bucketing":
         return m["fb_ref"].fused_bucket_ranks_ref(*args)
+    if name == "radix_sort":
+        return m["rs_ref"].digit_histogram_ranks_ref(*args[:3])
+    if name == "hash_groupby":
+        return m["hg_ref"].bucket_accumulate_ref(*args)
     pb, po, bb, bo = args
     parts = [m["hj_ref"].bucket_probe_ref(pb[i:i + chunk], po[i:i + chunk],
                                           bb[i:i + chunk], bo[i:i + chunk])
@@ -140,12 +218,40 @@ def _kernel(m, name, args):
         return op.radix_histogram_ranks(*args)
     if name == "fused_bucketing":
         return op.fused_bucket_ranks(*args)
+    if name == "radix_sort":
+        return op.digit_histogram_ranks(*args)
+    if name == "hash_groupby":
+        return op.bucket_accumulate(*args)
     return op.bucket_probe(*args)
 
 
+def _groupby_close(m, args, got, want):
+    """rep and counts exact; mins and maxs equal as values (NaN == NaN,
+    -0.0 == +0.0); sums within 1e-6 of the group's sum of magnitudes.
+    Returns the largest absolute sum difference and the largest ratio of
+    a difference to its group's sum of magnitudes (NaN pairs excluded)."""
+    for g, w in zip(got[:2], want[:2]):
+        if not torch.equal(g, w):
+            raise AssertionError("hash_groupby: rep/counts differ")
+    for g, w in zip(got[3:], want[3:]):
+        if not bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all()):
+            raise AssertionError("hash_groupby: mins/maxs differ")
+    kb, occ, vals = args
+    scale = m["hg_ref"].bucket_accumulate_ref(kb, occ, vals.abs())[2]
+    both_nan = torch.isnan(got[2]) & torch.isnan(want[2])
+    diff = torch.where(both_nan, 0.0, (got[2] - want[2]).abs())
+    ratio = torch.where(diff > 0, diff / scale, 0.0)
+    worst = float(ratio.max()) if ratio.numel() else 0.0
+    if not bool(((diff <= 1e-6 * scale) | both_nan).all()):
+        raise AssertionError("hash_groupby: sums differ beyond 1e-6 of "
+                             f"the group's sum of magnitudes (worst {worst})")
+    return (float(diff.max()) if diff.numel() else 0.0), worst
+
+
 def compare_kernels(m, cases, device) -> dict:
-    """Kernel == plain version, exactly, on every case; returns the
-    largest absolute difference per kernel (0)."""
+    """Kernel == plain version on every case (exactly, but for the
+    groupby sums, see :func:`_groupby_close`); returns the largest
+    absolute difference per kernel."""
     errs = {}
     for name, runs in cases.items():
         errs[name] = 0
@@ -153,6 +259,13 @@ def compare_kernels(m, cases, device) -> dict:
             got = _kernel(m, name, case["args"])
             want = _plain(m, name, case["args"])
             _sync(device)
+            if name == "hash_groupby":
+                err, worst = _groupby_close(m, case["args"], got, want)
+                errs[name] = max(errs[name], err)
+                emit({"phase": "kernel_equal", "kernel": name,
+                      "shape": case["shape"], "equal": True,
+                      "max_abs_err": err, "worst_err_over_abs_sum": worst})
+                continue
             for g, w in zip(got, want):
                 if g.shape != w.shape or g.dtype != w.dtype \
                         or not torch.equal(g, w):
@@ -182,17 +295,21 @@ def fig4_data(rows: int, seed: int = 0):
     return left, right
 
 
-def fig4_leg(m, ctx, left, right, impl, plan):
-    """(run, tables): ``run()`` drives ``dist_join`` once through the
-    pipeline on the distributed tables."""
+def pipeline(m, ctx, fn, *datas):
+    """``run()`` drives ``fn`` once through the pipeline on the
+    distributed tables of ``datas``."""
     D = m["D"]
-    pipe = D.DistributedPipeline(ctx, lambda c, a, b: D.dist_join(
+    pipe = D.DistributedPipeline(ctx, fn)
+    tables = [D.distribute_table(ctx, d) for d in datas]
+    return lambda: pipe(*tables)
+
+
+def fig4_leg(m, ctx, left, right, impl, plan):
+    """``run()`` drives ``dist_join`` once with the plan's sizes."""
+    return pipeline(m, ctx, lambda c, a, b: m["D"].dist_join(
         c, a, b, left_on=["k"], out_capacity=plan["out_capacity"],
         shuffle_sizes=plan["shuffle_sizes"], local_impl=impl,
-        local_join_sizes=plan["local_join_sizes"]))
-    gl = m["D"].distribute_table(ctx, left)
-    gr = m["D"].distribute_table(ctx, right)
-    return lambda: pipe(gl, gr)
+        local_join_sizes=plan["local_join_sizes"]), left, right)
 
 
 def counted_run(m, run, device):
@@ -272,7 +389,7 @@ def run_legs(m, ctx, sortmerge_rows, hash_rows, device):
                                   local_impl="hash")
     run = fig4_leg(m, ctx, left, right, "hash", plan)
     (out, dropped), launches = counted_run(m, run, device)
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in JOIN_KERNELS) < 1:
         raise AssertionError(f"hash leg missed a kernel: {launches}")
     ref_run = fig4_leg(m, ctx, left, right, "sortmerge",
                        dict(plan, local_join_sizes=None))
@@ -292,23 +409,192 @@ def run_legs(m, ctx, sortmerge_rows, hash_rows, device):
 
 
 # --------------------------------------------------------------------------
+# the Table 5 legs: GroupBy, Unique, OrderBy, broadcast join
+# --------------------------------------------------------------------------
+
+
+def groupby_data(rows: int, nkeys: int, seed: int = 0):
+    """k uniform over ``nkeys`` keys, v integer-valued float32 in
+    [-100, 100) (as ``benchmarks/bench_groupby.py``)."""
+    rng = np.random.default_rng(seed)
+    return {"k": rng.integers(0, nkeys, rows).astype(np.int32),
+            "v": rng.integers(-100, 100, rows).astype(np.float32)}
+
+
+def plan_groupby_sizes(m, data) -> dict:
+    """Host-side slab sizes for the hash groupby, as users size a traced
+    hash groupby (``benchmarks/bench_groupby.hash_sizes``)."""
+    B, C = m["bucketing"].plan_bucket_sizes([data["k"]],
+                                            num_buckets=GROUPBY_BUCKETS)
+    return {"num_buckets": B, "bucket_capacity": C}
+
+
+def sort_data(rows: int, seed: int = 0):
+    """k int32 in [-500 000, 500 000), v normal float32 with -0.0 and NaN
+    sprinkled in."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=rows).astype(np.float32)
+    v[rng.random(rows) < 0.01] = -0.0
+    v[rng.random(rows) < 0.001] = np.nan
+    return {"k": rng.integers(-500_000, 500_000, rows).astype(np.int32),
+            "v": v}
+
+
+def expect_launches(leg: str, launches: dict, want: dict) -> None:
+    full = {k: want.get(k, 0) for k in KERNELS}
+    if launches != full:
+        raise AssertionError(f"{leg}: launches {launches}, expected {full}")
+
+
+def counted_leg(m, leg, run, device, want, legs):
+    """One counted run that must launch exactly ``want`` and drop nothing;
+    the leg is kept for the timing phase."""
+    (out, dropped), launches = counted_run(m, run, device)
+    expect_launches(leg, launches, want)
+    if int(dropped) != 0:
+        raise AssertionError(f"{leg} dropped {int(dropped)} rows")
+    legs[leg] = dict(run=run, launches=launches)
+    return out
+
+
+def check_groupby(got: dict, data: dict) -> None:
+    """Keys, counts, sums, mins and maxs equal numpy's (exact on this
+    integer-valued data), and mean == float32(sum) / float32(count)."""
+    k, v = data["k"], data["v"]
+    uniq = np.unique(k)
+    nk = int(k.max()) + 1
+    counts = np.bincount(k, minlength=nk)[uniq]
+    sums = np.bincount(k, weights=v.astype(np.float64),
+                       minlength=nk)[uniq].astype(np.float32)
+    mins = np.full(nk, np.inf, np.float32)
+    maxs = np.full(nk, -np.inf, np.float32)
+    np.minimum.at(mins, k, v)
+    np.maximum.at(maxs, k, v)
+    want = {"k": uniq.astype(np.int32), "v_sum": sums,
+            "v_count": counts.astype(np.int32),
+            "v_mean": sums / counts.astype(np.float32),
+            "v_min": mins[uniq], "v_max": maxs[uniq]}
+    if list(got) != list(want):
+        raise AssertionError(f"groupby leg: columns {list(got)}")
+    for name, w in want.items():
+        g = got[name]
+        if g.dtype != w.dtype or not np.array_equal(g.view(np.int32),
+                                                    w.view(np.int32)):
+            raise AssertionError(f"groupby leg: {name} differs from numpy")
+
+
+def check_sorted(got: dict, data: dict) -> None:
+    """The rows are a numpy stable sort by (k, v), NaN last and -0.0 equal
+    to +0.0, bit for bit."""
+    k, v = data["k"], data["v"]
+    order = np.lexsort((np.where(np.isnan(v), np.inf, v), k))
+    if not (np.array_equal(got["k"], k[order])
+            and np.array_equal(got["v"].view(np.int32),
+                               v[order].view(np.int32))):
+        raise AssertionError("sort leg: rows are not in (k, v) order")
+
+
+def run_table5(m, ctx, device, data, sizes):
+    """Drive the GroupBy, Unique, OrderBy and broadcast-join phases once
+    each, counted and checked; returns the legs the timing phase runs
+    again."""
+    D = m["D"]
+    legs = {}
+    uniq, first = np.unique(data["k"], return_index=True)
+
+    hashed = {"hash_partition": 1, "radix_sort": 8, "hash_groupby": 1}
+    sorted_ = {"hash_partition": 1, "radix_sort": 1}
+    out = {}
+    for impl, want in (("hash", hashed), ("sort", sorted_)):
+        kw = dict(local_impl=impl,
+                  groupby_sizes=sizes if impl == "hash" else None)
+        run = pipeline(m, ctx, lambda c, a, kw=kw: D.dist_groupby(
+            c, a, ["k"], AGGS, **kw), data)
+        out[impl] = counted_leg(m, f"groupby_{impl}", run, device, want,
+                                legs)
+        legs[f"groupby_{impl}"]["rows"] = GROUPBY_ROWS
+    check_groupby(D.collect_table(ctx, out["hash"]), data)
+    if not bit_identical(out["hash"], out["sort"]):
+        raise AssertionError("groupby leg: hash differs from sort")
+    emit({"phase": "groupby", "rows": GROUPBY_ROWS, "keys": GROUPBY_KEYS,
+          "groups": int(out["hash"].nvalid), "sizes": sizes,
+          "equal_to_numpy": True, "bit_identical_to_sort": True,
+          "launches": {i: legs[f"groupby_{i}"]["launches"] for i in out}})
+
+    for impl, want in (("hash", hashed), ("sort", sorted_)):
+        kw = dict(local_impl=impl,
+                  groupby_sizes=sizes if impl == "hash" else None)
+        run = pipeline(m, ctx, lambda c, a, kw=kw: D.dist_unique(
+            c, a, ["k"], **kw), data)
+        out[impl] = counted_leg(m, f"unique_{impl}", run, device, want, {})
+    got = D.collect_table(ctx, out["hash"])
+    if not (bit_identical(out["hash"], out["sort"])
+            and np.array_equal(got["k"], uniq)
+            and np.array_equal(got["v"], data["v"][first])):
+        raise AssertionError("unique leg: hash, sort and numpy differ")
+    emit({"phase": "unique", "rows": GROUPBY_ROWS, "nvalid": len(uniq),
+          "bit_identical_hash_sort": True})
+    del out
+
+    sdata = sort_data(SORT_ROWS)
+    out = {}
+    for impl, want in (("radix", {"hash_partition": 1, "radix_sort": 27}),
+                       ("xla", {"hash_partition": 1})):
+        run = pipeline(m, ctx, lambda c, a, impl=impl: D.dist_sort(
+            c, a, ["k", "v"], local_impl=impl), sdata)
+        out[impl] = counted_leg(m, f"sort_{impl}", run, device, want, legs)
+        legs[f"sort_{impl}"]["rows"] = SORT_ROWS
+    if not bit_identical(out["radix"], out["xla"]):
+        raise AssertionError("sort leg: radix differs from xla")
+    check_sorted(D.collect_table(ctx, out["radix"]), sdata)
+    emit({"phase": "orderby", "rows": SORT_ROWS,
+          "bit_identical_radix_xla": True, "numpy_order": True,
+          "launches": {i: legs[f"sort_{i}"]["launches"] for i in out}})
+    del out
+
+    rng = np.random.default_rng(0)
+    nl, nr = BCAST_ROWS
+    left = {"k": rng.integers(0, nr, nl).astype(np.int32),
+            "lv": rng.normal(size=nl).astype(np.float32)}
+    right = {"k": np.arange(nr, dtype=np.int32),
+             "rv": rng.normal(size=nr).astype(np.float32)}
+    out = {}
+    for strategy, want in (("broadcast", {"radix_sort": 1}),
+                           ("shuffle", {"hash_partition": 2})):
+        run = pipeline(m, ctx, lambda c, a, b, s=strategy: D.dist_join(
+            c, a, b, left_on=["k"], strategy=s), left, right)
+        out[strategy] = counted_leg(m, f"join_{strategy}", run, device,
+                                    want, {})
+    if int(out["broadcast"].nvalid) != nl \
+            or not bit_identical(out["broadcast"], out["shuffle"]):
+        raise AssertionError("broadcast join differs from the shuffle join")
+    emit({"phase": "broadcast_join", "left_rows": nl, "right_rows": nr,
+          "out_rows": nl, "bit_identical_to_shuffle": True})
+    return legs
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
 
 def time_leg(run, device, reps=3):
     """Median host seconds of ``reps`` warmed runs, each ended by a
-    synchronize, and the peak device memory over them."""
+    synchronize, and the peak device memory the runs add to what is
+    resident before them (the leg's input tables, the other legs' and the
+    kernel cases): (seconds, peak bytes above resident, resident bytes)."""
     run()
     _sync(device)
     torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device)
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
         run()
         _sync(device)
         ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)), torch.cuda.max_memory_allocated(device)
+    return (float(np.median(ts)),
+            torch.cuda.max_memory_allocated(device) - resident, resident)
 
 
 def profile_leg(run, top=8):
@@ -328,11 +614,17 @@ def profile_leg(run, top=8):
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
+
+    def row(e):
+        return {"name": e.key[:80], "count": e.count,
+                "device_ms": e.self_device_time_total / 1e3}
+
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
-            "top_kernels": [{"name": e.key[:80], "count": e.count,
-                             "device_ms": e.self_device_time_total / 1e3}
-                            for e in kernels[:top]]}
+            "top_kernels": [row(e) for e in kernels[:top]],
+            "port_kernels": [row(e) for e in kernels
+                             if any(f"{k}_kernel" in e.key
+                                    for k in PORT_KERNEL_FNS)]}
 
 
 def event_ms(fn, reps=10):
@@ -351,9 +643,24 @@ def event_ms(fn, reps=10):
 
 def bound(name, args):
     """(least milliseconds, what bounds it): each input read once, each
-    output written once, at the device memory rate; the key compares at
-    the float32 rate."""
-    if name == "hash_partition":
+    output written once, at the device memory rate; the key compares and
+    value updates at the float32 rate, counted for this run's data."""
+    if name == "radix_sort":
+        words, _, bits, tile = args
+        n = words.numel()
+        # words in; ranks and one histogram per tile out
+        nbytes = 4 * n + 4 * n + 4 * (1 << bits) * -(-n // tile)
+        ops = n
+    elif name == "hash_groupby":
+        kb, occ, vals = args
+        B, K, C = kb.shape
+        V = vals.shape[1]
+        nbytes = 4 * B * C * (K + 1 + V) + 4 * B * C * (2 + 3 * V)
+        # each occupied slot is compared with the occupied slots of its
+        # bucket
+        pairs = int((occ.sum(1).double() ** 2).sum())
+        ops = pairs * (K + 2 + 3 * V)
+    elif name == "hash_partition":
         pid, P = args
         n = pid.numel()
         nbytes, ops = 4 * n + 4 * P + 4 * n, n
@@ -371,6 +678,28 @@ def bound(name, args):
         ops = B * Lc * C * K
     t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_times(m, cases, gdata, sizes, device) -> dict:
+    """One PyTorch call beside each new kernel: a stable ``argsort`` of
+    the 20 M-row words beside the port's ``radix_permutation`` of the same
+    key; the sort-backend local groupby beside the hash-backend one on the
+    groupby leg's rows."""
+    L, rs = m["L"], m["ops"]["radix_sort"]
+    words = cases["radix_sort"][0]["args"][0]
+    none = torch.zeros(words.shape[0], dtype=torch.bool, device=device)
+    out = {"radix_sort": {
+        "library_ms": event_ms(lambda: torch.argsort(words, stable=True),
+                               reps=5),
+        "radix_permutation_ms": event_ms(
+            lambda: rs.radix_permutation((words,), none), reps=5)}}
+    t = m["D"].distribute_table(m["make_context"](), gdata)
+    out["hash_groupby"] = {
+        "library_ms": event_ms(lambda: L.groupby_aggregate(
+            t, ["k"], AGGS, impl="sort"), reps=3),
+        "hash_groupby_local_ms": event_ms(lambda: L.groupby_aggregate(
+            t, ["k"], AGGS, impl="hash", may_plan=False, **sizes), reps=3)}
+    return out
 
 
 def main() -> int:
@@ -396,20 +725,26 @@ def main() -> int:
     hash_plan = m["D"].plan_dist_join_sizes(
         *[[side["k"]] for side in fig4_data(HASH_ROWS)], world=1,
         local_impl="hash")
-    cases = kernel_cases(device, hash_plan)
+    gdata = groupby_data(GROUPBY_ROWS, GROUPBY_KEYS)
+    sizes = plan_groupby_sizes(m, gdata)
+    loads = np.bincount(m["bucketing"].bucket_ids_np(
+        [gdata["k"]], sizes["num_buckets"]), minlength=sizes["num_buckets"])
+    cases = kernel_cases(device, hash_plan, sizes, loads)
     errs = compare_kernels(m, cases, device)
     emit({"kernels": list(KERNELS)})
 
     legs = run_legs(m, ctx, SORTMERGE_ROWS, HASH_ROWS, device)
+    legs.update(run_table5(m, ctx, device, gdata, sizes))
 
     for leg, info in legs.items():
-        seconds, peak = time_leg(info["run"], device)
-        emit({"phase": "timing", "leg": leg, "rows_per_side": info["rows"],
-              "median_s": seconds, "max_memory_allocated": peak,
-              "card": name})
+        seconds, peak, resident = time_leg(info["run"], device)
+        emit({"phase": "timing", "leg": leg, "rows": info["rows"],
+              "median_s": seconds, "peak_bytes_above_resident": peak,
+              "resident_bytes": resident, "card": name})
         emit({"phase": "profile", "leg": leg, "card": name,
               **profile_leg(info["run"])})
 
+    library = library_times(m, cases, gdata, sizes, device)
     table = []
     for kname in KERNELS:
         case = cases[kname][0]
@@ -418,23 +753,28 @@ def main() -> int:
         plain_ms = event_ms(lambda: _plain(m, kname, args), reps=3)
         bound_ms, bound_by = bound(kname, args)
         op = m["ops"][kname]
+        extra = library.get(kname, {"library_ms": None})
         row = {"name": kname, "route": "cuda", "source": op.SOURCE,
                "replaces": op.REPLACES,
                "launches": sum(leg["launches"][kname]
                                for leg in legs.values()),
                "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None, "shape": case["shape"], "card": name}
-        emit(dict(row, phase="kernel_timing"))
+               "library_ms": extra["library_ms"]}
+        emit(dict(row, phase="kernel_timing", shape=case["shape"],
+                  card=name, per_leg={leg: info["launches"][kname]
+                                      for leg, info in legs.items()},
+                  **{k: v for k, v in extra.items() if k != "library_ms"}))
         table.append(row)
-    for kname in ("hash_partition", "fused_bucketing"):
-        extra = cases[kname][1]
-        emit({"phase": "kernel_timing", "name": kname,
-              "shape": extra["shape"], "card": name,
-              "ms": event_ms(lambda: _kernel(m, kname, extra["args"])),
-              "plain_ms": event_ms(lambda: _plain(m, kname, extra["args"]),
-                                   reps=3),
-              "bound_ms": bound(kname, extra["args"])[0]})
+    for kname in ("hash_partition", "fused_bucketing", "radix_sort",
+                  "hash_groupby"):
+        for extra in cases[kname][1:]:
+            emit({"phase": "kernel_timing", "name": kname,
+                  "shape": extra["shape"], "card": name,
+                  "ms": event_ms(lambda: _kernel(m, kname, extra["args"])),
+                  "plain_ms": event_ms(
+                      lambda: _plain(m, kname, extra["args"]), reps=3),
+                  "bound_ms": bound(kname, extra["args"])[0]})
 
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

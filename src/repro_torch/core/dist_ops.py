@@ -1,14 +1,25 @@
-"""Distributed HPTMT table operators: the Fig. 4 hash-shuffle join.
+"""Distributed HPTMT table operators (paper Table 5).
 
-PyTorch port of the shuffle join of ``repro/core/dist_ops.py``: every
-distributed operator is *communication ∘ local operator* (paper Table 5).
+PyTorch port of ``repro/core/dist_ops.py``: every distributed operator is
+*communication ∘ local operator*.
 
 * :func:`shuffle_by_pid` — hash partition (``hash_partition`` kernel), one
   stacked send scatter, one ``all_to_all``, a cumsum receive compaction;
+  :func:`shuffle` hashes the key columns first;
 * :func:`dist_join` — shuffle both sides on the key, then the local join
-  (``sortmerge`` or ``hash``);
+  (``sortmerge`` or ``hash``); or, with ``strategy="broadcast"``, gather
+  the right side everywhere (:func:`all_gather_table`) and join locally;
+* :func:`dist_groupby` / :func:`dist_unique` — shuffle on the key, then
+  the local groupby / drop_duplicates (``sort`` or ``hash``);
+* :func:`dist_sort` — sample sort: local sort, splitters from gathered
+  samples, range partition, shuffle, local sort (``xla`` or ``radix``);
+* :func:`dist_repartition` — exact load rebalance;
 * :func:`plan_dist_join_sizes` — every static capacity of the join, sized
   exactly from the keys on the host.
+
+The local hash backends never re-plan their sizes here: they keep the
+sizes the caller gives (``may_plan=False``), as the reference's traced
+operators do.
 
 A rank is one process with one device; tables here are that rank's block
 (``distribute_table``) and come back together through
@@ -30,11 +41,12 @@ import torch
 
 from . import local_ops as L
 from .context import HptmtContext
-from .kernel_backend import RADIX_SORT_SLICE
+from .kernel_backend import sort_impl as _default_sort_impl
 from .partition import hash_columns_np, partition_ids
 from .table import Table, narrow_column
 from ..kernels import bucketing as _bucketing
 from ..kernels.hash_partition import radix_histogram_ranks
+from ..kernels.radix_sort import stable_partition_perm
 
 # --------------------------------------------------------------------------
 # host <-> rank adapters
@@ -237,6 +249,16 @@ def plan_dist_join_sizes(left_keys: Sequence[np.ndarray],
             "out_capacity": out_cap, "local_join_sizes": local_sizes}
 
 
+def shuffle(ctx: HptmtContext, table: Table, key_cols: Sequence[str], *,
+            overcommit: float = 2.0, slots_per_dest: int | None = None,
+            out_capacity: int | None = None):
+    """Hash shuffle: co-locate equal keys on the same rank."""
+    s, oc = default_shuffle_sizes(ctx, table.capacity, overcommit)
+    pid = partition_ids(table, list(key_cols), ctx.world_size)
+    return shuffle_by_pid(ctx, table, pid, slots_per_dest or s,
+                          out_capacity or oc)
+
+
 # --------------------------------------------------------------------------
 # Distributed join = shuffle + local join (paper Fig. 4)
 # --------------------------------------------------------------------------
@@ -249,8 +271,11 @@ def dist_join(ctx: HptmtContext, left: Table, right: Table, *,
               local_impl: str | None = None,
               local_join_sizes: Mapping[str, int] | None = None,
               shuffle_sizes: Mapping[str, tuple[int, int]] | None = None):
-    """Distributed join (paper Fig. 4 operator): hash-shuffle both sides on
-    the key, then join locally.
+    """Distributed join (paper Fig. 4 operator).
+
+    ``strategy="shuffle"``: hash-shuffle both sides on the key, then join
+    locally.  ``strategy="broadcast"``: gather the (small) right side on
+    every rank and join locally, with no shuffle of the left side.
 
     ``local_impl`` selects the local backend ('sortmerge' | 'hash');
     ``local_join_sizes`` forwards the hash backend's static sizing;
@@ -258,14 +283,18 @@ def dist_join(ctx: HptmtContext, left: Table, right: Table, *,
     out_capacity)`` bounds instead of the ``overcommit`` heuristic —
     :func:`plan_dist_join_sizes` computes all of them.  Returns ``(table,
     dropped)`` with the rows lost anywhere, summed over ranks."""
+    right_on = list(right_on) if right_on is not None else list(left_on)
+    jkw = dict(local_join_sizes or {})
     if strategy == "broadcast":
-        raise NotImplementedError(
-            "dist_join(strategy='broadcast') gathers the right side with "
-            f"all_gather_table, whose compaction is the radix pass: "
-            f"{RADIX_SORT_SLICE}")
+        g = all_gather_table(ctx, right)
+        out, jdrop = L.join(left, g, left_on=list(left_on),
+                            right_on=right_on, how=how,
+                            out_capacity=out_capacity or left.capacity,
+                            impl=local_impl, return_overflow=True,
+                            may_plan=False, **jkw)
+        return out, ctx.psum(jdrop)
     if strategy != "shuffle":
         raise ValueError(f"unknown join strategy {strategy!r}")
-    right_on = list(right_on) if right_on is not None else list(left_on)
     # hash both sides with the same key columns -> same pid function
     lp = partition_ids(left, list(left_on), ctx.world_size)
     rp_tbl = right.rename(dict(zip(right_on, left_on))) \
@@ -283,8 +312,136 @@ def dist_join(ctx: HptmtContext, left: Table, right: Table, *,
     out, jdrop = L.join(lsh, rsh, left_on=list(left_on), right_on=right_on,
                         how=how, out_capacity=out_capacity or loc,
                         impl=local_impl, return_overflow=True,
-                        may_plan=False, **dict(local_join_sizes or {}))
+                        may_plan=False, **jkw)
     return out, ldrop + rdrop + ctx.psum(jdrop)
+
+
+def dist_groupby(ctx: HptmtContext, table: Table, by: Sequence[str],
+                 aggs: Mapping[str, Sequence[str] | str],
+                 overcommit: float = 2.0, local_impl: str | None = None,
+                 groupby_sizes: Mapping[str, int] | None = None):
+    """Distributed GroupBy + Aggregate: shuffle on the keys, then the
+    local groupby (``local_impl`` 'sort' | 'hash'; ``groupby_sizes``
+    gives the hash backend's ``num_buckets`` / ``bucket_capacity``).
+    Means come from the shuffled raw rows, so they are exact.  Returns
+    ``(table, dropped)``, drops summed over ranks."""
+    sh, dropped = shuffle(ctx, table, by, overcommit=overcommit)
+    out, gdrop = L.groupby_aggregate(sh, list(by), aggs, impl=local_impl,
+                                     return_overflow=True, may_plan=False,
+                                     **dict(groupby_sizes or {}))
+    return out, dropped + ctx.psum(gdrop)
+
+
+def dist_unique(ctx: HptmtContext, table: Table, subset: Sequence[str],
+                overcommit: float = 2.0, local_impl: str | None = None,
+                groupby_sizes: Mapping[str, int] | None = None):
+    """Paper §4.3's distributed unique: no duplicate record survives
+    across ranks.  Shuffle on the key, then the local drop_duplicates
+    (under 'hash' a key-only hash groupby sized by ``groupby_sizes``)."""
+    sh, dropped = shuffle(ctx, table, subset, overcommit=overcommit)
+    out, gdrop = L.drop_duplicates(sh, list(subset), impl=local_impl,
+                                   return_overflow=True, may_plan=False,
+                                   **dict(groupby_sizes or {}))
+    return out, dropped + ctx.psum(gdrop)
+
+
+# --------------------------------------------------------------------------
+# Distributed sort (sample sort) — paper Table 5 "Sorting tables"
+# --------------------------------------------------------------------------
+
+
+def dist_sort(ctx: HptmtContext, table: Table, by: Sequence[str],
+              ascending: bool = True, n_samples: int = 32,
+              overcommit: float = 2.0, local_impl: str | None = None):
+    """Sample sort: local sort, splitter all_gather, range partition,
+    all_to_all, local sort.  Globally sorted = rank order + local order.
+
+    ``local_impl`` ('xla' | 'radix', default ``REPRO_SORT_IMPL``) sorts
+    before and after the shuffle; under 'radix' the gathered splitter
+    candidates are ranked by the radix engine too.  Both give the same
+    splitters, routing and local order.  Returns ``(table, dropped)``."""
+    by = list(by)
+    impl = local_impl or _default_sort_impl()
+    world = ctx.world_size
+    ts = L.sort_values(table, by, ascending=ascending, impl=impl)
+    cap = ts.capacity
+    dev = ts.device
+    s = min(n_samples, cap)
+    # evenly sample valid rows (the clamp handles nvalid < s)
+    pos = (torch.arange(s, device=dev) * ts.nvalid.clamp(min=1)) // s
+    pos = pos.clamp(0, cap - 1)
+    valid_s = torch.arange(s, device=dev) < ts.nvalid.clamp(max=s)
+    sample_keys = []
+    for k in by:
+        col = L._sort_key(ts.columns[k], ascending)[pos]
+        sample_keys.append(torch.where(valid_s, col, L._sentinel_max(col)))
+    # the gathered candidates, sorted by the same backend
+    samples = Table(columns={k: torch.cat(ctx.all_gather(c))
+                             for k, c in zip(by, sample_keys)},
+                    nvalid=torch.tensor(world * s, dtype=torch.int32,
+                                        device=dev))
+    sorted_samples = L.sort_values(samples, by, impl=impl)
+    sorted_keys = tuple(sorted_samples.columns[k] for k in by)
+    # world-1 splitters at quantile positions
+    spl_pos = (torch.arange(1, world, device=dev) * (world * s)) // world
+    splitters = tuple(c[spl_pos] for c in sorted_keys)
+    row_keys = tuple(
+        torch.where(ts.valid_mask, L._sort_key(ts.columns[k], ascending),
+                    L._sentinel_max(ts.columns[k]))
+        for k in by)
+    pid = _rank_against_splitters(splitters, row_keys)
+    slots, out_cap = default_shuffle_sizes(ctx, cap, overcommit)
+    sh, dropped = shuffle_by_pid(ctx, ts, pid, slots, out_cap)
+    return L.sort_values(sh, by, ascending=ascending, impl=impl), dropped
+
+
+def _rank_against_splitters(splitters: tuple,
+                            row_keys: tuple) -> torch.Tensor:
+    """pid = number of splitters <= key (vectorized lex compare)."""
+    cap = row_keys[0].shape[0]
+    pid = torch.zeros(cap, dtype=torch.int32, device=row_keys[0].device)
+    for i in range(splitters[0].shape[0]):
+        spl = tuple(s[i].expand(cap) for s in splitters)
+        pid = pid + (~L._tuple_less(row_keys, spl)).to(torch.int32)
+    return pid
+
+
+# --------------------------------------------------------------------------
+# Repartition / rebalance — skew (straggler) mitigation
+# --------------------------------------------------------------------------
+
+
+def dist_repartition(ctx: HptmtContext, table: Table):
+    """Exact load rebalance: the row of global rank r goes to rank
+    r // ceil(N / world), with one all_to_all.  A sender gives one
+    destination at most min(capacity, target) rows and a destination
+    receives at most target <= capacity, so the capacities never drop."""
+    world = ctx.world_size
+    dev = table.device
+    counts = torch.cat(ctx.all_gather(table.nvalid.reshape(1)))
+    prefix = counts[:ctx.rank].sum()
+    total = counts.sum()
+    target = ((total + world - 1) // world).clamp(min=1)
+    r = prefix + torch.arange(table.capacity, dtype=torch.int32, device=dev)
+    pid = (r // target).clamp(max=world - 1).to(torch.int32)
+    return shuffle_by_pid(ctx, table, pid, slots_per_dest=table.capacity,
+                          out_capacity=table.capacity)
+
+
+# --------------------------------------------------------------------------
+# Broadcast of tables (paper Table 4: Broadcast for tables)
+# --------------------------------------------------------------------------
+
+
+def all_gather_table(ctx: HptmtContext, table: Table) -> Table:
+    """Replicate a (small) table on every rank: capacity * world rows,
+    the valid rows compacted to the front by the 1-bit radix pass."""
+    cols = {k: torch.cat(ctx.all_gather(v))
+            for k, v in table.columns.items()}
+    gvalid = torch.cat(ctx.all_gather(table.valid_mask.to(torch.int32))) > 0
+    perm = stable_partition_perm(gvalid)
+    return Table(columns={k: v[perm] for k, v in cols.items()},
+                 nvalid=gvalid.sum(dtype=torch.int32))
 
 
 @dataclasses.dataclass

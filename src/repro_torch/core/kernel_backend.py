@@ -7,17 +7,16 @@ never a fallback.  Environment overrides mirror the JAX package's:
 * ``REPRO_KERNEL_IMPL`` — table kernels: ``ref | cuda``.  It may only
   confirm what the device implies; asking for ``cuda`` on a CPU tensor or
   ``ref`` on a CUDA tensor raises;
-* ``REPRO_JOIN_IMPL``   — local join algorithm: ``sortmerge | hash``;
-* ``REPRO_SORT_IMPL``   — local sort algorithm: ``xla`` (a chain of stable
-  ``torch.sort`` calls; the name is kept for parity with the JAX package).
-  The radix backend belongs to the radix_sort slice and raises here.
+* ``REPRO_JOIN_IMPL``    — local join algorithm: ``sortmerge | hash``;
+* ``REPRO_GROUPBY_IMPL`` — local groupby/dedup algorithm: ``sort | hash``;
+* ``REPRO_SORT_IMPL``    — local sort algorithm: ``xla`` (a chain of
+  stable ``torch.sort`` calls; the name is kept for parity with the JAX
+  package) or ``radix`` (the multi-pass LSD engine on the
+  ``radix_sort`` kernel).
 """
 import os
 
 import torch
-
-RADIX_SORT_SLICE = ("the radix_sort kernel is not ported yet "
-                    "(radix_sort slice of the PyTorch port)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,10 +50,13 @@ def join_impl() -> str:
     return os.environ.get("REPRO_JOIN_IMPL") or "sortmerge"
 
 
+def groupby_impl() -> str:
+    """Local groupby/aggregate/dedup algorithm: 'sort' (default) or
+    'hash'."""
+    return os.environ.get("REPRO_GROUPBY_IMPL") or "sort"
+
+
 def sort_impl() -> str:
-    """Local sort algorithm: 'xla' (stable sort chain, default)."""
-    env = os.environ.get("REPRO_SORT_IMPL") or "xla"
-    if env != "xla":
-        raise NotImplementedError(
-            f"REPRO_SORT_IMPL={env}: {RADIX_SORT_SLICE}")
-    return env
+    """Local sort algorithm: 'xla' (stable sort chain, default) or 'radix'
+    (multi-pass LSD radix rank on ``kernels/radix_sort``)."""
+    return os.environ.get("REPRO_SORT_IMPL") or "xla"

@@ -1,36 +1,48 @@
-"""Local (single-partition) HPTMT table operators: OrderBy and Join.
+"""Local (single-partition) HPTMT table operators.
 
-PyTorch port of the sort-merge and hash join of ``repro/core/local_ops.py``
-over :class:`repro_torch.core.table.Table`.  Every op is mask-aware (rows
-``>= nvalid`` are padding) and keeps static capacities: overflowing output
-rows are dropped and counted.
+PyTorch port of ``repro/core/local_ops.py`` over
+:class:`repro_torch.core.table.Table`: Select, Project, OrderBy, Unique,
+GroupBy + Aggregate and Join.  Every op is mask-aware (rows ``>= nvalid``
+are padding) and keeps static capacities: overflowing output rows are
+dropped and counted.
 
-The local join has two backends, selected by ``impl`` (default
-``kernel_backend.join_impl()`` / ``REPRO_JOIN_IMPL``):
+Pluggable backends, each emitting bit-identical output across its
+choices (float ``sum``/``mean`` up to addition order):
 
-* ``"sortmerge"`` — a stable sort of the right side plus a binary search
-  per left row;
-* ``"hash"`` — bucketed build + probe on the ``hash_join`` kernel.
+* OrderBy (``sort_values``), ``impl`` / ``REPRO_SORT_IMPL``: ``"xla"``, a
+  chain of stable ``torch.sort`` calls (the name is the reference's), or
+  ``"radix"``, the multi-pass LSD engine on the ``radix_sort`` kernel;
+  ``compact``/``select`` always take the engine's 1-bit pass;
+* GroupBy (``groupby_aggregate``) and Unique (``drop_duplicates``),
+  ``impl`` / ``REPRO_GROUPBY_IMPL``: ``"sort"`` (sort + segment
+  reductions) or ``"hash"`` (the ``hash_groupby`` accumulate, canonical
+  key order from the radix rank) — both emit one row per distinct key,
+  sorted by key, counts int32;
+* Join, ``impl`` / ``REPRO_JOIN_IMPL``: ``"sortmerge"`` (a stable sort of
+  the right side plus a binary search per left row) or ``"hash"``
+  (bucketed build + probe on the ``hash_join`` kernel); left-row-major
+  output, a left row's matches in right-row order, every key pair
+  compared in the promoted common dtype.
 
-Both emit identical output — left-row-major, and within a left row its
-matches in the right table's original row order — and compare every key
-pair in the promoted common dtype.
-
-Planning.  A hash join sizes its slabs from the actual keys when it may
-(``may_plan=True``, the default for a direct call) and its tables are
-larger than ``bucketing.EXACT_SLAB_CAP``; ``dist_join`` passes
-``may_plan=False`` and keeps the sizes it is given, as the reference's
-traced distributed join does.
+Planning.  The hash backends size their slabs from the actual keys when
+they may (``may_plan=True``, the default for a direct call) and the table
+is larger than ``bucketing.EXACT_SLAB_CAP``; the ``dist_*`` operators pass
+``may_plan=False`` and keep the sizes they are given, as the reference's
+traced distributed operators do.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
 
 from ..kernels import bucketing
+from ..kernels.hash_groupby import (default_hash_groupby_sizes,
+                                    hash_groupby_plan)
 from ..kernels.hash_join import default_hash_join_sizes, hash_join_plan
-from .kernel_backend import RADIX_SORT_SLICE
+from ..kernels.radix_sort import (radix_permutation, radix_rank,
+                                  stable_partition_perm)
+from .kernel_backend import groupby_impl as _default_groupby_impl
 from .kernel_backend import join_impl as _default_join_impl
 from .kernel_backend import sort_impl as _default_sort_impl
 from .table import Table, null_like
@@ -47,6 +59,54 @@ def _sentinel_max(col: torch.Tensor) -> torch.Tensor:
                         device=col.device)
 
 
+def compact(table: Table, keep: torch.Tensor) -> Table:
+    """Move rows where ``keep`` holds to the front (stable); drop the rest.
+    One 1-bit radix pass, equal to ``argsort(~keep, stable=True)``."""
+    keep = keep & table.valid_mask
+    perm = stable_partition_perm(keep)
+    return table.gather_rows(perm, keep.sum(dtype=_I32))
+
+
+# --------------------------------------------------------------------------
+# Select / Project / head / take / concat
+# --------------------------------------------------------------------------
+
+
+def select(table: Table, mask: torch.Tensor) -> Table:
+    """Paper's Select: keep rows where ``mask`` (bool (capacity,)) holds."""
+    return compact(table, mask)
+
+
+def project(table: Table, names: Sequence[str]) -> Table:
+    """Paper's Project: keep a subset of columns."""
+    return Table(columns={n: table.columns[n] for n in names},
+                 nvalid=table.nvalid)
+
+
+def head(table: Table, n) -> Table:
+    return table.with_nvalid(torch.clamp(table.nvalid, max=int(n)))
+
+
+def take(table: Table, idx: torch.Tensor, count) -> Table:
+    return table.gather_rows(idx, count)
+
+
+def concat(a: Table, b: Table) -> Table:
+    """Union-all of two same-schema tables (capacity = sum of capacities)."""
+    if set(a.names) != set(b.names):
+        raise ValueError(f"schema mismatch: {a.names} vs {b.names}")
+    cap_a, cap_b = a.capacity, b.capacity
+    i = torch.arange(cap_a + cap_b, dtype=_I32, device=a.device)
+    from_a = i < a.nvalid
+    ia = i.clamp(0, max(cap_a - 1, 0))
+    ib = (i - a.nvalid).clamp(0, max(cap_b - 1, 0))
+    cols = {}
+    for n in a.names:
+        ca, cb = a.columns[n], b.columns[n].to(a.columns[n].dtype)
+        cols[n] = torch.where(from_a, ca[ia], cb[ib])
+    return Table(columns=cols, nvalid=a.nvalid + b.nvalid)
+
+
 # --------------------------------------------------------------------------
 # OrderBy (sort_values)
 # --------------------------------------------------------------------------
@@ -61,10 +121,12 @@ def _sort_key(col: torch.Tensor, ascending: bool) -> torch.Tensor:
 
 
 def _sortable_word(key: torch.Tensor) -> torch.Tensor:
-    """int32 words whose integer order is the stable-sort order of
-    ``key``.  Floats take the total order of a float sort with ``-0.0 ==
-    +0.0`` and every NaN equal and last: zeros and NaNs are made canonical,
-    and a negative float's bits are flipped below the sign."""
+    """int32 words whose (signed) integer order is the stable-sort order
+    of ``key``, for ``argsort``.  Floats take the total order of a float
+    sort with ``-0.0 == +0.0`` and every NaN equal and last: zeros and
+    NaNs are made canonical, and a negative float's bits are flipped below
+    the sign.  (The radix engine's ``radix_sort.sortable_word`` is the
+    unsigned-order twin.)"""
     if not key.dtype.is_floating_point:
         return key.to(_I32)
     f = key.to(torch.float32)
@@ -79,24 +141,28 @@ def sort_values(table: Table, by: Sequence[str],
                 impl: str | None = None) -> Table:
     """Paper's OrderBy: stable multi-key sort; padding rows stay at the end.
 
-    ``impl="xla"`` is the port of one stable multi-operand sort over
-    (validity, keys, iota): PyTorch sorts one operand at a time, so it
-    is a chain of stable sorts, least significant key first."""
+    ``impl`` (default ``REPRO_SORT_IMPL``): ``"xla"`` is the port of one
+    stable multi-operand sort over (validity, keys, iota) — PyTorch sorts
+    one operand at a time, so it is a chain of stable sorts, least
+    significant key first; ``"radix"`` is the multi-pass LSD radix
+    permutation (``kernels/radix_sort``).  Both give the same
+    permutation."""
     by = list(by)
     if isinstance(ascending, bool):
         ascending = [ascending] * len(by)
     impl = impl or _default_sort_impl()
-    if impl == "radix":
-        raise NotImplementedError(f"sort_values(impl='radix'): "
-                                  f"{RADIX_SORT_SLICE}")
-    if impl != "xla":
-        raise ValueError(f"unknown sort impl {impl!r} (expected 'xla')")
     keys = [_sort_key(table.columns[k], a) for k, a in zip(by, ascending)]
-    invalid = (~table.valid_mask).to(_I32)
-    perm = torch.arange(table.capacity, device=table.device)
-    for key in reversed([invalid, *keys]):
-        word = _sortable_word(key)[perm]
-        perm = perm[torch.argsort(word, stable=True)]
+    if impl == "xla":
+        invalid = (~table.valid_mask).to(_I32)
+        perm = torch.arange(table.capacity, device=table.device)
+        for key in reversed([invalid, *keys]):
+            word = _sortable_word(key)[perm]
+            perm = perm[torch.argsort(word, stable=True)]
+    elif impl == "radix":
+        perm = radix_permutation(tuple(keys), ~table.valid_mask)
+    else:
+        raise ValueError(f"unknown sort impl {impl!r} "
+                         "(expected 'xla' or 'radix')")
     return table.gather_rows(perm, table.nvalid)
 
 
@@ -151,6 +217,280 @@ def _sorted_keys_with_sentinel(table: Table, by: Sequence[str]):
     keys = tuple(torch.where(valid, ts.columns[k],
                              _sentinel_max(ts.columns[k])) for k in by)
     return ts, keys
+
+
+# --------------------------------------------------------------------------
+# Unique / drop_duplicates
+# --------------------------------------------------------------------------
+
+
+def drop_duplicates(table: Table, subset: Sequence[str] | None = None, *,
+                    impl: str | None = None, return_overflow: bool = False,
+                    num_buckets: int | None = None,
+                    bucket_capacity: int | None = None,
+                    may_plan: bool = True):
+    """Keep the first occurrence of each distinct key (paper: Unique).
+
+    ``impl`` (default ``REPRO_GROUPBY_IMPL``): ``"sort"`` (stable sort +
+    boundary compaction) or ``"hash"`` (key-only hash groupby).  Both emit
+    one row per distinct key, sorted by the ``subset`` columns, other
+    columns from the key's first occurrence.  The hash backend takes
+    static ``num_buckets`` / ``bucket_capacity`` (planned from the keys
+    when ``may_plan``, see the module docstring); rows overflowing a slab
+    are dropped and counted (``return_overflow=True`` returns the
+    count)."""
+    subset = list(subset) if subset is not None else list(table.names)
+    impl = impl or _default_groupby_impl()
+    if impl == "sort":
+        out = _sort_drop_duplicates(table, subset)
+        over = torch.zeros((), dtype=_I32, device=table.device)
+    elif impl == "hash":
+        out, over = _hash_drop_duplicates(table, subset, num_buckets,
+                                          bucket_capacity, may_plan)
+    else:
+        raise ValueError(f"unknown groupby impl {impl!r} "
+                         "(expected 'sort' or 'hash')")
+    if return_overflow:
+        return out, over
+    return out
+
+
+def _group_boundaries(ts: Table, by: list) -> torch.Tensor:
+    """Valid rows of the sorted table ``ts`` whose key differs from the
+    previous row's (and row 0)."""
+    neq_prev = torch.zeros(ts.capacity, dtype=torch.bool, device=ts.device)
+    for k in by:
+        col = ts.columns[k]
+        neq_prev = neq_prev | (col != torch.roll(col, 1))
+    first = torch.arange(ts.capacity, device=ts.device) == 0
+    return (first | neq_prev) & ts.valid_mask
+
+
+def _sort_drop_duplicates(table: Table, subset: list) -> Table:
+    ts = sort_values(table, subset)
+    return compact(ts, _group_boundaries(ts, subset))
+
+
+def _hash_drop_duplicates(table: Table, subset: list, num_buckets,
+                          bucket_capacity, may_plan):
+    """Key-only hash groupby: the plan's group representatives are the
+    first occurrences; ranking them by key gives the sort backend's
+    output."""
+    plan = _run_hash_groupby_plan(table, subset, (), num_buckets,
+                                  bucket_capacity, may_plan)
+    _, grow, final, ngroups, cap = _canonical_group_layout(table, subset,
+                                                           plan)
+    out_cols = {n: _place_groups(table.columns[n][grow], final, cap)
+                for n in table.names}
+    return Table(columns=out_cols, nvalid=ngroups), plan.dropped
+
+
+# --------------------------------------------------------------------------
+# GroupBy + Aggregate
+# --------------------------------------------------------------------------
+
+_AGGS = ("sum", "count", "mean", "min", "max")
+
+
+def groupby_aggregate(table: Table, by: Sequence[str],
+                      aggs: Mapping[str, Sequence[str] | str], *,
+                      impl: str | None = None,
+                      return_overflow: bool = False,
+                      num_buckets: int | None = None,
+                      bucket_capacity: int | None = None,
+                      may_plan: bool = True):
+    """Paper's GroupBy followed by Aggregate.
+
+    ``aggs`` maps value-column name -> aggregation(s) in
+    {sum,count,mean,min,max}; output columns are ``{col}_{agg}``, one row
+    per distinct key sorted by the ``by`` columns, capacity preserved,
+    counts int32, value aggregates float32.  ``impl`` (default
+    ``REPRO_GROUPBY_IMPL``): ``"sort"`` or ``"hash"``, bit-identical
+    (float sum/mean whenever addition is exact).  The hash backend takes
+    static ``num_buckets`` / ``bucket_capacity`` (planned when
+    ``may_plan``); rows overflowing a slab are dropped and counted
+    (``return_overflow=True`` returns the count)."""
+    by = list(by)
+    aggs = {c: [ops] if isinstance(ops, str) else list(ops)
+            for c, ops in aggs.items()}
+    for ops in aggs.values():
+        for op in ops:
+            if op not in _AGGS:
+                raise ValueError(f"unknown aggregation {op!r}")
+    impl = impl or _default_groupby_impl()
+    if impl == "sort":
+        out = _sort_groupby(table, by, aggs)
+        over = torch.zeros((), dtype=_I32, device=table.device)
+    elif impl == "hash":
+        out, over = _hash_groupby(table, by, aggs, num_buckets,
+                                  bucket_capacity, may_plan)
+    else:
+        raise ValueError(f"unknown groupby impl {impl!r} "
+                         "(expected 'sort' or 'hash')")
+    if return_overflow:
+        return out, over
+    return out
+
+
+def _sort_groupby(table: Table, by: list,
+                  aggs: Mapping[str, list]) -> Table:
+    """Sort backend: lexicographic sort, group boundaries, segment
+    reductions indexed by group id."""
+    ts = sort_values(table, by)
+    valid = ts.valid_mask
+    cap = ts.capacity
+    dev = ts.device
+    boundary = _group_boundaries(ts, by)
+    ngroups = boundary.sum(dtype=_I32)
+    seg = torch.cumsum(boundary.to(_I32), 0, dtype=_I32) - 1   # 0-based
+    # padding rows -> trash segment (cap-1 is free whenever padding exists)
+    seg = torch.where(valid, seg, cap - 1).to(torch.int64)
+
+    out_cols: dict[str, torch.Tensor] = {k: ts.columns[k] for k in by}
+    counts = torch.zeros(cap, dtype=_I32, device=dev).index_add_(
+        0, seg, valid.to(_I32))
+    countf = counts.clamp(min=1).to(torch.float32)
+
+    def seg_reduce(x, fill, reduce):
+        return torch.full((cap,), fill, dtype=torch.float32, device=dev) \
+            .scatter_reduce_(0, seg, torch.where(valid, x, fill), reduce)
+
+    for col_name, ops in aggs.items():
+        fcol = ts.columns[col_name].to(torch.float32)
+        for op in ops:
+            if op in ("sum", "mean"):
+                v = seg_reduce(fcol, 0.0, "sum")
+                if op == "mean":
+                    v = v / countf
+            elif op == "count":
+                v = counts
+            elif op == "min":
+                v = seg_reduce(fcol, float("inf"), "amin")
+            else:
+                v = seg_reduce(fcol, float("-inf"), "amax")
+            out_cols[f"{col_name}_{op}"] = v
+
+    # segment g's result sits at index g; compacting the boundary rows
+    # aligns the keys with index g
+    key_tbl = compact(Table(columns={k: out_cols[k] for k in by},
+                            nvalid=ts.nvalid), boundary)
+    cols = dict(key_tbl.columns)
+    for name, v in out_cols.items():
+        if name not in by:
+            cols[name] = v
+    return Table(columns=cols, nvalid=ngroups)
+
+
+def _run_hash_groupby_plan(table: Table, by: list, value_cols: tuple,
+                           num_buckets, bucket_capacity, may_plan):
+    bp = bucketing.BucketPlan([table.columns[k] for k in by])
+    planned = _planned_sizes(bp, table.nvalid, table.capacity, num_buckets,
+                             bucket_capacity, may_plan)
+    if planned is not None:
+        B, C = planned
+        bid = bp.bucket_ids_for(B)     # the sizing pass's hash, reused
+    else:
+        B, C = default_hash_groupby_sizes(table.capacity, num_buckets)
+        C = bucket_capacity or C
+        bid = None
+    return hash_groupby_plan(
+        bp.bits, table.valid_mask,
+        tuple(table.columns[c] for c in value_cols),
+        num_buckets=B, bucket_capacity=C, bid=bid)
+
+
+def _canonical_group_layout(table: Table, by: list, plan):
+    """Map the plan's group representatives to canonical (key-sorted)
+    output rows without a sort: compact the representatives bucket-major
+    (scatter by running count), then rank each group's key — gathered
+    from its first-occurrence row — with the multi-pass radix rank.  Group
+    keys are distinct, so each valid group's rank is its slot in
+    ``[0, ngroups)``.
+
+    Returns (scat, grow, final, ngroups, cap): the slab -> compact scatter
+    (for the plan's per-slot aggregates), per compacted group its
+    representative row and its canonical slot (``cap`` = trash), the
+    group count and the output capacity."""
+    cap = table.capacity
+    rep = plan.rep.reshape(-1) > 0
+    ridx = torch.cumsum(rep.to(_I32), 0, dtype=_I32) - 1
+    ngroups = rep.sum(dtype=_I32)
+    slot = torch.where(rep, ridx, cap).to(torch.int64)
+
+    def scat(x):
+        return torch.zeros(cap + 1, dtype=x.dtype, device=x.device) \
+            .index_copy_(0, slot, x)[:cap]
+
+    grow = scat(plan.row.reshape(-1))
+    gvalid = scat(rep)
+    gkeys = tuple(table.columns[k][grow] for k in by)
+    rank = radix_rank(gkeys, ~gvalid)
+    final = torch.where(gvalid, rank, cap)
+    return scat, grow, final, ngroups, cap
+
+
+def _place_groups(x: torch.Tensor, final: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """Scatter compacted group entries into their canonical slots."""
+    return torch.zeros(cap + 1, dtype=x.dtype, device=x.device) \
+        .index_copy_(0, final.to(torch.int64), x)[:cap]
+
+
+def _hash_groupby(table: Table, by: list, aggs: Mapping[str, list],
+                  num_buckets, bucket_capacity, may_plan):
+    """Hash backend: the bucketed accumulate (``kernels/hash_groupby``)
+    aggregates every key inside its bucket in one pass; canonical key
+    order comes from the radix rank."""
+    plan = _run_hash_groupby_plan(table, by, tuple(aggs), num_buckets,
+                                  bucket_capacity, may_plan)
+    scat, grow, final, ngroups, cap = _canonical_group_layout(table, by,
+                                                              plan)
+
+    def place(x):
+        return _place_groups(scat(x.reshape(-1)), final, cap)
+
+    out_cols = {k: _place_groups(table.columns[k][grow], final, cap)
+                for k in by}
+    counts = place(plan.counts)
+    countf = counts.clamp(min=1).to(torch.float32)
+    for i, (col_name, ops) in enumerate(aggs.items()):
+        s = place(plan.sums[:, i, :])
+        for op in ops:
+            if op == "sum":
+                v = s
+            elif op == "count":
+                v = counts
+            elif op == "mean":
+                v = s / countf
+            elif op == "min":
+                v = place(plan.mins[:, i, :])
+            else:
+                v = place(plan.maxs[:, i, :])
+            out_cols[f"{col_name}_{op}"] = v
+    return Table(columns=out_cols, nvalid=ngroups), plan.dropped
+
+
+def aggregate(table: Table, col: str, op: str) -> torch.Tensor:
+    """Whole-column masked reduction -> 0-d tensor (paper's Aggregate):
+    ``count`` is int32, every other aggregation float32."""
+    valid = table.valid_mask
+    x = table.columns[col].to(torch.float32)
+    n = table.nvalid.to(torch.float32).clamp(min=1.0)
+    if op == "sum":
+        return torch.where(valid, x, 0.0).sum()
+    if op == "count":
+        return table.nvalid.to(_I32)
+    if op == "mean":
+        return torch.where(valid, x, 0.0).sum() / n
+    if op == "min":
+        return torch.where(valid, x, float("inf")).amin()
+    if op == "max":
+        return torch.where(valid, x, float("-inf")).amax()
+    if op == "std":
+        m = torch.where(valid, x, 0.0).sum() / n
+        v = torch.where(valid, (x - m) ** 2, 0.0).sum() / n
+        return torch.sqrt(v)
+    raise ValueError(f"unknown aggregation {op!r}")
 
 
 # --------------------------------------------------------------------------
@@ -284,7 +624,8 @@ def _sortmerge_join(left: Table, right: Table, left_on, right_on, how,
 
 def _planned_sizes(bplan: bucketing.BucketPlan, nvalid, capacity: int,
                    num_buckets, explicit_capacity, may_plan: bool):
-    """Slab sizing from the actual keys via the two-pass bucket planner.
+    """Slab sizing from the actual keys via the two-pass bucket planner
+    (hash join and hash groupby).
 
     Applies only when the caller may plan, gave no explicit capacity and
     the tables exceed ``bucketing.EXACT_SLAB_CAP``; returns

@@ -26,13 +26,13 @@ import math
 import numpy as np
 import torch
 
-from ..core.kernel_backend import RADIX_SORT_SLICE
 from .fused_bucketing import fused_bucket_ranks
 from .fused_bucketing.ref import bucket_ids, bucket_ids_np  # noqa: F401
 from .hash_partition import radix_histogram_ranks
+from .radix_sort import grouped_ranks
 
 # the single-pass ranking serves at most this many buckets; more go to the
-# multi-pass radix rank, which is not ported yet
+# multi-pass radix rank (kernels/radix_sort)
 MAX_RADIX_BUCKETS = 512
 
 # up to this table capacity, default slab sizing uses full-capacity slabs:
@@ -86,14 +86,13 @@ def unpack_i32(plane: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def bucket_ranks(bid: torch.Tensor, num_buckets: int):
-    """(hist (P,), stable within-bucket ranks (n,)) for P = num_buckets,
-    through the ``hash_partition`` ranking for up to ``MAX_RADIX_BUCKETS``
-    buckets."""
+    """(hist (P,), stable within-bucket ranks (n,)) for P = num_buckets:
+    the single-pass ``hash_partition`` ranking for up to
+    ``MAX_RADIX_BUCKETS`` buckets, the multi-pass radix rank
+    (``radix_sort.grouped_ranks``) above."""
     if num_buckets <= MAX_RADIX_BUCKETS:
         return radix_histogram_ranks(bid, num_buckets)
-    raise NotImplementedError(
-        f"ranking {num_buckets} > {MAX_RADIX_BUCKETS} buckets needs "
-        f"grouped_ranks: {RADIX_SORT_SLICE}")
+    return grouped_ranks(bid, num_buckets)
 
 
 def group_to_slabs(bits: tuple, valid: torch.Tensor, num_buckets: int,
@@ -105,7 +104,9 @@ def group_to_slabs(bits: tuple, valid: torch.Tensor, num_buckets: int,
     payload_slabs, dropped)``.  Slot order within a bucket is original row
     order.  With ``bid=None`` the bucket ids come out of the fused kernel;
     a caller holding precomputed ids (``BucketPlan.bucket_ids_for``) passes
-    them and only the histogram/rank pass runs."""
+    them and only the histogram/rank pass runs.  Above
+    ``MAX_RADIX_BUCKETS`` buckets the ids are hashed here and ranked by
+    the multi-pass radix rank."""
     cap = valid.shape[0]
     if bid is not None:
         bid = torch.where(valid, bid, num_buckets)
@@ -113,9 +114,8 @@ def group_to_slabs(bits: tuple, valid: torch.Tensor, num_buckets: int,
     elif num_buckets <= MAX_RADIX_BUCKETS:
         bid, hist, ranks = fused_bucket_ranks(bits, valid, num_buckets)
     else:
-        raise NotImplementedError(
-            f"grouping into {num_buckets} > {MAX_RADIX_BUCKETS} buckets "
-            f"needs grouped_ranks: {RADIX_SORT_SLICE}")
+        bid = torch.where(valid, bucket_ids(bits, num_buckets), num_buckets)
+        hist, ranks = grouped_ranks(bid, num_buckets + 1)
     ok = valid & (ranks < slab_cap) & (bid < num_buckets)
     nslots = num_buckets * slab_cap
     slot = torch.where(ok, bid.to(torch.int64) * slab_cap + ranks, nslots)

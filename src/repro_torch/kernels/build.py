@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("hash_partition", "fused_bucketing", "hash_join")
+KERNELS = ("hash_partition", "fused_bucketing", "hash_join",
+           "radix_sort", "hash_groupby")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -87,11 +88,12 @@ def library(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def check_input(name: str, t: torch.Tensor) -> None:
-    """Raise unless ``t`` is a contiguous int32 CUDA tensor."""
-    if t.device.type != "cuda" or t.dtype != torch.int32 \
+def check_input(name: str, t: torch.Tensor, dtype=torch.int32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``."""
+    if t.device.type != "cuda" or t.dtype != dtype \
             or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous int32 CUDA tensor, "
+        kind = str(dtype).removeprefix("torch.")
+        raise ValueError(f"{name} must be a contiguous {kind} CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
 
 

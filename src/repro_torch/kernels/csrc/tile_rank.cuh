@@ -1,10 +1,11 @@
 // Shared pieces of the table kernels: the launch-error string, and the
-// stable within-tile ranking that hash_partition and fused_bucketing both
-// run.
+// stable within-tile ranking that hash_partition, fused_bucketing and
+// radix_sort run.
 //
-// Layout of one tile: a block of kWarps warps ranks kTile consecutive
-// rows.  Warp w owns the contiguous rows [w * kItems * 32, (w + 1) *
-// kItems * 32) of the tile and walks them 32 at a time, lane l on row
+// Layout of one tile: a block of kWarps warps ranks kThreads * Items
+// consecutive rows (Items rows per thread: kItems, or the count a kernel
+// picks).  Warp w owns the contiguous rows [w * Items * 32, (w + 1) *
+// Items * 32) of the tile and walks them 32 at a time, lane l on row
 // j * 32 + l of its range, so loads and stores are coalesced.  Within a
 // warp, __match_any_sync groups the lanes that hold the same id and
 // __popc of the lower peers gives each row its rank among the warp's
@@ -38,9 +39,10 @@ __device__ __forceinline__ unsigned lanemask_lt() {
 }
 
 // Row of the tile that item j of this thread covers.
+template <int Items = kItems>
 __device__ __forceinline__ int64_t tile_row(int j) {
-  return static_cast<int64_t>(blockIdx.x) * kTile +
-         (threadIdx.x >> 5) * (kItems * 32) + j * 32 + (threadIdx.x & 31);
+  return static_cast<int64_t>(blockIdx.x) * (kThreads * Items) +
+         (threadIdx.x >> 5) * (Items * 32) + j * 32 + (threadIdx.x & 31);
 }
 
 // id[j] is the partition of row tile_row(j) in [0, P), or -1 for a row
@@ -48,7 +50,8 @@ __device__ __forceinline__ int64_t tile_row(int j) {
 // rank 0.  Writes this tile's histogram to hist_t[blockIdx.x * P + p] and
 // each row's within-tile rank to rank_out[row].  Needs kWarps * P ints of
 // dynamic shared memory.
-__device__ __forceinline__ void tile_rank(const int (&id)[kItems], int64_t n,
+template <int Items>
+__device__ __forceinline__ void tile_rank(const int (&id)[Items], int64_t n,
                                           int P, int* __restrict__ hist_t,
                                           int* __restrict__ rank_out) {
   extern __shared__ int cnt[];             // [kWarps][P]
@@ -58,9 +61,9 @@ __device__ __forceinline__ void tile_rank(const int (&id)[kItems], int64_t n,
 
   int* wcnt = cnt + warp * P;
   const unsigned lt = lanemask_lt();
-  int rank[kItems];
+  int rank[Items];
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
+  for (int j = 0; j < Items; ++j) {
     const int p = id[j];
     const unsigned peers = __match_any_sync(0xffffffffu, p);
     const int before = p >= 0 ? wcnt[p] : 0;
@@ -83,8 +86,8 @@ __device__ __forceinline__ void tile_rank(const int (&id)[kItems], int64_t n,
   __syncthreads();
 
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t row = tile_row(j);
+  for (int j = 0; j < Items; ++j) {
+    const int64_t row = tile_row<Items>(j);
     if (row < n) rank_out[row] = id[j] >= 0 ? rank[j] + wcnt[id[j]] : 0;
   }
 }

@@ -1,6 +1,7 @@
 """Subprocess worker for tests/test_torch_dist.py: the Fig. 4 distributed
-join at world W, run by the JAX package or by the PyTorch port on the
-same data, written to one ``.npz`` for a bit-for-bit comparison.
+join and the Table 5 operators (groupby, unique, sort, repartition, the
+broadcast join) at world W, run by the JAX package or by the PyTorch port
+on the same data, written to one ``.npz`` for a bit-for-bit comparison.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=W \\
@@ -9,8 +10,11 @@ Usage:
 
 In ``torch`` mode every rank is one process; they meet through a gloo
 process group on a ``file://`` store and rank 0 writes the collected
-output.  Each case runs both local backends (``sortmerge``, ``hash``), the
-blind-overcommit sizes and the exact plan.
+output.  Each join case runs both local backends (``sortmerge``,
+``hash``), the blind-overcommit sizes and the exact plan; each Table 5
+case runs both local backends of its operator.  Float values are
+integer-valued where they are summed, so sums and means compare bit for
+bit.
 """
 import sys
 from datetime import timedelta
@@ -50,6 +54,43 @@ def cases(world: int):
         yield f"planned/{impl}", left, right, dict(impl=impl), None
 
 
+def table5_cases(D, world: int):
+    """(name, fn(ctx, *tables), datas) with numpy-only inputs."""
+    L = D.L
+    rng = np.random.default_rng(200 + world)
+    data = {"k": rng.integers(0, 12, ROWS).astype(np.int32),
+            "f": rng.choice(np.array([0.0, -0.0, 1.5, -2.0, 7.25],
+                                     np.float32), ROWS),
+            "v": rng.integers(-50, 50, ROWS).astype(np.float32)}
+    data["v"][::17] = np.nan
+    aggs = {"v": ["sum", "count", "mean", "min", "max"]}
+    sizes = {"num_buckets": 8, "bucket_capacity": ROWS}
+    for impl in ("sort", "hash"):
+        gs = sizes if impl == "hash" else None
+        yield (f"groupby/{impl}", lambda c, a, gs=gs, impl=impl:
+               D.dist_groupby(c, a, ["k", "f"], aggs, overcommit=4.0,
+                              local_impl=impl, groupby_sizes=gs), (data,))
+        yield (f"unique/{impl}", lambda c, a, gs=gs, impl=impl:
+               D.dist_unique(c, a, ["f"], overcommit=4.0, local_impl=impl,
+                             groupby_sizes=gs), (data,))
+    for impl in ("xla", "radix"):
+        yield (f"sort/{impl}", lambda c, a, impl=impl: D.dist_sort(
+            c, a, ["f", "k"], ascending=False, local_impl=impl), (data,))
+    yield ("repartition", lambda c, a: D.dist_repartition(
+        c, L.select(a, a.columns["k"] < 3)), (data,))
+    left = {"k": rng.integers(0, 20, ROWS).astype(np.int32),
+            "lv": rng.normal(size=ROWS).astype(np.float32)}
+    right = {"k": rng.permutation(np.arange(24, dtype=np.int32))[:20],
+             "rv": rng.normal(size=20).astype(np.float32)}
+    for impl in ("sortmerge", "hash"):
+        js = {"num_buckets": 8, "bucket_capacity": 24,
+              "probe_capacity": ROWS} if impl == "hash" else None
+        yield (f"broadcast/{impl}", lambda c, a, b, impl=impl, js=js:
+               D.dist_join(c, a, b, left_on=["k"], strategy="broadcast",
+                           local_impl=impl, local_join_sizes=js),
+               (left, right))
+
+
 def run(D, ctx, world: int) -> dict:
     out = {}
     for name, left, right, kw, cap in cases(world):
@@ -67,6 +108,13 @@ def run(D, ctx, world: int) -> dict:
                             D.distribute_table(ctx, right, cap))
         got = D.collect_table(ctx, res)
         for k, v in got.items():
+            out[f"{name}/{k}"] = v
+        out[f"{name}/dropped"] = np.asarray(int(np.max(np.asarray(
+            dropped.cpu() if hasattr(dropped, "cpu") else dropped))))
+    for name, fn, datas in table5_cases(D, world):
+        res, dropped = D.DistributedPipeline(ctx, fn)(
+            *[D.distribute_table(ctx, d) for d in datas])
+        for k, v in D.collect_table(ctx, res).items():
             out[f"{name}/{k}"] = v
         out[f"{name}/dropped"] = np.asarray(int(np.max(np.asarray(
             dropped.cpu() if hasattr(dropped, "cpu") else dropped))))

@@ -9,13 +9,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import local_ops as L
+from repro_torch.core.table import Table
 from repro_torch.kernels.fused_bucketing import fused_bucket_ranks
 from repro_torch.kernels.fused_bucketing.ref import fused_bucket_ranks_ref
+from repro_torch.kernels.hash_groupby.ops import bucket_accumulate
+from repro_torch.kernels.hash_groupby.ref import bucket_accumulate_ref
 from repro_torch.kernels.hash_join.ops import bucket_probe
 from repro_torch.kernels.hash_join.ref import bucket_probe_ref
 from repro_torch.kernels.hash_partition import ops as hp_ops
 from repro_torch.kernels.hash_partition import radix_histogram_ranks
 from repro_torch.kernels.hash_partition.ref import radix_histogram_ranks_ref
+from repro_torch.kernels.radix_sort import ops as rs_ops
+from repro_torch.kernels.radix_sort.ref import digit_histogram_ranks_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -71,6 +77,90 @@ def test_hash_join_equals_plain(cuda, B, K, Lc, C, rng):
             on(cuda, rng.integers(-3, 3, (B, K, C)).astype(np.int32)),
             on(cuda, (rng.random((B, C)) < 0.8).astype(np.int32)))
     assert equal(bucket_probe(*args), bucket_probe_ref(*args))
+
+
+@pytest.mark.parametrize("tile", [512, 1024, 2048])
+@pytest.mark.parametrize("n", [1, 64, 1023, 5000])
+@pytest.mark.parametrize("bits,shift", [(1, 0), (4, 28), (8, 0), (8, 24),
+                                        (11, 21)])
+def test_radix_digit_pass_equals_plain(cuda, bits, shift, n, tile, rng):
+    words = on(cuda, rng.integers(-2**31, 2**31, n, dtype=np.int64)
+               .astype(np.int32))
+    before = rs_ops.launches
+    got = rs_ops.digit_histogram_ranks(words, shift, bits, tile)
+    assert rs_ops.launches == before + 1        # even a ragged single tile
+    assert equal(got, digit_histogram_ranks_ref(words, shift, bits))
+
+
+def test_radix_engine_equals_cpu(cuda, rng):
+    """Sort, rank, partition and grouped ranks on the card == the same
+    calls on CPU tensors (the plain digit pass)."""
+    n = 7000
+    f = rng.choice(np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -2.0,
+                             3.0e38], np.float32), n)
+    i = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    i[:2] = [-2**31, 2**31 - 1]
+    data = {"f": f, "i": i, "row": np.arange(n, dtype=np.int32)}
+    for by in (["f"], ["i", "f"]):
+        for asc in (True, False):
+            t = Table.from_dict(data, capacity=n + 100, device=cuda)
+            c = Table.from_dict(data, capacity=n + 100, device="cpu")
+            got = L.sort_values(t, by, asc, impl="radix").columns["row"]
+            want = L.sort_values(c, by, asc, impl="xla").columns["row"]
+            assert torch.equal(got[:n].cpu(), want[:n])
+    keep = rng.random(n) < 0.3
+    assert torch.equal(rs_ops.stable_partition_perm(on(cuda, keep)).cpu(),
+                       rs_ops.stable_partition_perm(torch.from_numpy(keep)))
+    for P in (513, 70000):
+        pid = rng.integers(0, P, n).astype(np.int32)
+        got = rs_ops.grouped_ranks(on(cuda, pid), P)
+        want = rs_ops.grouped_ranks(torch.from_numpy(pid), P)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def same_value(a, b):
+    """Equal values, NaN == NaN and -0.0 == +0.0."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("B,K,V,C", [(3, 1, 1, 40), (64, 2, 5, 300),
+                                     (5, 1, 2, 1500)])
+def test_hash_groupby_equals_plain(cuda, B, K, V, C, rng):
+    kb = on(cuda, rng.integers(-4, 4, (B, K, C)).astype(np.int32))
+    occ = on(cuda, (rng.random((B, C)) < 0.8).astype(np.int32))
+    vals = rng.normal(size=(B, V, C)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.05] = -0.0
+    vals[rng.random(vals.shape) < 0.01] = np.nan
+    vals = on(cuda, vals)
+    rep, counts, sums, mins, maxs = bucket_accumulate(kb, occ, vals)
+    w = bucket_accumulate_ref(kb, occ, vals)
+    assert equal((rep, counts), w[:2])
+    assert same_value(mins, w[3]) and same_value(maxs, w[4])
+    scale = bucket_accumulate_ref(kb, occ, vals.abs())[2]
+    close = (sums - w[2]).abs() <= 1e-6 * scale
+    assert bool((close | (torch.isnan(sums) & torch.isnan(w[2]))).all())
+
+
+@pytest.mark.parametrize("B,K,C", [(4, 9, 300), (3, 40, 1500),
+                                   (2, 300, 500)])
+def test_hash_groupby_many_key_planes(cuda, B, K, C, rng):
+    """Past the planes held in registers, and (K = 300) past what fits in
+    a full 1024-slot shared-memory chunk."""
+    pool = rng.integers(-4, 4, (B, K, 6)).astype(np.int32)
+    pick = rng.integers(0, 6, (B, 1, C))
+    kb = on(cuda, np.take_along_axis(pool, np.repeat(pick, K, 1), 2))
+    occ = on(cuda, (rng.random((B, C)) < 0.8).astype(np.int32))
+    vals = on(cuda, rng.integers(-100, 100, (B, 2, C)).astype(np.float32))
+    assert equal(bucket_accumulate(kb, occ, vals),
+                 bucket_accumulate_ref(kb, occ, vals))
+
+
+def test_hash_groupby_integer_sums_exact(cuda, rng):
+    kb = on(cuda, rng.integers(0, 9, (16, 1, 440)).astype(np.int32))
+    occ = on(cuda, np.ones((16, 440), np.int32))
+    vals = on(cuda, rng.integers(-100, 100, (16, 1, 440)).astype(np.float32))
+    assert torch.equal(bucket_accumulate(kb, occ, vals)[2],
+                       bucket_accumulate_ref(kb, occ, vals)[2])
 
 
 def test_zero_rows_launch_nothing(cuda):

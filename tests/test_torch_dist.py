@@ -1,5 +1,5 @@
-"""The port's distributed join at world 2 against the JAX package at
-world 2, bit for bit.
+"""The port's distributed join and Table 5 operators at world 2 against
+the JAX package at world 2, bit for bit.
 
 Two gloo processes meet through a ``file://`` store under ``tmp_path``
 with a 120 s timeout on the process group, so a hung collective raises;
@@ -22,9 +22,8 @@ LIMIT_S = 600
 
 
 def _start(args, env_extra=None):
-    # default backends on both sides: the port raises on backends it has
-    # not ported yet (REPRO_SORT_IMPL=radix), and the cases pick the join
-    # backend themselves
+    # default backends on both sides: the cases pick their backends
+    # themselves
     env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
     env.update(PYTHONPATH=SRC, **(env_extra or {}))
     return subprocess.Popen([sys.executable, WORKER, *args], env=env,
@@ -69,4 +68,6 @@ def test_dist_join_world2_matches_jax(tmp_path):
         np.testing.assert_array_equal(a, b, err_msg=key)
     drops = {k: int(want[k]) for k in want.files if k.endswith("/dropped")}
     assert not any(drops.values()), drops
-    assert len(want["planned/hash/k"]) > 0
+    for case in ("planned/hash", "groupby/hash", "unique/hash", "sort/radix",
+                 "repartition", "broadcast/hash"):
+        assert len(want[f"{case}/k"]) > 0, case

@@ -29,7 +29,8 @@ OUT_CAP = ROWS * ROWS + ROWS
 
 @pytest.fixture(autouse=True)
 def _default_backends(monkeypatch):
-    for var in ("REPRO_JOIN_IMPL", "REPRO_SORT_IMPL", "REPRO_KERNEL_IMPL"):
+    for var in ("REPRO_JOIN_IMPL", "REPRO_SORT_IMPL", "REPRO_KERNEL_IMPL",
+                "REPRO_GROUPBY_IMPL"):
         monkeypatch.delenv(var, raising=False)
 
 
@@ -229,9 +230,14 @@ def test_sort_values_float_order_matches_jax(ascending, rng):
 
 
 def test_sort_backends_outside_this_slice_raise():
-    tt = TTable.from_dict({"k": np.arange(4)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="radix_sort slice"):
-        TL.sort_values(tt, ["k"], impl="radix")
+    """Unknown backends raise; the radix sort backend is ported and
+    gives the xla backend's rows."""
+    tt = TTable.from_dict({"k": np.array([3, -1, 2, -1])}, device="cpu")
+    assert TL.sort_values(tt, ["k"], impl="radix").columns["k"].tolist() \
+        == TL.sort_values(tt, ["k"], impl="xla").columns["k"].tolist() \
+        == [-1, -1, 2, 3]
+    with pytest.raises(ValueError, match="unknown sort impl"):
+        TL.sort_values(tt, ["k"], impl="nope")
     with pytest.raises(ValueError):
         TL.join(tt, tt, left_on=["k"], impl="nope")
 
@@ -356,8 +362,32 @@ def test_dist_join_hash_matches_sortmerge_bits(jax_dist):
                                       np.asarray(b[k]).view(np.int32))
 
 
-def test_broadcast_strategy_names_the_radix_slice():
+@pytest.mark.parametrize("impl", ["sortmerge", "hash"])
+def test_broadcast_strategy_names_the_radix_slice(impl):
+    """The broadcast join (all_gather_table on the 1-bit radix pass, then
+    the local join) matches the JAX package at world 1."""
+    rng = np.random.default_rng(5)
+    left = {"k": rng.integers(0, 40, 300).astype(np.int32),
+            "lv": rng.normal(size=300).astype(np.float32)}
+    right = {"k": rng.permutation(np.arange(50, dtype=np.int32))[:45],
+             "rv": rng.normal(size=45).astype(np.float32)}
+    kw = dict(left_on=["k"], strategy="broadcast", local_impl=impl,
+              local_join_sizes=dict(num_buckets=8, bucket_capacity=48,
+                                    probe_capacity=300)
+              if impl == "hash" else None)
+    jctx = jax_context(Mesh(np.array(jax.devices()[:1]), ("data",)))
+    jres, jdrop = JD.DistributedPipeline(
+        jctx, lambda c, a, b: JD.dist_join(c, a, b, **kw))(
+        JD.distribute_table(jctx, left, 320),
+        JD.distribute_table(jctx, right, 48))
     ctx = make_context("cpu")
-    t = TD.distribute_table(ctx, {"k": np.arange(4)})
-    with pytest.raises(NotImplementedError, match="radix_sort slice"):
-        TD.dist_join(ctx, t, t, left_on=["k"], strategy="broadcast")
+    tres, tdrop = TD.dist_join(ctx, TD.distribute_table(ctx, left, 320),
+                               TD.distribute_table(ctx, right, 48), **kw)
+    want, got = JD.collect_table(jctx, jres), TD.collect_table(ctx, tres)
+    assert int(np.asarray(jdrop).max()) == int(tdrop) == 0
+    assert list(want) == list(got) and len(got["k"]) > 0
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(want[k]).view(np.int32),
+                                      got[k].view(np.int32), err_msg=k)
+    with pytest.raises(ValueError, match="unknown join strategy"):
+        TD.dist_join(ctx, tres, tres, left_on=["k"], strategy="nope")

@@ -273,14 +273,34 @@ def test_sizing_helpers_match_jax(rng):
         JB.plan_bucket_sizes(plan=jbp, nvalid=650, num_buckets=16)
 
 
-def test_more_than_512_buckets_name_the_radix_slice(rng):
-    bits = (t(rng.integers(0, 9, 50).astype(np.int32)),)
-    valid = torch.ones(50, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="radix_sort slice"):
-        TB.group_to_slabs(bits, valid, 1024, 8)
-    with pytest.raises(NotImplementedError, match="radix_sort slice"):
-        TB.group_to_slabs(bits, valid, 512, 8,
-                          bid=bucket_ids(bits, 512))     # 513 with trash
+@pytest.mark.parametrize("B", [513, 1000, 70000])
+def test_more_than_512_buckets_name_the_radix_slice(B, rng):
+    """Past 512 buckets the slabs are ranked by the multi-pass radix rank
+    (``radix_sort.grouped_ranks``) and match the JAX package, with bucket
+    ids hashed here or passed in."""
+    n, cap = 400, 8
+    planes = key_planes(rng, n, 2, "int")
+    valid = np.arange(n) < 390
+    payload = rng.normal(size=n).astype(np.float32)
+    jbits = tuple(jnp.asarray(p) for p in planes)
+    tbits = tuple(t(p) for p in planes)
+    for with_bid in (False, True):
+        j = JB.group_to_slabs(
+            jbits, jnp.asarray(valid), B, cap, "ref",
+            payload=(jnp.asarray(payload),),
+            bid=JB.bucket_ids(jbits, B) if with_bid else None)
+        x = TB.group_to_slabs(tbits, t(valid), B, cap, payload=(t(payload),),
+                              bid=bucket_ids(tbits, B) if with_bid else None)
+        for a, b in zip(j[:3], x[:3]):
+            same(a, b)
+        np.testing.assert_array_equal(np.asarray(j[3][0]).view(np.int32),
+                                      x[3][0].numpy().view(np.int32))
+        same(j[4], x[4])
+    bid = t(rng.integers(0, B, n).astype(np.int32))
+    jh, jr = JB.bucket_ranks(jnp.asarray(bid.numpy()), B, "ref")
+    th, tr = TB.bucket_ranks(bid, B)
+    same(jh, th)
+    same(jr, tr)
 
 
 def test_pack_unpack_round_trip(rng):

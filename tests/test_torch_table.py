@@ -110,9 +110,11 @@ def test_kernel_backend_selection(monkeypatch):
     monkeypatch.delenv("REPRO_KERNEL_IMPL", raising=False)
     monkeypatch.delenv("REPRO_JOIN_IMPL", raising=False)
     monkeypatch.delenv("REPRO_SORT_IMPL", raising=False)
+    monkeypatch.delenv("REPRO_GROUPBY_IMPL", raising=False)
     assert KB.table_kernel_impl(CPU) == "ref"
     assert KB.table_kernel_impl(torch.device("cuda")) == "cuda"
     assert KB.join_impl() == "sortmerge" and KB.sort_impl() == "xla"
+    assert KB.groupby_impl() == "sort"
     monkeypatch.setenv("REPRO_KERNEL_IMPL", "cuda")
     with pytest.raises(ValueError, match="cannot run on a cpu tensor"):
         KB.table_kernel_impl(CPU)
@@ -123,8 +125,9 @@ def test_kernel_backend_selection(monkeypatch):
     monkeypatch.setenv("REPRO_JOIN_IMPL", "hash")
     assert KB.join_impl() == "hash"
     monkeypatch.setenv("REPRO_SORT_IMPL", "radix")
-    with pytest.raises(NotImplementedError, match="radix_sort slice"):
-        KB.sort_impl()
+    assert KB.sort_impl() == "radix"
+    monkeypatch.setenv("REPRO_GROUPBY_IMPL", "hash")
+    assert KB.groupby_impl() == "hash"
 
 
 def test_context_defaults_to_the_card(monkeypatch):
