@@ -4,11 +4,12 @@
 
 Phases, each fatal on failure:
 
-1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes: the integer outputs exactly; the groupby accumulate's sums
    within 1e-6 of the group's sum of magnitudes and its mins and maxs as
-   values (NaN == NaN, -0.0 == +0.0);
+   values (NaN == NaN, -0.0 == +0.0); the join probe past 32 key planes
+   and past a block's shared memory;
 3. the paper's Fig. 4 join with the sortmerge backend, 10 M rows per
    side at world 1, checked against the keys and a float64 sum;
 4. the same join with the hash backend at 500 k rows per side, which
@@ -21,16 +22,28 @@ Phases, each fatal on failure:
    numpy stable sort;
 8. the broadcast join, 1 M x 100 k rows, bit-identical to the shuffle
    join;
-9. timings: each leg's median of 3 warmed runs and peak memory, a
+9. the UNOMT data-engineering pipeline (paper Figs. 8-11), 10 M response
+   rows, 65536 drugs, 1024 cells: ``unomt_dist_pipeline`` with the
+   sortmerge and the hash membership backends, bit-identical to each
+   other, equal to an independent numpy pipeline and dropping nothing;
+   the hash run launches ``hash_semi`` twice (the drug and cell filters),
+   and the slabs it gave the kernel there are held against the plain
+   version, with float planes and a slab past a block's shared memory;
+   then ``feature_label_arrays``;
+10. the set operators, 10 M x 5 M rows: ``dist_isin``,
+   ``dist_intersect`` and ``dist_difference`` under both membership
+   backends, equal to each other and to numpy;
+11. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time beside its plain version,
    its bound and, where there is one, a library call.
 
 The launch counters are set to 0 just before each leg's first run and
-read just after it; the new legs must launch exactly the kernels their
-path runs.  The line before the last is the kernel table; the last line
+read just after it; the Table 5, UNOMT and set-ops legs must launch
+exactly the kernels their path runs, as often as it runs them.  The line before the last is the kernel table; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when there is no CUDA device.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -48,15 +61,20 @@ GROUPBY_KEYS = 1_000_000       # 10 % key uniqueness, as Fig. 4
 GROUPBY_BUCKETS = 65536
 SORT_ROWS = 10_000_000         # Table 5 OrderBy leg
 BCAST_ROWS = (1_000_000, 100_000)
+UNOMT_ROWS = 10_000_000        # response rows of the UNOMT leg
+UNOMT_DRUGS = 65_536
+UNOMT_CELLS = 1_024
+SETOP_ROWS = (10_000_000, 5_000_000)   # set-ops leg: a and b
+SETOP_KEYS = 1_000_000         # a.k over [0, 1 M), b.k over [500 k, 1.5 M)
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
 BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
 KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
-           "hash_groupby")
+           "hash_groupby", "hash_semi")
 JOIN_KERNELS = KERNELS[:3]
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FNS = ("hash_partition", "fused_bucketing", "hash_join",
-                   "radix_digit", "hash_groupby")
+                   "radix_digit", "hash_groupby", "hash_semi")
 
 
 def _modules():
@@ -64,6 +82,7 @@ def _modules():
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
     from repro_torch.core.context import make_context
+    from repro_torch.data import unomt
     from repro_torch.kernels import bucketing, build
     from repro_torch.kernels.fused_bucketing import ops as fb_ops
     from repro_torch.kernels.fused_bucketing import ref as fb_ref
@@ -73,15 +92,17 @@ def _modules():
     from repro_torch.kernels.hash_join import ref as hj_ref
     from repro_torch.kernels.hash_partition import ops as hp_ops
     from repro_torch.kernels.hash_partition import ref as hp_ref
+    from repro_torch.kernels.hash_semi import ops as hs_ops
+    from repro_torch.kernels.hash_semi import ref as hs_ref
     from repro_torch.kernels.radix_sort import ops as rs_ops
     from repro_torch.kernels.radix_sort import ref as rs_ref
-    return dict(D=dist_ops, L=local_ops, make_context=make_context,
+    return dict(D=dist_ops, L=local_ops, U=unomt, make_context=make_context,
                 build=build, bucketing=bucketing,
                 ops={"hash_partition": hp_ops, "fused_bucketing": fb_ops,
                      "hash_join": hj_ops, "radix_sort": rs_ops,
-                     "hash_groupby": hg_ops},
+                     "hash_groupby": hg_ops, "hash_semi": hs_ops},
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
-                hg_ref=hg_ref)
+                hg_ref=hg_ref, hs_ref=hs_ref)
 
 
 def card() -> str:
@@ -106,8 +127,8 @@ def _sync(device) -> None:
 # --------------------------------------------------------------------------
 
 
-def kernel_cases(device, hash_plan, groupby_sizes, groupby_loads, scale=1.0,
-                 seed=1):
+def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
+                 scale=1.0, seed=1):
     """The inputs each kernel gets on the legs: hash_partition at P = 2
     (the world-1 shuffle's live + trash partitions) on 10 M rows and at
     P = 513 (a 512-bucket ranking) on 625 k rows; fused_bucketing at 512
@@ -119,7 +140,9 @@ def kernel_cases(device, hash_plan, groupby_sizes, groupby_loads, scale=1.0,
     on slabs shaped and filled as the groupby leg's (``groupby_loads``
     rows in each bucket), with NaN and -0.0 among the values: once
     integer-valued, as the leg's, and once normal-distributed, where the
-    sums may round."""
+    sums may round; hash_join also at K = 33 key planes and at a slab
+    wider than a block's shared memory.  hash_semi's cases come from the
+    UNOMT leg (:func:`semi_cases`)."""
     rng = np.random.default_rng(seed)
     n_big = max(int(SORTMERGE_ROWS * scale), 1)
     n_slab = hash_plan["shuffle_sizes"]["left"][1]
@@ -156,6 +179,13 @@ def kernel_cases(device, hash_plan, groupby_sizes, groupby_loads, scale=1.0,
         dev((np.arange(Lc)[None, :] < fill_p[:, None]).astype(np.int32)),
         dev(rng.integers(0, nkeys, (B, 1, C)).astype(np.int32)),
         dev((np.arange(C)[None, :] < fill_b[:, None]).astype(np.int32))))]
+    # past 32 key planes, and a build slab of (1 + 1) * 32768 * 4 B, more
+    # than the 227 KB a block may hold
+    wide = dict(K33=(64, 33, 64, 200), C32768=(4, 1, 64, 32768))
+    for name, shape in wide.items():
+        cases["hash_join"].append(dict(
+            shape=f"B={shape[0]} K={shape[1]} Lc={shape[2]} C={shape[3]}",
+            args=tuple(dev(a) for a in pooled_slabs(rng, *shape))))
 
     n_sort = max(int(2 * GROUPBY_ROWS * scale), 1)
     words = dev(rng.integers(-2**31, 2**31, n_sort, dtype=np.int64)
@@ -193,9 +223,56 @@ def kernel_cases(device, hash_plan, groupby_sizes, groupby_loads, scale=1.0,
     return cases
 
 
-def _plain(m, name, args, chunk=32):
-    """The plain version on the same inputs; hash_join in chunks of
-    buckets to bound its memory (the radix and groupby plain versions
+def pooled_slabs(rng, B, K, Lc, C):
+    """Probe and build slabs, every slot occupied, whose keys come from a
+    pool of 8 K-plane vectors per bucket (the build side uses the first
+    6, so some probes miss)."""
+    pool = rng.integers(-4, 4, (B, K, 8)).astype(np.int32)
+    pp = np.repeat(rng.integers(0, 8, (B, 1, Lc)), K, 1)
+    bp = np.repeat(rng.integers(0, 6, (B, 1, C)), K, 1)
+    return (np.take_along_axis(pool, pp, 2), np.ones((B, Lc), np.int32),
+            np.take_along_axis(pool, bp, 2), np.ones((B, C), np.int32))
+
+
+def float_semi_slabs(rng, dev, B=512, Lc=256, C=64):
+    """Two float key planes (bits) with -0.0, NaN, infinities and
+    subnormals among them, about 80 % of the slots occupied."""
+    vals = np.float32([0.0, -0.0, np.nan, np.inf, -np.inf, 1e-40, 1.5,
+                       -2.25, 3.0e38])
+    pb = rng.choice(vals, (B, 2, Lc)).view(np.int32)
+    bb = rng.choice(vals, (B, 2, C)).view(np.int32)
+    return (dev(pb), dev((rng.random((B, Lc)) < 0.8).astype(np.int32)),
+            dev(bb), dev((rng.random((B, C)) < 0.8).astype(np.int32)))
+
+
+def semi_cases(recorded, device, seed=2):
+    """hash_semi's cases: the slabs its wrapper received on the UNOMT
+    leg's counted hash run (the drug and the cell filter, with the probe
+    and build keys of their occupied slots for ``torch.isin``), then two
+    float planes and a slab wider than a block's shared memory."""
+    rng = np.random.default_rng(seed)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    cases = []
+    for col, (pb, po, bb, bo) in zip(("drug_id", "cell_id"), recorded):
+        B, K, Lc = pb.shape
+        cases.append(dict(
+            shape=f"{col} B={B} K={K} Lc={Lc} C={bb.shape[2]}",
+            args=(pb, po, bb, bo),
+            library=(pb[:, 0][po > 0], bb[:, 0][bo > 0])))
+    cases.append(dict(shape="B=512 K=2 Lc=256 C=64 float",
+                      args=float_semi_slabs(rng, dev)))
+    cases.append(dict(
+        shape="B=16 K=1 Lc=256 C=32768",
+        args=tuple(dev(a) for a in pooled_slabs(rng, 16, 1, 256, 32768))))
+    return cases
+
+
+def _plain(m, name, args):
+    """The plain version on the same inputs; the probes in chunks of
+    buckets to bound their memory (the radix and groupby plain versions
     chunk themselves)."""
     if name == "hash_partition":
         return m["hp_ref"].radix_histogram_ranks_ref(*args)
@@ -206,6 +283,13 @@ def _plain(m, name, args, chunk=32):
     if name == "hash_groupby":
         return m["hg_ref"].bucket_accumulate_ref(*args)
     pb, po, bb, bo = args
+    if name == "hash_semi":
+        # about 2**28 pairs per chunk of buckets
+        chunk = max(1, (1 << 28) // max(pb.shape[2] * bb.shape[2], 1))
+        return (torch.cat([m["hs_ref"].bucket_member_ref(
+            pb[i:i + chunk], po[i:i + chunk], bb[i:i + chunk],
+            bo[i:i + chunk]) for i in range(0, pb.shape[0], chunk)]),)
+    chunk = 32
     parts = [m["hj_ref"].bucket_probe_ref(pb[i:i + chunk], po[i:i + chunk],
                                           bb[i:i + chunk], bo[i:i + chunk])
              for i in range(0, pb.shape[0], chunk)]
@@ -222,6 +306,8 @@ def _kernel(m, name, args):
         return op.digit_histogram_ranks(*args)
     if name == "hash_groupby":
         return op.bucket_accumulate(*args)
+    if name == "hash_semi":
+        return (op.bucket_member(*args),)
     return op.bucket_probe(*args)
 
 
@@ -441,8 +527,9 @@ def sort_data(rows: int, seed: int = 0):
 
 
 def expect_launches(leg: str, launches: dict, want: dict) -> None:
+    """Exactly ``want`` launches (0 for a kernel not named)."""
     full = {k: want.get(k, 0) for k in KERNELS}
-    if launches != full:
+    if any(launches[k] != full[k] for k in KERNELS):
         raise AssertionError(f"{leg}: launches {launches}, expected {full}")
 
 
@@ -574,6 +661,220 @@ def run_table5(m, ctx, device, data, sizes):
 
 
 # --------------------------------------------------------------------------
+# the UNOMT data-engineering pipeline and the set operators
+# --------------------------------------------------------------------------
+
+UNOMT_TABLES = ("response", "descriptors", "fingerprints", "rna")
+
+
+def unomt_data(m, rows, drugs, cells):
+    """The leg's raw tables, at the generator's own widths (8 drug and 8
+    RNA features)."""
+    return m["U"].gen_unomt_tables(n_response=rows, n_drugs=drugs,
+                                   n_cells=cells, seed=0)
+
+
+def _scaled(x):
+    x = x.astype(np.float64)
+    return (x - x.mean()) / np.sqrt(x.var() + 1e-12)
+
+
+def unomt_numpy(m, raw) -> dict:
+    """An independent pipeline: ``np.isnan`` for the nulls, index lookups
+    for the joins (drug and cell ids are unique after Fig. 9 and 10),
+    ``np.isin`` for the Fig. 11 filters, float64 scaling."""
+    U = m["U"]
+    r, desc, fp, rna = (raw[k] for k in UNOMT_TABLES)
+    ok = ~np.isnan(r["response"])
+    out = {"drug_id": (r["drug_id_raw"][ok] - 1_000_000).astype(np.int32),
+           "cell_id": r["cell_id"][ok],
+           "concentration": _scaled(r["concentration"][ok]),
+           "response": r["response"][ok]}
+    if len(np.unique(desc["drug_id"])) != len(desc["drug_id"]) or \
+            len(np.unique(fp["drug_id"])) != len(fp["drug_id"]):
+        raise AssertionError("unomt: duplicate drug ids in a sub-table")
+    drugs = np.intersect1d(desc["drug_id"], fp["drug_id"])
+    cells, first = np.unique(rna["cell_id"], return_index=True)
+    keep = np.isin(out["drug_id"], drugs) & np.isin(out["cell_id"], cells)
+    out = {k: v[keep] for k, v in out.items()}
+    for sub in (desc, fp):
+        row = np.full(int(sub["drug_id"].max()) + 1, -1, np.int64)
+        row[sub["drug_id"]] = np.arange(len(sub["drug_id"]))
+        for c in sub:
+            if c != "drug_id":
+                out[c] = sub[c][row[out["drug_id"]]]
+    row = np.full(int(cells.max()) + 1, -1, np.int64)
+    row[cells] = np.arange(len(cells))
+    for c in U.rna_cols():
+        out[c] = _scaled(rna[c][first])[row[out["cell_id"]]]
+    return out
+
+
+def check_unomt(got: dict, want: dict) -> None:
+    """The same multiset of rows, compared after a lexsort on (drug_id,
+    cell_id, response): ids and unscaled floats exactly, the scaled
+    columns within 1e-4."""
+    if list(got) != list(want):
+        raise AssertionError(f"unomt: columns {list(got)} != {list(want)}")
+    if len(got["drug_id"]) != len(want["drug_id"]):
+        raise AssertionError(f"unomt: {len(got['drug_id'])} rows, numpy "
+                             f"{len(want['drug_id'])}")
+    og = np.lexsort((got["response"], got["cell_id"], got["drug_id"]))
+    ow = np.lexsort((want["response"], want["cell_id"], want["drug_id"]))
+    scaled = ["concentration"] + [c for c in got if c.startswith("rna")]
+    for c in got:
+        g, w = got[c][og], want[c][ow]
+        if c in scaled:
+            err = float(np.abs(g.astype(np.float64) - w).max()) \
+                if len(g) else 0.0
+            if not err <= 1e-4:
+                raise AssertionError(f"unomt: {c} off by {err}")
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"unomt: {c} differs from numpy")
+
+
+@contextlib.contextmanager
+def recording(op, fn_name, calls):
+    """Context in which ``op.fn_name`` also appends a copy of each call's
+    arguments to ``calls``; launches are counted as without it."""
+    plain = getattr(op, fn_name)
+
+    def keep(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return plain(*args)
+
+    setattr(op, fn_name, keep)
+    try:
+        yield
+    finally:
+        setattr(op, fn_name, plain)
+
+
+# exact launches of the UNOMT leg at its size and seed (the same in every
+# run): 8 shuffles, the radix passes of compactions and rankings, and
+# for the hash filters drug ids in 4096 buckets (hashed in torch, ranked
+# by radix passes) and cell ids in 128 (fused_bucketing)
+UNOMT_LAUNCHES = {
+    "sortmerge": {"hash_partition": 8, "radix_sort": 5},
+    "hash": {"hash_partition": 8, "radix_sort": 9, "fused_bucketing": 2,
+             "hash_semi": 2}}
+
+
+def run_unomt(m, ctx, device, raw):
+    """Drive ``unomt_dist_pipeline`` once per membership backend, counted
+    and checked; then the Table -> tensor hand-off.  Returns the legs and
+    the slabs the hash run gave ``bucket_member`` (drug, then cell
+    filter)."""
+    D, U = m["D"], m["U"]
+    legs, out, slabs = {}, {}, []
+    rows = len(raw["response"]["cell_id"])
+    for impl in ("sortmerge", "hash"):
+        run = pipeline(m, ctx, lambda c, *ts, impl=impl: U.unomt_dist_pipeline(
+            c, *ts, overcommit=1.0, semi_impl=impl),
+            *[raw[k] for k in UNOMT_TABLES])
+        with recording(m["ops"]["hash_semi"], "bucket_member",
+                       slabs if impl == "hash" else []):
+            (res, dropped), launches = counted_run(m, run, device)
+        if int(dropped) != 0:
+            raise AssertionError(f"unomt {impl} dropped {int(dropped)} rows")
+        expect_launches(f"unomt_{impl}", launches, UNOMT_LAUNCHES[impl])
+        out[impl] = res
+        legs[f"unomt_{impl}"] = dict(run=run, launches=launches, rows=rows)
+    if not bit_identical(out["sortmerge"], out["hash"]):
+        raise AssertionError("unomt: hash membership differs from sortmerge")
+    got = D.collect_table(ctx, out["hash"])
+    check_unomt(got, unomt_numpy(m, raw))
+    X, y, mask = U.feature_label_arrays(out["hash"])
+    cap, n = out["hash"].capacity, int(out["hash"].nvalid)
+    if X.shape != (cap, 17) or X.dtype != torch.float32 \
+            or X.device.type != device.type or y.shape != (cap,) \
+            or int(mask.sum()) != n or not bool(torch.isfinite(X[:n]).all()):
+        raise AssertionError(f"unomt: features {tuple(X.shape)} {X.dtype} "
+                             f"on {X.device}, {int(mask.sum())} valid")
+    emit({"phase": "unomt", "response_rows": rows,
+          "drugs": len(raw["descriptors"]["drug_id"]),
+          "cells": len(np.unique(raw["rna"]["cell_id"])),
+          "out_rows": n, "capacity": cap, "features": X.shape[1],
+          "dropped": 0, "bit_identical_sortmerge_hash": True,
+          "equal_to_numpy": True,
+          "launches": {i: legs[f"unomt_{i}"]["launches"] for i in out}})
+    return legs, slabs
+
+
+def setop_data(rows_a, rows_b, nkeys, seed=0):
+    """a.k uniform over [0, nkeys), b.k uniform over [nkeys / 2,
+    3 nkeys / 2): half of a's keys can be in b."""
+    rng = np.random.default_rng(seed)
+    a = {"k": rng.integers(0, nkeys, rows_a).astype(np.int32),
+         "v": rng.normal(size=rows_a).astype(np.float32)}
+    b = {"k": rng.integers(nkeys // 2, nkeys + nkeys // 2, rows_b)
+         .astype(np.int32),
+         "v": rng.normal(size=rows_b).astype(np.float32)}
+    return a, b
+
+
+# radix passes of each set op at the leg's size and seed (the same in
+# every run); each op also shuffles both sides (2 hash_partition)
+SETOP_RADIX = {"isin": {"sortmerge": 1, "hash": 7},
+               "intersect": {"sortmerge": 2, "hash": 8},
+               "difference": {"sortmerge": 1, "hash": 7}}
+
+
+def run_setops(m, ctx, device, a, b):
+    """``dist_isin``, ``dist_intersect`` and ``dist_difference`` once per
+    membership backend (dedup by sort either way), counted and checked
+    against numpy; the membership kernel must run exactly once per hash
+    call."""
+    D = m["D"]
+    mask = np.isin(a["k"], b["k"])
+    uk, first = np.unique(a["k"][mask], return_index=True)
+    if not np.array_equal(uk, np.intersect1d(a["k"], b["k"])):
+        raise AssertionError("set ops: numpy intersect disagrees")
+    want = {"isin": {"k": a["k"][mask], "v": a["v"][mask]},
+            "intersect": {"k": uk, "v": a["v"][mask][first]},
+            "difference": {"k": a["k"][~mask], "v": a["v"][~mask]}}
+    if not np.array_equal(np.unique(want["difference"]["k"]),
+                          np.setdiff1d(a["k"], b["k"])):
+        raise AssertionError("set ops: numpy difference disagrees")
+    ops = {
+        "isin": lambda c, x, y, impl: D.dist_isin(
+            c, x, "k", y, "k", overcommit=1.0, local_impl=impl),
+        "intersect": lambda c, x, y, impl: D.dist_intersect(
+            c, x, y, ["k"], overcommit=1.0, local_impl=impl,
+            dedup_impl="sort"),
+        "difference": lambda c, x, y, impl: D.dist_difference(
+            c, x, y, ["k"], overcommit=1.0, local_impl=impl)}
+    legs, summary = {}, {}
+    for op, fn in ops.items():
+        out = {}
+        for impl in ("sortmerge", "hash"):
+            run = pipeline(m, ctx, lambda c, x, y, fn=fn, impl=impl: fn(
+                c, x, y, impl), a, b)
+            (res, dropped), launches = counted_run(m, run, device)
+            if int(dropped) != 0:
+                raise AssertionError(f"{op} {impl} dropped {int(dropped)}")
+            expect_launches(f"{op}_{impl}", launches,
+                            {"hash_partition": 2,
+                             "radix_sort": SETOP_RADIX[op][impl],
+                             "hash_semi": int(impl == "hash")})
+            out[impl] = res
+            legs[f"{op}_{impl}"] = dict(run=run, launches=launches,
+                                        rows=len(a["k"]))
+        if not bit_identical(out["sortmerge"], out["hash"]):
+            raise AssertionError(f"{op}: hash differs from sortmerge")
+        got = D.collect_table(ctx, out["hash"])
+        for c, w in want[op].items():
+            if not np.array_equal(got[c].view(np.int32), w.view(np.int32)):
+                raise AssertionError(f"{op}: column {c} differs from numpy")
+        summary[op] = len(got["k"])
+    emit({"phase": "set_ops", "rows": [len(a["k"]), len(b["k"])],
+          "keys": SETOP_KEYS, "out_rows": summary, "dropped": 0,
+          "bit_identical_sortmerge_hash": True, "equal_to_numpy": True,
+          "launches": {k: v["launches"] for k, v in legs.items()}})
+    return legs
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -669,6 +970,16 @@ def bound(name, args):
         n, K = valid.numel(), len(bits)
         nbytes = 4 * K * n + n + 4 * n + 4 * (P + 1) + 4 * n
         ops = 12 * K * n
+    elif name == "hash_semi":
+        pb, po, bb, bo = args
+        B, K, Lc = pb.shape
+        # both occupancy slabs and the key planes of the occupied slots in,
+        # one member flag per probe slot out; at most K compares for each
+        # pair of occupied slots of a bucket
+        occ_p, occ_b = (po > 0).sum(1).double(), (bo > 0).sum(1).double()
+        nbytes = 4 * (po.numel() + bo.numel() + B * Lc
+                      + K * int(occ_p.sum() + occ_b.sum()))
+        ops = int((occ_p * occ_b).sum()) * K
     else:
         pb, po, bb, bo = args
         B, K, Lc = pb.shape
@@ -681,10 +992,11 @@ def bound(name, args):
 
 
 def library_times(m, cases, gdata, sizes, device) -> dict:
-    """One PyTorch call beside each new kernel: a stable ``argsort`` of
-    the 20 M-row words beside the port's ``radix_permutation`` of the same
-    key; the sort-backend local groupby beside the hash-backend one on the
-    groupby leg's rows."""
+    """One PyTorch call beside a kernel: a stable ``argsort`` of the 20 M
+    -row words beside the port's ``radix_permutation`` of the same key;
+    the sort-backend local groupby beside the hash-backend one on the
+    groupby leg's rows; ``torch.isin`` of the drug filter's probe keys
+    against its build keys."""
     L, rs = m["L"], m["ops"]["radix_sort"]
     words = cases["radix_sort"][0]["args"][0]
     none = torch.zeros(words.shape[0], dtype=torch.bool, device=device)
@@ -699,6 +1011,9 @@ def library_times(m, cases, gdata, sizes, device) -> dict:
             t, ["k"], AGGS, impl="sort"), reps=3),
         "hash_groupby_local_ms": event_ms(lambda: L.groupby_aggregate(
             t, ["k"], AGGS, impl="hash", may_plan=False, **sizes), reps=3)}
+    probe, build = cases["hash_semi"][0]["library"]
+    out["hash_semi"] = {"library_ms": event_ms(
+        lambda: torch.isin(probe, build), reps=5)}
     return out
 
 
@@ -718,7 +1033,7 @@ def main() -> int:
           "libraries": [p.name for p in libs.values()]})
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 print("ptxas:", lib.stem, line.strip(), flush=True)
 
     ctx = m["make_context"]()
@@ -729,12 +1044,20 @@ def main() -> int:
     sizes = plan_groupby_sizes(m, gdata)
     loads = np.bincount(m["bucketing"].bucket_ids_np(
         [gdata["k"]], sizes["num_buckets"]), minlength=sizes["num_buckets"])
-    cases = kernel_cases(device, hash_plan, sizes, loads)
+    cases = kernel_cases(m, device, hash_plan, sizes, loads)
     errs = compare_kernels(m, cases, device)
     emit({"kernels": list(KERNELS)})
 
     legs = run_legs(m, ctx, SORTMERGE_ROWS, HASH_ROWS, device)
     legs.update(run_table5(m, ctx, device, gdata, sizes))
+    raw = unomt_data(m, UNOMT_ROWS, UNOMT_DRUGS, UNOMT_CELLS)
+    unomt_legs, slabs = run_unomt(m, ctx, device, raw)
+    legs.update(unomt_legs)
+    cases["hash_semi"] = semi_cases(slabs, device)
+    errs.update(compare_kernels(m, {"hash_semi": cases["hash_semi"]},
+                                device))
+    legs.update(run_setops(m, ctx, device,
+                           *setop_data(*SETOP_ROWS, SETOP_KEYS)))
 
     for leg, info in legs.items():
         seconds, peak, resident = time_leg(info["run"], device)
@@ -766,8 +1089,7 @@ def main() -> int:
                                       for leg, info in legs.items()},
                   **{k: v for k, v in extra.items() if k != "library_ms"}))
         table.append(row)
-    for kname in ("hash_partition", "fused_bucketing", "radix_sort",
-                  "hash_groupby"):
+    for kname in KERNELS:
         for extra in cases[kname][1:]:
             emit({"phase": "kernel_timing", "name": kname,
                   "shape": extra["shape"], "card": name,

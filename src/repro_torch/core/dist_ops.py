@@ -11,6 +11,10 @@ PyTorch port of ``repro/core/dist_ops.py``: every distributed operator is
   the right side everywhere (:func:`all_gather_table`) and join locally;
 * :func:`dist_groupby` / :func:`dist_unique` — shuffle on the key, then
   the local groupby / drop_duplicates (``sort`` or ``hash``);
+* :func:`dist_isin` / :func:`dist_intersect` / :func:`dist_difference` —
+  shuffle both sides on the key, then the local membership
+  (``sortmerge`` or ``hash``);
+* :func:`dist_standard_scale` — column scaling with global moments;
 * :func:`dist_sort` — sample sort: local sort, splitters from gathered
   samples, range partition, shuffle, local sort (``xla`` or ``radix``);
 * :func:`dist_repartition` — exact load rebalance;
@@ -345,6 +349,59 @@ def dist_unique(ctx: HptmtContext, table: Table, subset: Sequence[str],
     return out, dropped + ctx.psum(gdrop)
 
 
+def dist_difference(ctx: HptmtContext, a: Table, b: Table,
+                    on: Sequence[str], overcommit: float = 2.0,
+                    local_impl: str | None = None,
+                    semi_sizes: Mapping[str, int] | None = None):
+    """Distributed Difference: shuffle both sides on the key, then the
+    local difference.  Equal keys co-locate (the partition hash is over
+    key values), so a rank's membership is global membership.
+    ``local_impl`` picks the semi-join backend ('sortmerge' | 'hash');
+    ``semi_sizes`` gives the hash backend's ``num_buckets`` /
+    ``bucket_capacity`` / ``probe_capacity``.  Slab overflow joins the
+    shuffle drops in the returned counter, summed over ranks."""
+    ash, d1 = shuffle(ctx, a, on, overcommit=overcommit)
+    bsh, d2 = shuffle(ctx, b, on, overcommit=overcommit)
+    out, over = L.difference(ash, bsh, on=list(on), impl=local_impl,
+                             return_overflow=True, may_plan=False,
+                             **dict(semi_sizes or {}))
+    return out, d1 + d2 + ctx.psum(over)
+
+
+def dist_intersect(ctx: HptmtContext, a: Table, b: Table,
+                   on: Sequence[str], overcommit: float = 2.0,
+                   local_impl: str | None = None,
+                   dedup_impl: str | None = None,
+                   semi_sizes: Mapping[str, int] | None = None):
+    """Distributed Intersect: shuffle both sides on the key, then the
+    local intersect (``local_impl`` the semi-join backend, ``dedup_impl``
+    the dedup backend).  Returns ``(table, dropped)`` as
+    :func:`dist_difference`."""
+    ash, d1 = shuffle(ctx, a, on, overcommit=overcommit)
+    bsh, d2 = shuffle(ctx, b, on, overcommit=overcommit)
+    out, over = L.intersect(ash, bsh, on=list(on), impl=local_impl,
+                            dedup_impl=dedup_impl, return_overflow=True,
+                            may_plan=False, **dict(semi_sizes or {}))
+    return out, d1 + d2 + ctx.psum(over)
+
+
+def dist_isin(ctx: HptmtContext, table: Table, col: str, values: Table,
+              values_col: str, overcommit: float = 2.0,
+              local_impl: str | None = None,
+              semi_sizes: Mapping[str, int] | None = None):
+    """Distributed membership filter: the rows of ``table`` whose ``col``
+    is among ``values[values_col]`` anywhere in the world.  Both sides
+    are shuffled on their key column (the hash is over values, not
+    names), then the local :func:`isin` mask selects.  Returns
+    ``(filtered_table, dropped)`` as :func:`dist_difference`."""
+    tsh, d1 = shuffle(ctx, table, [col], overcommit=overcommit)
+    vsh, d2 = shuffle(ctx, values, [values_col], overcommit=overcommit)
+    mask, over = L.isin(tsh, col, vsh, values_col, impl=local_impl,
+                        return_overflow=True, may_plan=False,
+                        **dict(semi_sizes or {}))
+    return L.select(tsh, mask), d1 + d2 + ctx.psum(over)
+
+
 # --------------------------------------------------------------------------
 # Distributed sort (sample sort) — paper Table 5 "Sorting tables"
 # --------------------------------------------------------------------------
@@ -426,6 +483,29 @@ def dist_repartition(ctx: HptmtContext, table: Table):
     pid = (r // target).clamp(max=world - 1).to(torch.int32)
     return shuffle_by_pid(ctx, table, pid, slots_per_dest=table.capacity,
                           out_capacity=table.capacity)
+
+
+# --------------------------------------------------------------------------
+# Column scaling with global moments (scikit-learn's StandardScaler)
+# --------------------------------------------------------------------------
+
+
+def dist_standard_scale(ctx: HptmtContext, table: Table,
+                        cols: Sequence[str],
+                        local_impl: str | None = None) -> Table:
+    """(x - mean) / std per column with the mean and std over every
+    rank's valid rows, so the result does not depend on the world size.
+    Two-pass as the local op: global means from summed sums, then the
+    summed variance of deviations about them.  ``local_impl`` selects how
+    each rank sums its moments (``L.column_moments``: inline, 'sort' or
+    'hash')."""
+    s1, _, n = L.column_moments(table, cols, impl=local_impl)
+    n = ctx.psum(n).clamp(min=1.0)
+    means = {k: ctx.psum(s1[k]) / n for k in cols}
+    _, sd2, _ = L.column_moments(table, cols, impl=local_impl,
+                                 center=means)
+    return L._scale_columns(table, cols, means,
+                            {k: ctx.psum(sd2[k]) / n for k in cols})
 
 
 # --------------------------------------------------------------------------

@@ -9,6 +9,8 @@ never a fallback.  Environment overrides mirror the JAX package's:
   ``ref`` on a CUDA tensor raises;
 * ``REPRO_JOIN_IMPL``    — local join algorithm: ``sortmerge | hash``;
 * ``REPRO_GROUPBY_IMPL`` — local groupby/dedup algorithm: ``sort | hash``;
+* ``REPRO_SEMI_IMPL``    — local membership algorithm (``isin``,
+  ``semi_mask``, ``intersect``, ``difference``): ``sortmerge | hash``;
 * ``REPRO_SORT_IMPL``    — local sort algorithm: ``xla`` (a chain of
   stable ``torch.sort`` calls; the name is kept for parity with the JAX
   package) or ``radix`` (the multi-pass LSD engine on the
@@ -54,6 +56,13 @@ def groupby_impl() -> str:
     """Local groupby/aggregate/dedup algorithm: 'sort' (default) or
     'hash'."""
     return os.environ.get("REPRO_GROUPBY_IMPL") or "sort"
+
+
+def semi_impl() -> str:
+    """Local semi-join/membership algorithm: 'sortmerge' (binary search
+    over the sorted key set, default) or 'hash' (bucketed build + probe on
+    ``kernels/hash_semi``)."""
+    return os.environ.get("REPRO_SEMI_IMPL") or "sortmerge"
 
 
 def sort_impl() -> str:

@@ -2,9 +2,11 @@
 
 PyTorch port of ``repro/core/local_ops.py`` over
 :class:`repro_torch.core.table.Table`: Select, Project, OrderBy, Unique,
-GroupBy + Aggregate and Join.  Every op is mask-aware (rows ``>= nvalid``
-are padding) and keeps static capacities: overflowing output rows are
-dropped and counted.
+GroupBy + Aggregate, Join, Cartesian Product, the set operators
+(membership, Intersect, Difference, Union), null handling and column
+scaling.  Every op is mask-aware (rows ``>= nvalid`` are padding) and
+keeps static capacities: overflowing output rows are dropped and
+counted.
 
 Pluggable backends, each emitting bit-identical output across its
 choices (float ``sum``/``mean`` up to addition order):
@@ -22,7 +24,18 @@ choices (float ``sum``/``mean`` up to addition order):
   the right side plus a binary search per left row) or ``"hash"``
   (bucketed build + probe on the ``hash_join`` kernel); left-row-major
   output, a left row's matches in right-row order, every key pair
-  compared in the promoted common dtype.
+  compared in the promoted common dtype;
+* Membership (``semi_mask``, ``isin``, ``intersect``, ``difference``),
+  ``impl`` / ``REPRO_SEMI_IMPL``: ``"sortmerge"`` (binary search over the
+  sorted right key set) or ``"hash"`` (bucketed build + probe on the
+  ``hash_semi`` kernel); the same mask either way, keys compared in the
+  promoted common dtype.
+
+Float keys compare as the reference compares them: ``-0.0`` equals
+``+0.0`` and subnormals equal zero.  The primitives every backend
+compares through flush them (``table.flush_subnormals``): the sort words,
+``_tuple_less``, ``_group_boundaries`` and the hash bit-planes
+(``bucketing.key_bits``, ``partition.hash_columns``).
 
 Planning.  The hash backends size their slabs from the actual keys when
 they may (``may_plan=True``, the default for a direct call) and the table
@@ -40,12 +53,14 @@ from ..kernels import bucketing
 from ..kernels.hash_groupby import (default_hash_groupby_sizes,
                                     hash_groupby_plan)
 from ..kernels.hash_join import default_hash_join_sizes, hash_join_plan
+from ..kernels.hash_semi import default_hash_semi_sizes, hash_semi_plan
 from ..kernels.radix_sort import (radix_permutation, radix_rank,
                                   stable_partition_perm)
 from .kernel_backend import groupby_impl as _default_groupby_impl
 from .kernel_backend import join_impl as _default_join_impl
+from .kernel_backend import semi_impl as _default_semi_impl
 from .kernel_backend import sort_impl as _default_sort_impl
-from .table import Table, null_like
+from .table import Table, flush_subnormals, isnull_values, null_like
 
 _I32 = torch.int32
 # (2**31 - 1) as an int32 bit pattern: flips every bit but the sign
@@ -123,14 +138,13 @@ def _sort_key(col: torch.Tensor, ascending: bool) -> torch.Tensor:
 def _sortable_word(key: torch.Tensor) -> torch.Tensor:
     """int32 words whose (signed) integer order is the stable-sort order
     of ``key``, for ``argsort``.  Floats take the total order of a float
-    sort with ``-0.0 == +0.0`` and every NaN equal and last: zeros and
-    NaNs are made canonical, and a negative float's bits are flipped below
-    the sign.  (The radix engine's ``radix_sort.sortable_word`` is the
-    unsigned-order twin.)"""
+    sort with ``-0.0``, ``+0.0`` and the subnormals equal and every NaN
+    equal and last: zeros and NaNs are made canonical, and a negative
+    float's bits are flipped below the sign.  (The radix engine's
+    ``radix_sort.sortable_word`` is the unsigned-order twin.)"""
     if not key.dtype.is_floating_point:
         return key.to(_I32)
-    f = key.to(torch.float32)
-    f = torch.where(f == 0.0, torch.zeros_like(f), f)
+    f = flush_subnormals(key.to(torch.float32))
     f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
     bits = f.view(_I32)
     return torch.where(bits < 0, bits ^ _LOW31, bits)
@@ -172,10 +186,12 @@ def sort_values(table: Table, by: Sequence[str],
 
 
 def _tuple_less(a: tuple, b: tuple) -> torch.Tensor:
-    """a < b lexicographically (element-wise over vectors)."""
+    """a < b lexicographically (element-wise over vectors), float
+    subnormals compared as zero."""
     res = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
     eq = torch.ones(a[0].shape, dtype=torch.bool, device=a[0].device)
     for x, y in zip(a, b):
+        x, y = flush_subnormals(x), flush_subnormals(y)
         res = res | (eq & (x < y))
         eq = eq & (x == y)
     return res
@@ -187,7 +203,8 @@ def lex_searchsorted(sorted_keys: tuple, query_keys: tuple,
 
     ``sorted_keys[i]`` share shape ``(n,)`` and are lexicographically
     sorted; ``query_keys[i]`` share shape ``(m,)``.  Returns int32 ``(m,)``
-    insertion points.  Exact (comparison-based), O(m log n)."""
+    insertion points.  Exact (comparison-based), O(m log n); float
+    subnormals compare as zero (:func:`_tuple_less`)."""
     n = sorted_keys[0].shape[0]
     m = query_keys[0].shape[0]
     dev = query_keys[0].device
@@ -257,10 +274,10 @@ def drop_duplicates(table: Table, subset: Sequence[str] | None = None, *,
 
 def _group_boundaries(ts: Table, by: list) -> torch.Tensor:
     """Valid rows of the sorted table ``ts`` whose key differs from the
-    previous row's (and row 0)."""
+    previous row's (and row 0); float subnormals equal zero."""
     neq_prev = torch.zeros(ts.capacity, dtype=torch.bool, device=ts.device)
     for k in by:
-        col = ts.columns[k]
+        col = flush_subnormals(ts.columns[k])
         neq_prev = neq_prev | (col != torch.roll(col, 1))
     first = torch.arange(ts.capacity, device=ts.device) == 0
     return (first | neq_prev) & ts.valid_mask
@@ -720,3 +737,284 @@ def _hash_join(left: Table, right: Table, left_on, right_on, how,
                     + plan.build_dropped + plan.probe_dropped)
         return out, overflow
     return out
+
+
+def cartesian_product(left: Table, right: Table, out_capacity: int,
+                      suffix: str = "_r", return_overflow: bool = False):
+    """Paper's Cartesian Product with a static output capacity; rows past
+    ``out_capacity`` are dropped and counted (``return_overflow=True``
+    returns the count)."""
+    dev = left.device
+    n2 = right.nvalid.clamp(min=1)
+    j = torch.arange(out_capacity, dtype=_I32, device=dev)
+    lrow = (j // n2).clamp(0, max(left.capacity - 1, 0))
+    rrow = (j % n2).clamp(0, max(right.capacity - 1, 0))
+    total = left.nvalid * right.nvalid
+    cols = {n: left.columns[n][lrow] for n in left.names}
+    for n in right.names:
+        name = n + suffix if n in cols else n
+        cols[name] = right.columns[n][rrow]
+    out = Table(columns=cols, nvalid=torch.clamp(total, max=out_capacity))
+    if return_overflow:
+        return out, (total - out_capacity).clamp(min=0)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Membership + set operators (sort-merge or bucketed hash membership; no
+# join is materialised either way)
+# --------------------------------------------------------------------------
+
+
+def _sortmerge_semi(qkeys: tuple, lvalid: torch.Tensor, vkeys: tuple,
+                    rnvalid: torch.Tensor) -> torch.Tensor:
+    """Sort the right key set, binary-search each left key's match range:
+    member iff the range is non-empty."""
+    vt = Table(columns={f"k{i}": c for i, c in enumerate(vkeys)},
+               nvalid=rnvalid)
+    _, skeys = _sorted_keys_with_sentinel(vt, list(vt.names))
+    lo = torch.minimum(lex_searchsorted(skeys, qkeys, side="left"), rnvalid)
+    hi = torch.minimum(lex_searchsorted(skeys, qkeys, side="right"),
+                       rnvalid)
+    return (hi > lo) & lvalid
+
+
+def _hash_semi(qkeys: tuple, left: Table, vkeys: tuple, right: Table,
+               num_buckets, bucket_capacity, probe_capacity, may_plan):
+    """Build the right key set into bucket slabs and probe each left key
+    (``kernels/hash_semi``): one boolean per row.  Each side's bit-planes
+    are extracted once (``BucketPlan``) and shared by the two-pass sizing
+    and the plan.  Probe-dropped rows report False and are counted."""
+    B, C, Lc = default_hash_semi_sizes(left.capacity, right.capacity,
+                                       num_buckets)
+    lbp = bucketing.BucketPlan(qkeys)
+    rbp = bucketing.BucketPlan(vkeys)
+    big = max(left.capacity, right.capacity)
+    built = _planned_sizes(rbp, right.nvalid, big, B, bucket_capacity,
+                           may_plan)
+    if built is not None:
+        C = built[1]
+    probed = _planned_sizes(lbp, left.nvalid, big, B, probe_capacity,
+                            may_plan)
+    if probed is not None:
+        Lc = probed[1]
+    C = bucket_capacity or C
+    Lc = probe_capacity or Lc
+    plan = hash_semi_plan(
+        lbp.bits, left.valid_mask, rbp.bits, right.valid_mask,
+        num_buckets=B, bucket_capacity=C, probe_capacity=Lc,
+        left_bid=lbp.bucket_ids_for(B) if probed is not None else None,
+        right_bid=rbp.bucket_ids_for(B) if built is not None else None)
+    mask = plan.member & left.valid_mask
+    return mask, plan.build_dropped + plan.probe_dropped
+
+
+def semi_mask(left: Table, right: Table, left_on: Sequence[str],
+              right_on: Sequence[str] | None = None, *,
+              impl: str | None = None, return_overflow: bool = False,
+              num_buckets: int | None = None,
+              bucket_capacity: int | None = None,
+              probe_capacity: int | None = None, may_plan: bool = True):
+    """Semi-join membership mask: per left row, does its key appear among
+    the right table's valid keys?
+
+    ``impl`` (default ``REPRO_SEMI_IMPL``): ``"sortmerge"`` or ``"hash"``,
+    the same mask either way.  The hash backend takes static
+    ``num_buckets`` / ``bucket_capacity`` / ``probe_capacity`` (planned
+    from the keys when ``may_plan``, see the module docstring); rows
+    overflowing a slab report non-member and are counted
+    (``return_overflow=True`` returns the count)."""
+    left_on = list(left_on)
+    right_on = list(right_on) if right_on is not None else left_on
+    impl = impl or _default_semi_impl()
+    qkeys, vkeys = _promoted_semi_keys(left, right, left_on, right_on)
+    if impl == "sortmerge":
+        mask = _sortmerge_semi(qkeys, left.valid_mask, vkeys, right.nvalid)
+        over = torch.zeros((), dtype=_I32, device=left.device)
+    elif impl == "hash":
+        mask, over = _hash_semi(qkeys, left, vkeys, right, num_buckets,
+                                bucket_capacity, probe_capacity, may_plan)
+    else:
+        raise ValueError(f"unknown semi impl {impl!r} "
+                         "(expected 'sortmerge' or 'hash')")
+    if return_overflow:
+        return mask, over
+    return mask
+
+
+def _semi_mask(left: Table, right: Table, on: Sequence[str], **kwargs):
+    """Same-named-columns :func:`semi_mask` (the set operators' shape)."""
+    return semi_mask(left, right, on, on, **kwargs)
+
+
+def isin(table: Table, col: str, values: Table, values_col: str, *,
+         impl: str | None = None, return_overflow: bool = False,
+         num_buckets: int | None = None, bucket_capacity: int | None = None,
+         probe_capacity: int | None = None, may_plan: bool = True):
+    """Bool mask: ``table[col]`` present among the valid
+    ``values[values_col]`` — a single-key :func:`semi_mask`, the paper's
+    membership filter (UNOMT Fig. 11)."""
+    return semi_mask(table, values, [col], [values_col], impl=impl,
+                     return_overflow=return_overflow,
+                     num_buckets=num_buckets,
+                     bucket_capacity=bucket_capacity,
+                     probe_capacity=probe_capacity, may_plan=may_plan)
+
+
+def intersect(a: Table, b: Table, on: Sequence[str] | None = None, *,
+              impl: str | None = None, dedup_impl: str | None = None,
+              return_overflow: bool = False,
+              num_buckets: int | None = None,
+              bucket_capacity: int | None = None,
+              probe_capacity: int | None = None, may_plan: bool = True):
+    """Paper's Intersect: distinct rows of ``a`` present in ``b``, one
+    row per distinct key sorted by the ``on`` columns.  ``impl`` selects
+    the semi-join backend, ``dedup_impl`` the dedup backend (see
+    :func:`drop_duplicates`); ``return_overflow=True`` returns the summed
+    semi + dedup overflow."""
+    on = list(on) if on is not None else list(a.names)
+    mask, s_over = _semi_mask(a, b, on, impl=impl, return_overflow=True,
+                              num_buckets=num_buckets,
+                              bucket_capacity=bucket_capacity,
+                              probe_capacity=probe_capacity,
+                              may_plan=may_plan)
+    out, d_over = drop_duplicates(compact(a, mask), on, impl=dedup_impl,
+                                  return_overflow=True, may_plan=may_plan)
+    if return_overflow:
+        return out, s_over + d_over
+    return out
+
+
+def difference(a: Table, b: Table, on: Sequence[str] | None = None, *,
+               impl: str | None = None, return_overflow: bool = False,
+               num_buckets: int | None = None,
+               bucket_capacity: int | None = None,
+               probe_capacity: int | None = None, may_plan: bool = True):
+    """Paper's Difference: rows of ``a`` with no match in ``b`` (all
+    occurrences, original row order).  A probe-dropped row's membership
+    is unknown, so it is excluded and counted, never guessed."""
+    on = list(on) if on is not None else list(a.names)
+    mask, over = _semi_mask(a, b, on, impl=impl, return_overflow=True,
+                            num_buckets=num_buckets,
+                            bucket_capacity=bucket_capacity,
+                            probe_capacity=probe_capacity,
+                            may_plan=may_plan)
+    out = compact(a, a.valid_mask & ~mask)
+    if return_overflow:
+        return out, over
+    return out
+
+
+def union(a: Table, b: Table, on: Sequence[str] | None = None, *,
+          impl: str | None = None, return_overflow: bool = False,
+          num_buckets: int | None = None,
+          bucket_capacity: int | None = None, may_plan: bool = True):
+    """Paper's Union: concat + dedup on the ``on`` key columns (all
+    columns when omitted), keeping each key's first occurrence — ``a``'s
+    rows win ties against ``b``'s.  ``impl`` selects the dedup backend
+    ('sort' | 'hash'); overflow is counted."""
+    on = list(on) if on is not None else list(a.names)
+    return drop_duplicates(concat(a, b), on, impl=impl,
+                           return_overflow=return_overflow,
+                           num_buckets=num_buckets,
+                           bucket_capacity=bucket_capacity,
+                           may_plan=may_plan)
+
+
+# --------------------------------------------------------------------------
+# Null handling (UNOMT: isnull / dropna / fillna)
+# --------------------------------------------------------------------------
+
+
+def isnull(table: Table, col: str) -> torch.Tensor:
+    return isnull_values(table.columns[col]) & table.valid_mask
+
+
+def dropna(table: Table, subset: Sequence[str] | None = None) -> Table:
+    subset = list(subset) if subset is not None else list(table.names)
+    bad = torch.zeros(table.capacity, dtype=torch.bool, device=table.device)
+    for k in subset:
+        bad = bad | isnull_values(table.columns[k])
+    return compact(table, ~bad)
+
+
+def fillna(table: Table, values: Mapping[str, float]) -> Table:
+    cols = dict(table.columns)
+    for k, v in values.items():
+        col = cols[k]
+        cols[k] = torch.where(isnull_values(col),
+                              torch.tensor(v, dtype=col.dtype,
+                                           device=col.device), col)
+    return Table(columns=cols, nvalid=table.nvalid)
+
+
+# --------------------------------------------------------------------------
+# Column scaling (the UNOMT pipeline's scikit-learn StandardScaler)
+# --------------------------------------------------------------------------
+
+
+def column_moments(table: Table, cols: Sequence[str],
+                   impl: str | None = None,
+                   center: Mapping[str, torch.Tensor] | None = None):
+    """Per-column moments over the valid rows: ``({col: sum(x)},
+    {col: sum((x - center)**2)}, count)`` as float32 0-d tensors.
+
+    ``center`` maps column -> scalar (0 when omitted).  Called twice,
+    first for the sums and then centered on the means, it gives the
+    two-pass variance, which does not cancel when ``|mean| >> std``.
+    ``impl=None`` reduces inline; ``"sort"`` / ``"hash"`` route the same
+    sums through :func:`groupby_aggregate` on a constant key."""
+    center = dict(center) if center is not None else {}
+    if impl is None:
+        valid = table.valid_mask
+        s1, sd2 = {}, {}
+        for k in cols:
+            x = table.columns[k].to(torch.float32)
+            d = x - center.get(k, 0.0)
+            s1[k] = torch.where(valid, x, 0.0).sum()
+            sd2[k] = torch.where(valid, d * d, 0.0).sum()
+        return s1, sd2, table.nvalid.to(torch.float32)
+    cap = table.capacity
+    aug = {"__k": torch.zeros(cap, dtype=_I32, device=table.device)}
+    aggs: dict[str, list] = {}
+    for k in cols:
+        x = table.columns[k].to(torch.float32)
+        d = x - center.get(k, 0.0)
+        aug[k] = x
+        aug[f"__sq_{k}"] = d * d
+        aggs[k] = ["sum"]
+        aggs[f"__sq_{k}"] = ["sum"]
+    # a constant key is one group in one bucket: the slab must hold every
+    # row, so it is sized to the full capacity
+    g = groupby_aggregate(Table(columns=aug, nvalid=table.nvalid), ["__k"],
+                          aggs, impl=impl, num_buckets=8,
+                          bucket_capacity=cap)
+    nz = table.nvalid > 0
+    s1 = {k: torch.where(nz, g.columns[f"{k}_sum"][0], 0.0) for k in cols}
+    sd2 = {k: torch.where(nz, g.columns[f"__sq_{k}_sum"][0], 0.0)
+           for k in cols}
+    return s1, sd2, table.nvalid.to(torch.float32)
+
+
+def _scale_columns(table: Table, cols: Sequence[str], means: Mapping,
+                  variances: Mapping) -> Table:
+    """``(x - mean) / sqrt(var + 1e-12)`` for each of ``cols``."""
+    out = dict(table.columns)
+    for k in cols:
+        x = out[k].to(torch.float32)
+        out[k] = (x - means[k]) / torch.sqrt(variances[k] + 1e-12)
+    return Table(columns=out, nvalid=table.nvalid)
+
+
+def standard_scale(table: Table, cols: Sequence[str],
+                   impl: str | None = None) -> Table:
+    """(x - mean) / std per column over the valid rows (scikit-learn's
+    StandardScaler), two-pass: the means first, then the variance of the
+    deviations about them.  ``impl`` selects how the moments are summed
+    (see :func:`column_moments`); the choices agree up to float32
+    addition order."""
+    s1, _, n = column_moments(table, cols, impl=impl)
+    n = n.clamp(min=1.0)
+    means = {k: s1[k] / n for k in cols}
+    _, sd2, _ = column_moments(table, cols, impl=impl, center=means)
+    return _scale_columns(table, cols, means, {k: sd2[k] / n for k in cols})

@@ -13,15 +13,14 @@ import numpy as np
 import torch
 
 from ..kernels.fused_bucketing.ref import hash_chain, hash_chain_np
-from .table import Table
+from .table import Table, flush_subnormals, flush_subnormals_np
 
 
 def _col_bits(col: torch.Tensor) -> torch.Tensor:
-    """A column's int32 bits; ``-0.0`` hashes as ``+0.0`` so equal keys
-    hash equal."""
+    """A column's int32 bits; ``-0.0`` and subnormals hash as ``+0.0`` so
+    keys the reference compares equal hash equal."""
     if col.dtype.is_floating_point:
-        col = torch.where(col == 0.0, torch.zeros_like(col), col)
-        return col.to(torch.float32).view(torch.int32)
+        return flush_subnormals(col.to(torch.float32)).view(torch.int32)
     return col.to(torch.int32)
 
 
@@ -37,8 +36,8 @@ def hash_columns_np(cols: Sequence[np.ndarray]) -> np.ndarray:
     for c in cols:
         c = np.asarray(c)
         if np.issubdtype(c.dtype, np.floating):
-            c = np.where(c == 0.0, np.zeros_like(c), c)
-            planes.append(c.astype(np.float32).view(np.int32))
+            planes.append(flush_subnormals_np(c.astype(np.float32))
+                          .view(np.int32))
         else:
             planes.append(c.astype(np.int32))
     return hash_chain_np(planes)

@@ -22,7 +22,7 @@ to the same int32 bits and fabricate join matches).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +31,29 @@ from .kernel_backend import resolve_device
 
 INT_NULL = np.iinfo(np.int32).min
 FLOAT_NULL = np.nan
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """A float column with every subnormal (and ``-0.0``) replaced by
+    ``+0.0``; other dtypes unchanged.
+
+    The reference compares subnormal float32 values as zero (XLA flushes
+    them on the CPU and the TPU), so wherever the port derives a
+    comparison key, sort word, hash or partition bits from a float
+    column it flushes them first; emitted values keep their own bits.
+    Explicit tensor code, not a float mode: CUDA compares IEEE values."""
+    if not x.dtype.is_floating_point:
+        return x
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny,
+                       torch.zeros_like(x), x)
+
+
+def flush_subnormals_np(x: np.ndarray) -> np.ndarray:
+    """numpy copy of :func:`flush_subnormals`, for the host planners."""
+    if not np.issubdtype(x.dtype, np.floating):
+        return x
+    return np.where(np.abs(x) < np.finfo(x.dtype).tiny,
+                    np.zeros((), x.dtype), x)
 
 
 def narrow_column(name: str, v: np.ndarray) -> np.ndarray:
@@ -142,8 +165,48 @@ class Table:
         cols = {k: v[idx] for k, v in self.columns.items()}
         return Table(columns=cols, nvalid=_i32(nvalid, self.device))
 
+    def to_tensor(self, names: Sequence[str] | None = None) -> torch.Tensor:
+        """Stage 3 of the paper: Table -> dense feature tensor, a
+        ``(capacity, len(names))`` float32 tensor on the table's device
+        with the padding rows zeroed."""
+        names = list(names) if names is not None else list(self.names)
+        mask = self.valid_mask
+        return torch.stack([torch.where(mask, self.columns[n].to(
+            torch.float32), 0.0) for n in names], dim=1)
+
+    def replace_columns(self, columns: dict[str, torch.Tensor]) -> "Table":
+        return Table(columns=columns, nvalid=self.nvalid)
+
+    def pad_to(self, capacity: int) -> "Table":
+        """Grow the capacity with zero padding (no-op if already there)."""
+        cap = self.capacity
+        if capacity < cap:
+            raise ValueError("pad_to cannot shrink; use head()")
+        if capacity == cap:
+            return self
+        cols = {k: torch.cat([v, v.new_zeros(capacity - cap)])
+                for k, v in self.columns.items()}
+        return Table(columns=cols, nvalid=self.nvalid)
+
     def rename(self, mapping: Mapping[str, str]) -> "Table":
         cols = {mapping.get(k, k): v for k, v in self.columns.items()}
+        return Table(columns=cols, nvalid=self.nvalid)
+
+    def add_prefix(self, prefix: str) -> "Table":
+        return Table(columns={prefix + k: v for k, v in self.columns.items()},
+                     nvalid=self.nvalid)
+
+    def astype(self, dtypes: Mapping[str, torch.dtype]) -> "Table":
+        cols = dict(self.columns)
+        for k, dt in dtypes.items():
+            cols[k] = cols[k].to(dt)
+        return Table(columns=cols, nvalid=self.nvalid)
+
+    def map_column(self, name: str,
+                   fn: Callable[[torch.Tensor], torch.Tensor],
+                   out: str | None = None) -> "Table":
+        cols = dict(self.columns)
+        cols[out or name] = fn(cols[name])
         return Table(columns=cols, nvalid=self.nvalid)
 
 
@@ -159,3 +222,10 @@ def null_like(col: torch.Tensor) -> torch.Tensor:
     if _is_float(col):
         return torch.full_like(col, FLOAT_NULL)
     return torch.full_like(col, INT_NULL)
+
+
+def isnull_values(col: torch.Tensor) -> torch.Tensor:
+    """Null sentinels of a column: NaN for floats, ``INT_NULL`` else."""
+    if _is_float(col):
+        return torch.isnan(col)
+    return col == INT_NULL

@@ -11,7 +11,7 @@ scatter (every column viewed as an int32 plane first).
 Semantics contract:
 
 * equal keys always land in the same bucket (the hash sees only the key
-  bit-planes, with ``-0.0`` floats normalized to ``+0.0``);
+  bit-planes, with ``-0.0`` and subnormal floats normalized to ``+0.0``);
 * slot order within a bucket is original row order (stable ranks);
 * a bucket holds at most ``slab_cap`` rows — overflowing rows are dropped
   and counted.  Every row that does not get a slot is written to one
@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.table import flush_subnormals, flush_subnormals_np
 from .fused_bucketing import fused_bucket_ranks
 from .fused_bucketing.ref import bucket_ids, bucket_ids_np  # noqa: F401
 from .hash_partition import radix_histogram_ranks
@@ -42,20 +43,17 @@ EXACT_SLAB_CAP = 512
 
 
 def key_bits(col: torch.Tensor) -> torch.Tensor:
-    """Key column -> int32 bit-plane with exact equality semantics."""
+    """Key column -> int32 bit-plane with the reference's equality: floats
+    by their bits once ``-0.0`` and subnormals are ``+0.0``."""
     if col.dtype.is_floating_point:
-        col = col.to(torch.float32)
-        col = torch.where(col == 0.0, torch.zeros_like(col), col)
-        return col.view(torch.int32)
+        return flush_subnormals(col.to(torch.float32)).view(torch.int32)
     return col.to(torch.int32)
 
 
 def key_bits_np(col: np.ndarray) -> np.ndarray:
     """numpy copy of :func:`key_bits`."""
     if np.issubdtype(col.dtype, np.floating):
-        col = col.astype(np.float32)
-        col = np.where(col == 0.0, np.float32(0.0), col)
-        return col.view(np.int32)
+        return flush_subnormals_np(col.astype(np.float32)).view(np.int32)
     return col.astype(np.int32)
 
 

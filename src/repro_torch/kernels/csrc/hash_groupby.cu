@@ -141,25 +141,13 @@ extern "C" int hash_groupby_accumulate(const int* kbits, const int* occ,
                                        void* stream) {
   if (B <= 0 || C <= 0 || V <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (!e)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e) return static_cast<int>(e);
   // staged slots: at most kChunk, fewer when many key planes fill the
   // shared memory a block may opt in to
-  const int64_t per_slot = static_cast<int64_t>(K + 1 + kVals) * sizeof(int);
-  int cj = C < kChunk ? C : kChunk;
-  if (cj * per_slot > optin) cj = static_cast<int>(optin / per_slot);
-  if (cj < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(cj * per_slot);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(
-        hash_groupby_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e) return static_cast<int>(e);
-  }
+  int cj = 0;
+  size_t smem = 0;
+  const int e = repro::prepare_chunk(hash_groupby_kernel, K + 1 + kVals, C,
+                                     kChunk, &cj, &smem);
+  if (e) return e;
   hash_groupby_kernel<<<static_cast<unsigned>(B), repro::kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       kbits, occ, vals, K, V, C, cj, rep, counts, sums, mins, maxs);

@@ -1,6 +1,7 @@
-// Shared pieces of the table kernels: the launch-error string, and the
+// Shared pieces of the table kernels: the launch-error string, the
 // stable within-tile ranking that hash_partition, fused_bucketing and
-// radix_sort run.
+// radix_sort run, and the sizing of a slab chunk staged in shared memory
+// (hash_groupby, hash_join, hash_semi).
 //
 // Layout of one tile: a block of kWarps warps ranks kThreads * Items
 // consecutive rows (Items rows per thread: kItems, or the count a kernel
@@ -99,6 +100,33 @@ inline int prepare_shared(Kernel kernel, int P, size_t* bytes) {
   *bytes = static_cast<size_t>(kWarps) * P * sizeof(int);
   if (*bytes > static_cast<size_t>(kMaxSharedBytes))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (*bytes > 48 * 1024)
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(*bytes)));
+  return 0;
+}
+
+// Slab slots staged in shared memory per chunk, `ints_per_slot` 4-byte
+// words each: at most `max_slots` and C, fewer when the slots would
+// overflow the shared memory a block may opt in to.  Sets *slots and
+// *bytes, raises the kernel's limit above the default 48 KB when needed,
+// and returns a cudaError_t.
+template <typename Kernel>
+inline int prepare_chunk(Kernel kernel, int64_t ints_per_slot, int C,
+                         int max_slots, int* slots, size_t* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (!e)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e) return static_cast<int>(e);
+  const int64_t per_slot = ints_per_slot * static_cast<int64_t>(sizeof(int));
+  int64_t n = C < max_slots ? C : max_slots;
+  if (n * per_slot > optin) n = optin / per_slot;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *slots = static_cast<int>(n);
+  *bytes = static_cast<size_t>(n * per_slot);
   if (*bytes > 48 * 1024)
     return static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -8,9 +8,11 @@ pair, the original row ids and the within-row match rank.
 
 The probe replaces the TPU kernel ``bucket_probe_buckets`` of
 ``src/repro/kernels/hash_join/kernel.py``.  The CUDA kernel
-(``csrc/hash_join.cu``) stages each bucket's build keys in shared memory
-and walks every probe slot's chain 32 slots per warp step with a ballot,
-writing the dense ``(B, Lc, C)`` rank tensor once, coalesced.  That write
+(``csrc/hash_join.cu``, on the bucket compare of ``csrc/bucket_match.cuh``
+that ``hash_semi`` shares) streams each bucket's build keys through shared
+memory in chunks and walks every probe slot's chain 32 slots per warp step
+with a ballot, writing the dense ``(B, Lc, C)`` rank tensor once,
+coalesced; any number of key planes and any slab width run.  That write
 bounds it: 4 B per pair.
 
 Static-shape contract: a bucket holds at most ``bucket_capacity`` build
@@ -51,10 +53,9 @@ def _bucket_probe_cuda(pbits, pocc, bbits, bocc):
     rank = torch.empty((B, Lc, C), dtype=torch.int32, device=dev)
     if B == 0 or Lc == 0 or C == 0:
         return counts, rank
+    if K == 0:
+        raise ValueError("the probe kernel needs at least one key plane")
     lib = build.library("hash_join")
-    if not 0 < K <= lib.hash_join_max_keys():
-        raise ValueError(f"{K} key planes; the probe kernel takes 1 to "
-                         f"{lib.hash_join_max_keys()}")
     fn = lib.hash_join_probe
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p] * 3

@@ -6,10 +6,10 @@ digit passes, with no sort call anywhere.
 
 Key columns become int32 *sort words* whose unsigned order is the
 ascending order of a stable sort (:func:`sortable_word`): int32 gets the
-sign-bit bias; float32 has ``-0.0 == +0.0`` and every NaN equal and
-greatest.  Each word takes ``ceil(32 / radix_bits)`` stable passes, least
-significant digit first, then a 1-bit validity pass moves padding rows to
-the end.
+sign-bit bias; float32 has ``-0.0``, ``+0.0`` and the subnormals equal
+(as the reference compares them) and every NaN equal and greatest.  Each
+word takes ``ceil(32 / radix_bits)`` stable passes, least significant
+digit first, then a 1-bit validity pass moves padding rows to the end.
 
 The digit pass replaces the TPU kernel ``digit_histogram_ranks_tiles`` of
 ``src/repro/kernels/radix_sort/kernel.py``.  The CUDA kernel
@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from ...core.kernel_backend import table_kernel_impl
+from ...core.table import flush_subnormals
 from .. import autotune, build
 from ..hash_partition.ops import add_tile_offsets
 from .ref import digit_histogram_ranks_ref, extract_digits
@@ -52,10 +53,10 @@ _SIGN = -2 ** 31
 
 def sortable_word(col: torch.Tensor) -> torch.Tensor:
     """Key column -> int32 word whose *unsigned* order is the stable sort
-    order: ``-0.0 == +0.0`` and every NaN equal and greatest."""
+    order: ``-0.0``, ``+0.0`` and the subnormals equal, every NaN equal
+    and greatest."""
     if col.dtype.is_floating_point:
-        f = col.to(torch.float32)
-        f = torch.where(f == 0.0, torch.zeros_like(f), f)
+        f = flush_subnormals(col.to(torch.float32))
         f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
         bits = f.view(_I32)
         # sign-magnitude -> biased two's complement: negative floats flip

@@ -17,6 +17,8 @@ from repro_torch.kernels.hash_groupby.ops import bucket_accumulate
 from repro_torch.kernels.hash_groupby.ref import bucket_accumulate_ref
 from repro_torch.kernels.hash_join.ops import bucket_probe
 from repro_torch.kernels.hash_join.ref import bucket_probe_ref
+from repro_torch.kernels.hash_semi import ops as hs_ops
+from repro_torch.kernels.hash_semi.ref import bucket_member_ref
 from repro_torch.kernels.hash_partition import ops as hp_ops
 from repro_torch.kernels.hash_partition import radix_histogram_ranks
 from repro_torch.kernels.hash_partition.ref import radix_histogram_ranks_ref
@@ -69,14 +71,93 @@ def test_fused_bucketing_equals_plain(cuda, P, K, kind, rng):
                  fused_bucket_ranks_ref(planes, valid, P))
 
 
+# (600, 2600, 8): 32 probe slots per warp and blocks that walk more than
+# one group of 256 slots
 @pytest.mark.parametrize("K", [1, 2])
-@pytest.mark.parametrize("B,Lc,C", [(3, 70, 33), (64, 16, 200)])
+@pytest.mark.parametrize("B,Lc,C", [(3, 70, 33), (64, 16, 200),
+                                    (600, 2600, 8)])
 def test_hash_join_equals_plain(cuda, B, K, Lc, C, rng):
     args = (on(cuda, rng.integers(-3, 3, (B, K, Lc)).astype(np.int32)),
             on(cuda, (rng.random((B, Lc)) < 0.8).astype(np.int32)),
             on(cuda, rng.integers(-3, 3, (B, K, C)).astype(np.int32)),
             on(cuda, (rng.random((B, C)) < 0.8).astype(np.int32)))
     assert equal(bucket_probe(*args), bucket_probe_ref(*args))
+
+
+def pooled_slabs(rng, B, K, Lc, C):
+    """Probe and build slabs whose keys come from a pool of 8 K-plane
+    vectors per bucket (the build side uses the first 6, so some probes
+    miss); bucket 0 has no occupied slot, bucket 1 every slot occupied."""
+    pool = rng.integers(-4, 4, (B, K, 8)).astype(np.int32)
+    pp = rng.integers(0, 8, (B, 1, Lc))
+    bp = rng.integers(0, 6, (B, 1, C))
+    pbits = np.take_along_axis(pool, np.repeat(pp, K, 1), 2)
+    bbits = np.take_along_axis(pool, np.repeat(bp, K, 1), 2)
+    pocc = (rng.random((B, Lc)) < 0.8).astype(np.int32)
+    bocc = (rng.random((B, C)) < 0.8).astype(np.int32)
+    pocc[0], bocc[0] = 0, 0
+    if B > 1:
+        pocc[1], bocc[1] = 1, 1
+    return pbits, pocc, bbits, bocc
+
+
+# (K + 1) * C * 4 bytes past the 227 KB a block may hold: C = 30000 at
+# K = 1, C = 700 at K = 300; B = 600, Lc = 2600: 32 probe slots per warp
+# and blocks that walk more than one group of 256 slots
+@pytest.mark.parametrize("K,B,Lc,C", [(1, 4, 100, 33), (2, 64, 16, 200),
+                                      (33, 6, 70, 150), (40, 3, 130, 300),
+                                      (1, 3, 90, 30000), (2, 3, 40, 2500),
+                                      (1, 600, 2600, 40), (2, 600, 2600, 40)])
+def test_hash_semi_equals_plain(cuda, K, B, Lc, C, rng):
+    args = tuple(on(cuda, a) for a in pooled_slabs(rng, B, K, Lc, C))
+    before = hs_ops.launches
+    got = hs_ops.bucket_member(*args)
+    assert hs_ops.launches == before + 1
+    want = bucket_member_ref(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+    assert not got[0].any()
+
+
+def test_hash_semi_without_build_slots_launches_nothing(cuda):
+    before = hs_ops.launches
+    got = hs_ops.bucket_member(
+        torch.ones((2, 1, 8), dtype=torch.int32, device=cuda),
+        torch.ones((2, 8), dtype=torch.int32, device=cuda),
+        torch.ones((2, 1, 0), dtype=torch.int32, device=cuda),
+        torch.ones((2, 0), dtype=torch.int32, device=cuda))
+    assert hs_ops.launches == before and not got.any()
+
+
+@pytest.mark.parametrize("K,B,Lc,C", [(33, 4, 70, 120), (40, 3, 64, 300),
+                                      (300, 2, 70, 500), (1, 2, 64, 30000)])
+def test_hash_join_any_planes_and_width(cuda, K, B, Lc, C, rng):
+    """No cap on key planes or slab width: the build slab streams through
+    shared memory and the running rank carries across chunks."""
+    args = tuple(on(cuda, a) for a in pooled_slabs(rng, B, K, Lc, C))
+    assert equal(bucket_probe(*args), bucket_probe_ref(*args))
+
+
+@pytest.mark.parametrize("impl", ["sortmerge", "hash"])
+def test_set_ops_on_the_card_equal_cpu(cuda, impl, rng):
+    n = 5000
+    a = {"k": rng.integers(0, 900, n).astype(np.int32),
+         "f": rng.choice(np.float32([0.0, -0.0, 1e-40, 2.5, np.nan]), n),
+         "v": rng.normal(size=n).astype(np.float32)}
+    b = {"k": rng.integers(450, 1350, n // 2).astype(np.int32),
+         "f": rng.choice(np.float32([0.0, 2.5, -1.0]), n // 2),
+         "v": rng.normal(size=n // 2).astype(np.float32)}
+    ta, tb = (Table.from_dict(x, capacity=n + 7, device=cuda) for x in (a, b))
+    ca, cb = (Table.from_dict(x, capacity=n + 7, device="cpu")
+              for x in (a, b))
+    assert torch.equal(L.isin(ta, "k", tb, "k", impl=impl).cpu(),
+                       L.isin(ca, "k", cb, "k", impl=impl))
+    for op in ("intersect", "difference"):
+        got = getattr(L, op)(ta, tb, on=["k", "f"], impl=impl).to_numpy()
+        want = getattr(L, op)(ca, cb, on=["k", "f"], impl=impl).to_numpy()
+        for c in want:
+            np.testing.assert_array_equal(got[c].view(np.int32),
+                                          want[c].view(np.int32))
 
 
 @pytest.mark.parametrize("tile", [512, 1024, 2048])

@@ -1,5 +1,8 @@
-"""The port's distributed join and Table 5 operators at world 2 against
-the JAX package at world 2, bit for bit.
+"""The port's distributed join, Table 5 operators, set operators and
+UNOMT pipeline at world 2 against the JAX package at world 2: bit for bit,
+but for the UNOMT columns the pipeline scales, whose float32 sums add in
+another order in each package and are held to
+``|port - jax| <= 2e-5 * (1 + |jax|)``.
 
 Two gloo processes meet through a ``file://`` store under ``tmp_path``
 with a 120 s timeout on the process group, so a hung collective raises;
@@ -16,17 +19,18 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "dist", "torch_join_conformance.py")
+SETOP_WORKER = os.path.join(HERE, "dist", "torch_setop_conformance.py")
 SRC = os.path.join(os.path.dirname(HERE), "src")
 WORLD = 2
 LIMIT_S = 600
 
 
-def _start(args, env_extra=None):
+def _start(args, env_extra=None, worker=WORKER):
     # default backends on both sides: the cases pick their backends
     # themselves
     env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
     env.update(PYTHONPATH=SRC, **(env_extra or {}))
-    return subprocess.Popen([sys.executable, WORKER, *args], env=env,
+    return subprocess.Popen([sys.executable, worker, *args], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
@@ -41,14 +45,17 @@ def _finish(proc, what):
     assert proc.returncode == 0, f"{what} failed:\n{out[-3000:]}"
 
 
-def test_dist_join_world2_matches_jax(tmp_path):
+def _run_both(tmp_path, worker):
+    """Run ``worker`` for the JAX package (two forced host devices) and
+    as two port ranks; returns (jax results, port results)."""
     want_path, got_path = tmp_path / "jax.npz", tmp_path / "torch.npz"
     store = tmp_path / "store"
     procs = [(_start(["jax", str(WORLD), str(want_path)],
                      {"XLA_FLAGS": "--xla_force_host_platform_device_count="
-                      f"{WORLD}", "JAX_PLATFORMS": "cpu"}), "jax reference")]
+                      f"{WORLD}", "JAX_PLATFORMS": "cpu"}, worker),
+              "jax reference")]
     procs += [(_start(["torch", str(WORLD), str(got_path), str(rank),
-                       str(store)]), f"torch rank {rank}")
+                       str(store)], worker=worker), f"torch rank {rank}")
               for rank in range(WORLD)]
     try:
         for proc, what in procs:
@@ -58,7 +65,11 @@ def test_dist_join_world2_matches_jax(tmp_path):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    want, got = np.load(want_path), np.load(got_path)
+    return np.load(want_path), np.load(got_path)
+
+
+def test_dist_join_world2_matches_jax(tmp_path):
+    want, got = _run_both(tmp_path, WORKER)
     assert sorted(want.files) == sorted(got.files)
     for key in want.files:
         a, b = want[key], got[key]
@@ -71,3 +82,27 @@ def test_dist_join_world2_matches_jax(tmp_path):
     for case in ("planned/hash", "groupby/hash", "unique/hash", "sort/radix",
                  "repartition", "broadcast/hash"):
         assert len(want[f"{case}/k"]) > 0, case
+
+
+def test_dist_setops_and_unomt_world2_match_jax(tmp_path):
+    want, got = _run_both(tmp_path, SETOP_WORKER)
+    assert sorted(want.files) == sorted(got.files)
+    scaled = ("concentration",) + tuple(f"rna{j}" for j in range(8))
+    for key in want.files:
+        a, b = want[key], got[key]
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if key.startswith("unomt/") and key.endswith(scaled):
+            a64 = a.astype(np.float64)
+            assert np.all(np.abs(b - a64) <= 2e-5 * (1 + np.abs(a64))), key
+            continue
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=key)
+    drops = {k: int(want[k]) for k in want.files if k.endswith("/dropped")}
+    assert not any(drops.values()), drops
+    for impl in ("sortmerge", "hash"):
+        assert len(want[f"unomt/{impl}/drug_id"]) > 400
+        assert len(want[f"isin/skewed/{impl}/k"]) > 0
+        # subnormal and zero keys met on one rank: one group, not several
+        assert len(want[f"subnormal_groupby/"
+                        f"{'hash' if impl == 'hash' else 'sort'}/f"]) == 3
