@@ -4,7 +4,7 @@
 
 Phases, each fatal on failure:
 
-1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes: the integer outputs exactly; the groupby accumulate's sums
    within 1e-6 of the group's sum of magnitudes and its mins and maxs as
@@ -33,7 +33,19 @@ Phases, each fatal on failure:
 10. the set operators, 10 M x 5 M rows: ``dist_isin``,
    ``dist_intersect`` and ``dist_difference`` under both membership
    backends, equal to each other and to numpy;
-11. timings: each leg's median of 3 warmed runs and peak memory, a
+11. the LM serving path: Granite-3.0-2B at its published widths and
+   depth, random weights from ``torch.Generator`` seed 0, served by
+   ``ServingEngine`` (8 slots, prompts up to 1024 tokens, up to 64
+   generated) with both UNOMT feature stores; 32 requests; the flash
+   kernel runs in every layer of every prefill.  Checked: the accounting
+   identity, tokens and features of every request, nothing dropped, exact
+   launch counts, two requests against the one-shot prefill/decode loop
+   (fed the engine's tokens) and every request against the same engine
+   on the plain ``xla`` attention path, within ``SERVE_LOGIT_TOL``; then
+   ``flash_attention`` against ``attention_ref`` on the q, k, v one
+   prefill gave it and on six more shapes; tokens/s, TTFT, prefill and
+   decode-step times and a profile of one prefill and 8 decode steps;
+12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time beside its plain version,
    its bound and, where there is one, a library call.
 
@@ -43,8 +55,11 @@ exactly the kernels their path runs, as often as it runs them.  The line before 
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when there is no CUDA device.
 """
+import collections
 import contextlib
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -66,24 +81,37 @@ UNOMT_DRUGS = 65_536
 UNOMT_CELLS = 1_024
 SETOP_ROWS = (10_000_000, 5_000_000)   # set-ops leg: a and b
 SETOP_KEYS = 1_000_000         # a.k over [0, 1 M), b.k over [500 k, 1.5 M)
+SERVE_ARCH = "granite-3-2b"    # the serving leg's model, full width and depth
+SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
+SERVE_QUEUE, SERVE_REQUESTS = 64, 32
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
 BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
-           "hash_groupby", "hash_semi")
+           "hash_groupby", "hash_semi", "flash_attention")
 JOIN_KERNELS = KERNELS[:3]
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FNS = ("hash_partition", "fused_bucketing", "hash_join",
-                   "radix_digit", "hash_groupby", "hash_semi")
+                   "radix_digit", "hash_groupby", "hash_semi",
+                   "flash_attention")
 
 
 def _modules():
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
     from repro_torch.core.context import make_context
     from repro_torch.data import unomt
     from repro_torch.kernels import bucketing, build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+    from repro_torch.models import model
+    from repro_torch.serving import ServingEngine
     from repro_torch.kernels.fused_bucketing import ops as fb_ops
     from repro_torch.kernels.fused_bucketing import ref as fb_ref
     from repro_torch.kernels.hash_groupby import ops as hg_ops
@@ -100,9 +128,12 @@ def _modules():
                 build=build, bucketing=bucketing,
                 ops={"hash_partition": hp_ops, "fused_bucketing": fb_ops,
                      "hash_join": hj_ops, "radix_sort": rs_ops,
-                     "hash_groupby": hg_ops, "hash_semi": hs_ops},
+                     "hash_groupby": hg_ops, "hash_semi": hs_ops,
+                     "flash_attention": fa_ops},
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
-                hg_ref=hg_ref, hs_ref=hs_ref)
+                hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref,
+                get_config=get_config, M=model, A=attn, Ly=layers,
+                serve=serve, ServingEngine=ServingEngine)
 
 
 def card() -> str:
@@ -120,6 +151,11 @@ def emit(obj) -> None:
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _allocated(device) -> int:
+    return torch.cuda.memory_allocated(device) \
+        if torch.device(device).type == "cuda" else 0
 
 
 # --------------------------------------------------------------------------
@@ -282,6 +318,9 @@ def _plain(m, name, args):
         return m["rs_ref"].digit_histogram_ranks_ref(*args[:3])
     if name == "hash_groupby":
         return m["hg_ref"].bucket_accumulate_ref(*args)
+    if name == "flash_attention":
+        q, k, v, causal = args
+        return (m["fa_ref"].attention_ref(q, k, v, causal=causal),)
     pb, po, bb, bo = args
     if name == "hash_semi":
         # about 2**28 pairs per chunk of buckets
@@ -308,6 +347,9 @@ def _kernel(m, name, args):
         return op.bucket_accumulate(*args)
     if name == "hash_semi":
         return (op.bucket_member(*args),)
+    if name == "flash_attention":
+        q, k, v, causal = args
+        return (op.flash_attention(q, k, v, causal=causal),)
     return op.bucket_probe(*args)
 
 
@@ -345,6 +387,13 @@ def compare_kernels(m, cases, device) -> dict:
             got = _kernel(m, name, case["args"])
             want = _plain(m, name, case["args"])
             _sync(device)
+            if name == "flash_attention":
+                err = _flash_close(case, got[0], want[0])
+                errs[name] = max(errs[name], err)
+                emit({"phase": "kernel_close", "kernel": name,
+                      "shape": case["shape"], "max_abs_err": err,
+                      "tolerance": FLASH_TOL})
+                continue
             if name == "hash_groupby":
                 err, worst = _groupby_close(m, case["args"], got, want)
                 errs[name] = max(errs[name], err)
@@ -734,14 +783,17 @@ def check_unomt(got: dict, want: dict) -> None:
 
 
 @contextlib.contextmanager
-def recording(op, fn_name, calls):
-    """Context in which ``op.fn_name`` also appends a copy of each call's
-    arguments to ``calls``; launches are counted as without it."""
+def recording(op, fn_name, calls, limit=None):
+    """Context in which ``op.fn_name`` also appends a copy of the
+    arguments of each call (of the first ``limit`` calls), positional then
+    keyword, to ``calls``; launches are counted as without it."""
     plain = getattr(op, fn_name)
 
-    def keep(*args):
-        calls.append(tuple(a.clone() for a in args))
-        return plain(*args)
+    def keep(*args, **kwargs):
+        if limit is None or len(calls) < limit:
+            calls.append(tuple(a.clone() for a in args)
+                         + tuple(kwargs.values()))
+        return plain(*args, **kwargs)
 
     setattr(op, fn_name, keep)
     try:
@@ -875,6 +927,464 @@ def run_setops(m, ctx, device, a, b):
 
 
 # --------------------------------------------------------------------------
+# the LM serving path: ServingEngine with feature fetch, flash attention
+# --------------------------------------------------------------------------
+
+# bf16 outputs compared in float32: the reference's own bf16 tolerance for
+# its kernel (tests/test_kernels.py::test_flash_attention_dtypes)
+FLASH_TOL = 2e-2
+# Prefill logits of the flash path against the plain ``xla`` path, and the
+# engine's logits against the one-shot loop's at every position, agree
+# within SERVE_LOGIT_TOL absolute (logits of magnitude about 4).  Each attention output of the
+# kernel is within one bf16 ulp of plain attention's (it rounds P to bf16
+# for the tensor cores and sums in another order), and forty layers of
+# random weights amplify such differences: the first runs on the card
+# measured 0.215 at most and 0.178 at the median over the leg's 32
+# prompts, and plain attention_ref against xla (float32 both, other sums)
+# 0.149 on one; the engine against the one-shot loop 0.165 (the same
+# kernels at other batch shapes).  Greedy tokens are compared where the
+# reference's top-2 logit margin is at least SERVE_LOGIT_TOL: below it a
+# difference within the tolerance may pick the other token.  Against the
+# ``xla`` run, which decodes freely, up to the first such position (the
+# sequences may go apart there); against the one-shot loop, fed the
+# engine's tokens, at every position.
+SERVE_LOGIT_TOL = 0.3
+
+
+def _margin(logits) -> np.ndarray:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu().numpy()
+
+
+class Recorder:
+    """Hooks on an engine: each request's prefill logits (float32, on the
+    host) and its top-2 logit margin at every token it emits, in the order
+    of its ``out_tokens``; for the requests of ``keep`` also the logits of
+    every token (``steps``)."""
+
+    def __init__(self, engine, keep=()):
+        self.logits = {}
+        self.margins = collections.defaultdict(list)
+        self.steps = collections.defaultdict(list)
+        upcoming = collections.deque()
+        fetch, prefill, step = (engine._fetch_features,
+                                engine._slot_prefill, engine._serve_step)
+
+        def fetch_hook(reqs):
+            good = fetch(reqs)
+            upcoming.extend(good)
+            return good
+
+        def prefill_hook(params, batch, length):
+            logits, caches = prefill(params, batch, length)
+            rid = upcoming.popleft().req_id
+            self.logits[rid] = logits[0].float().cpu()
+            self.margins[rid].append(float(_margin(logits)[0]))
+            if rid in keep:
+                self.steps[rid].append(self.logits[rid])
+            return logits, caches
+
+        def step_hook(params, caches, tokens, cache_lens):
+            logits, caches = step(params, caches, tokens, cache_lens)
+            mg = _margin(logits)
+            for slot in engine.batch.active():
+                rid = engine.batch.request_at(slot).req_id
+                self.margins[rid].append(float(mg[slot]))
+                if rid in keep:
+                    self.steps[rid].append(logits[slot].float().cpu())
+            return logits, caches
+
+        engine._fetch_features = fetch_hook
+        engine._slot_prefill = prefill_hook
+        engine._serve_step = step_hook
+
+
+def greedy_agree(got, want, margins, tol) -> int:
+    """Tokens compared before the first position whose margin is below
+    ``tol``; raises on a difference before it."""
+    n = 0
+    for g, w, mg in zip(got, want, margins):
+        if mg < tol:
+            break
+        if g != w:
+            raise AssertionError(f"token {n}: {g} != {w} at margin {mg}")
+        n += 1
+    return n
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def count_lookups(stores) -> list:
+    """Wrap each store's ``lookup``; the returned one-element list counts
+    the calls."""
+    n = [0]
+    for store in stores.values():
+        plain = store.lookup
+
+        def lookup(keys, plain=plain):
+            n[0] += 1
+            return plain(keys)
+
+        store.lookup = lookup
+    return n
+
+
+def check_served(done, reqs, tables, n_req):
+    """Every request done with ``gen_len`` tokens and the features of its
+    numpy rows."""
+    if sorted(r.req_id for r in done) != list(range(n_req)):
+        raise AssertionError("serving: requests lost")
+    for r in done:
+        if r.status != "done" or len(r.out_tokens) != r.gen_len:
+            raise AssertionError(f"serving: request {r.req_id} {r.status} "
+                                 f"with {len(r.out_tokens)} tokens")
+        want = {}
+        for attr, tbl in tables.items():
+            row = int(np.flatnonzero(tbl[attr] == getattr(r, attr))[0])
+            want.update({c: float(v[row]) for c, v in tbl.items()
+                         if c != attr})
+        if r.features != want:
+            raise AssertionError(f"serving: request {r.req_id} features "
+                                 "differ from its numpy rows")
+
+
+def oneshot_tokens(m, cfg, params, req, device):
+    """The one-shot loop (exact-length prefill, then batch-1 decode at a
+    scalar cache length) fed the engine's tokens, so both see the same
+    context at every position: its greedy choice, top-2 margin and logits
+    (float32, host) at each of the request's positions."""
+    M = m["M"]
+    n = len(req.prompt)
+    prefill = M.make_prefill(cfg, decode_len=n + req.gen_len)
+    step = M.make_serve_step(cfg)
+    logits, caches = prefill(params, {"tokens": torch.from_numpy(
+        req.prompt[None]).to(device)})
+    toks, margins, steps = [], [], []
+    for i in range(req.gen_len):
+        toks.append(int(torch.argmax(logits[0])))
+        margins.append(float(_margin(logits)[0]))
+        steps.append(logits[0].float().cpu())
+        if i < req.gen_len - 1:
+            logits, caches = step(params, caches, torch.tensor(
+                [[req.out_tokens[i]]], dtype=torch.int32, device=device),
+                n + i)
+    return toks, margins, steps
+
+
+def profile_serving(m, fns, device):
+    """Each of ``fns`` (name -> callable) once warmed, then once under
+    torch.profiler with ``dense``, ``decode_attention``, ``logits_out``
+    and the flash wrapper in labelled ranges: wall ms, device busy ms and
+    share, and device ms under each label."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    A, Ly, fa = m["A"], m["Ly"], m["ops"]["flash_attention"]
+    labelled = [(Ly, "dense"), (A, "decode_attention"), (Ly, "logits_out"),
+                (fa, "flash_attention")]
+    plain = {name: getattr(mod, name) for mod, name in labelled}
+
+    def label(name):
+        def fn(*args, **kwargs):
+            with record_function(f"serve::{name}"):
+                return plain[name](*args, **kwargs)
+        return fn
+
+    out = {}
+    for key, fn in fns.items():
+        fn()
+        torch.cuda.synchronize(device)
+        for mod, name in labelled:
+            setattr(mod, name, label(name))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(device)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for mod, name in labelled:
+                setattr(mod, name, plain[name])
+        # kernels only: the labels also appear on the device's timeline as
+        # annotation spans (first to last kernel of the range, gaps
+        # included), kept apart here
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("serve::")]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        by_label, spans = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            if e.name.startswith("serve::"):
+                part = e.name.split("::")[1]
+                if e.device_type == DeviceType.CUDA:
+                    spans[part] += e.device_time_total / 1e3
+                else:       # the kernels of the range's operators
+                    by_label[part] += e.device_time_total / 1e3
+        # the flash kernel is launched through ctypes, not by an operator
+        # of the range: its time is read from the kernel itself
+        by_label["flash_attention"] = sum(
+            e.self_device_time_total for e in kernels
+            if "flash_attention_kernel" in e.key) / 1e3
+        kernels.sort(key=lambda e: -e.self_device_time_total)
+        out[key] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                    "device_busy_share": busy / wall_ms,
+                    "device_ms_by_label": dict(by_label),
+                    "device_span_ms_by_label": dict(spans),
+                    "device_ms_other": busy - sum(by_label.values()),
+                    "top_kernels": [{"name": e.key[:80], "count": e.count,
+                                     "device_ms":
+                                         e.self_device_time_total / 1e3}
+                                    for e in kernels[:6]]}
+    return out
+
+
+def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
+                gen_cap=SERVE_GEN, n_req=SERVE_REQUESTS, slots=SERVE_SLOTS,
+                queue=SERVE_QUEUE, attn_impl=None):
+    """Drive the serving path once with the flash kernel, counted and
+    checked, then against the one-shot loop and the ``xla`` attention
+    path; time and profile it.  ``attn_impl`` is the first engine's
+    attention path (``None``: what the device implies; a rehearsal on the
+    CPU passes ``"cuda"`` to reach the flash wrapper's plain version).
+    Returns (legs, the q, k, v and causal flag of the first flash
+    call)."""
+    M, serve = m["M"], m["serve"]
+    ops = m["ops"]
+    params = M.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg)
+    _sync(device)
+    resident = _allocated(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    recorded = []
+
+    for op in ops.values():
+        op.launches = 0
+    stores, tables = serve.feature_stores(m["make_context"](device), 0,
+                                          max(slots, 8))
+    lookups = count_lookups(stores)
+    engine = m["ServingEngine"](
+        cfg, params, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=queue, feature_stores=stores,
+        attn_impl=attn_impl, device=device)
+    reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
+    pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
+    rec = Recorder(engine, keep=set(pick))
+    with recording(ops["flash_attention"], "flash_attention", recorded,
+                   limit=1):
+        done, rejected, seconds = serve.drive(engine, reqs, slots)
+    _sync(device)
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0) - resident
+
+    mt = engine.metrics
+    if mt.count("submitted") != mt.count("completed") + \
+            mt.count("rejected") + mt.count("feature_misses"):
+        raise AssertionError("serving: accounting identity violated")
+    if rejected or mt.count("feature_misses"):
+        raise AssertionError(f"serving: {len(rejected)} rejected, "
+                             f"{mt.count('feature_misses')} feature misses")
+    check_served(done, reqs, tables, n_req)
+    dropped = {k: s.dropped for k, s in stores.items()}
+    if any(dropped.values()):
+        raise AssertionError(f"serving: feature stores dropped {dropped}")
+    chunks = sum(math.ceil(s.n_rows / serve.CHUNK_ROWS)
+                 for s in stores.values())
+    # one shuffle per ingest chunk and per lookup; the lookups' sortmerge
+    # join and the ingest append run no radix pass
+    expect_launches("serving", launches, {
+        "flash_attention": cfg.n_layers * mt.count("prefills"),
+        "hash_partition": chunks + lookups[0], "radix_sort": 0})
+
+    # two requests against the one-shot loop, fed the engine's tokens:
+    # the logits at every position within SERVE_LOGIT_TOL, and the same
+    # greedy token wherever the one-shot margin is at least that
+    oneshot = {"requests": pick, "positions": 0, "compared": 0,
+               "equal": 0, "logit_diff": 0.0}
+    by_id = {r.req_id: r for r in done}
+    for rid in pick:
+        r = by_id[rid]
+        toks, margins, steps = oneshot_tokens(m, cfg, params, r, device)
+        for i, (a, b) in enumerate(zip(rec.steps[rid], steps, strict=True)):
+            oneshot["logit_diff"] = max(oneshot["logit_diff"],
+                                        float((a - b).abs().max()))
+            oneshot["positions"] += 1
+            oneshot["equal"] += toks[i] == r.out_tokens[i]
+            if margins[i] >= SERVE_LOGIT_TOL:
+                oneshot["compared"] += 1
+                if toks[i] != r.out_tokens[i]:
+                    raise AssertionError(
+                        f"serving: request {rid} token {i}: engine "
+                        f"{r.out_tokens[i]}, one-shot {toks[i]} at margin "
+                        f"{margins[i]}")
+    if oneshot["logit_diff"] > SERVE_LOGIT_TOL or not oneshot["compared"]:
+        raise AssertionError(f"serving: engine against one-shot {oneshot}")
+
+    # the same requests on the plain attention path
+    for op in ops.values():
+        op.launches = 0
+    n_lookups = lookups[0]
+    xla = m["ServingEngine"](
+        cfg, params, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=queue, feature_stores=stores,
+        attn_impl="xla", device=device)
+    xrec = Recorder(xla)
+    xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
+    xdone, _, xseconds = serve.drive(xla, xreqs, slots)
+    _sync(device)
+    xlaunches = {k: op.launches for k, op in ops.items()}
+    expect_launches("serving_xla", xlaunches, {
+        "hash_partition": lookups[0] - n_lookups, "radix_sort": 0})
+    check_served(xdone, xreqs, tables, n_req)
+    want = {r.req_id: r for r in xdone}
+    diffs = {rid: float((lg - xrec.logits[rid]).abs().max())
+             for rid, lg in rec.logits.items()}
+    worst = max(diffs.values())
+    if worst > SERVE_LOGIT_TOL:
+        raise AssertionError(f"serving: flash and xla prefill logits differ "
+                             f"by {worst} > {SERVE_LOGIT_TOL}")
+    compared = sum(greedy_agree(r.out_tokens, want[r.req_id].out_tokens,
+                                xrec.margins[r.req_id], SERVE_LOGIT_TOL)
+                   for r in done)
+    if compared == 0:
+        raise AssertionError("serving: no token compared with the xla run")
+    # the noise of plain attention alone: attention_ref (float32, -inf
+    # masks, other sums) against xla on the first request's prompt
+    r0 = reqs[0]
+    padded = np.zeros((1, prompt_cap), np.int32)
+    padded[0, :len(r0.prompt)] = r0.prompt
+    batch = {"tokens": torch.from_numpy(padded).to(device)}
+    ref_logits, _ = M.make_slot_prefill(
+        cfg, decode_len=prompt_cap + gen_cap, attn_impl="ref")(
+        params, batch, len(r0.prompt))
+    ref_vs_xla = float((ref_logits[0].float().cpu()
+                        - xrec.logits[r0.req_id]).abs().max())
+
+    # time one full-length prefill and one decode step of all slots
+    prefill = M.make_slot_prefill(cfg, decode_len=prompt_cap + gen_cap)
+    full = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt_cap)).astype(np.int32)).to(device)}
+    step = M.make_serve_step(cfg)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    lens = np.full(slots, prompt_cap - 1, np.int32)
+    prefill_ms = event_ms(lambda: prefill(params, full, prompt_cap), reps=5)
+    step_ms = event_ms(lambda: step(params, engine.caches, toks, lens),
+                       reps=10)
+    # one layer's decode attention alone, at the step's shapes
+    q1 = torch.randn((slots, cfg.n_heads, 1, cfg.d_head), device=device) \
+        .to(torch.bfloat16)
+    lens_dev = torch.as_tensor(lens, device=device)
+    decode_attention_ms = event_ms(lambda: m["A"].decode_attention(
+        q1, engine.caches["k"][0], engine.caches["v"][0], lens_dev))
+
+    def decode8():
+        for _ in range(8):
+            step(params, engine.caches, toks, lens)
+
+    prof = profile_serving(m, {
+        "prefill": lambda: prefill(params, full, prompt_cap),
+        "decode_8_steps": decode8}, device)
+    busy = sum(p["device_busy_ms"] for p in prof.values()) \
+        / sum(p["wall_ms"] for p in prof.values())
+    tokens = mt.count("tokens_generated")
+    summary = {
+        "phase": "serving", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "slots": slots, "prompt_capacity":
+        prompt_cap, "gen_capacity": gen_cap, "requests": n_req,
+        "completed": mt.count("completed"), "prefills": mt.count("prefills"),
+        "decode_steps": mt.count("decode_steps"), "tokens": tokens,
+        "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+        "seconds": seconds, "tokens_per_s": tokens / seconds,
+        "ttft_p50_ms": mt.percentile("ttft", 50) * 1e3,
+        "ttft_p99_ms": mt.percentile("ttft", 99) * 1e3,
+        "latency_p50_ms": mt.percentile("latency", 50) * 1e3,
+        "latency_p99_ms": mt.percentile("latency", 99) * 1e3,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "decode_attention_ms_per_layer": decode_attention_ms,
+        "peak_bytes_above_resident": peak, "resident_bytes": resident,
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in _leaves(params)),
+        "feature_lookups": n_lookups, "dropped": 0, "launches": launches,
+        "oneshot": oneshot, "xla_seconds": xseconds,
+        "xla_tokens_per_s": xla.metrics.count("tokens_generated")
+        / xseconds,
+        "xla_launches": xlaunches, "logit_tol": SERVE_LOGIT_TOL,
+        "prefill_logit_diff_max": worst,
+        "prefill_logit_diff_median": float(np.median(list(diffs.values()))),
+        "logit_diff_ref_vs_xla": ref_vs_xla,
+        "tokens_compared_with_xla": compared,
+        "tokens_equal_xla": sum(r.out_tokens == want[r.req_id].out_tokens
+                                for r in done),
+        "busy_share_prefill_plus_8_decode": busy, "profile": prof}
+    emit(summary)
+    legs = {"serving": dict(launches=launches, rows=n_req),
+            "serving_xla": dict(launches=xlaunches, rows=n_req)}
+    del params, engine, xla, stores, prefill, step, full
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return legs, recorded[0]
+
+
+def flash_cases(recorded, device, seed=3):
+    """flash_attention's cases: (a) the q, k, v one layer of the serving
+    leg's first prefill gave it; (b) (1, 32, 1024, 1024, 64) causal; (c)
+    right-aligned Sq 256 < Skv 1024; (d) not causal; (e) ragged Sq = Skv
+    = 1000; (f) D = 128 with Hq = Hkv; (g) B = 4.  Where Sq == Skv the
+    library call is ``scaled_dot_product_attention`` (top-left causal, so
+    only there), with ``enable_gqa``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def qkv(B, Hq, Hkv, Sq, Skv, D):
+        return tuple(torch.randn(s, generator=gen, device=device)
+                     .to(torch.bfloat16)
+                     for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                               (B, Hkv, Skv, D)))
+
+    q, k, v, causal = recorded
+    cases = [dict(shape=f"(a) serving prefill q {tuple(q.shape)} kv "
+                        f"{tuple(k.shape)} causal", args=(q, k, v, causal))]
+    for label, shape, causal in (
+            ("(b)", (1, 32, 8, 1024, 1024, 64), True),
+            ("(c)", (1, 32, 8, 256, 1024, 64), True),
+            ("(d)", (1, 32, 8, 1024, 1024, 64), False),
+            ("(e)", (1, 32, 8, 1000, 1000, 64), True),
+            ("(f)", (1, 16, 16, 1024, 1024, 128), True),
+            ("(g)", (4, 32, 8, 1024, 1024, 64), True)):
+        B, Hq, Hkv, Sq, Skv, D = shape
+        cases.append(dict(
+            shape=f"{label} B {B} Hq {Hq} Hkv {Hkv} Sq {Sq} Skv {Skv} "
+                  f"D {D} {'causal' if causal else 'full'}",
+            args=(*qkv(*shape), causal)))
+    for case in cases:
+        q, k, v, causal = case["args"]
+        if q.shape[2] == k.shape[2]:
+            case["library"] = lambda q=q, k=k, v=v, c=causal: \
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=c, enable_gqa=True)
+    return cases
+
+
+def _flash_close(case, got, want) -> float:
+    """Finite, and within FLASH_TOL (absolute and relative) of the plain
+    version in float32; returns the largest absolute difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash_attention {case['shape']}: "
+                             f"{got.dtype} {tuple(got.shape)}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) \
+            or bool((diff > FLASH_TOL * (1 + w.abs())).any()):
+        raise AssertionError(f"flash_attention {case['shape']}: differs "
+                             f"from attention_ref by {float(diff.max())}")
+    return float(diff.max())
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -961,6 +1471,19 @@ def bound(name, args):
         # bucket
         pairs = int((occ.sum(1).double() ** 2).sum())
         ops = pairs * (K + 2 + 3 * V)
+    elif name == "flash_attention":
+        # q, k, v in and the output out, once each (bf16); 4 D operations
+        # (the two products) for each live (query, key) pair
+        q, k, v, causal = args
+        B, Hq, Sq, D = q.shape
+        Skv = k.shape[2]
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        live = sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq)) \
+            if causal else Sq * Skv
+        t_bytes = nbytes / BYTES_PER_S * 1e3
+        t_ops = 4 * D * B * Hq * live / BF16_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
     elif name == "hash_partition":
         pid, P = args
         n = pid.numel()
@@ -996,7 +1519,8 @@ def library_times(m, cases, gdata, sizes, device) -> dict:
     -row words beside the port's ``radix_permutation`` of the same key;
     the sort-backend local groupby beside the hash-backend one on the
     groupby leg's rows; ``torch.isin`` of the drug filter's probe keys
-    against its build keys."""
+    against its build keys; ``scaled_dot_product_attention`` on the q, k,
+    v of the serving leg's prefill."""
     L, rs = m["L"], m["ops"]["radix_sort"]
     words = cases["radix_sort"][0]["args"][0]
     none = torch.zeros(words.shape[0], dtype=torch.bool, device=device)
@@ -1014,6 +1538,8 @@ def library_times(m, cases, gdata, sizes, device) -> dict:
     probe, build = cases["hash_semi"][0]["library"]
     out["hash_semi"] = {"library_ms": event_ms(
         lambda: torch.isin(probe, build), reps=5)}
+    out["flash_attention"] = {"library_ms": event_ms(
+        cases["flash_attention"][0]["library"], reps=20)}
     return out
 
 
@@ -1058,8 +1584,15 @@ def main() -> int:
                                 device))
     legs.update(run_setops(m, ctx, device,
                            *setop_data(*SETOP_ROWS, SETOP_KEYS)))
+    serving_legs, qkv = run_serving(m, device, m["get_config"](SERVE_ARCH))
+    legs.update(serving_legs)
+    cases["flash_attention"] = flash_cases(qkv, device)
+    errs.update(compare_kernels(
+        m, {"flash_attention": cases["flash_attention"]}, device))
 
     for leg, info in legs.items():
+        if "run" not in info:          # the serving legs time themselves
+            continue
         seconds, peak, resident = time_leg(info["run"], device)
         emit({"phase": "timing", "leg": leg, "rows": info["rows"],
               "median_s": seconds, "peak_bytes_above_resident": peak,
@@ -1091,12 +1624,15 @@ def main() -> int:
         table.append(row)
     for kname in KERNELS:
         for extra in cases[kname][1:]:
+            lib = extra.get("library") if kname == "flash_attention" \
+                else None
             emit({"phase": "kernel_timing", "name": kname,
                   "shape": extra["shape"], "card": name,
                   "ms": event_ms(lambda: _kernel(m, kname, extra["args"])),
                   "plain_ms": event_ms(
                       lambda: _plain(m, kname, extra["args"]), reps=3),
-                  "bound_ms": bound(kname, extra["args"])[0]})
+                  "bound_ms": bound(kname, extra["args"])[0],
+                  "library_ms": event_ms(lib) if lib else None})
 
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

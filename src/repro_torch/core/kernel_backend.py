@@ -14,7 +14,11 @@ never a fallback.  Environment overrides mirror the JAX package's:
 * ``REPRO_SORT_IMPL``    — local sort algorithm: ``xla`` (a chain of
   stable ``torch.sort`` calls; the name is kept for parity with the JAX
   package) or ``radix`` (the multi-pass LSD engine on the
-  ``radix_sort`` kernel).
+  ``radix_sort`` kernel);
+* ``REPRO_ATTN_IMPL`` — model attention: ``cuda`` (the flash kernel) on
+  CUDA tensors, ``xla`` (the plain full or chunked attention; the name is
+  kept for parity with the JAX package) on CPU tensors.  Like
+  ``REPRO_KERNEL_IMPL`` it may only confirm what the device implies.
 """
 import os
 
@@ -69,3 +73,21 @@ def sort_impl() -> str:
     """Local sort algorithm: 'xla' (stable sort chain, default) or 'radix'
     (multi-pass LSD radix rank on ``kernels/radix_sort``)."""
     return os.environ.get("REPRO_SORT_IMPL") or "xla"
+
+
+def attention_impl(device) -> str:
+    """'cuda' (the flash-attention kernel) for CUDA tensors, 'xla' (plain
+    PyTorch attention) for CPU tensors.  A caller may still pass
+    ``attn_impl="xla"`` explicitly on the card: that is the reference's
+    XLA path, chosen, not a fallback."""
+    device = torch.device(device)
+    impl = "cuda" if device.type == "cuda" else "xla"
+    env = os.environ.get("REPRO_ATTN_IMPL")
+    if env and env != impl:
+        if env not in ("xla", "cuda"):
+            raise ValueError(f"unknown REPRO_ATTN_IMPL {env!r} "
+                             "(expected 'xla' or 'cuda')")
+        raise ValueError(f"REPRO_ATTN_IMPL={env} cannot run on a "
+                         f"{device.type} tensor: the flash kernel runs on "
+                         "CUDA tensors and plain attention on CPU tensors")
+    return impl

@@ -122,6 +122,30 @@ def concat(a: Table, b: Table) -> Table:
     return Table(columns=cols, nvalid=a.nvalid + b.nvalid)
 
 
+def append_rows(acc: Table, t: Table):
+    """Append ``t``'s valid rows after ``acc``'s, keeping acc's static
+    capacity (unlike :func:`concat`, which grows it): the fixed-capacity
+    accumulator behind a chunk loop (``FeatureStore`` ingest).  Rows past
+    ``acc.capacity`` are dropped and counted.  Returns ``(appended,
+    dropped)``."""
+    if set(acc.names) != set(t.names):
+        raise ValueError(f"schema mismatch: {acc.names} vs {t.names}")
+    cap = acc.capacity
+    i = torch.arange(t.capacity, dtype=_I32, device=acc.device)
+    slot = acc.nvalid + i
+    ok = (i < t.nvalid) & (slot < cap)
+    flat = torch.where(ok, slot, cap).to(torch.int64)   # cap: trash slot
+    cols = {}
+    for n in acc.names:
+        a = acc.columns[n]
+        buf = torch.cat([a, a.new_zeros(1)])
+        buf[flat] = t.columns[n].to(a.dtype)
+        cols[n] = buf[:cap]
+    total = acc.nvalid + t.nvalid
+    out = Table(columns=cols, nvalid=torch.clamp(total, max=cap))
+    return out, torch.clamp(total - cap, min=0)
+
+
 # --------------------------------------------------------------------------
 # OrderBy (sort_values)
 # --------------------------------------------------------------------------

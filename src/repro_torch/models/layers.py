@@ -1,0 +1,203 @@
+"""Composable model layers (PyTorch port of ``repro/models/layers.py``).
+
+Functional, with parameters in nested dicts as in the reference.  Compute
+dtype is bf16; softmax, norms and the logits run in float32.  The
+reference keeps float32 master weights and casts them to bf16 at every
+use; the port serves and so holds the matmul weights and the embedding as
+bf16 once, at load (``model.params_from_jax`` / ``model.init_params``):
+the numbers that reach each product are the same.  Norm scales stay
+float32.  Dense weights are ``(d_in, d_out)`` as in the reference.  There
+are no sharding policies: the port serves at world 1.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import attention as A
+
+INIT_STD = 0.02
+BF16 = torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# init (stacked over ``n`` layers; weights drawn from a torch.Generator)
+# --------------------------------------------------------------------------
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype=BF16):
+    """``std``-scaled standard normal draws of ``shape`` on the
+    generator's device, one leading index at a time (a float32 temporary
+    of one slice only)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=gen,
+                             device=gen.device) * std
+    return out
+
+
+def dense_init(gen, n: int, d_in: int, d_out: int, bias: bool = False,
+               std: float = INIT_STD):
+    p = {"w": normal(gen, (n, d_in, d_out), std)}
+    if bias:
+        p["b"] = torch.zeros((n, d_out), device=gen.device)
+    return p
+
+
+def rms_norm_init(gen, n: int, d: int):
+    return {"scale": torch.ones((n, d), device=gen.device)}
+
+
+def attn_init(gen, cfg, n: int):
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {
+        "wq": dense_init(gen, n, d, hq * dh, bias=cfg.qkv_bias),
+        "wk": dense_init(gen, n, d, hkv * dh, bias=cfg.qkv_bias),
+        "wv": dense_init(gen, n, d, hkv * dh, bias=cfg.qkv_bias),
+        "wo": dense_init(gen, n, hq * dh, d,
+                         std=INIT_STD / math.sqrt(2 * cfg.n_layers)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rms_norm_init(gen, n, dh)
+        p["k_norm"] = rms_norm_init(gen, n, dh)
+    return p
+
+
+def swiglu_init(gen, n: int, d: int, f: int, n_layers: int):
+    return {
+        "w_gate": dense_init(gen, n, d, f),
+        "w_up": dense_init(gen, n, d, f),
+        "w_down": dense_init(gen, n, f, d,
+                             std=INIT_STD / math.sqrt(2 * n_layers)),
+    }
+
+
+def gelu_mlp_init(gen, n: int, d: int, f: int, n_layers: int):
+    return {
+        "w_in": dense_init(gen, n, d, f),
+        "w_out": dense_init(gen, n, f, d,
+                            std=INIT_STD / math.sqrt(2 * n_layers)),
+    }
+
+
+# --------------------------------------------------------------------------
+# apply
+# --------------------------------------------------------------------------
+
+
+def dense(p, x):
+    y = x.to(BF16) @ p["w"].to(BF16)
+    if "b" in p:
+        y = y + p["b"].to(BF16)
+    return y
+
+
+def rms_norm(p, x, eps: float = 1e-5):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: (B, H, S, D), positions: (B, S), (B, 1) or a scalar."""
+    B, H, S, D = x.shape
+    half = D // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    pos = torch.as_tensor(positions, device=x.device)
+    if pos.dim() == 0:
+        pos = pos.expand(B, S)
+    ang = pos.float()[:, None, :, None] * freq            # (B,1,S,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _split_heads(y, n_heads: int, d_head: int):
+    B, S, _ = y.shape
+    return y.reshape(B, S, n_heads, d_head).transpose(1, 2)
+
+
+def attn_apply(p, cfg, x, positions, *, causal: bool = True,
+               attn_impl: str = "xla", q_chunk: int = 1024,
+               k_chunk: int = 1024):
+    """Full-sequence self-attention (prefill).  Returns (y, (k, v)) with
+    k, v in the (B, Hkv, S, D) cache layout."""
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
+    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = A.attention(q, k, v, causal=causal, impl=attn_impl,
+                    q_chunk=q_chunk, k_chunk=k_chunk)
+    B, S = x.shape[:2]
+    y = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
+    return dense(p["wo"], y), (k, v)
+
+
+def attn_decode(p, cfg, x, cache, cache_len):
+    """One-token decode.  ``cache = {"k", "v"}`` (B, Hkv, S, D); the new
+    token's k and v are written at ``cache_len`` IN PLACE (the reference
+    returns a new cache and donates the old buffer; here the caller's
+    tensors change).  ``cache_len`` is a scalar or a ``(B,)`` tensor of
+    per-slot positions, each ``< S``."""
+    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    cl = torch.as_tensor(cache_len, device=x.device).long()
+    pos = cl if cl.dim() == 0 else cl[:, None]           # rope: (B,1)
+    k_new = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
+    v_new = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        k_new = rms_norm(p["k_norm"], k_new, cfg.norm_eps)
+    q = rope(q, pos, cfg.rope_theta)
+    k_new = rope(k_new, pos, cfg.rope_theta)
+    kc, vc = cache["k"], cache["v"]
+    if cl.dim() == 0:
+        kc[:, :, cl] = k_new[:, :, 0].to(kc.dtype)
+        vc[:, :, cl] = v_new[:, :, 0].to(vc.dtype)
+    else:                            # per-slot write position
+        rows = torch.arange(x.shape[0], device=x.device)
+        kc[rows, :, cl] = k_new[:, :, 0].to(kc.dtype)
+        vc[rows, :, cl] = v_new[:, :, 0].to(vc.dtype)
+    o = A.decode_attention(q, kc, vc, cache_len)
+    B = x.shape[0]
+    y = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)
+    return dense(p["wo"], y), cache
+
+
+def swiglu(p, x):
+    g = F.silu(dense(p["w_gate"], x))
+    u = dense(p["w_up"], x)
+    return dense(p["w_down"], g * u)
+
+
+def gelu_mlp(p, x):
+    h = F.gelu(dense(p["w_in"], x), approximate="tanh")  # jax.nn.gelu
+    return dense(p["w_out"], h)
+
+
+# --------------------------------------------------------------------------
+# embedding / logits
+# --------------------------------------------------------------------------
+
+
+def embed_lookup(p, tokens):
+    return p["embed"].to(BF16)[tokens.long()]
+
+
+def logits_out(p_head, x, tied_embed=None):
+    """x (B,S,d) -> float32 logits (B,S,V): bf16 operands, float32
+    products and sums, as the reference's ``preferred_element_type``."""
+    if tied_embed is not None:
+        w = tied_embed["embed"].to(BF16).T
+    else:
+        w = p_head["w"].to(BF16)
+    return x.to(BF16).float() @ w.float()

@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.core import local_ops as L
 from repro_torch.core.table import Table
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_bucketing import fused_bucket_ranks
 from repro_torch.kernels.fused_bucketing.ref import fused_bucket_ranks_ref
 from repro_torch.kernels.hash_groupby.ops import bucket_accumulate
@@ -256,3 +258,109 @@ def test_wrong_input_raises(cuda):
     with pytest.raises(ValueError, match="int32 CUDA tensor"):
         radix_histogram_ranks(torch.zeros(4, dtype=torch.int64,
                                           device=cuda), 3)
+
+
+# --------------------------------------------------------------------------
+# flash attention and the serving path
+# --------------------------------------------------------------------------
+
+# bf16 in and out, compared in float32: the reference's own bf16 tolerance
+# for its kernel (tests/test_kernels.py::test_flash_attention_dtypes)
+FLASH_TOL = 2e-2
+
+
+def bf16_qkv(cuda, rng, B, Hq, Hkv, Sq, Skv, D):
+    return tuple(on(cuda, rng.normal(size=s).astype(np.float32))
+                 .to(torch.bfloat16)
+                 for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                           (B, Hkv, Skv, D)))
+
+
+# (B, Hq, Hkv, Sq, Skv): square, ragged, right-aligned (Sq < Skv), one row
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [
+    (1, 4, 2, 128, 128), (2, 4, 1, 100, 100), (1, 2, 2, 37, 203),
+    (1, 8, 2, 1, 70), (3, 2, 1, 64, 1000)])
+def test_flash_attention_equals_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal,
+                                      rng):
+    q, k, v = bf16_qkv(cuda, rng, B, Hq, Hkv, Sq, Skv, D)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
+def test_flash_attention_counts_launches(cuda, rng):
+    q, k, v = bf16_qkv(cuda, rng, 1, 2, 2, 64, 64, 64)
+    before = flash_ops.launches
+    flash_ops.flash_attention(q, k, v)
+    flash_ops.flash_attention(q.cpu(), k.cpu(), v.cpu())   # plain version
+    assert flash_ops.launches == before + 1
+
+
+def test_flash_attention_wrong_input_raises(cuda, rng):
+    q, k, v = bf16_qkv(cuda, rng, 1, 2, 2, 64, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16 CUDA tensor"):
+        flash_ops.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention(q[..., :48].contiguous(),
+                                  k[..., :48].contiguous(),
+                                  v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="Sq 64 > Skv 32"):
+        flash_ops.flash_attention(q, k[:, :, :32].contiguous(),
+                                  v[:, :, :32].contiguous())
+
+
+def test_reduced_engine_on_the_card(cuda):
+    """Reduced granite-3-2b served on the card with feature stores: the
+    accounting identity holds, every request is served with its features,
+    the flash kernel runs once per layer of every prefill, and a slot
+    prefill's logits on the card are within 2e-2 of the CPU's (the model
+    tests' bf16 tolerance)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.context import make_context
+    from repro_torch.launch.serve import feature_stores, make_requests
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_reduced("granite-3-2b")
+    cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    params = _to(cpu_params, cuda)
+    stores, _ = feature_stores(make_context(cuda), 0, 8)
+    eng = ServingEngine(cfg, params, slots=4, prompt_capacity=40,
+                        gen_capacity=8, queue_capacity=16,
+                        feature_stores=stores, device=cuda)
+    assert eng.attn_impl == "cuda"
+    reqs = make_requests(cfg, 12, 40, 8, seed=0)
+    before = flash_ops.launches
+    for r in reqs:
+        assert eng.submit(r)
+    done = eng.run_until_drained()
+    m = eng.metrics
+    assert m.count("submitted") == m.count("completed") + \
+        m.count("rejected") + m.count("feature_misses") == 12
+    assert all(len(r.out_tokens) == r.gen_len and r.features for r in done)
+    assert flash_ops.launches - before == cfg.n_layers * m.count("prefills")
+    assert all(s.dropped == 0 for s in stores.values())
+
+    for r in reqs[:3]:
+        padded = np.zeros((1, 40), np.int32)
+        padded[0, :len(r.prompt)] = r.prompt
+        logits = {}
+        for device, p in ((cuda, params), (torch.device("cpu"), cpu_params)):
+            prefill = M.make_slot_prefill(cfg, decode_len=48)
+            logits[device.type], _ = prefill(
+                p, {"tokens": torch.from_numpy(padded).to(device)},
+                len(r.prompt))
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                                   atol=2e-2, rtol=2e-2)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

@@ -1,0 +1,291 @@
+"""The port's LM stack against the JAX package: the reference's
+``init_params(PRNGKey(0))`` weights carried across by ``params_from_jax``
+on reduced ``granite-3-2b`` and ``lm100m``, then ``make_prefill``,
+``make_slot_prefill`` and ``make_serve_step`` (scalar and per-slot
+``cache_len``) on the same numpy tokens, and the configs' analytic sizes.
+
+Tolerance: logits within ``LOGIT_TOL = 2e-2`` absolute and caches within
+2e-2 (rtol and atol).  Both packages compute in bf16 with float32 sums,
+but XLA and PyTorch's CPU kernels sum bf16 dots in different orders and
+round them back to bf16 at different places, so an activation may differ
+by one bf16 ulp (2^-8 relative) and the logits (magnitude about 2) by a
+few thousandths after two layers (measured: at most 5e-3).  Greedy
+tokens are compared as ``chip_smoke.py`` compares them: equal up to the
+first position where the reference's top-2 logit margin is below
+``2 * LOGIT_TOL``, where a difference within the tolerance could swap
+the two; at least one token must be compared.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro import configs as JC
+from repro.models import model as JM
+from repro_torch import configs as TC
+from repro_torch.models import model as TM
+from repro_torch.models import transformer as TT
+
+LOGIT_TOL = 2e-2
+ARCHS = ("granite-3-2b", "lm100m")
+P, G = 16, 6                      # prompt length and tokens generated
+
+
+def margin(logits: np.ndarray) -> np.ndarray:
+    top = np.sort(logits, axis=-1)
+    return top[..., -1] - top[..., -2]
+
+
+def greedy_agree(got, want, want_margins, tol) -> int:
+    """Tokens compared before the first low-margin position; raises on a
+    difference before it."""
+    n = 0
+    for g, w, m in zip(got, want, want_margins):
+        if m < tol:
+            break
+        assert g == w, f"token {n}: {g} != {w} at margin {m}"
+        n += 1
+    return n
+
+
+def close(got, want, tol=LOGIT_TOL):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jnp.asarray(want, jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(reference cfg, reference params, port cfg, port params, the
+    reference's jitted prefill and serve step, shared by the tests so each
+    compiles once per shape)."""
+    arch = request.param
+    cfg = JC.get_reduced(arch)
+    jp = JM.init_params(jax.random.PRNGKey(0), cfg)
+    tcfg = TC.get_reduced(arch)
+    tp = TM.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                            "cpu")
+    return (cfg, jp, tcfg, tp,
+            jax.jit(JM.make_prefill(cfg, None, decode_len=P + G)),
+            jax.jit(JM.make_serve_step(cfg, None)))
+
+
+def tokens(cfg, shape, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, shape).astype(np.int32)
+
+
+def test_params_from_jax(pair):
+    cfg, jp, tcfg, tp, jprefill, jserve = pair
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    for path, leaf in flat_j:
+        names = [k.key for k in path]
+        node = tp
+        for n in names:
+            node = node[n]
+        assert tuple(node.shape) == leaf.shape, names
+        if names[-1] in ("w", "embed"):
+            assert node.dtype == torch.bfloat16, names
+            want = np.asarray(leaf.astype(jnp.bfloat16).astype(jnp.float32))
+        else:
+            assert node.dtype == torch.float32, names
+            want = np.asarray(leaf)
+        np.testing.assert_array_equal(node.float().numpy(), want)
+
+
+def test_prefill_matches_jax(pair):
+    cfg, jp, tcfg, tp, jprefill, jserve = pair
+    toks = tokens(cfg, (3, P))
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    tl, tc = TM.make_prefill(tcfg, decode_len=P + G)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    close(tl, jl)
+    for k in ("k", "v"):
+        assert tc[k].shape == jc[k].shape and tc[k].dtype == torch.bfloat16
+        close(tc[k], jc[k])
+    struct = TM.cache_struct(tcfg, 3, P + G)
+    assert {k: tuple(v.shape) for k, v in tc.items()} == \
+        {k: s for k, (s, _) in struct.items()}
+
+
+def test_slot_prefill_matches_jax(pair):
+    cfg, jp, tcfg, tp, jprefill, jserve = pair
+    length = 9
+    toks = np.zeros((1, P), np.int32)
+    toks[0, :length] = tokens(cfg, length, seed=1)
+    jl, jc = jax.jit(JM.make_slot_prefill(cfg, None, decode_len=P + G))(
+        jp, {"tokens": jnp.asarray(toks)}, jnp.int32(length))
+    tl, tc = TM.make_slot_prefill(tcfg, decode_len=P + G)(
+        tp, {"tokens": torch.from_numpy(toks)}, length)
+    close(tl, jl)
+    for k in ("k", "v"):
+        close(tc[k], jc[k])
+    # the slot's logits are the unpadded prompt's last-position logits
+    ul, _ = TM.make_prefill(tcfg, decode_len=P + G)(
+        tp, {"tokens": torch.from_numpy(toks[:, :length])})
+    close(tl, ul.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_serve_step_matches_jax(pair, per_slot):
+    cfg, jp, tcfg, tp, jprefill, jserve = pair
+    toks = tokens(cfg, (3, P), seed=2)
+    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    tl, tc = TM.make_prefill(tcfg, decode_len=P + G)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    nxt = tokens(cfg, (3, 1), seed=3)
+    cl = np.array([P, P - 5, P + 2], np.int32) if per_slot else P
+    jd, jc = jserve(jp, jc, jnp.asarray(nxt), jnp.asarray(cl))
+    td, tc = TM.make_serve_step(tcfg)(tp, tc, torch.from_numpy(nxt), cl)
+    close(td, jd)
+    for k in ("k", "v"):
+        close(tc[k], jc[k])
+
+
+def test_serve_step_rejects_positions_past_the_cache(pair):
+    _, _, tcfg, tp, _, _ = pair
+    caches = TM.init_caches(tcfg, 2, 8, "cpu")
+    step = TM.make_serve_step(tcfg)
+    with pytest.raises(ValueError, match="outside"):
+        step(tp, caches, torch.zeros((2, 1), dtype=torch.int32),
+             np.array([3, 8], np.int32))
+
+
+def test_greedy_tokens_match_jax(pair):
+    """Three sequences decoded greedily by the one-shot loop in both."""
+    cfg, jp, tcfg, tp, jprefill, jserve = pair
+    toks = tokens(cfg, (3, P), seed=4)
+    logits, caches = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    want, margins = [], []
+    for i in range(G):
+        lg = np.asarray(logits)
+        want.append(lg.argmax(-1))
+        margins.append(margin(lg))
+        if i < G - 1:
+            logits, caches = jserve(jp, caches,
+                                    jnp.asarray(want[-1][:, None]),
+                                    jnp.int32(P + i))
+    tserve = TM.make_serve_step(tcfg)
+    logits, caches = TM.make_prefill(tcfg, decode_len=P + G)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    got = []
+    for i in range(G):
+        got.append(logits.argmax(-1).numpy())
+        if i < G - 1:
+            logits, caches = tserve(tp, caches, torch.from_numpy(
+                got[-1][:, None].astype(np.int32)), P + i)
+    got, want, margins = (np.stack(a, 1) for a in (got, want, margins))
+    for b in range(3):
+        assert greedy_agree(got[b], want[b], margins[b],
+                            2 * LOGIT_TOL) >= 1
+
+
+def test_write_cache_slot_in_place():
+    cfg = TC.get_reduced("lm100m")
+    caches = TM.init_caches(cfg, 3, 10, "cpu")
+    one = {k: torch.full(v.shape[:1] + (1,) + v.shape[2:], 2.0,
+                         dtype=v.dtype) for k, v in caches.items()}
+    ids = {k: id(v) for k, v in caches.items()}
+    out = TM.write_cache_slot(caches, one, 1)
+    for k, v in out.items():
+        assert id(v) == ids[k]
+        assert bool((v[:, 1] == 2).all()) and bool((v[:, [0, 2]] == 0).all())
+
+
+@pytest.mark.parametrize("arch", JC.ARCH_IDS + ("lm100m",))
+def test_config_sizes_match_reference(arch):
+    for get_j, get_t in ((JC.get_config, TC.get_config),
+                         (JC.get_reduced, TC.get_reduced)):
+        j, t = get_j(arch), get_t(arch)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert t.param_count() == j.param_count()
+        assert t.active_param_count() == j.active_param_count()
+        assert t.padded_vocab() == j.padded_vocab()
+
+
+@pytest.mark.parametrize("arch,what", [
+    ("qwen3-moe-235b-a22b", "MoE"), ("falcon-mamba-7b", "Mamba"),
+    ("jamba-1.5-large-398b", "Mamba"), ("internvl2-2b", "frontend"),
+    ("seamless-m4t-large-v2", "frontend|encoder")])
+def test_later_slices_raise(arch, what):
+    cfg = TC.get_reduced(arch)
+    with pytest.raises(NotImplementedError, match=what):
+        TT.check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        TM.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def _layer_tree(tree, seed):
+    """The reference's layer params as numpy, biases and norm scales
+    drawn away from their 0 / 1 init so that they matter."""
+    rng = np.random.default_rng(seed)
+
+    def conv(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = conv(v)
+            else:
+                a = np.array(v, np.float32)
+                if k in ("b", "scale"):
+                    a = a + rng.normal(scale=0.1, size=a.shape).astype(
+                        np.float32)
+                out[k] = a
+        return out
+
+    return conv(tree)
+
+
+def test_attention_layer_with_bias_and_qk_norm():
+    """attn_apply and attn_decode with ``qkv_bias`` and ``qk_norm`` (no
+    dense config of the reduced set has both) against the reference."""
+    from repro.models import layers as JLy
+    from repro_torch.models import layers as TLy
+    cfg = dataclasses.replace(JC.get_reduced("lm100m"), qkv_bias=True,
+                              qk_norm=True)
+    tcfg = dataclasses.replace(TC.get_reduced("lm100m"), qkv_bias=True,
+                               qk_norm=True)
+    tree = _layer_tree(JLy.attn_init(jax.random.PRNGKey(1), cfg), 5)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = TM.params_from_jax(tree, tcfg, "cpu")
+    rng = np.random.default_rng(6)
+    B, S = 2, 8
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    jy, (jk, jv) = jax.jit(JLy.attn_apply, static_argnums=1)(
+        jp, cfg, jnp.asarray(x, jnp.bfloat16), jnp.asarray(pos))
+    ty, (tk, tv) = TLy.attn_apply(tp, tcfg, torch.from_numpy(x).bfloat16(),
+                                  torch.from_numpy(pos))
+    for t, j in ((ty, jy), (tk, jk), (tv, jv)):
+        close(t, j)
+    x1 = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+    cl = np.array([S, S - 3], np.int32)
+    pad = ((0, 0), (0, 0), (0, 2), (0, 0))
+    jy, jc = jax.jit(JLy.attn_decode, static_argnums=1)(
+        jp, cfg, jnp.asarray(x1, jnp.bfloat16),
+        {"k": jnp.pad(jk, pad), "v": jnp.pad(jv, pad)}, jnp.asarray(cl))
+    tc = {"k": torch.nn.functional.pad(tk, (0, 0, 0, 2)),
+          "v": torch.nn.functional.pad(tv, (0, 0, 0, 2))}
+    ty, tc = TLy.attn_decode(tp, tcfg, torch.from_numpy(x1).bfloat16(), tc,
+                             torch.from_numpy(cl))
+    close(ty, jy)
+    for k in ("k", "v"):
+        close(tc[k], jc[k])
+
+
+def test_gelu_mlp_matches_jax():
+    """The audio family's MLP (tanh-approximated GELU, as jax.nn.gelu)."""
+    from repro.models import layers as JLy
+    from repro_torch.models import layers as TLy
+    tree = _layer_tree(JLy.gelu_mlp_init(jax.random.PRNGKey(2), 64, 256, 2),
+                       7)
+    x = np.random.default_rng(8).normal(size=(2, 5, 64)).astype(np.float32)
+    cfg = TC.get_reduced("lm100m")
+    close(TLy.gelu_mlp(TM.params_from_jax(tree, cfg, "cpu"),
+                       torch.from_numpy(x).bfloat16()),
+          jax.jit(JLy.gelu_mlp)(jax.tree_util.tree_map(jnp.asarray, tree),
+                                jnp.asarray(x, jnp.bfloat16)))

@@ -1,0 +1,413 @@
+"""The port's serving path against the JAX package's.
+
+* The reference's host-side unit tests of the admission queue, the slot
+  batcher and the metrics registry (``tests/test_serving.py``), run
+  against the port's copies.
+* One engine run on reduced ``lm100m`` with a feature store, mirroring
+  the reference's ``served`` fixture, checked for the same invariants:
+  the accounting identity, the counted ``feature_miss``, features equal
+  to the joined row, nothing dropped, static cache shapes, the request
+  bounds, the engine against the one-shot decode loop.
+* The same requests through the JAX engine on the same weights (the
+  reference's ``init_params(PRNGKey(0))`` carried across by
+  ``params_from_jax``): the same statuses and features, and the same
+  greedy tokens by the rule of ``tests/test_torch_model.py`` — equal up to
+  the first position where the top-2 logit margin is below
+  ``2 * LOGIT_TOL`` (the margins are the port's: with both packages'
+  logits within ``LOGIT_TOL`` of each other, a larger margin fixes the
+  argmax in both).
+* ``append_rows`` and ``ChunkedTable`` against the reference, and the
+  ``repro_torch.launch.serve`` CLI on the CPU.
+"""
+import collections
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from repro.configs import get_reduced as jax_reduced
+from repro.core import local_ops as JL
+from repro.core import morsel as JMo
+from repro.core.context import make_context as jax_context
+from repro.core.table import Table as JT
+from repro.models import model as JM
+from repro import serving as JS
+from repro_torch.configs import get_reduced
+from repro_torch.core import local_ops as L
+from repro_torch.core import morsel as Mo
+from repro_torch.core.context import make_context
+from repro_torch.core.table import Table
+from repro_torch.models import model as M
+from repro_torch.serving import (AdmissionQueue, FeatureStore, Request,
+                                 ServingEngine, ServingMetrics, SlotBatch)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+LOGIT_TOL = 2e-2       # as tests/test_torch_model.py, for the same reason
+# (prompt length, gen_len) of the served run, as the reference's fixture:
+# the gen_len = 1 edge and one key with no feature row (request 3)
+SHAPES = [(12, 6), (1, 1), (5, 3), (9, 2), (3, 4), (7, 1), (2, 5), (11, 3)]
+
+
+# --------------------------------------------------------------------------
+# the reference's host-side unit tests, on the port's copies
+# --------------------------------------------------------------------------
+
+
+def test_queue_rejects_counted_at_capacity():
+    m = ServingMetrics()
+    q = AdmissionQueue(2, m)
+    assert q.offer("a") and q.offer("b")
+    assert not q.offer("c")          # full: refused, counted
+    assert not q.offer("d")
+    assert m.count("submitted") == 4
+    assert m.count("rejected") == 2
+    assert len(q) == 2
+    assert q.pop() == "a"            # FIFO
+    assert q.offer("e")              # freed capacity admits again
+    assert m.count("rejected") == 2
+    assert m.count("submitted") == len(q) + 1 + m.count("rejected")
+
+
+def test_queue_validates_capacity():
+    with pytest.raises(ValueError, match="capacity"):
+        AdmissionQueue(0)
+    assert AdmissionQueue(1).pop() is None
+
+
+def test_slot_batch_lifecycle():
+    b = SlotBatch(3)
+    assert b.free() == [0, 1, 2] and b.occupancy == 0
+    b.occupy(1, "r1", first_token=7, prompt_len=4, gen_target=2)
+    assert b.active() == [1] and b.cache_lens[1] == 4 and b.tokens[1, 0] == 7
+    with pytest.raises(ValueError, match="occupied"):
+        b.occupy(1, "r2", first_token=0, prompt_len=1, gen_target=1)
+    nxt = np.zeros((3, 1), np.int32)
+    nxt[1, 0] = 9
+    seen = []
+    done = b.advance(nxt, on_token=lambda s, r, t: seen.append((s, r, t)))
+    assert done == [1] and seen == [(1, "r1", 9)]
+    assert b.cache_lens[1] == 5 and b.tokens[1, 0] == 9
+    assert b.release(1) == "r1" and b.free() == [0, 1, 2]
+    with pytest.raises(ValueError, match="free"):
+        b.release(1)
+    assert b.cache_lens.shape == (3,) and b.tokens.shape == (3, 1)
+
+
+def test_slot_batch_advance_skips_idle_slots():
+    b = SlotBatch(2)
+    b.occupy(0, "r", first_token=1, prompt_len=2, gen_target=5)
+    before = b.cache_lens.copy()
+    b.advance(np.zeros((2, 1), np.int32))
+    assert b.cache_lens[1] == before[1]
+    assert b.cache_lens[0] == before[0] + 1
+
+
+def test_metrics_registry():
+    m = ServingMetrics()
+    m.inc("x"), m.inc("x", 2)
+    m.gauge("g", 3), m.gauge("g", 1)
+    for v in (0.1, 0.2, 0.3):
+        m.observe("lat", v)
+    assert m.count("x") == 3 and m.count("missing") == 0
+    assert m.gauges["g"] == {"last": 1.0, "max": 3.0}
+    s = m.summary("lat")
+    assert s["count"] == 3 and abs(s["p50"] - 0.2) < 1e-9
+    snap = m.snapshot()
+    assert snap["counters"]["x"] == 3 and "lat" in snap["latency"]
+    assert m.summary("none") == {"count": 0}
+    assert np.isnan(m.percentile("none", 50))
+
+
+# --------------------------------------------------------------------------
+# one engine run in each package on the same weights and requests
+# --------------------------------------------------------------------------
+
+
+def margin(logits: torch.Tensor) -> np.ndarray:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu().numpy()
+
+
+def record_margins(engine):
+    """Make ``engine`` record each request's top-2 logit margin at every
+    token it emits (prefill first, then each decode step), in the order of
+    ``out_tokens``."""
+    margins = collections.defaultdict(list)
+    upcoming = collections.deque()
+    fetch, prefill, serve = (engine._fetch_features, engine._slot_prefill,
+                             engine._serve_step)
+
+    def fetch_hook(reqs):
+        good = fetch(reqs)
+        upcoming.extend(good)
+        return good
+
+    def prefill_hook(params, batch, length):
+        logits, caches = prefill(params, batch, length)
+        margins[upcoming.popleft().req_id].append(float(margin(logits)[0]))
+        return logits, caches
+
+    def serve_hook(params, caches, tokens, cache_lens):
+        logits, caches = serve(params, caches, tokens, cache_lens)
+        m = margin(logits)
+        for slot in engine.batch.active():
+            margins[engine.batch.request_at(slot).req_id].append(
+                float(m[slot]))
+        return logits, caches
+
+    engine._fetch_features = fetch_hook
+    engine._slot_prefill = prefill_hook
+    engine._serve_step = serve_hook
+    return margins
+
+
+def greedy_agree(got, want, margins, tol) -> int:
+    n = 0
+    for g, w, m in zip(got, want, margins):
+        if m < tol:
+            break
+        assert g == w, f"token {n}: {g} != {w} at margin {m}"
+        n += 1
+    return n
+
+
+def serve_all(engine, reqs):
+    """Submit, drain, resubmit what the small queue rejected, drain."""
+    rejected = [r for r in reqs if not engine.submit(r)]
+    done = engine.run_until_drained()
+    for r in rejected:
+        assert engine.submit(r)
+    return rejected, done + engine.run_until_drained()
+
+
+@pytest.fixture(scope="module")
+def weights():
+    cfg = jax_reduced("lm100m")
+    jp = JM.init_params(jax.random.PRNGKey(0), cfg)
+    tcfg = get_reduced("lm100m")
+    return cfg, jp, tcfg, M.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
+
+
+@pytest.fixture(scope="module")
+def request_data():
+    rng = np.random.default_rng(1)
+    n_keys = 32
+    feats = {"drug_id": np.arange(n_keys, dtype=np.int32),
+             "d0": rng.normal(size=n_keys).astype(np.float32)}
+    reqs = [(i, rng.integers(0, 1024, p_len).astype(np.int32), g,
+             999 if i == 3 else i) for i, (p_len, g) in enumerate(SHAPES)]
+    return feats, reqs
+
+
+ENGINE_KW = dict(slots=2, prompt_capacity=12, gen_capacity=6,
+                 queue_capacity=4)
+
+
+@pytest.fixture(scope="module")
+def served(weights, request_data):
+    """The port's engine over the requests, with a feature store."""
+    _, _, cfg, params = weights
+    feats, spec = request_data
+    store = FeatureStore(make_context("cpu"), "drug_id", feats,
+                         probe_capacity=8, chunk_rows=8)
+    eng = ServingEngine(cfg, params, feature_stores={"drug_id": store},
+                        device="cpu", **ENGINE_KW)
+    margins = record_margins(eng)
+    reqs = [Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
+            for i, p, g, d in spec]
+    rejected, done = serve_all(eng, reqs)
+    return eng, store, feats, reqs, rejected, done, margins
+
+
+@pytest.fixture(scope="module")
+def jax_served(weights, request_data):
+    """The JAX package's engine over the same requests and weights."""
+    cfg, params, _, _ = weights
+    feats, spec = request_data
+    ctx = jax_context(jax.make_mesh((1,), ("rows",)))
+    store = JS.FeatureStore(ctx, "drug_id", feats, probe_capacity=8,
+                            chunk_rows=8)
+    eng = JS.ServingEngine(cfg, params, feature_stores={"drug_id": store},
+                           **ENGINE_KW)
+    reqs = [JS.Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
+            for i, p, g, d in spec]
+    rejected, done = serve_all(eng, reqs)
+    return eng, rejected, done
+
+
+def test_engine_every_admitted_request_completes(served):
+    eng, store, feats, reqs, rejected, done, _ = served
+    m = eng.metrics
+    assert m.count("submitted") == m.count("completed") + \
+        m.count("rejected") + m.count("feature_misses")
+    assert m.count("rejected") == len(rejected)
+    by_id = {r.req_id: r for r in done}
+    assert sorted(by_id) == list(range(len(reqs)))
+    for r in done:
+        if r.req_id == 3:
+            assert r.status == "feature_miss"
+        else:
+            assert r.status == "done"
+            assert len(r.out_tokens) == r.gen_len
+            np.testing.assert_allclose(
+                r.features["d0"], feats["d0"][r.drug_id])
+    assert m.count("feature_misses") == 1
+    assert store.dropped == 0
+
+
+def test_engine_static_batch_shape_across_refills(served):
+    eng = served[0]
+    struct = M.cache_struct(eng.cfg, eng.n_slots, eng.decode_len)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in eng.caches.items()} \
+        == struct
+
+
+def test_engine_validates_request_bounds(served):
+    eng = served[0]
+    with pytest.raises(ValueError, match="prompt length"):
+        eng.submit(Request(req_id=99, prompt=np.zeros(13, np.int32),
+                           gen_len=1, drug_id=0))
+    with pytest.raises(ValueError, match="gen_len"):
+        eng.submit(Request(req_id=99, prompt=np.zeros(1, np.int32),
+                           gen_len=7, drug_id=0))
+
+
+def test_engine_tokens_match_the_jax_engine(served, jax_served):
+    _, _, _, _, rejected, done, margins = served
+    jeng, jrejected, jdone = jax_served
+    assert [r.req_id for r in rejected] == [r.req_id for r in jrejected]
+    assert eng_counts(served[0]) == eng_counts(jeng)
+    want = {r.req_id: r for r in jdone}
+    compared = 0
+    for r in done:
+        w = want[r.req_id]
+        assert r.status == w.status and r.features == w.features
+        assert len(r.out_tokens) == len(w.out_tokens)
+        assert len(margins[r.req_id]) == len(r.out_tokens)
+        compared += greedy_agree(r.out_tokens, w.out_tokens,
+                                 margins[r.req_id], 2 * LOGIT_TOL)
+    assert compared >= 1
+
+
+def eng_counts(eng):
+    return {k: eng.metrics.count(k) for k in
+            ("submitted", "completed", "rejected", "feature_misses",
+             "prefills", "decode_steps", "tokens_generated")}
+
+
+def test_engine_matches_oneshot_greedy_decode(weights):
+    """A request decoded through slot refill + per-slot cache lengths
+    emits the same greedy tokens as the one-shot prefill/serve path."""
+    _, _, cfg, params = weights
+    P, G = 10, 5
+    rng = np.random.default_rng(2)
+    prefill = M.make_prefill(cfg, decode_len=P + G)
+    serve = M.make_serve_step(cfg)
+    for p_len in (P, 4):             # full-capacity and right-padded
+        prompt = rng.integers(0, cfg.vocab, p_len).astype(np.int32)
+        logits, caches = prefill(params,
+                                 {"tokens": torch.from_numpy(prompt[None])})
+        want = [int(logits[0].argmax())]
+        for i in range(G - 1):
+            logits, caches = serve(params, caches,
+                                   torch.tensor([[want[-1]]]), p_len + i)
+            want.append(int(logits[0].argmax()))
+        eng = ServingEngine(cfg, params, slots=3, prompt_capacity=P,
+                            gen_capacity=G, queue_capacity=4, device="cpu")
+        req = Request(req_id=0, prompt=prompt, gen_len=G)
+        assert eng.submit(req)
+        done = eng.run_until_drained()
+        assert done[0].out_tokens == want, f"p_len={p_len}"
+
+
+def test_engine_rejects_nonlm_config():
+    cfg = dataclasses.replace(get_reduced("lm100m"), frontend="vision")
+    with pytest.raises(ValueError, match="decoder-only"):
+        ServingEngine(cfg, params={}, slots=1)
+
+
+def test_feature_store_validation_and_contains():
+    ctx = make_context("cpu")
+    with pytest.raises(ValueError, match="probe_capacity"):
+        FeatureStore(ctx, "k", {"k": np.arange(4)}, probe_capacity=0)
+    with pytest.raises(ValueError, match="key column"):
+        FeatureStore(ctx, "nope", {"k": np.arange(4)}, probe_capacity=4)
+    store = FeatureStore(ctx, "k", {"k": np.arange(4), "f": np.ones(4)},
+                         probe_capacity=4, chunk_rows=3)
+    with pytest.raises(ValueError, match="exceed"):
+        store.lookup(np.zeros(5, np.int32))
+    with pytest.raises(ValueError, match="1-D"):
+        store.lookup(np.zeros((2, 2), np.int32))
+    np.testing.assert_array_equal(store.contains(np.array([3, 9, 0, 4])),
+                                  [True, False, True, False])
+    assert store.dropped == 0
+
+
+# --------------------------------------------------------------------------
+# append_rows and ChunkedTable against the reference
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_acc,n_new,cap", [(3, 4, 10), (6, 7, 10),
+                                             (0, 0, 4), (4, 0, 4)])
+def test_append_rows_matches_reference(n_acc, n_new, cap):
+    rng = np.random.default_rng(n_acc * 10 + n_new)
+    acc = {"k": rng.integers(0, 99, n_acc).astype(np.int32),
+           "v": rng.normal(size=n_acc).astype(np.float32)}
+    new = {"k": rng.integers(0, 99, n_new).astype(np.int32),
+           "v": rng.normal(size=n_new).astype(np.float32)}
+    j, jd = JL.append_rows(JT.from_dict(acc, cap), JT.from_dict(new, 8))
+    t, td = L.append_rows(Table.from_dict(acc, cap, device="cpu"),
+                          Table.from_dict(new, 8, device="cpu"))
+    assert int(td) == int(jd) == max(n_acc + n_new - cap, 0)
+    assert int(t.nvalid) == int(j.nvalid)
+    for k in acc:
+        np.testing.assert_array_equal(t.columns[k].numpy(),
+                                      np.asarray(j.columns[k]))
+    with pytest.raises(ValueError, match="schema"):
+        L.append_rows(Table.from_dict(acc, cap, device="cpu"),
+                      Table.from_dict({"k": new["k"]}, 8, device="cpu"))
+
+
+@pytest.mark.parametrize("rows,chunk", [(10, 4), (8, 8), (0, 3)])
+def test_chunked_table_matches_reference(rows, chunk):
+    data = {"k": np.arange(rows, dtype=np.int32),
+            "f": np.linspace(0, 1, rows).astype(np.float32)}
+    j, t = JMo.ChunkedTable(data, chunk), Mo.ChunkedTable(data, chunk)
+    assert (t.nrows, t.num_chunks, t.names, t.capacity_per_shard(1)) == \
+        (j.nrows, j.num_chunks, j.names, j.capacity_per_shard(1))
+    jctx = jax_context(jax.make_mesh((1,), ("rows",)))
+    for jt, tt in zip(j.distribute(jctx), t.distribute(make_context("cpu")),
+                      strict=True):
+        assert int(tt.nvalid) == int(np.asarray(jt.nvalid).sum())
+        for k in data:
+            np.testing.assert_array_equal(tt.columns[k].numpy(),
+                                          np.asarray(jt.columns[k]))
+    with pytest.raises(ValueError, match="chunk_rows"):
+        Mo.ChunkedTable(data, 0)
+    with pytest.raises(ValueError, match="equal length"):
+        Mo.ChunkedTable({"a": np.zeros(2), "b": np.zeros(3)}, 2)
+
+
+# --------------------------------------------------------------------------
+# the CLI
+# --------------------------------------------------------------------------
+
+
+def test_serve_cli_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "lm100m", "--reduced", "--device", "cpu", "--requests", "8"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "serve OK" in proc.stdout
+    assert "counter          completed = 8" in proc.stdout
