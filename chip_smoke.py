@@ -4,7 +4,7 @@
 
 Phases, each fatal on failure:
 
-1. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes: the integer outputs exactly; the groupby accumulate's sums
    within 1e-6 of the group's sum of magnitudes and its mins and maxs as
@@ -45,6 +45,20 @@ Phases, each fatal on failure:
    ``flash_attention`` against ``attention_ref`` on the q, k, v one
    prefill gave it and on six more shapes; tokens/s, TTFT, prefill and
    decode-step times and a profile of one prefill and 8 decode steps;
+11b. the Mamba serving path: Falcon-Mamba-7B at its published widths and
+   depth (64 layers), random weights from ``torch.Generator`` seed 0,
+   the same engine settings and request stream as phase 11 (the Granite
+   weights freed first); every prefill runs at the prompt's true length
+   and the selective-scan kernel in every layer.  Checked: the
+   accounting identity, tokens and features of every request, nothing
+   dropped, exact launch counts (``mamba_scan`` 64 per prefill, no
+   ``flash_attention``), two requests against the one-shot loop (fed the
+   engine's tokens) within ``SERVE_LOGIT_TOL``, and the same two
+   requests on the plain scan: prefill logits, conv and ssm states and 8
+   decode steps from each state; then ``mamba_scan`` against
+   ``selective_scan_ref`` within ``SCAN_TOL`` on the inputs of the
+   longest prefill's first layer and on six more shapes; tokens/s, TTFT,
+   prefill and decode-step times and a profile;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time beside its plain version,
    its bound and, where there is one, a library call.
@@ -82,19 +96,22 @@ UNOMT_CELLS = 1_024
 SETOP_ROWS = (10_000_000, 5_000_000)   # set-ops leg: a and b
 SETOP_KEYS = 1_000_000         # a.k over [0, 1 M), b.k over [500 k, 1.5 M)
 SERVE_ARCH = "granite-3-2b"    # the serving leg's model, full width and depth
+MAMBA_ARCH = "falcon-mamba-7b"  # the Mamba serving leg's, full width and depth
 SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 SERVE_QUEUE, SERVE_REQUESTS = 64, 32
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
 BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+# special-function (exp2) results: 16 per SM per clock, 132 SMs, 1.98 GHz
+EXP_PER_S = 16 * 132 * 1.98e9
 KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
-           "hash_groupby", "hash_semi", "flash_attention")
+           "hash_groupby", "hash_semi", "flash_attention", "mamba_scan")
 JOIN_KERNELS = KERNELS[:3]
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FNS = ("hash_partition", "fused_bucketing", "hash_join",
                    "radix_digit", "hash_groupby", "hash_semi",
-                   "flash_attention")
+                   "flash_attention", "mamba_scan")
 
 
 def _modules():
@@ -122,6 +139,9 @@ def _modules():
     from repro_torch.kernels.hash_partition import ref as hp_ref
     from repro_torch.kernels.hash_semi import ops as hs_ops
     from repro_torch.kernels.hash_semi import ref as hs_ref
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    from repro_torch.models import mamba
     from repro_torch.kernels.radix_sort import ops as rs_ops
     from repro_torch.kernels.radix_sort import ref as rs_ref
     return dict(D=dist_ops, L=local_ops, U=unomt, make_context=make_context,
@@ -129,10 +149,10 @@ def _modules():
                 ops={"hash_partition": hp_ops, "fused_bucketing": fb_ops,
                      "hash_join": hj_ops, "radix_sort": rs_ops,
                      "hash_groupby": hg_ops, "hash_semi": hs_ops,
-                     "flash_attention": fa_ops},
+                     "flash_attention": fa_ops, "mamba_scan": ms_ops},
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
-                hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref,
-                get_config=get_config, M=model, A=attn, Ly=layers,
+                hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref, ms_ref=ms_ref,
+                get_config=get_config, M=model, A=attn, Ly=layers, Mb=mamba,
                 serve=serve, ServingEngine=ServingEngine)
 
 
@@ -321,6 +341,9 @@ def _plain(m, name, args):
     if name == "flash_attention":
         q, k, v, causal = args
         return (m["fa_ref"].attention_ref(q, k, v, causal=causal),)
+    if name == "mamba_scan":
+        y, hT = m["ms_ref"].selective_scan_ref(*args[:6])
+        return (y, hT) if args[6] else (y,)
     pb, po, bb, bo = args
     if name == "hash_semi":
         # about 2**28 pairs per chunk of buckets
@@ -350,6 +373,9 @@ def _kernel(m, name, args):
     if name == "flash_attention":
         q, k, v, causal = args
         return (op.flash_attention(q, k, v, causal=causal),)
+    if name == "mamba_scan":
+        out = op.selective_scan(*args[:6], return_state=args[6])
+        return out if args[6] else (out,)
     return op.bucket_probe(*args)
 
 
@@ -387,12 +413,14 @@ def compare_kernels(m, cases, device) -> dict:
             got = _kernel(m, name, case["args"])
             want = _plain(m, name, case["args"])
             _sync(device)
-            if name == "flash_attention":
-                err = _flash_close(case, got[0], want[0])
+            if name in ("flash_attention", "mamba_scan"):
+                close, tol = (_flash_close, FLASH_TOL) \
+                    if name == "flash_attention" else (_scan_close, SCAN_TOL)
+                err = close(case, got, want)
                 errs[name] = max(errs[name], err)
                 emit({"phase": "kernel_close", "kernel": name,
                       "shape": case["shape"], "max_abs_err": err,
-                      "tolerance": FLASH_TOL})
+                      "tolerance": tol})
                 continue
             if name == "hash_groupby":
                 err, worst = _groupby_close(m, case["args"], got, want)
@@ -1074,16 +1102,16 @@ def oneshot_tokens(m, cfg, params, req, device):
     return toks, margins, steps
 
 
-def profile_serving(m, fns, device):
+def profile_serving(m, fns, device, labelled, kernel):
     """Each of ``fns`` (name -> callable) once warmed, then once under
-    torch.profiler with ``dense``, ``decode_attention``, ``logits_out``
-    and the flash wrapper in labelled ranges: wall ms, device busy ms and
-    share, and device ms under each label."""
+    torch.profiler with the functions of ``labelled`` ((module, name)
+    pairs, none calling another) in labelled ranges: wall ms, device busy
+    ms and share, and device ms under each label.  ``kernel`` is (label,
+    the port kernel's name): that kernel is launched through ctypes, not
+    by an operator of its wrapper's range, so its label's time is read
+    from the kernel itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    A, Ly, fa = m["A"], m["Ly"], m["ops"]["flash_attention"]
-    labelled = [(Ly, "dense"), (A, "decode_attention"), (Ly, "logits_out"),
-                (fa, "flash_attention")]
     plain = {name: getattr(mod, name) for mod, name in labelled}
 
     def label(name):
@@ -1123,11 +1151,8 @@ def profile_serving(m, fns, device):
                     spans[part] += e.device_time_total / 1e3
                 else:       # the kernels of the range's operators
                     by_label[part] += e.device_time_total / 1e3
-        # the flash kernel is launched through ctypes, not by an operator
-        # of the range: its time is read from the kernel itself
-        by_label["flash_attention"] = sum(
-            e.self_device_time_total for e in kernels
-            if "flash_attention_kernel" in e.key) / 1e3
+        by_label[kernel[0]] = sum(e.self_device_time_total for e in kernels
+                                  if kernel[1] in e.key) / 1e3
         kernels.sort(key=lambda e: -e.self_device_time_total)
         out[key] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                     "device_busy_share": busy / wall_ms,
@@ -1139,6 +1164,56 @@ def profile_serving(m, fns, device):
                                          e.self_device_time_total / 1e3}
                                     for e in kernels[:6]]}
     return out
+
+
+def check_engine_run(leg, engine, done, rejected, reqs, tables, stores):
+    """The accounting identity, no rejection or feature miss, every
+    request served with its tokens and features, no feature row
+    dropped."""
+    mt = engine.metrics
+    if mt.count("submitted") != mt.count("completed") + \
+            mt.count("rejected") + mt.count("feature_misses"):
+        raise AssertionError(f"{leg}: accounting identity violated")
+    if rejected or mt.count("feature_misses"):
+        raise AssertionError(f"{leg}: {len(rejected)} rejected, "
+                             f"{mt.count('feature_misses')} feature misses")
+    check_served(done, reqs, tables, len(reqs))
+    dropped = {k: s.dropped for k, s in stores.items()}
+    if any(dropped.values()):
+        raise AssertionError(f"{leg}: feature stores dropped {dropped}")
+
+
+def store_chunks(serve, stores) -> int:
+    """The feature stores' ingest morsels: one shuffle each."""
+    return sum(math.ceil(s.n_rows / serve.CHUNK_ROWS)
+               for s in stores.values())
+
+
+def against_oneshot(m, cfg, params, rec, by_id, pick, device) -> dict:
+    """The requests of ``pick`` against the one-shot loop, fed the
+    engine's tokens: the logits at every position within
+    SERVE_LOGIT_TOL, and the same greedy token wherever the one-shot
+    margin is at least that."""
+    oneshot = {"requests": pick, "positions": 0, "compared": 0,
+               "equal": 0, "logit_diff": 0.0}
+    for rid in pick:
+        r = by_id[rid]
+        toks, margins, steps = oneshot_tokens(m, cfg, params, r, device)
+        for i, (a, b) in enumerate(zip(rec.steps[rid], steps, strict=True)):
+            oneshot["logit_diff"] = max(oneshot["logit_diff"],
+                                        float((a - b).abs().max()))
+            oneshot["positions"] += 1
+            oneshot["equal"] += toks[i] == r.out_tokens[i]
+            if margins[i] >= SERVE_LOGIT_TOL:
+                oneshot["compared"] += 1
+                if toks[i] != r.out_tokens[i]:
+                    raise AssertionError(
+                        f"serving: request {rid} token {i}: engine "
+                        f"{r.out_tokens[i]}, one-shot {toks[i]} at margin "
+                        f"{margins[i]}")
+    if oneshot["logit_diff"] > SERVE_LOGIT_TOL or not oneshot["compared"]:
+        raise AssertionError(f"serving: engine against one-shot {oneshot}")
+    return oneshot
 
 
 def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
@@ -1182,47 +1257,15 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
             if device.type == "cuda" else 0) - resident
 
     mt = engine.metrics
-    if mt.count("submitted") != mt.count("completed") + \
-            mt.count("rejected") + mt.count("feature_misses"):
-        raise AssertionError("serving: accounting identity violated")
-    if rejected or mt.count("feature_misses"):
-        raise AssertionError(f"serving: {len(rejected)} rejected, "
-                             f"{mt.count('feature_misses')} feature misses")
-    check_served(done, reqs, tables, n_req)
-    dropped = {k: s.dropped for k, s in stores.items()}
-    if any(dropped.values()):
-        raise AssertionError(f"serving: feature stores dropped {dropped}")
-    chunks = sum(math.ceil(s.n_rows / serve.CHUNK_ROWS)
-                 for s in stores.values())
+    check_engine_run("serving", engine, done, rejected, reqs, tables, stores)
     # one shuffle per ingest chunk and per lookup; the lookups' sortmerge
     # join and the ingest append run no radix pass
     expect_launches("serving", launches, {
         "flash_attention": cfg.n_layers * mt.count("prefills"),
-        "hash_partition": chunks + lookups[0], "radix_sort": 0})
-
-    # two requests against the one-shot loop, fed the engine's tokens:
-    # the logits at every position within SERVE_LOGIT_TOL, and the same
-    # greedy token wherever the one-shot margin is at least that
-    oneshot = {"requests": pick, "positions": 0, "compared": 0,
-               "equal": 0, "logit_diff": 0.0}
+        "hash_partition": store_chunks(serve, stores) + lookups[0],
+        "radix_sort": 0})
     by_id = {r.req_id: r for r in done}
-    for rid in pick:
-        r = by_id[rid]
-        toks, margins, steps = oneshot_tokens(m, cfg, params, r, device)
-        for i, (a, b) in enumerate(zip(rec.steps[rid], steps, strict=True)):
-            oneshot["logit_diff"] = max(oneshot["logit_diff"],
-                                        float((a - b).abs().max()))
-            oneshot["positions"] += 1
-            oneshot["equal"] += toks[i] == r.out_tokens[i]
-            if margins[i] >= SERVE_LOGIT_TOL:
-                oneshot["compared"] += 1
-                if toks[i] != r.out_tokens[i]:
-                    raise AssertionError(
-                        f"serving: request {rid} token {i}: engine "
-                        f"{r.out_tokens[i]}, one-shot {toks[i]} at margin "
-                        f"{margins[i]}")
-    if oneshot["logit_diff"] > SERVE_LOGIT_TOL or not oneshot["compared"]:
-        raise AssertionError(f"serving: engine against one-shot {oneshot}")
+    oneshot = against_oneshot(m, cfg, params, rec, by_id, pick, device)
 
     # the same requests on the plain attention path
     for op in ops.values():
@@ -1287,7 +1330,11 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
 
     prof = profile_serving(m, {
         "prefill": lambda: prefill(params, full, prompt_cap),
-        "decode_8_steps": decode8}, device)
+        "decode_8_steps": decode8}, device,
+        [(m["Ly"], "dense"), (m["A"], "decode_attention"),
+         (m["Ly"], "logits_out"), (ops["flash_attention"],
+                                   "flash_attention")],
+        ("flash_attention", "flash_attention_kernel"))
     busy = sum(p["device_busy_ms"] for p in prof.values()) \
         / sum(p["wall_ms"] for p in prof.values())
     tokens = mt.count("tokens_generated")
@@ -1372,6 +1419,7 @@ def flash_cases(recorded, device, seed=3):
 def _flash_close(case, got, want) -> float:
     """Finite, and within FLASH_TOL (absolute and relative) of the plain
     version in float32; returns the largest absolute difference."""
+    got, want = got[0], want[0]
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"flash_attention {case['shape']}: "
                              f"{got.dtype} {tuple(got.shape)}")
@@ -1382,6 +1430,252 @@ def _flash_close(case, got, want) -> float:
         raise AssertionError(f"flash_attention {case['shape']}: differs "
                              f"from attention_ref by {float(diff.max())}")
     return float(diff.max())
+
+
+# --------------------------------------------------------------------------
+# the Mamba serving path: Falcon-Mamba-7B with the selective-scan kernel
+# --------------------------------------------------------------------------
+
+# the reference's own tolerance for its scan kernel against its ref
+# (tests/test_kernels.py::test_selective_scan_interpret_matches_ref),
+# absolute and relative; the two sum over N in other orders
+SCAN_TOL = 2e-4
+# the kernel path's conv and ssm states against the plain scan's, within
+# MAMBA_STATE_TOL of each state's largest magnitude (the CPU tests' rule
+# against the reference): the two scans differ by float32 rounding, which
+# a bf16 rounding of the next layer's input may turn into one bf16 ulp
+# (2^-8) and 64 random-weight layers carry on.  The first run on the card
+# measured 0.0137 at most (the ssm state after an 872-token prompt and 8
+# decode steps) and logits within 0.073 of each other.
+MAMBA_STATE_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def recording_longest(op, fn_name, calls):
+    """Context in which ``op.fn_name`` keeps in ``calls`` a copy of the
+    arguments (positional then keyword) of the first call with the
+    longest sequence (``args[0].shape[1]``) seen so far."""
+    plain = getattr(op, fn_name)
+
+    def keep(*args, **kwargs):
+        if not calls or args[0].shape[1] > calls[0][0].shape[1]:
+            calls[:] = [tuple(a.clone() for a in args)
+                        + tuple(kwargs.values())]
+        return plain(*args, **kwargs)
+
+    setattr(op, fn_name, keep)
+    try:
+        yield
+    finally:
+        setattr(op, fn_name, plain)
+
+
+def against_plain_scan(m, cfg, params, req, prompt_cap, gen_cap, device,
+                       steps=8) -> dict:
+    """One request's slot prefill with the scan kernel and with the plain
+    scan (``mamba_impl="xla"``), then ``steps`` decode steps from each
+    state fed the same tokens (the engine's, then seeded random ones):
+    the kernel runs in every layer of the first prefill and in none of
+    the second; logits within SERVE_LOGIT_TOL at every position; the
+    conv and ssm states after the prefill and after the steps within
+    MAMBA_STATE_TOL of their largest magnitude."""
+    M, scan = m["M"], m["ops"]["mamba_scan"]
+    n = len(req.prompt)
+    padded = np.zeros((1, prompt_cap), np.int32)
+    padded[0, :n] = req.prompt
+    batch = {"tokens": torch.from_numpy(padded).to(device)}
+    rng = np.random.default_rng(req.req_id)
+    feed = (list(req.out_tokens)
+            + rng.integers(0, cfg.vocab, steps).tolist())[:steps]
+    step = M.make_serve_step(cfg)
+    runs = {}
+    for impl in ("cuda", "xla"):
+        scan.launches = 0
+        logits, caches = M.make_slot_prefill(
+            cfg, decode_len=prompt_cap + gen_cap, mamba_impl=impl)(
+            params, batch, n)
+        launched = scan.launches
+        states = [{k: v.clone() for k, v in caches.items()}]
+        seq = [logits[0].float().cpu()]
+        for i, tok in enumerate(feed):
+            logits, caches = step(params, caches, torch.tensor(
+                [[tok]], dtype=torch.int32, device=device), n + i)
+            seq.append(logits[0].float().cpu())
+        states.append(caches)
+        runs[impl] = (seq, states, launched)
+    _sync(device)
+    if (runs["cuda"][2], runs["xla"][2]) != (cfg.n_layers, 0):
+        raise AssertionError(f"serving_mamba: scan launches "
+                             f"{runs['cuda'][2]} / {runs['xla'][2]}, "
+                             f"expected {cfg.n_layers} / 0")
+    out = {"request": req.req_id, "prompt": n, "steps": steps,
+           "logit_diff": max(float((a - b).abs().max()) for a, b in zip(
+               runs["cuda"][0], runs["xla"][0], strict=True))}
+    for when, (a, b) in zip(("prefill", "decoded"),
+                            zip(runs["cuda"][1], runs["xla"][1])):
+        for k in ("conv", "ssm"):
+            scale = float(b[k].abs().max())
+            out[f"{k}_{when}_diff_over_max"] = \
+                float((a[k] - b[k]).abs().max()) / scale
+    worst = max(v for k, v in out.items() if k.endswith("_over_max"))
+    if out["logit_diff"] > SERVE_LOGIT_TOL or worst > MAMBA_STATE_TOL:
+        raise AssertionError(f"serving_mamba: kernel against plain scan "
+                             f"{out}")
+    return out
+
+
+def run_serving_mamba(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
+                      gen_cap=SERVE_GEN, n_req=SERVE_REQUESTS,
+                      slots=SERVE_SLOTS, queue=SERVE_QUEUE, mamba_impl=None):
+    """Drive the serving path once with a Mamba stack and the scan kernel,
+    counted and checked, then against the one-shot loop and, for two
+    requests, the plain scan; time and profile it.  ``mamba_impl`` is the
+    engine's scan path (``None``: what the device implies; a rehearsal on
+    the CPU passes ``"cuda"`` to reach the scan wrapper's plain version).
+    Returns (legs, the arguments of the longest prefill's first scan)."""
+    M, serve, ops = m["M"], m["serve"], m["ops"]
+    params = M.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg)
+    _sync(device)
+    resident = _allocated(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    recorded = []
+
+    for op in ops.values():
+        op.launches = 0
+    stores, tables = serve.feature_stores(m["make_context"](device), 0,
+                                          max(slots, 8))
+    lookups = count_lookups(stores)
+    engine = m["ServingEngine"](
+        cfg, params, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=queue, feature_stores=stores,
+        mamba_impl=mamba_impl, device=device)
+    reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
+    pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
+    rec = Recorder(engine, keep=set(pick))
+    with recording_longest(ops["mamba_scan"], "selective_scan", recorded):
+        done, rejected, seconds = serve.drive(engine, reqs, slots)
+    _sync(device)
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0) - resident
+
+    mt = engine.metrics
+    check_engine_run("serving_mamba", engine, done, rejected, reqs, tables,
+                     stores)
+    expect_launches("serving_mamba", launches, {
+        "mamba_scan": cfg.n_layers * mt.count("prefills"),
+        "hash_partition": store_chunks(serve, stores) + lookups[0],
+        "radix_sort": 0})
+    by_id = {r.req_id: r for r in done}
+    oneshot = against_oneshot(m, cfg, params, rec, by_id, pick, device)
+    plain_scan = [against_plain_scan(m, cfg, params, by_id[rid], prompt_cap,
+                                     gen_cap, device) for rid in pick]
+
+    # time one full-length prefill and one decode step of all slots
+    prefill = M.make_slot_prefill(cfg, decode_len=prompt_cap + gen_cap)
+    full = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt_cap)).astype(np.int32)).to(device)}
+    step = M.make_serve_step(cfg)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    lens = np.full(slots, prompt_cap - 1, np.int32)
+    prefill_ms = event_ms(lambda: prefill(params, full, prompt_cap), reps=5)
+    step_ms = event_ms(lambda: step(params, engine.caches, toks, lens),
+                       reps=10)
+
+    def decode8():
+        for _ in range(8):
+            step(params, engine.caches, toks, lens)
+
+    prof = profile_serving(m, {
+        "prefill": lambda: prefill(params, full, prompt_cap),
+        "decode_8_steps": decode8}, device,
+        [(m["Ly"], "dense"), (m["Mb"], "_ssm_inputs"),
+         (m["Ly"], "logits_out"), (ops["mamba_scan"], "selective_scan")],
+        ("selective_scan", "mamba_scan_kernel"))
+    busy = sum(p["device_busy_ms"] for p in prof.values()) \
+        / sum(p["wall_ms"] for p in prof.values())
+    tokens = mt.count("tokens_generated")
+    emit({
+        "phase": "serving_mamba", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+        "ssm_state": cfg.ssm_state, "slots": slots,
+        "prompt_capacity": prompt_cap, "gen_capacity": gen_cap,
+        "requests": n_req, "completed": mt.count("completed"),
+        "prefills": mt.count("prefills"),
+        "decode_steps": mt.count("decode_steps"), "tokens": tokens,
+        "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+        "seconds": seconds, "tokens_per_s": tokens / seconds,
+        "ttft_p50_ms": mt.percentile("ttft", 50) * 1e3,
+        "ttft_p99_ms": mt.percentile("ttft", 99) * 1e3,
+        "latency_p50_ms": mt.percentile("latency", 50) * 1e3,
+        "latency_p99_ms": mt.percentile("latency", 99) * 1e3,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "peak_bytes_above_resident": peak, "resident_bytes": resident,
+        "weight_bytes": sum(t.numel() * t.element_size()
+                            for t in _leaves(params)),
+        "cache_bytes": {k: v.numel() * v.element_size()
+                        for k, v in engine.caches.items()},
+        "feature_lookups": lookups[0], "dropped": 0, "launches": launches,
+        "oneshot": oneshot, "plain_scan": plain_scan,
+        "logit_tol": SERVE_LOGIT_TOL, "state_tol": MAMBA_STATE_TOL,
+        "busy_share_prefill_plus_8_decode": busy, "profile": prof})
+    legs = {"serving_mamba": dict(launches=launches, rows=n_req)}
+    del params, engine, stores, prefill, step, full
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return legs, recorded[0]
+
+
+def scan_cases(recorded, device, seed=4):
+    """mamba_scan's cases: (a) the x, delta, A, B, C and D the longest
+    prefill of the Mamba leg gave its first layer, with the final state;
+    (b) that shape with random inputs; (c) ragged S = 1000; (d) S = 1;
+    (e) B = 4; (f) N = 8; (g) y alone (no final state).  No PyTorch call
+    computes the selective scan, so there is no library time."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(B, S, E, N):
+        def r(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+        return (r(B, S, E), torch.nn.functional.softplus(r(B, S, E)),
+                -torch.exp(r(E, N) * 0.5), r(B, S, N), r(B, S, N), r(E))
+
+    x = recorded[0]
+    B, S, E = x.shape
+    N = recorded[2].shape[1]
+    cases = [dict(shape=f"(a) serving prefill x {tuple(x.shape)} N {N} "
+                        "with hT", args=tuple(recorded))]
+    for label, shape, state in (("(b)", (B, S, E, N), True),
+                                ("(c)", (1, 1000, E, N), True),
+                                ("(d)", (1, 1, E, N), True),
+                                ("(e)", (4, 1024, E, N), True),
+                                ("(f)", (1, 1024, E, 8), True),
+                                ("(g)", (1, 1024, E, N), False)):
+        cases.append(dict(
+            shape=f"{label} B {shape[0]} S {shape[1]} E {shape[2]} "
+                  f"N {shape[3]} {'with hT' if state else 'y alone'}",
+            args=(*rand(*shape), state)))
+    return cases
+
+
+def _scan_close(case, got, want) -> float:
+    """Each output finite and within SCAN_TOL (absolute and relative) of
+    the plain version; returns the largest absolute difference."""
+    err = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"mamba_scan {case['shape']}: {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        diff = (g - w).abs()
+        if not bool(torch.isfinite(g).all()) \
+                or bool((diff > SCAN_TOL * (1 + w.abs())).any()):
+            raise AssertionError(f"mamba_scan {case['shape']}: differs from "
+                                 f"selective_scan_ref by {float(diff.max())}")
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    return err
 
 
 # --------------------------------------------------------------------------
@@ -1482,6 +1776,22 @@ def bound(name, args):
             if causal else Sq * Skv
         t_bytes = nbytes / BYTES_PER_S * 1e3
         t_ops = 4 * D * B * Hq * live / BF16_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
+    elif name == "mamba_scan":
+        # x and y once each, delta, A, B, C and D read once, hT written
+        # once when asked; B S E N exponentials at the special-function
+        # rate and 5 float32 operations each (the decay, the two products
+        # of the update, the product with C and its sum)
+        x, delta, A, Bm, Cm, D, with_state = args
+        Bsz, S, E = x.shape
+        N = A.shape[1]
+        nbytes = 2 * x.numel() * x.element_size() + 4 * (
+            delta.numel() + A.numel() + Bm.numel() + Cm.numel() + D.numel()
+            + (Bsz * E * N if with_state else 0))
+        cells = Bsz * S * E * N
+        t_bytes = nbytes / BYTES_PER_S * 1e3
+        t_ops = max(cells / EXP_PER_S, 5 * cells / OPS_PER_S) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops \
             else (t_ops, "operations")
     elif name == "hash_partition":
@@ -1589,6 +1899,12 @@ def main() -> int:
     cases["flash_attention"] = flash_cases(qkv, device)
     errs.update(compare_kernels(
         m, {"flash_attention": cases["flash_attention"]}, device))
+    mamba_legs, scan_args = run_serving_mamba(
+        m, device, m["get_config"](MAMBA_ARCH))
+    legs.update(mamba_legs)
+    cases["mamba_scan"] = scan_cases(scan_args, device)
+    errs.update(compare_kernels(
+        m, {"mamba_scan": cases["mamba_scan"]}, device))
 
     for leg, info in legs.items():
         if "run" not in info:          # the serving legs time themselves

@@ -18,7 +18,10 @@ never a fallback.  Environment overrides mirror the JAX package's:
 * ``REPRO_ATTN_IMPL`` — model attention: ``cuda`` (the flash kernel) on
   CUDA tensors, ``xla`` (the plain full or chunked attention; the name is
   kept for parity with the JAX package) on CPU tensors.  Like
-  ``REPRO_KERNEL_IMPL`` it may only confirm what the device implies.
+  ``REPRO_KERNEL_IMPL`` it may only confirm what the device implies;
+* ``REPRO_MAMBA_IMPL`` — the Mamba selective scan: ``cuda`` (the scan
+  kernel) on CUDA tensors, ``xla`` (the plain scan, ``mamba_scan/ref.py``)
+  on CPU tensors; it too may only confirm what the device implies.
 """
 import os
 
@@ -75,19 +78,36 @@ def sort_impl() -> str:
     return os.environ.get("REPRO_SORT_IMPL") or "xla"
 
 
+def _model_impl(device, env_var: str, which: str) -> str:
+    """'cuda' for CUDA tensors, 'xla' for CPU tensors; ``env_var`` may
+    only confirm that choice."""
+    device = torch.device(device)
+    impl = "cuda" if device.type == "cuda" else "xla"
+    env = os.environ.get(env_var)
+    if env and env != impl:
+        if env not in ("xla", "cuda"):
+            raise ValueError(f"unknown {env_var} {env!r} "
+                             "(expected 'xla' or 'cuda')")
+        raise ValueError(f"{env_var}={env} cannot run on a {device.type} "
+                         f"tensor: {which}")
+    return impl
+
+
 def attention_impl(device) -> str:
     """'cuda' (the flash-attention kernel) for CUDA tensors, 'xla' (plain
     PyTorch attention) for CPU tensors.  A caller may still pass
     ``attn_impl="xla"`` explicitly on the card: that is the reference's
     XLA path, chosen, not a fallback."""
-    device = torch.device(device)
-    impl = "cuda" if device.type == "cuda" else "xla"
-    env = os.environ.get("REPRO_ATTN_IMPL")
-    if env and env != impl:
-        if env not in ("xla", "cuda"):
-            raise ValueError(f"unknown REPRO_ATTN_IMPL {env!r} "
-                             "(expected 'xla' or 'cuda')")
-        raise ValueError(f"REPRO_ATTN_IMPL={env} cannot run on a "
-                         f"{device.type} tensor: the flash kernel runs on "
-                         "CUDA tensors and plain attention on CPU tensors")
-    return impl
+    return _model_impl(device, "REPRO_ATTN_IMPL",
+                       "the flash kernel runs on CUDA tensors and plain "
+                       "attention on CPU tensors")
+
+
+def mamba_impl(device) -> str:
+    """'cuda' (the selective-scan kernel) for CUDA tensors, 'xla' (the
+    plain scan) for CPU tensors.  A caller may still pass
+    ``mamba_impl="xla"`` explicitly on the card: that is the plain scan,
+    chosen, not a fallback."""
+    return _model_impl(device, "REPRO_MAMBA_IMPL",
+                       "the scan kernel runs on CUDA tensors and the plain "
+                       "scan on CPU tensors")

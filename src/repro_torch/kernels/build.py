@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("hash_partition", "fused_bucketing", "hash_join",
-           "radix_sort", "hash_groupby", "hash_semi", "flash_attention")
+           "radix_sort", "hash_groupby", "hash_semi", "flash_attention",
+           "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

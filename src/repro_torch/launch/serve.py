@@ -13,7 +13,10 @@ admission queue and runs the engine until drained.  Every request's keys
 resolve against UNOMT feature tables through the port's distributed join
 before its prompt enters a slot.  Prints the metrics snapshot and
 asserts the accounting identity: submitted == completed + rejected +
-feature_misses.  Runs on the CUDA card unless ``--device cpu``.
+feature_misses.  Runs on the CUDA card unless ``--device cpu``.  Any
+uniform decoder-only config serves: a dense one (``lm100m``,
+``granite-3-2b``, ...) or a Mamba one (``falcon-mamba-7b``, prefilled at
+each prompt's true length).
 """
 import argparse
 import time

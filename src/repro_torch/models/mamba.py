@@ -1,0 +1,142 @@
+"""Mamba-1 block (PyTorch port of ``repro/models/mamba.py``): Falcon-Mamba
+layers.
+
+Two scan paths for the full sequence, both returning the final state:
+
+* ``cuda`` — the ``kernels/mamba_scan`` kernel (CUDA tensors only);
+* ``xla``  — the plain scan, ``mamba_scan/ref.py`` (the name is kept for
+  parity with the JAX package, whose ``xla`` path is a chunked
+  ``lax.scan``; the chunking with ``jax.checkpoint`` bounds training
+  memory and gives the same numbers, so it comes with training).
+
+and ``mamba_step``, the O(1) single-token decode on the (conv, ssm)
+state.  Parameters are stacked over layers as the rest of the model's
+are; the in, x and out projections are bf16 and everything else float32,
+``dt_proj.w`` included (the reference never casts it, and
+``dt_low @ dt_proj.w`` runs in float32 — with TF32 off, PyTorch's
+default for matrix products).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.mamba_scan import ops as scan_ops
+from ..kernels.mamba_scan.ref import selective_scan_ref
+from . import layers as Ly
+
+F32 = torch.float32
+
+
+def dt_rank(cfg) -> int:
+    return cfg.dt_rank or max(1, math.ceil(cfg.d_model / 16))
+
+
+def mamba_init(gen: torch.Generator, cfg, n: int) -> dict:
+    """``n`` stacked Mamba blocks with the reference's initialisers."""
+    d, E, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    R = dt_rank(cfg)
+    dev = gen.device
+    A = torch.arange(1, N + 1, dtype=F32, device=dev).expand(n, E, N)
+    return {
+        "in_proj": Ly.dense_init(gen, n, d, 2 * E),
+        "conv_w": Ly.normal(gen, (n, K, E), Ly.INIT_STD, F32),
+        "conv_b": torch.zeros((n, E), device=dev),
+        "x_proj": Ly.dense_init(gen, n, E, R + 2 * N),
+        "dt_proj": {
+            "w": Ly.normal(gen, (n, R, E), R ** -0.5, F32),
+            "b": torch.full((n, E), math.log(math.expm1(0.01)),
+                            device=dev),
+        },
+        "A_log": torch.log(A).contiguous(),
+        "D": torch.ones((n, E), device=dev),
+        "out_proj": Ly.dense_init(
+            gen, n, E, d, std=Ly.INIT_STD / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv via K shifted adds.  x (B,S,E), w (K,E) ->
+    float32 (B,S,E)."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, K - 1, 0))
+    y = torch.zeros(x.shape, dtype=F32, device=x.device)
+    for k in range(K):
+        y = y + xp[:, k:k + S] * w[k].float()
+    return y + b.float()
+
+
+def _ssm_inputs(p, cfg, xc):
+    """xc (B,S,E) float32 -> (delta (B,S,E), A (E,N), Bm, Cm (B,S,N)),
+    all float32."""
+    N = cfg.ssm_state
+    R = dt_rank(cfg)
+    proj = (xc.to(Ly.BF16) @ p["x_proj"]["w"].to(Ly.BF16)).float()
+    dt_low, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
+    delta = F.softplus(dt_low @ p["dt_proj"]["w"].float()
+                       + p["dt_proj"]["b"].float())
+    A = -torch.exp(p["A_log"].float())
+    return delta, A, Bm.contiguous(), Cm.contiguous()
+
+
+def _conv_state(x_in, K: int):
+    """The last K - 1 inputs of the conv, left-padded with zeros."""
+    S = x_in.shape[1]
+    xf = x_in.float()
+    if S >= K - 1:
+        return xf[:, S - (K - 1):].contiguous()
+    return F.pad(xf, (0, 0, K - 1 - S, 0))
+
+
+def mamba_apply(p, cfg, x, *, impl: str = "xla", return_state: bool = False):
+    """Full-sequence Mamba block.  x (B,S,d) -> (y (B,S,d), state | None)
+    with state ``{"conv" (B,K-1,E), "ssm" (B,E,N)}`` float32.  ``impl``:
+    ``cuda`` (the scan kernel; on CPU tensors its wrapper's plain version)
+    or ``xla`` (the plain scan)."""
+    E, K = cfg.d_inner, cfg.ssm_conv
+    xz = Ly.dense(p["in_proj"], x)                        # (B,S,2E)
+    x_in, z = xz[..., :E], xz[..., E:]
+    xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
+    delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
+    D = p["D"].float()
+    if impl == "cuda":
+        y = scan_ops.selective_scan(xc, delta, A, Bm, Cm, D,
+                                    return_state=return_state)
+        y, hT = y if return_state else (y, None)
+    elif impl == "xla":
+        y, hT = selective_scan_ref(xc, delta, A, Bm, Cm, D)
+    else:
+        raise ValueError(f"unknown mamba impl {impl!r} (expected 'cuda' or "
+                         "'xla')")
+    y = y * F.silu(z.float())
+    out = Ly.dense(p["out_proj"], y.to(x.dtype))
+    if return_state:
+        return out, {"conv": _conv_state(x_in, K), "ssm": hT}
+    return out, None
+
+
+def mamba_step(p, cfg, x, state):
+    """Single-token decode.  x (B,1,d); ``state = {"conv" (B,K-1,E),
+    "ssm" (B,E,N)}`` float32, updated IN PLACE (the reference returns a
+    new state and donates the old buffers).  Returns (y (B,1,d), state)."""
+    E = cfg.d_inner
+    xz = Ly.dense(p["in_proj"], x)                        # (B,1,2E)
+    x_in, z = xz[..., :E], xz[..., E:]
+    window = torch.cat([state["conv"], x_in.float()], dim=1)   # (B,K,E)
+    xc = torch.einsum("bke,ke->be", window, p["conv_w"].float()) \
+        + p["conv_b"].float()
+    xc = F.silu(xc)[:, None, :]                           # (B,1,E)
+    delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
+    dA = torch.exp(delta[:, 0, :, None] * A[None])        # (B,E,N)
+    h = dA * state["ssm"] + (delta[:, 0] * xc[:, 0])[..., None] \
+        * Bm[:, 0][:, None, :]
+    y = torch.einsum("ben,bn->be", h, Cm[:, 0]) \
+        + xc[:, 0] * p["D"].float()[None]
+    y = (y * F.silu(z[:, 0].float()))[:, None, :]
+    out = Ly.dense(p["out_proj"], y.to(x.dtype))
+    state["conv"].copy_(window[:, 1:])
+    state["ssm"].copy_(h)
+    return out, state

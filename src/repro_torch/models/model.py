@@ -10,7 +10,10 @@ in each product are the same) and norm scales and biases as float32.
 
 ``attn_impl=None`` picks the attention path from the tokens' device
 (``kernel_backend.attention_impl``): the flash kernel on the card, plain
-attention on the CPU.
+attention on the CPU; ``mamba_impl=None`` likewise the scan
+(``kernel_backend.mamba_impl``): the selective-scan kernel on the card,
+the plain scan on the CPU.  A stack with Mamba layers is always
+prefilled at the prompt's true length (see :func:`make_slot_prefill`).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..core.kernel_backend import attention_impl
+from ..core import kernel_backend as KB
 from . import layers as Ly
 from . import transformer as Tf
 from .transformer import StackOpts
@@ -28,13 +31,21 @@ CACHE_DTYPE = torch.bfloat16
 
 
 def opts_from_cfg(cfg, tokens, *, decode_len: int = 0,
-                  attn_impl: str | None = None) -> StackOpts:
-    """The stack's knobs; ``attn_impl=None`` is the path the tokens'
+                  attn_impl: str | None = None,
+                  mamba_impl: str | None = None) -> StackOpts:
+    """The stack's knobs; an ``*_impl=None`` is the path the tokens'
     device implies."""
     t = cfg.train
-    return StackOpts(attn_impl=attn_impl or attention_impl(tokens.device),
+    return StackOpts(attn_impl=attn_impl or KB.attention_impl(tokens.device),
+                     mamba_impl=mamba_impl or KB.mamba_impl(tokens.device),
                      q_chunk=t.attn_q_chunk, k_chunk=t.attn_k_chunk,
                      decode_len=decode_len)
+
+
+def has_mamba(cfg) -> bool:
+    """Whether any layer of the stack is a Mamba block."""
+    return any(Tf.layer_kind(cfg, i)[0] == "mamba"
+               for i in range(cfg.n_layers))
 
 
 # --------------------------------------------------------------------------
@@ -59,8 +70,12 @@ def init_params(gen: torch.Generator, cfg) -> dict:
     return params
 
 
-def _is_matmul_weight(name: str, a: np.ndarray) -> bool:
-    return name in ("w", "embed") and a.ndim >= 2
+def _is_matmul_weight(parent: str, name: str, a: np.ndarray) -> bool:
+    """The leaves the reference casts to bf16 at use: matmul weights but
+    ``dt_proj.w``, which stays float32 (``_cast_weights_bf16``), and the
+    embedding."""
+    return ((name == "w" and parent != "dt_proj") or name == "embed") \
+        and a.ndim >= 2
 
 
 def params_from_jax(tree: Mapping, cfg, device) -> dict:
@@ -71,16 +86,16 @@ def params_from_jax(tree: Mapping, cfg, device) -> dict:
     float32, all on ``device``."""
     Tf.check_supported(cfg)
 
-    def conv(node):
+    def conv(node, parent=""):
         out = {}
         for name, a in node.items():
             if isinstance(a, Mapping):
-                out[name] = conv(a)
+                out[name] = conv(a, name)
                 continue
             a = np.array(a, np.float32)          # a writable copy
             t = torch.from_numpy(a).to(device)
             out[name] = t.to(torch.bfloat16) \
-                if _is_matmul_weight(name, a) else t
+                if _is_matmul_weight(parent, name, a) else t
         return out
 
     return conv(tree)
@@ -115,12 +130,13 @@ def _logits(params, cfg, x):
         tied_embed=params["embed"] if cfg.tie_embeddings else None)
 
 
-def make_prefill(cfg, *, decode_len: int, attn_impl: str | None = None):
+def make_prefill(cfg, *, decode_len: int, attn_impl: str | None = None,
+                 mamba_impl: str | None = None):
     """``(params, batch) -> (logits (B,V) at the last position, caches)``
-    with caches padded to ``decode_len``."""
+    with attention caches padded to ``decode_len``."""
     def prefill(params, batch):
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, mamba_impl=mamba_impl)
         x, caches, _ = backbone(params, cfg, batch, opts, want_cache=True)
         return _logits(params, cfg, x[:, -1:])[:, 0], caches
     return prefill
@@ -133,15 +149,18 @@ def make_serve_step(cfg):
 
     ``cache_len`` is a scalar (the one-shot loop: the whole batch at one
     position) or a ``(B,)`` array of per-slot positions (the engine's
-    continuous batching), every value below the cache length.  A decode
-    step's attention is plain PyTorch on every device (the reference has
-    no kernel there either), so it takes no ``attn_impl``."""
+    continuous batching), every value below the attention cache's length
+    (a Mamba layer's state has no positions and ignores it).  A decode
+    step's attention and Mamba step are plain PyTorch on every device (the
+    reference has no kernel there either), so it takes no ``*_impl``."""
     def serve_step(params, caches, tokens, cache_len):
-        S = caches["k"].shape[3]
         cl = cache_len if isinstance(cache_len, torch.Tensor) \
             else torch.as_tensor(np.array(cache_len))
-        if int(cl.min()) < 0 or int(cl.max()) >= S:
-            raise ValueError(f"cache_len {cl.tolist()} outside [0, {S})")
+        if "k" in caches:
+            S = caches["k"].shape[3]
+            if int(cl.min()) < 0 or int(cl.max()) >= S:
+                raise ValueError(f"cache_len {cl.tolist()} outside "
+                                 f"[0, {S})")
         cl = cl.to(tokens.device)
         x = Ly.embed_lookup(params["embed"], tokens)      # (B,1,d)
         x, caches = Tf.stack_decode(params["layers"], cfg, x, caches, cl)
@@ -151,19 +170,28 @@ def make_serve_step(cfg):
 
 
 def make_slot_prefill(cfg, *, decode_len: int,
-                      attn_impl: str | None = None):
+                      attn_impl: str | None = None,
+                      mamba_impl: str | None = None):
     """Prefill for one continuous-batching slot refill.
 
     ``(params, batch, length) -> (logits (B,V), caches)`` where
     ``batch['tokens']`` is a fixed-shape right-padded prompt ``(B,P)`` and
     ``length`` the true prompt length: logits are taken at position
     ``n_prefix + length - 1`` (the last real token, which attends only to
-    real positions under the causal mask).  Padding rows land in cache
-    positions ``>= length``, stay masked at decode and are overwritten
-    token by token."""
+    real positions under the causal mask).  In a dense stack the padding
+    rows land in cache positions ``>= length``, stay masked at decode and
+    are overwritten token by token.  A stack with Mamba layers is
+    prefilled on ``tokens[:, :length]`` alone: a Mamba state has no
+    positions to mask, and one that ran on through the padding would not
+    be the prompt's (the JAX engine pads there, so its Mamba states
+    differ from its own ``make_prefill`` at the true length)."""
+    mamba = has_mamba(cfg)
+
     def slot_prefill(params, batch, length):
+        if mamba:
+            batch = dict(batch, tokens=batch["tokens"][:, :int(length)])
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, mamba_impl=mamba_impl)
         x, caches, n_prefix = backbone(params, cfg, batch, opts,
                                        want_cache=True)
         idx = n_prefix + int(length) - 1
@@ -186,10 +214,17 @@ def write_cache_slot(caches, one, slot: int):
 
 
 def cache_struct(cfg, batch_size: int, decode_len: int) -> dict:
-    """``{"k", "v"}`` -> (shape, dtype) of the stacked cache that
-    ``stack_apply`` emits: (n_layers, B, Hkv, decode_len, D) bf16."""
+    """name -> (shape, dtype) of the stacked cache that ``stack_apply``
+    emits: ``{"k", "v"}`` (n_layers, B, Hkv, decode_len, D) bf16 for an
+    attention stack, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B,
+    E, N)}`` float32 for a Mamba stack."""
     Tf.check_supported(cfg)
-    kv = (cfg.n_layers, batch_size, cfg.n_kv_heads, decode_len, cfg.d_head)
+    L, B = cfg.n_layers, batch_size
+    if has_mamba(cfg):
+        return {"conv": ((L, B, cfg.ssm_conv - 1, cfg.d_inner),
+                         torch.float32),
+                "ssm": ((L, B, cfg.d_inner, cfg.ssm_state), torch.float32)}
+    kv = (L, B, cfg.n_kv_heads, decode_len, cfg.d_head)
     return {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
 
 

@@ -1,13 +1,17 @@
 """Layer stacks (PyTorch port of ``repro/models/transformer.py``).
 
-A *layer* = (norm -> attention -> residual) + (norm -> ffn -> residual).
-Parameters stay stacked over layers (a leading ``n_layers`` axis on every
-leaf, the reference's ``vmap``-ed init) and so do the caches, ``(n_layers,
-B, Hkv, S, D)``; the reference's ``lax.scan`` over the stack is a loop
-over that axis.  Two traversal modes share the layer definitions:
+A *layer* = (norm -> mixer -> residual) [+ (norm -> ffn -> residual)]
+where the mixer is GQA attention or a Mamba block and the ffn swiglu,
+gelu or none.  Parameters stay stacked over layers (a leading
+``n_layers`` axis on every leaf, the reference's ``vmap``-ed init) and so
+do the caches: ``{"k", "v"}`` (n_layers, B, Hkv, S, D) bf16 for attention
+layers, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B, E, N)}``
+float32 for Mamba layers; the reference's ``lax.scan`` over the stack is
+a loop over that axis.  Two traversal modes share the layer definitions:
 ``prefill`` (emit per-layer cache) and ``decode`` (consume and update the
-cache, one token).  This slice serves dense decoder-only stacks; layers
-that need MoE, Mamba, cross-attention or a frontend raise
+cache, one token).  This slice serves uniform decoder-only stacks (dense
+or Mamba); MoE layers, period stacks (Jamba's attention every
+``attn_period`` layers), cross-attention and frontends raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -19,12 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as Ly
+from . import mamba as Mb
 
 
 @dataclasses.dataclass(frozen=True)
 class StackOpts:
     """Runtime knobs threaded through the stack (from TrainSettings)."""
     attn_impl: str = "xla"
+    mamba_impl: str = "xla"
     q_chunk: int = 1024
     k_chunk: int = 1024
     decode_len: int = 0          # static cache length for decode/prefill
@@ -51,14 +57,13 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: encoder and "
                                   "cross-attention come with the audio "
                                   "slice")
-    for i in range(cfg.n_layers):
-        mixer, ffn, _ = layer_kind(cfg, i)
-        if mixer == "mamba":
-            raise NotImplementedError(f"{cfg.name}: Mamba layers come with "
-                                      "the Mamba slice (mamba_scan)")
-        if ffn == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE layers come with "
-                                      "the MoE slice")
+    if any(layer_kind(cfg, i)[1] == "moe" for i in range(cfg.n_layers)):
+        raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
+                                  "MoE slice")
+    if cfg.attn_period > 1:
+        raise NotImplementedError(f"{cfg.name}: period stacks (attention "
+                                  f"every {cfg.attn_period} layers) come "
+                                  "with the hybrid slice")
 
 
 def layer_at(stack: dict, i: int) -> dict:
@@ -74,11 +79,15 @@ def layer_at(stack: dict, i: int) -> dict:
 
 
 def layer_init(gen: torch.Generator, cfg, n: int) -> dict:
-    """``n`` stacked dense layers (attention + swiglu or gelu MLP)."""
+    """``n`` stacked layers of the stack's one kind (attention + swiglu or
+    gelu MLP, or a Mamba block alone)."""
     check_supported(cfg)
-    _, ffn, _ = layer_kind(cfg, 0)
-    p: dict[str, Any] = {"ln1": Ly.rms_norm_init(gen, n, cfg.d_model),
-                         "attn": Ly.attn_init(gen, cfg, n)}
+    mixer, ffn, _ = layer_kind(cfg, 0)
+    p: dict[str, Any] = {"ln1": Ly.rms_norm_init(gen, n, cfg.d_model)}
+    if mixer == "attn":
+        p["attn"] = Ly.attn_init(gen, cfg, n)
+    else:
+        p["mamba"] = Mb.mamba_init(gen, cfg, n)
     if ffn != "none":
         p["ln2"] = Ly.rms_norm_init(gen, n, cfg.d_model)
         if ffn == "gelu":
@@ -113,21 +122,30 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
     unless want_cache."""
     cache = {}
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
-    y, (k, v) = Ly.attn_apply(p["attn"], cfg, h, positions, causal=causal,
-                              attn_impl=opts.attn_impl,
-                              q_chunk=opts.q_chunk, k_chunk=opts.k_chunk)
-    x = x + y
-    if want_cache:
-        cache["k"] = _cache_pad(k, opts.decode_len)
-        cache["v"] = _cache_pad(v, opts.decode_len)
-    return _apply_ffn(p, cfg, x), cache
+    if "attn" in p:
+        y, (k, v) = Ly.attn_apply(p["attn"], cfg, h, positions,
+                                  causal=causal, attn_impl=opts.attn_impl,
+                                  q_chunk=opts.q_chunk,
+                                  k_chunk=opts.k_chunk)
+        if want_cache:
+            cache["k"] = _cache_pad(k, opts.decode_len)
+            cache["v"] = _cache_pad(v, opts.decode_len)
+    else:
+        y, state = Mb.mamba_apply(p["mamba"], cfg, h, impl=opts.mamba_impl,
+                                  return_state=want_cache)
+        if want_cache:
+            cache.update(state)
+    return _apply_ffn(p, cfg, x + y), cache
 
 
 def layer_decode(p, cfg, x, cache, cache_len):
     """One-token decode through one layer; ``cache`` is updated in place.
     Returns (x, cache)."""
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
-    y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len)
+    if "attn" in p:
+        y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len)
+    else:
+        y, cache = Mb.mamba_step(p["mamba"], cfg, h, cache)
     return _apply_ffn(p, cfg, x + y), cache
 
 
@@ -142,8 +160,8 @@ def stack_init(gen: torch.Generator, cfg) -> dict:
 
 def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, want_cache: bool = False):
-    """Run the stack.  Returns (x, stacked caches | None): caches are
-    ``{"k", "v"}`` of shape (n_layers, B, Hkv, S, D)."""
+    """Run the stack.  Returns (x, stacked caches | None): each layer's
+    cache leaves stacked over the layers (see the module docstring)."""
     n = cfg.n_layers
     caches = []
     for i in range(n):
@@ -152,7 +170,7 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
         caches.append(cache)
     if not want_cache:
         return x, None
-    return x, {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
+    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
 def stack_decode(stack_params, cfg, x, caches, cache_len):

@@ -14,10 +14,16 @@ admission -> feature fetch -> slot prefill -> continuous-batching decode
   runs shuffle + local join (``dist_join`` with the build-side shuffle
   hoisted out of the request path).
 * **Slot prefill** (``models.model.make_slot_prefill``): prompts are
-  right-padded to one fixed shape; on the card every layer's attention
-  runs the flash-attention kernel; the prompt's KV cache is written into
-  the running batch cache at the freed slot
-  (``models.model.write_cache_slot``).
+  right-padded to one fixed shape; on the card every attention layer
+  runs the flash-attention kernel and every Mamba layer the
+  selective-scan kernel; the prompt's cache (KV, or Mamba conv and ssm
+  state) is written into the running batch cache at the freed slot
+  (``models.model.write_cache_slot``).  A model with Mamba layers is
+  prefilled at the prompt's true length, never on the padding: its state
+  has no positions to mask, so a state that ran on through the padding
+  would not be the prompt's.  (The JAX engine prefills the padded shape
+  there; the port is held to the reference's ``make_prefill`` at the
+  true length instead.)
 * **Decode** (``models.model.make_serve_step`` with per-slot cache
   lengths): one step drives the whole fixed-shape batch; finished slots
   are refilled from the queue at once.
@@ -41,7 +47,7 @@ from ..core import dist_ops as D
 from ..core import local_ops as L
 from ..core import morsel as Mo
 from ..core.context import HptmtContext
-from ..core.kernel_backend import attention_impl, resolve_device
+from ..core import kernel_backend as KB
 from ..core.table import narrow_column
 from ..models import model as M
 from .batcher import SlotBatch
@@ -229,19 +235,21 @@ class ServingEngine:
     ``"cell_id"``) to the :class:`FeatureStore` resolving it; every store's
     ``probe_capacity`` must admit a full refill micro-batch (``slots``).
     ``params`` live on ``device`` (``None`` = the CUDA card);
-    ``attn_impl=None`` takes the attention path that device implies
-    (``kernel_backend.attention_impl``)."""
+    ``attn_impl=None`` and ``mamba_impl=None`` take the attention and
+    scan paths that device implies (``kernel_backend.attention_impl``,
+    ``kernel_backend.mamba_impl``)."""
 
     def __init__(self, cfg, params, *, slots: int = 4,
                  prompt_capacity: int = 32, gen_capacity: int = 32,
                  queue_capacity: int = 64,
                  feature_stores: Mapping[str, FeatureStore] | None = None,
-                 attn_impl: str | None = None, device=None,
+                 attn_impl: str | None = None,
+                 mamba_impl: str | None = None, device=None,
                  clock=time.perf_counter):
         if cfg.frontend != "none" or cfg.is_encdec:
             raise ValueError("ServingEngine serves decoder-only LM "
                              "configs (no frontend/encoder)")
-        self.device = resolve_device(device)
+        self.device = KB.resolve_device(device)
         self.cfg = cfg
         self.params = params
         self.clock = clock
@@ -249,7 +257,8 @@ class ServingEngine:
         self.prompt_capacity = int(prompt_capacity)
         self.gen_capacity = int(gen_capacity)
         self.decode_len = self.prompt_capacity + self.gen_capacity
-        self.attn_impl = attn_impl or attention_impl(self.device)
+        self.attn_impl = attn_impl or KB.attention_impl(self.device)
+        self.mamba_impl = mamba_impl or KB.mamba_impl(self.device)
         self.feature_stores = dict(feature_stores or {})
         for name, store in self.feature_stores.items():
             if store.probe_capacity < self.n_slots:
@@ -266,7 +275,8 @@ class ServingEngine:
         self.caches = M.init_caches(cfg, self.n_slots, self.decode_len,
                                     self.device)
         self._slot_prefill = M.make_slot_prefill(
-            cfg, decode_len=self.decode_len, attn_impl=self.attn_impl)
+            cfg, decode_len=self.decode_len, attn_impl=self.attn_impl,
+            mamba_impl=self.mamba_impl)
         self._serve_step = M.make_serve_step(cfg)
 
     # ------------------------------------------------------------ admission

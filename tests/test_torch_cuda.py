@@ -24,6 +24,8 @@ from repro_torch.kernels.hash_semi.ref import bucket_member_ref
 from repro_torch.kernels.hash_partition import ops as hp_ops
 from repro_torch.kernels.hash_partition import radix_histogram_ranks
 from repro_torch.kernels.hash_partition.ref import radix_histogram_ranks_ref
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.radix_sort import ops as rs_ops
 from repro_torch.kernels.radix_sort.ref import digit_histogram_ranks_ref
 
@@ -364,3 +366,139 @@ def test_reduced_engine_on_the_card(cuda):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# the Mamba selective scan and a Mamba stack served on the card
+# --------------------------------------------------------------------------
+
+# the reference's own tolerance for its scan kernel
+# (tests/test_kernels.py::test_selective_scan_interpret_matches_ref)
+SCAN_TOL = 2e-4
+
+
+def scan_inputs(cuda, rng, B, S, E, N):
+    x = rng.normal(size=(B, S, E))
+    delta = np.log1p(np.exp(rng.normal(size=(B, S, E))))
+    A = -np.exp(rng.normal(size=(E, N)) * 0.5)
+    Bm, Cm = rng.normal(size=(B, S, N)), rng.normal(size=(B, S, N))
+    D = rng.normal(size=(E,))
+    return tuple(on(cuda, a.astype(np.float32))
+                 for a in (x, delta, A, Bm, Cm, D))
+
+
+@pytest.mark.parametrize("return_state", [True, False])
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("S", [1, 100, 1024])
+@pytest.mark.parametrize("B", [1, 4])
+def test_mamba_scan_equals_plain(cuda, B, S, N, return_state, rng):
+    args = scan_inputs(cuda, rng, B, S, 200, N)     # E = 200: ragged blocks
+    got = scan_ops.selective_scan(*args, return_state=return_state)
+    want = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    if not return_state:
+        got, want = (got,), want[:1]
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("N", [1, 2, 4, 32])
+def test_mamba_scan_other_state_sizes_and_bf16_x(cuda, N, rng):
+    args = scan_inputs(cuda, rng, 2, 70, 96, N)
+    y, h = scan_ops.selective_scan(*args, return_state=True)
+    wy, wh = selective_scan_ref(*args)
+    torch.testing.assert_close(y, wy, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(h, wh, atol=SCAN_TOL, rtol=SCAN_TOL)
+    xb = args[0].bfloat16()
+    yb = scan_ops.selective_scan(xb, *args[1:])
+    wb = selective_scan_ref(xb, *args[1:])[0]
+    torch.cuda.synchronize()
+    assert yb.dtype == torch.bfloat16
+    # bf16 outputs: one rounding of the same float32 value, or of two
+    # values within SCAN_TOL of each other
+    torch.testing.assert_close(yb.float(), wb.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_mamba_scan_counts_launches(cuda, rng):
+    args = scan_inputs(cuda, rng, 1, 16, 32, 16)
+    before = scan_ops.launches
+    scan_ops.selective_scan(*args)
+    scan_ops.selective_scan(*(a.cpu() for a in args))   # plain version
+    empty = scan_inputs(cuda, rng, 1, 0, 32, 16)         # S = 0
+    y, h = scan_ops.selective_scan(*empty, return_state=True)
+    assert scan_ops.launches == before + 1
+    assert y.shape == (1, 0, 32) and not bool(h.any())
+
+
+def test_mamba_scan_wrong_input_raises(cuda, rng):
+    x, d, A, Bm, Cm, D = scan_inputs(cuda, rng, 1, 16, 32, 16)
+    with pytest.raises(ValueError, match="float32 CUDA tensor"):
+        scan_ops.selective_scan(x, d.double(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="float32 CUDA tensor"):
+        scan_ops.selective_scan(x.half(), d, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_ops.selective_scan(x, d, A, Bm.transpose(1, 2).contiguous()
+                                .transpose(1, 2), Cm, D)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        scan_ops.selective_scan(x, d, A.cpu(), Bm, Cm, D)
+    with pytest.raises(ValueError, match="state size"):
+        scan_ops.selective_scan(x, d, A[:, :12].contiguous(),
+                                Bm[..., :12].contiguous(),
+                                Cm[..., :12].contiguous(), D)
+    with pytest.raises(ValueError, match="Cm is"):
+        scan_ops.selective_scan(x, d, A, Bm, Cm[:, :8], D)
+
+
+def test_reduced_mamba_engine_on_the_card(cuda):
+    """Reduced falcon-mamba-7b served on the card: every request served,
+    the scan kernel once per layer of every prefill and no flash launch,
+    and the same tokens as the same engine on the CPU (the plain scan)
+    up to the first position whose CPU top-2 margin is at most twice the
+    two devices' logit difference there (within 2e-2)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import model as M
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_reduced("falcon-mamba-7b")
+    cpu_params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    runs = {}
+    for device, params in ((cuda, _to(cpu_params, cuda)),
+                           (torch.device("cpu"), cpu_params)):
+        eng = ServingEngine(cfg, params, slots=4, prompt_capacity=40,
+                            gen_capacity=8, queue_capacity=16,
+                            device=device)
+        logits = {}
+        plain = eng._slot_prefill
+
+        def prefill(p, batch, length, plain=plain, logits=logits):
+            lg, caches = plain(p, batch, length)
+            logits[len(logits)] = lg[0].float().cpu()
+            return lg, caches
+
+        eng._slot_prefill = prefill
+        reqs = make_requests(cfg, 12, 40, 8, seed=0)
+        before = (scan_ops.launches, flash_ops.launches)
+        for r in reqs:
+            assert eng.submit(r)
+        done = eng.run_until_drained()
+        m = eng.metrics
+        assert m.count("completed") == m.count("submitted") == 12
+        assert all(len(r.out_tokens) == r.gen_len for r in done)
+        want = (cfg.n_layers * m.count("prefills"), 0) \
+            if device.type == "cuda" else (0, 0)
+        assert (scan_ops.launches - before[0],
+                flash_ops.launches - before[1]) == want
+        runs[device.type] = ({r.req_id: r.out_tokens for r in done}, logits)
+    (gpu_toks, gpu_lg), (cpu_toks, cpu_lg) = runs["cuda"], runs["cpu"]
+    compared = 0
+    for i in cpu_lg:                 # prefills in the same order
+        diff = float((gpu_lg[i] - cpu_lg[i]).abs().max())
+        assert diff <= 2e-2
+        top = torch.topk(cpu_lg[i], 2).values
+        if float(top[0] - top[1]) > 2 * diff:
+            assert int(gpu_lg[i].argmax()) == int(cpu_lg[i].argmax())
+            compared += 1
+    assert compared >= 1
+    assert sum(gpu_toks[k] == cpu_toks[k] for k in cpu_toks) >= 1

@@ -1,19 +1,25 @@
 """The port's LM stack against the JAX package: the reference's
 ``init_params(PRNGKey(0))`` weights carried across by ``params_from_jax``
-on reduced ``granite-3-2b`` and ``lm100m``, then ``make_prefill``,
-``make_slot_prefill`` and ``make_serve_step`` (scalar and per-slot
-``cache_len``) on the same numpy tokens, and the configs' analytic sizes.
+on reduced ``granite-3-2b``, ``lm100m`` and ``falcon-mamba-7b``, then
+``make_prefill``, ``make_slot_prefill`` and ``make_serve_step`` (scalar
+and per-slot ``cache_len``) on the same numpy tokens, and the configs'
+analytic sizes.
 
-Tolerance: logits within ``LOGIT_TOL = 2e-2`` absolute and caches within
-2e-2 (rtol and atol).  Both packages compute in bf16 with float32 sums,
+Tolerance: logits within ``LOGIT_TOL = 2e-2`` absolute and KV caches
+within 2e-2 (rtol and atol); a Mamba stack's conv and ssm states within
+2e-2 of the state's largest magnitude (the ssm state of these random
+weights is of order 1e-7).  A Mamba stack's slot prefill is held to the
+reference's ``make_prefill`` at the prompt's true length, not to the
+reference's slot prefill, whose state runs on through the padding.  Both packages compute in bf16 with float32 sums,
 but XLA and PyTorch's CPU kernels sum bf16 dots in different orders and
 round them back to bf16 at different places, so an activation may differ
 by one bf16 ulp (2^-8 relative) and the logits (magnitude about 2) by a
 few thousandths after two layers (measured: at most 5e-3).  Greedy
-tokens are compared as ``chip_smoke.py`` compares them: equal up to the
-first position where the reference's top-2 logit margin is below
-``2 * LOGIT_TOL``, where a difference within the tolerance could swap
-the two; at least one token must be compared.
+tokens are compared up to the first position where the reference's
+top-2 logit margin is at most twice the largest difference of the two
+packages' logits there (itself within ``LOGIT_TOL``): above it the
+argmax is the same in both, below it a difference within the tolerance
+could swap the two; at least one token must be compared.
 """
 import dataclasses
 
@@ -31,7 +37,8 @@ from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 
 LOGIT_TOL = 2e-2
-ARCHS = ("granite-3-2b", "lm100m")
+DENSE = ("granite-3-2b", "lm100m")
+ARCHS = DENSE + ("falcon-mamba-7b",)
 P, G = 16, 6                      # prompt length and tokens generated
 
 
@@ -41,11 +48,13 @@ def margin(logits: np.ndarray) -> np.ndarray:
 
 
 def greedy_agree(got, want, want_margins, tol) -> int:
-    """Tokens compared before the first low-margin position; raises on a
-    difference before it."""
+    """Tokens compared before the first position whose margin is not
+    above ``tol`` (a number, or one per position); raises on a difference
+    before it."""
     n = 0
-    for g, w, m in zip(got, want, want_margins):
-        if m < tol:
+    for g, w, m, t in zip(got, want, want_margins,
+                          np.broadcast_to(tol, len(got))):
+        if m <= t:
             break
         assert g == w, f"token {n}: {g} != {w} at margin {m}"
         n += 1
@@ -56,6 +65,24 @@ def close(got, want, tol=LOGIT_TOL):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(jnp.asarray(want, jnp.float32)),
                                rtol=tol, atol=tol)
+
+
+def close_caches(got, want):
+    """Every cache leaf of ``want`` in ``got``, same shape and dtype: KV
+    caches within LOGIT_TOL, Mamba states within LOGIT_TOL of the leaf's
+    largest magnitude."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = np.asarray(jnp.asarray(w, jnp.float32))
+        assert tuple(got[k].shape) == w.shape, k
+        if k in ("k", "v"):
+            assert got[k].dtype == torch.bfloat16
+            close(got[k], w)
+        else:
+            assert got[k].dtype == torch.float32
+            np.testing.assert_allclose(
+                got[k].numpy(), w, rtol=0,
+                atol=LOGIT_TOL * float(np.abs(w).max()))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -88,7 +115,9 @@ def test_params_from_jax(pair):
         for n in names:
             node = node[n]
         assert tuple(node.shape) == leaf.shape, names
-        if names[-1] in ("w", "embed"):
+        # bf16 as the reference casts them at use; dt_proj.w stays float32
+        if names[-1] == "embed" or (names[-1] == "w"
+                                    and names[-2] != "dt_proj"):
             assert node.dtype == torch.bfloat16, names
             want = np.asarray(leaf.astype(jnp.bfloat16).astype(jnp.float32))
         else:
@@ -104,9 +133,7 @@ def test_prefill_matches_jax(pair):
     tl, tc = TM.make_prefill(tcfg, decode_len=P + G)(
         tp, {"tokens": torch.from_numpy(toks)})
     close(tl, jl)
-    for k in ("k", "v"):
-        assert tc[k].shape == jc[k].shape and tc[k].dtype == torch.bfloat16
-        close(tc[k], jc[k])
+    close_caches(tc, jc)
     struct = TM.cache_struct(tcfg, 3, P + G)
     assert {k: tuple(v.shape) for k, v in tc.items()} == \
         {k: s for k, (s, _) in struct.items()}
@@ -122,8 +149,16 @@ def test_slot_prefill_matches_jax(pair):
     tl, tc = TM.make_slot_prefill(tcfg, decode_len=P + G)(
         tp, {"tokens": torch.from_numpy(toks)}, length)
     close(tl, jl)
-    for k in ("k", "v"):
-        close(tc[k], jc[k])
+    if TM.has_mamba(tcfg):
+        # the reference's state at the true length; its slot prefill's
+        # state ran on through the padding and is not the prompt's
+        _, jtrue = jprefill(jp, {"tokens": jnp.asarray(toks[:, :length])})
+        close_caches(tc, jtrue)
+        padded = np.asarray(jc["ssm"])
+        assert np.abs(tc["ssm"].numpy() - padded).max() \
+            > LOGIT_TOL * np.abs(padded).max()
+    else:
+        close_caches(tc, jc)
     # the slot's logits are the unpadded prompt's last-position logits
     ul, _ = TM.make_prefill(tcfg, decode_len=P + G)(
         tp, {"tokens": torch.from_numpy(toks[:, :length])})
@@ -142,12 +177,13 @@ def test_serve_step_matches_jax(pair, per_slot):
     jd, jc = jserve(jp, jc, jnp.asarray(nxt), jnp.asarray(cl))
     td, tc = TM.make_serve_step(tcfg)(tp, tc, torch.from_numpy(nxt), cl)
     close(td, jd)
-    for k in ("k", "v"):
-        close(tc[k], jc[k])
+    close_caches(tc, jc)
 
 
-def test_serve_step_rejects_positions_past_the_cache(pair):
-    _, _, tcfg, tp, _, _ = pair
+@pytest.mark.parametrize("arch", DENSE)
+def test_serve_step_rejects_positions_past_the_cache(arch):
+    tcfg = TC.get_reduced(arch)
+    tp = TM.init_params(torch.Generator().manual_seed(0), tcfg)
     caches = TM.init_caches(tcfg, 2, 8, "cpu")
     step = TM.make_serve_step(tcfg)
     with pytest.raises(ValueError, match="outside"):
@@ -160,9 +196,10 @@ def test_greedy_tokens_match_jax(pair):
     cfg, jp, tcfg, tp, jprefill, jserve = pair
     toks = tokens(cfg, (3, P), seed=4)
     logits, caches = jprefill(jp, {"tokens": jnp.asarray(toks)})
-    want, margins = [], []
+    want, margins, jlogits = [], [], []
     for i in range(G):
         lg = np.asarray(logits)
+        jlogits.append(lg)
         want.append(lg.argmax(-1))
         margins.append(margin(lg))
         if i < G - 1:
@@ -172,16 +209,20 @@ def test_greedy_tokens_match_jax(pair):
     tserve = TM.make_serve_step(tcfg)
     logits, caches = TM.make_prefill(tcfg, decode_len=P + G)(
         tp, {"tokens": torch.from_numpy(toks)})
-    got = []
+    got, diffs = [], []
     for i in range(G):
         got.append(logits.argmax(-1).numpy())
+        diffs.append(np.abs(logits.numpy() - jlogits[i]).max(-1))
         if i < G - 1:
             logits, caches = tserve(tp, caches, torch.from_numpy(
                 got[-1][:, None].astype(np.int32)), P + i)
-    got, want, margins = (np.stack(a, 1) for a in (got, want, margins))
+    got, want, margins, diffs = (np.stack(a, 1)
+                                 for a in (got, want, margins, diffs))
     for b in range(3):
-        assert greedy_agree(got[b], want[b], margins[b],
-                            2 * LOGIT_TOL) >= 1
+        # the logits are the same function of the same context up to the
+        # first difference of tokens, which is past the compared prefix
+        n = greedy_agree(got[b], want[b], margins[b], 2 * diffs[b])
+        assert n >= 1 and diffs[b, :n + 1].max() <= LOGIT_TOL
 
 
 def test_write_cache_slot_in_place():
@@ -208,8 +249,8 @@ def test_config_sizes_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("qwen3-moe-235b-a22b", "MoE"), ("falcon-mamba-7b", "Mamba"),
-    ("jamba-1.5-large-398b", "Mamba"), ("internvl2-2b", "frontend"),
+    ("qwen3-moe-235b-a22b", "MoE"), ("jamba-1.5-large-398b", "MoE"),
+    ("internvl2-2b", "frontend"),
     ("seamless-m4t-large-v2", "frontend|encoder")])
 def test_later_slices_raise(arch, what):
     cfg = TC.get_reduced(arch)

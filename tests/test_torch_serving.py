@@ -16,8 +16,18 @@
   ``2 * LOGIT_TOL`` (the margins are the port's: with both packages'
   logits within ``LOGIT_TOL`` of each other, a larger margin fixes the
   argmax in both).
+* Reduced ``falcon-mamba-7b`` (a Mamba stack) served by the port's
+  engine: with prompts shorter than the capacity against the reference's
+  ``make_prefill`` at the prompt's true length plus ``make_serve_step``
+  fed the engine's tokens (the reference's own definition of SSM decode:
+  its engine prefills the padded prompt, whose state is not the
+  prompt's), and with prompts that fill the capacity against the JAX
+  engine itself.  Logits within ``LOGIT_TOL``; tokens compared up to the
+  first position whose top-2 margin is at most twice the largest logit
+  difference measured (the rule of ``tests/test_torch_model.py``).
 * ``append_rows`` and ``ChunkedTable`` against the reference, and the
-  ``repro_torch.launch.serve`` CLI on the CPU.
+  ``repro_torch.launch.serve`` CLI on the CPU (``lm100m`` and
+  ``falcon-mamba-7b``).
 """
 import collections
 import dataclasses
@@ -30,6 +40,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from repro.configs import get_reduced as jax_reduced
 from repro.core import local_ops as JL
@@ -352,6 +363,159 @@ def test_feature_store_validation_and_contains():
 
 
 # --------------------------------------------------------------------------
+# a Mamba stack: reduced falcon-mamba-7b
+# --------------------------------------------------------------------------
+
+MAMBA = "falcon-mamba-7b"
+MAMBA_KW = dict(slots=2, prompt_capacity=12, gen_capacity=6,
+                queue_capacity=8)
+
+
+@pytest.fixture(scope="module")
+def mamba_weights():
+    cfg = jax_reduced(MAMBA)
+    jp = JM.init_params(jax.random.PRNGKey(0), cfg)
+    tcfg = get_reduced(MAMBA)
+    return cfg, jp, tcfg, M.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
+
+
+def record_logits(engine):
+    """Make ``engine`` keep each request's logits (float32 numpy) at every
+    token it emits, in the order of ``out_tokens``."""
+    logits = collections.defaultdict(list)
+    upcoming = collections.deque()
+    fetch, prefill, serve = (engine._fetch_features, engine._slot_prefill,
+                             engine._serve_step)
+
+    def fetch_hook(reqs):
+        good = fetch(reqs)
+        upcoming.extend(good)
+        return good
+
+    def prefill_hook(params, batch, length):
+        lg, caches = prefill(params, batch, length)
+        logits[upcoming.popleft().req_id].append(lg[0].float().numpy())
+        return lg, caches
+
+    def serve_hook(params, caches, tokens, cache_lens):
+        lg, caches = serve(params, caches, tokens, cache_lens)
+        for slot in engine.batch.active():
+            logits[engine.batch.request_at(slot).req_id].append(
+                lg[slot].float().numpy())
+        return lg, caches
+
+    engine._fetch_features = fetch_hook
+    engine._slot_prefill = prefill_hook
+    engine._serve_step = serve_hook
+    return logits
+
+
+def jax_true_length_logits(cfg, jp, req, tokens):
+    """The reference's ``make_prefill`` at the prompt's true length, then
+    batch-1 ``make_serve_step`` fed ``tokens``: its logits at each of the
+    request's positions."""
+    n = len(req.prompt)
+    logits, caches = jax.jit(JM.make_prefill(cfg, None, decode_len=n + 8))(
+        jp, {"tokens": jnp.asarray(req.prompt[None])})
+    step = jax.jit(JM.make_serve_step(cfg, None))
+    out = [np.asarray(logits[0])]
+    for i in range(req.gen_len - 1):
+        logits, caches = step(jp, caches, jnp.asarray([[tokens[i]]],
+                                                      jnp.int32),
+                              jnp.int32(n + i))
+        out.append(np.asarray(logits[0]))
+    return out
+
+
+def mamba_requests(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(0, 512, p).astype(np.int32), g)
+            for i, (p, g) in enumerate(shapes)]
+
+
+def agree_under_margins(got_tokens, want_tokens, got_logits, want_logits):
+    """Logits within LOGIT_TOL at every position; tokens equal up to the
+    first position whose reference margin is at most twice the logits'
+    difference there.  Returns the tokens compared."""
+    n = 0
+    for g, w, gl, wl in zip(got_tokens, want_tokens, got_logits,
+                            want_logits, strict=True):
+        diff = float(np.abs(gl - wl).max())
+        assert diff <= LOGIT_TOL
+        top = np.sort(wl)
+        if top[-1] - top[-2] <= 2 * diff:
+            break
+        assert g == w, f"token {n}: {g} != {w}"
+        n += 1
+    return n
+
+
+def test_mamba_engine_matches_the_true_length_reference(mamba_weights):
+    """Prompts shorter than the capacity, right-padded by the engine: the
+    port prefills the true length, so every position matches the
+    reference's true-length prefill and decode."""
+    cfg, jp, tcfg, tp = mamba_weights
+    eng = ServingEngine(tcfg, tp, device="cpu", **MAMBA_KW)
+    logits = record_logits(eng)
+    reqs = [Request(req_id=i, prompt=p, gen_len=g) for i, p, g in
+            mamba_requests([(5, 6), (9, 4), (1, 5), (3, 3)], seed=3)]
+    for r in reqs:
+        assert eng.submit(r)
+    done = eng.run_until_drained()
+    assert sorted(r.req_id for r in done) == [0, 1, 2, 3]
+    compared = 0
+    for r in done:
+        assert r.status == "done" and len(r.out_tokens) == r.gen_len
+        want = jax_true_length_logits(cfg, jp, r, r.out_tokens)
+        # fed the engine's tokens: the same context at every position
+        assert max(float(np.abs(g - w).max()) for g, w in
+                   zip(logits[r.req_id], want, strict=True)) <= LOGIT_TOL
+        compared += agree_under_margins(
+            r.out_tokens, [int(w.argmax()) for w in want],
+            logits[r.req_id], want)
+    assert compared >= 1
+
+
+def test_mamba_engine_full_prompts_match_the_jax_engine(mamba_weights):
+    """Prompts that fill the capacity (no padding, so the JAX engine's
+    state is the prompt's): the same tokens as the JAX engine, by the
+    margins of the reference's one-shot loop fed the JAX engine's tokens
+    (the reference holds its engine to that loop token for token)."""
+    cfg, jp, tcfg, tp = mamba_weights
+    spec = mamba_requests([(12, 6), (12, 4), (12, 5)], seed=4)
+    eng = ServingEngine(tcfg, tp, device="cpu", **MAMBA_KW)
+    logits = record_logits(eng)
+    jeng = JS.ServingEngine(cfg, jp, **MAMBA_KW)
+    runs = []
+    for e, R in ((eng, Request), (jeng, JS.Request)):
+        reqs = [R(req_id=i, prompt=p, gen_len=g) for i, p, g in spec]
+        for r in reqs:
+            assert e.submit(r)
+        runs.append({r.req_id: r for r in e.run_until_drained()})
+    assert eng_counts(eng) == eng_counts(jeng)
+    compared = 0
+    for rid, r in runs[0].items():
+        w = runs[1][rid]
+        assert r.status == w.status == "done"
+        assert len(r.out_tokens) == len(w.out_tokens) == r.gen_len
+        want = jax_true_length_logits(cfg, jp, w, w.out_tokens)
+        compared += agree_under_margins(r.out_tokens, w.out_tokens,
+                                        logits[rid], want)
+    assert compared >= 1
+
+
+def test_mamba_engine_caches_are_float32_states(mamba_weights):
+    _, _, tcfg, tp = mamba_weights
+    eng = ServingEngine(tcfg, tp, device="cpu", **MAMBA_KW)
+    E, N, K = tcfg.d_inner, tcfg.ssm_state, tcfg.ssm_conv
+    assert {k: (tuple(v.shape), v.dtype) for k, v in eng.caches.items()} \
+        == {"conv": ((tcfg.n_layers, 2, K - 1, E), torch.float32),
+            "ssm": ((tcfg.n_layers, 2, E, N), torch.float32)}
+    assert eng.mamba_impl == "xla"
+
+
+# --------------------------------------------------------------------------
 # append_rows and ChunkedTable against the reference
 # --------------------------------------------------------------------------
 
@@ -411,3 +575,15 @@ def test_serve_cli_on_the_cpu():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "serve OK" in proc.stdout
     assert "counter          completed = 8" in proc.stdout
+
+
+def test_serve_cli_serves_falcon_mamba_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         MAMBA, "--reduced", "--device", "cpu", "--requests", "6",
+         "--prompt-len", "16", "--gen", "4"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "serve OK" in proc.stdout
+    assert "counter          completed = 6" in proc.stdout
