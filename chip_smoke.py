@@ -6,10 +6,11 @@ Phases, each fatal on failure:
 
 1. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. hold each kernel against its plain PyTorch version at the main path's
-   shapes: the integer outputs exactly; the groupby accumulate's sums
-   within 1e-6 of the group's sum of magnitudes and its mins and maxs as
-   values (NaN == NaN, -0.0 == +0.0); the join probe past 32 key planes
-   and past a block's shared memory;
+   shapes: the integer outputs exactly (the radix pass as the scatter of
+   perm and words, three CUDA launches, and as ranks); the groupby
+   accumulate's sums within 1e-6 of the group's sum of magnitudes and its
+   mins and maxs as values (NaN == NaN, -0.0 == +0.0); the join probe past
+   32 key planes and past a block's shared memory;
 3. the paper's Fig. 4 join with the sortmerge backend, 10 M rows per
    side at world 1, checked against the keys and a float64 sum;
 4. the same join with the hash backend at 500 k rows per side, which
@@ -61,7 +62,9 @@ Phases, each fatal on failure:
    prefill and decode-step times and a profile;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time beside its plain version,
-   its bound and, where there is one, a library call.
+   its bound and, where there is one, a library call (a stable
+   ``argsort`` of the ids beside ``hash_partition``, ``fused_bucketing``
+   and the radix scatter pass; SDPA beside ``flash_attention``).
 
 The launch counters are set to 0 just before each leg's first run and
 read just after it; the Table 5, UNOMT and set-ops legs must launch
@@ -110,8 +113,9 @@ KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
 JOIN_KERNELS = KERNELS[:3]
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNEL_FNS = ("hash_partition", "fused_bucketing", "hash_join",
-                   "radix_digit", "hash_groupby", "hash_semi",
-                   "flash_attention", "mamba_scan")
+                   "radix_upsweep", "radix_scan", "radix_downsweep",
+                   "hash_groupby", "hash_semi", "flash_attention",
+                   "mamba_scan")
 
 
 def _modules():
@@ -191,14 +195,15 @@ def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
     buckets on 625 k rows with one int plane and with two float planes
     (-0.0 and NaN included); hash_join on the 500 k leg's slab shapes;
     radix_sort's digit pass on 20 M rows (the groupby and sort legs'
-    shuffled capacity) at 8 bits, shifts 0 and 24, and its 1-bit pass,
-    at 11 bits on 625 k rows and on one ragged 64-row tile; hash_groupby
-    on slabs shaped and filled as the groupby leg's (``groupby_loads``
-    rows in each bucket), with NaN and -0.0 among the values: once
-    integer-valued, as the leg's, and once normal-distributed, where the
-    sums may round; hash_join also at K = 33 key planes and at a slab
-    wider than a block's shared memory.  hash_semi's cases come from the
-    UNOMT leg (:func:`semi_cases`)."""
+    shuffled capacity), as the scatter of a random perm with the words and
+    as within-digit ranks, at 8 bits, shifts 0 and 24, and its 1-bit
+    pass, at 11 bits on 625 k rows, and the scatter on one ragged 64-row
+    tile; hash_groupby on slabs shaped and filled as the groupby leg's
+    (``groupby_loads`` rows in each bucket), with NaN and -0.0 among the
+    values: once integer-valued, as the leg's, and once
+    normal-distributed, where the sums may round; hash_join also at K =
+    33 key planes and at a slab wider than a block's shared memory.
+    hash_semi's cases come from the UNOMT leg (:func:`semi_cases`)."""
     rng = np.random.default_rng(seed)
     n_big = max(int(SORTMERGE_ROWS * scale), 1)
     n_slab = hash_plan["shuffle_sizes"]["left"][1]
@@ -246,16 +251,35 @@ def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
     n_sort = max(int(2 * GROUPBY_ROWS * scale), 1)
     words = dev(rng.integers(-2**31, 2**31, n_sort, dtype=np.int64)
                 .astype(np.int32))
+    flags = dev(rng.integers(0, 2, n_sort).astype(np.int32))
+    words11 = dev(rng.integers(-2**31, 2**31, n_slab, dtype=np.int64)
+                  .astype(np.int32))
+    # the permutations a pass carries, from their own generator so the
+    # later cases draw what they drew before
+    prng = np.random.default_rng(seed + 100)
+    n64 = min(64, n_sort)
+    perm, perm11, perm64 = (dev(prng.permutation(n).astype(np.int32))
+                            for n in (n_sort, n_slab, n64))
+    # a scatter pass takes (perm, words, shift, bits, tile), the ranking
+    # (words, shift, bits, tile)
     cases["radix_sort"] = [
-        dict(shape=f"n={n_sort} bits=8 shift=0", args=(words, 0, 8, 1024)),
-        dict(shape=f"n={n_sort} bits=8 shift=24", args=(words, 24, 8, 1024)),
-        dict(shape=f"n={n_sort} bits=1", args=(
-            dev(rng.integers(0, 2, n_sort).astype(np.int32)), 0, 1, 1024)),
-        dict(shape=f"n={n_slab} bits=11 shift=11", args=(
-            dev(rng.integers(-2**31, 2**31, n_slab, dtype=np.int64)
-                .astype(np.int32)), 11, 11, 1024)),
-        dict(shape="n=64 bits=8 shift=8", args=(words[:64].clone(), 8, 8,
-                                                1024))]
+        dict(shape=f"scatter n={n_sort} bits=8 shift=0",
+             args=(perm, words, 0, 8, 1024)),
+        dict(shape=f"ranks n={n_sort} bits=8 shift=0",
+             args=(words, 0, 8, 1024)),
+        dict(shape=f"scatter n={n_sort} bits=8 shift=24",
+             args=(perm, words, 24, 8, 1024)),
+        dict(shape=f"scatter n={n_sort} bits=1", args=(perm, flags, 0, 1,
+                                                       1024)),
+        dict(shape=f"scatter n={n_slab} bits=11 shift=11",
+             args=(perm11, words11, 11, 11, 1024)),
+        dict(shape=f"ranks n={n_sort} bits=8 shift=24",
+             args=(words, 24, 8, 1024)),
+        dict(shape=f"ranks n={n_sort} bits=1", args=(flags, 0, 1, 1024)),
+        dict(shape=f"ranks n={n_slab} bits=11 shift=11",
+             args=(words11, 11, 11, 1024)),
+        dict(shape=f"scatter n={n64} bits=8 shift=8", args=(
+            perm64, words[:n64].clone(), 8, 8, 1024))]
 
     # each bucket holds as many rows as the leg's keys put in it, ~10 rows
     # per key
@@ -334,6 +358,8 @@ def _plain(m, name, args):
         return m["hp_ref"].radix_histogram_ranks_ref(*args)
     if name == "fused_bucketing":
         return m["fb_ref"].fused_bucket_ranks_ref(*args)
+    if name == "radix_sort" and len(args) == 5:
+        return m["rs_ref"].scatter_pass_ref(*args[:4])
     if name == "radix_sort":
         return m["rs_ref"].digit_histogram_ranks_ref(*args[:3])
     if name == "hash_groupby":
@@ -364,6 +390,8 @@ def _kernel(m, name, args):
         return op.radix_histogram_ranks(*args)
     if name == "fused_bucketing":
         return op.fused_bucket_ranks(*args)
+    if name == "radix_sort" and len(args) == 5:
+        return op.scatter_pass(*args)
     if name == "radix_sort":
         return op.digit_histogram_ranks(*args)
     if name == "hash_groupby":
@@ -1750,11 +1778,19 @@ def bound(name, args):
     """(least milliseconds, what bounds it): each input read once, each
     output written once, at the device memory rate; the key compares and
     value updates at the float32 rate, counted for this run's data."""
-    if name == "radix_sort":
-        words, _, bits, tile = args
+    if name == "radix_sort" and len(args) == 5:
+        _, words, _, bits, _ = args
         n = words.numel()
-        # words in; ranks and one histogram per tile out
-        nbytes = 4 * n + 4 * n + 4 * (1 << bits) * -(-n // tile)
+        # words and perm in, both out in the new order (the cases keep the
+        # words), and the pass's (2^bits,) histogram out; the per-block
+        # histograms are the kernels' scratch, not the function's
+        nbytes = 16 * n + 4 * (1 << bits)
+        ops = n
+    elif name == "radix_sort":
+        words, _, bits, _ = args
+        n = words.numel()
+        # words in; ranks and the pass's (2^bits,) histogram out
+        nbytes = 4 * n + 4 * n + 4 * (1 << bits)
         ops = n
     elif name == "hash_groupby":
         kb, occ, vals = args
@@ -1825,16 +1861,27 @@ def bound(name, args):
 
 
 def library_times(m, cases, gdata, sizes, device) -> dict:
-    """One PyTorch call beside a kernel: a stable ``argsort`` of the 20 M
-    -row words beside the port's ``radix_permutation`` of the same key;
-    the sort-backend local groupby beside the hash-backend one on the
-    groupby leg's rows; ``torch.isin`` of the drug filter's probe keys
-    against its build keys; ``scaled_dot_product_attention`` on the q, k,
-    v of the serving leg's prefill."""
+    """One PyTorch call beside a kernel: a stable ``argsort`` of the ids,
+    which gives their stable within-partition order, beside
+    ``hash_partition`` (10 M pids, P = 2) and ``fused_bucketing`` (the
+    bucket ids of its first case); a stable ``argsort`` of the 20 M-row
+    words beside the radix pass and the port's ``radix_permutation`` of
+    the same key (5 passes); the sort-backend local groupby beside the
+    hash-backend one on the groupby leg's rows; ``torch.isin`` of the drug
+    filter's probe keys against its build keys;
+    ``scaled_dot_product_attention`` on the q, k, v of the serving leg's
+    prefill."""
     L, rs = m["L"], m["ops"]["radix_sort"]
-    words = cases["radix_sort"][0]["args"][0]
+    pid = cases["hash_partition"][0]["args"][0]
+    bid = m["fb_ref"].fused_bucket_ranks_ref(
+        *cases["fused_bucketing"][0]["args"])[0]
+    words = cases["radix_sort"][0]["args"][1]
     none = torch.zeros(words.shape[0], dtype=torch.bool, device=device)
-    out = {"radix_sort": {
+    out = {"hash_partition": {"library_ms": event_ms(
+               lambda: torch.argsort(pid, stable=True), reps=5)},
+           "fused_bucketing": {"library_ms": event_ms(
+               lambda: torch.argsort(bid, stable=True), reps=10)},
+           "radix_sort": {
         "library_ms": event_ms(lambda: torch.argsort(words, stable=True),
                                reps=5),
         "radix_permutation_ms": event_ms(

@@ -1,21 +1,21 @@
 // Shared pieces of the table kernels: the launch-error string, the
 // stable within-tile ranking that hash_partition, fused_bucketing and
-// radix_sort run, and the sizing of a slab chunk staged in shared memory
-// (hash_groupby, hash_join, hash_semi).
+// radix_sort run, a block-wide exclusive scan, and the sizing of a slab
+// chunk staged in shared memory (hash_groupby, hash_join, hash_semi).
 //
 // Layout of one tile: a block of kWarps warps ranks kThreads * Items
 // consecutive rows (Items rows per thread: kItems, or the count a kernel
 // picks).  Warp w owns the contiguous rows [w * Items * 32, (w + 1) *
 // Items * 32) of the tile and walks them 32 at a time, lane l on row
 // j * 32 + l of its range, so loads and stores are coalesced.  Within a
-// warp, __match_any_sync groups the lanes that hold the same id and
-// __popc of the lower peers gives each row its rank among the warp's
-// earlier rows; the group's lowest lane then adds the group size to the
-// warp's count for that id in shared memory.  After all warps are done,
-// an exclusive scan over the warps of each id turns the per-warp counts
-// into per-warp offsets (and its total into the tile's histogram), so a
-// row's rank is its warp offset plus its rank inside the warp: stable, in
-// row order.
+// warp, __match_any_sync (or ballots, see peers_of) groups the lanes that
+// hold the same id and __popc of the lower peers gives each row its rank
+// among the warp's earlier rows; the group's lowest lane then adds the
+// group size to the warp's count for that id in shared memory.  After
+// all warps are done, an exclusive scan over the warps of each id turns
+// the per-warp counts into per-warp offsets (and its total into the
+// tile's histogram), so a row's rank is its warp offset plus its rank
+// inside the warp: stable, in row order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,27 +46,49 @@ __device__ __forceinline__ int64_t tile_row(int j) {
          (threadIdx.x >> 5) * (Items * 32) + j * 32 + (threadIdx.x & 31);
 }
 
-// id[j] is the partition of row tile_row(j) in [0, P), or -1 for a row
-// past n or an id outside [0, P): such a row is not counted and gets
-// rank 0.  Writes this tile's histogram to hist_t[blockIdx.x * P + p] and
-// each row's within-tile rank to rank_out[row].  Needs kWarps * P ints of
-// dynamic shared memory.
-template <int Items>
-__device__ __forceinline__ void tile_rank(const int (&id)[Items], int64_t n,
-                                          int P, int* __restrict__ hist_t,
-                                          int* __restrict__ rank_out) {
-  extern __shared__ int cnt[];             // [kWarps][P]
+// The lanes of the warp whose id equals this lane's: __match_any_sync,
+// whose cost grows with the distinct ids a warp holds, or, with kBallot,
+// one ballot per bit of the ids (all below P) and one of validity, whose
+// cost grows with log2 P.  Each wins where its callers run (H100, device
+// time): at P = 2, the shuffle's partitions, hash_partition takes 0.030
+// ms on 10 M rows with the match and 0.034 with ballots; with 256 to 513
+// ids in play ballots win: the radix downsweep at 8 bits 0.25 ms against
+// 0.29, hash_partition at P = 513 and fused_bucketing at 512 buckets
+// 25 % and 16 % faster on 625 k rows (tools/probe_variants.py).
+template <bool kBallot>
+__device__ __forceinline__ unsigned peers_of(int p, int P) {
+  if (!kBallot) return __match_any_sync(0xffffffffu, p);
+  unsigned peers = __ballot_sync(0xffffffffu, p >= 0);
+  if (p < 0) peers = ~peers;
+  const int bits = 32 - __clz(P - 1);
+  for (int k = 0; k < bits; ++k) {
+    const unsigned set = __ballot_sync(0xffffffffu, (p >> k) & 1);
+    peers &= ((p >> k) & 1) ? set : ~set;
+  }
+  return peers;
+}
+
+// Ranks one tile of rows by id: id[j] is the id of row tile_row(j) (or
+// of the same layout from another first row) in [0, P), or -1 for a row
+// past n or an id outside [0, P): such a row is not counted and gets rank
+// 0.  On return rank[j] is the row's stable rank among the tile's rows of
+// its id, and total[p] (global or shared memory) the tile's count of id p.
+// Uses kWarps * P ints of shared memory at `cnt`; begins by clearing them,
+// so a caller that ranks several tiles in turn synchronises between them.
+template <int Items, bool kBallot = false>
+__device__ __forceinline__ void block_rank(const int (&id)[Items], int P,
+                                           int* cnt, int* total,
+                                           int (&rank)[Items]) {
   const int warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < kWarps * P; i += kThreads) cnt[i] = 0;
   __syncthreads();
 
   int* wcnt = cnt + warp * P;
   const unsigned lt = lanemask_lt();
-  int rank[Items];
 #pragma unroll
   for (int j = 0; j < Items; ++j) {
     const int p = id[j];
-    const unsigned peers = __match_any_sync(0xffffffffu, p);
+    const unsigned peers = peers_of<kBallot>(p, P);
     const int before = p >= 0 ? wcnt[p] : 0;
     __syncwarp();
     if (p >= 0 && (peers & lt) == 0) wcnt[p] = before + __popc(peers);
@@ -82,22 +104,75 @@ __device__ __forceinline__ void tile_rank(const int (&id)[Items], int64_t n,
       cnt[w * P + p] = run;
       run += c;
     }
-    hist_t[static_cast<int64_t>(blockIdx.x) * P + p] = run;
+    total[p] = run;
   }
   __syncthreads();
 
 #pragma unroll
+  for (int j = 0; j < Items; ++j)
+    rank[j] = id[j] >= 0 ? rank[j] + wcnt[id[j]] : 0;
+}
+
+// id[j] is the partition of row tile_row(j) in [0, P), or -1 for a row
+// past n or an id outside [0, P): such a row is not counted and gets
+// rank 0.  Writes this tile's histogram to hist_t[blockIdx.x * P + p] and
+// each row's within-tile rank to rank_out[row].  Needs kWarps * P ints of
+// dynamic shared memory.
+template <int Items>
+__device__ __forceinline__ void tile_rank(const int (&id)[Items], int64_t n,
+                                          int P, int* __restrict__ hist_t,
+                                          int* __restrict__ rank_out) {
+  extern __shared__ int cnt[];             // [kWarps][P]
+  int rank[Items];
+  block_rank(id, P, cnt, hist_t + static_cast<int64_t>(blockIdx.x) * P, rank);
+#pragma unroll
   for (int j = 0; j < Items; ++j) {
     const int64_t row = tile_row<Items>(j);
-    if (row < n) rank_out[row] = id[j] >= 0 ? rank[j] + wcnt[id[j]] : 0;
+    if (row < n) rank_out[row] = rank[j];
   }
 }
 
-// Dynamic shared memory of one ranking block, raising the kernel's limit
-// above the default 48 KB when needed.  Returns a cudaError_t.
+// Exclusive scan of in[0, len) into out[0, len) (shared memory, or `in`
+// in global memory) by the whole block; returns the sum.  `tmp` holds
+// kWarps ints of shared memory.  Synchronises before it returns.
+__device__ __forceinline__ int block_exclusive_scan(const int* in, int* out,
+                                                    int len, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (len + kThreads - 1) / kThreads;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, len);
+  const int hi = min(lo + per, len);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += in[i];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) tmp[warp] = incl;
+  __syncthreads();
+  int run = incl - sum, total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = tmp[w];
+    if (w < warp) run += t;
+    total += t;
+  }
+  for (int i = lo; i < hi; ++i) {
+    const int v = in[i];
+    out[i] = run;
+    run += v;
+  }
+  __syncthreads();
+  return total;
+}
+
+// Dynamic shared memory of one ranking block (kWarps * P ints, and
+// `extra_ints` more), raising the kernel's limit above the default 48 KB
+// when needed.  Returns a cudaError_t.
 template <typename Kernel>
-inline int prepare_shared(Kernel kernel, int P, size_t* bytes) {
-  *bytes = static_cast<size_t>(kWarps) * P * sizeof(int);
+inline int prepare_shared(Kernel kernel, int P, size_t* bytes,
+                          int64_t extra_ints = 0) {
+  *bytes = (static_cast<size_t>(kWarps) * P + extra_ints) * sizeof(int);
   if (*bytes > static_cast<size_t>(kMaxSharedBytes))
     return static_cast<int>(cudaErrorInvalidValue);
   if (*bytes > 48 * 1024)

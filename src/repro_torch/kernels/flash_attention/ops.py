@@ -5,7 +5,10 @@ The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention_fwd`` of ``src/repro/kernels/flash_attention/kernel.py``:
 online softmax over key tiles with the running max, normalizer and
 accumulator in float32, grouped-query heads read from their KV head, the
-causal mask right-aligned and masked scores at ``-1e30``.
+causal mask right-aligned and masked scores at ``-1e30``.  It runs both
+products on Hopper's warpgroup tensor cores (``wgmma``) with the K and V
+tiles brought in by TMA, which is why the tensors must start on a 16-byte
+boundary.
 
 Shapes it takes: q ``(B, Hq, Sq, D)`` and k, v ``(B, Hkv, Skv, D)``, all
 contiguous bf16 (what the model path gives it), ``Hq % Hkv == 0`` and
@@ -16,6 +19,7 @@ average of the values) and ``attention_ref`` (``-inf``, so NaN) disagree;
 no caller in either package passes that shape.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +51,17 @@ def _check_shapes(q, k, v, causal):
                          "attention_ref disagree there)")
 
 
+@functools.cache
+def _entry():
+    """(library, its ``flash_attention_fwd`` with argument types set)."""
+    lib = build.library("flash_attention")
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def _flash_cuda(q, k, v, causal):
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -55,16 +70,15 @@ def _flash_cuda(q, k, v, causal):
     Hkv, Skv = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary "
+                         "(the kernel loads them with TMA)")
     out = torch.empty_like(q)
     if B == 0 or Hq == 0 or Sq == 0:
         return out
     if Skv == 0:
         raise ValueError("attention over zero keys")
-    lib = build.library("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fn = _entry()
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Hq, Hkv, Sq, Skv, D, int(causal), D ** -0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)

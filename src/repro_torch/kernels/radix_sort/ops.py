@@ -12,14 +12,17 @@ word takes ``ceil(32 / radix_bits)`` stable passes, least significant
 digit first, then a 1-bit validity pass moves padding rows to the end.
 
 The digit pass replaces the TPU kernel ``digit_histogram_ranks_tiles`` of
-``src/repro/kernels/radix_sort/kernel.py``.  The CUDA kernel
-(``csrc/radix_sort.cu``) extracts each row's digit as it loads the word
-and ranks it with warp matching (``csrc/tile_rank.cuh``) into per-tile
-histograms and within-tile ranks; the cross-tile offsets come from
-``hash_partition.ops.add_tile_offsets``.  It is bound by memory: 4 B read
-and 4 B written per row, plus ``4 * 2**radix_bits`` B of histogram per
-tile.  The kernel runs for every pass on a CUDA tensor with at least one
-row, however short (the last tile is masked inside the kernel).
+``src/repro/kernels/radix_sort/kernel.py``.  On a CUDA tensor a pass is
+one call into ``csrc/radix_sort.cu``, which launches three kernels and
+nothing else: an upsweep of per-block digit histograms, their exclusive
+scan per digit, and a downsweep that ranks each tile's digits with warp
+matching (``csrc/tile_rank.cuh``) and scatters the words with ``perm``
+through a digit-ordered tile in shared memory.  Since the words move with
+``perm``, a key column is gathered once (``w[perm]``), not before every
+pass.  A pass is bound by memory: words and perm read and written, 16 B a
+row, plus the histograms.  ``launches`` counts passes, one per call into
+the library whatever number of kernels that call launches; a pass on zero
+rows launches nothing.
 
 Public ops:
 
@@ -29,22 +32,25 @@ Public ops:
 * :func:`stable_partition_perm` — one 1-bit pass, equal to
   ``argsort(~keep, stable=True)``: the compaction of ``compact()``;
 * :func:`grouped_ranks` — (hist, stable within-partition ranks) for any
-  partition count: past ``bucketing.MAX_RADIX_BUCKETS``.
+  partition count: past ``bucketing.MAX_RADIX_BUCKETS``;
+* :func:`scatter_pass` and :func:`digit_histogram_ranks` — one pass, as
+  the scatter or as (hist, within-digit ranks).
 """
 import ctypes
+import functools
 
 import torch
 
 from ...core.kernel_backend import table_kernel_impl
 from ...core.table import flush_subnormals
 from .. import autotune, build
-from ..hash_partition.ops import add_tile_offsets
-from .ref import digit_histogram_ranks_ref, extract_digits
+from .ref import digit_histogram_ranks_ref, scatter_pass_ref
 
 REPLACES = "src/repro/kernels/radix_sort/kernel.py:46"
 SOURCE = "src/repro_torch/kernels/csrc/radix_sort.cu"
 
-# kernel launches in this process; chip_smoke.py resets and reads it
+# digit passes run on the card in this process (one per call into the
+# library, whatever kernels it launches); chip_smoke.py resets and reads it
 launches = 0
 
 _I32 = torch.int32
@@ -65,53 +71,93 @@ def sortable_word(col: torch.Tensor) -> torch.Tensor:
     return col.to(_I32) ^ _SIGN
 
 
-def _digit_pass_cuda(words: torch.Tensor, shift: int, radix_bits: int,
-                     tile: int, digits: torch.Tensor | None):
-    global launches
-    build.check_input("words", words)
-    n, D = words.shape[0], 1 << radix_bits
-    if n == 0:
-        return (torch.zeros(D, dtype=_I32, device=words.device),
-                torch.zeros(0, dtype=_I32, device=words.device))
+@functools.cache
+def _entry():
+    """(library, its ``radix_sort_blocks`` and ``radix_sort_pass`` with
+    argument types set)."""
     lib = build.library("radix_sort")
-    hist_t = torch.empty((-(-n // tile), D), dtype=_I32, device=words.device)
-    rank_t = torch.empty(n, dtype=_I32, device=words.device)
-    fn = lib.radix_sort_digit_tiles
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    blocks, fn = lib.radix_sort_blocks, lib.radix_sort_pass
+    blocks.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    blocks.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
-    status = fn(words.data_ptr(), n, shift, radix_bits, tile,
-                hist_t.data_ptr(), rank_t.data_ptr(),
-                torch.cuda.current_stream(words.device).cuda_stream)
+    return lib, blocks, fn
+
+
+def _check(words: torch.Tensor, perm: torch.Tensor | None) -> None:
+    """Raise unless words (and perm) are contiguous int32 CUDA vectors of
+    one length."""
+    build.check_input("words", words)
+    if words.dim() != 1:
+        raise ValueError(f"words must be 1-D, got {tuple(words.shape)}")
+    if perm is not None:
+        build.check_input("perm", perm)
+        if perm.shape != words.shape or perm.device != words.device:
+            raise ValueError(f"perm {tuple(perm.shape)} on {perm.device} "
+                             f"does not match words {tuple(words.shape)} "
+                             f"on {words.device}")
+
+
+def _pass_cuda(words: torch.Tensor, perm: torch.Tensor | None, shift: int,
+               radix_bits: int, tile: int, *, perm_out=None, words_out=None,
+               rank_out=None) -> torch.Tensor:
+    """One pass of ``csrc/radix_sort.cu`` over ``words`` (checked, n > 0):
+    the scatter into ``perm_out`` (and ``words_out``), or the ranks into
+    ``rank_out``.  Returns the pass's digit histogram."""
+    global launches
+    n, dev = words.shape[0], words.device
+    lib, blocks, fn = _entry()
+    hist = torch.empty((blocks(n, tile, radix_bits, rank_out is None),
+                        1 << radix_bits), dtype=_I32, device=dev)
+    total = torch.empty(1 << radix_bits, dtype=_I32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    status = fn(words.data_ptr(), ptr(perm), n, shift, radix_bits, tile,
+                hist.data_ptr(), total.data_ptr(), ptr(words_out),
+                ptr(perm_out), ptr(rank_out),
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, status, "radix_sort")
     launches += 1
-    if digits is None:
-        digits = extract_digits(words, shift, radix_bits)
-    return add_tile_offsets(hist_t, rank_t, digits, D, tile)
+    return total
 
 
 def digit_histogram_ranks(words: torch.Tensor, shift: int, radix_bits: int,
-                          tile: int, digits: torch.Tensor | None = None):
+                          tile: int):
     """(hist (2**radix_bits,), stable within-digit ranks (n,)) of one pass.
-    The CUDA kernel runs for a CUDA tensor (``tile`` rows per block), the
-    plain version for a CPU tensor.  ``digits``, when the caller already
-    has them, spares the cross-tile offsets a second extraction."""
+    The CUDA kernels run for a CUDA tensor (``tile`` rows per ranked
+    tile), the plain version for a CPU tensor."""
     if table_kernel_impl(words.device) == "ref":
         return digit_histogram_ranks_ref(words, shift, radix_bits)
-    return _digit_pass_cuda(words, shift, radix_bits, tile, digits)
+    _check(words, None)
+    if words.shape[0] == 0:
+        return (torch.zeros(1 << radix_bits, dtype=_I32, device=words.device),
+                torch.zeros(0, dtype=_I32, device=words.device))
+    ranks = torch.empty_like(words)
+    hist = _pass_cuda(words, None, shift, radix_bits, tile, rank_out=ranks)
+    return hist, ranks
 
 
-def _scatter_pass(perm: torch.Tensor, words: torch.Tensor, shift: int,
-                  radix_bits: int, tile: int) -> torch.Tensor:
+def scatter_pass(perm: torch.Tensor | None, words: torch.Tensor, shift: int,
+                 radix_bits: int, tile: int, *, keep_words: bool = True):
     """One stable counting-sort pass: ``words`` are the sort words in the
-    current order (gathered through ``perm``); returns the refined perm.
-    ``dest`` is a permutation, so the scatter has no collisions."""
-    d = extract_digits(words, shift, radix_bits)
-    hist, ranks = digit_histogram_ranks(words, shift, radix_bits, tile, d)
-    offsets = torch.cumsum(hist, 0, dtype=_I32) - hist
-    dest = (offsets[d.to(torch.int64)] + ranks).to(torch.int64)
-    return torch.empty_like(perm).index_copy_(0, dest, perm)
+    current order, ``perm`` the current gather index (None: the identity).
+    Returns (the refined perm, the words in the new order, or None when
+    ``keep_words`` is false and the caller needs no more passes on them)."""
+    if table_kernel_impl(words.device) == "ref":
+        perm_out, words_out = scatter_pass_ref(perm, words, shift,
+                                               radix_bits)
+        return perm_out, words_out if keep_words else None
+    _check(words, perm)
+    perm_out = torch.empty_like(words)
+    words_out = torch.empty_like(words) if keep_words else None
+    if words.shape[0]:
+        _pass_cuda(words, perm, shift, radix_bits, tile, perm_out=perm_out,
+                   words_out=words_out)
+    return perm_out, words_out
 
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -120,15 +166,17 @@ def _iota(n: int, device) -> torch.Tensor:
 
 def _radix_permutation(cols: tuple, invalid: torch.Tensor, *,
                        radix_bits: int, tile: int) -> torch.Tensor:
-    n = invalid.shape[0]
-    perm = _iota(n, invalid.device)
+    perm = None
     for col in reversed(cols):                 # least-significant key first
         w = sortable_word(col)
+        words = w if perm is None else w[perm]
         for shift in range(0, 32, radix_bits):
-            perm = _scatter_pass(perm, w[perm], shift, radix_bits, tile)
+            perm, words = scatter_pass(perm, words, shift, radix_bits, tile,
+                                       keep_words=shift + radix_bits < 32)
     # most significant: validity (padding rows move to the end, stably)
-    flag = invalid[perm].to(_I32)
-    return _scatter_pass(perm, flag, 0, 1, tile)
+    flag = invalid if perm is None else invalid[perm]
+    return scatter_pass(perm, flag.to(_I32), 0, 1, tile,
+                        keep_words=False)[0]
 
 
 def _params(t: torch.Tensor, radix_bits, tile):
@@ -168,8 +216,8 @@ def stable_partition_perm(keep: torch.Tensor, *,
     """Gather index moving ``keep`` rows to the front, stably, in one
     1-bit pass: equal to ``argsort(~keep, stable=True)``."""
     _, tile = _params(keep, 1, tile)
-    perm = _iota(keep.shape[0], keep.device)
-    return _scatter_pass(perm, (~keep).to(_I32), 0, 1, tile)
+    return scatter_pass(None, (~keep).to(_I32), 0, 1, tile,
+                        keep_words=False)[0]
 
 
 def grouped_ranks(pid: torch.Tensor, num_partitions: int, *,
@@ -181,12 +229,12 @@ def grouped_ranks(pid: torch.Tensor, num_partitions: int, *,
     ``hash_partition.radix_histogram_ranks`` with per-pass histograms of
     ``2**radix_bits`` instead of ``P``."""
     radix_bits, tile = _params(pid, radix_bits, tile)
-    n = pid.shape[0]
-    pid64 = pid.to(torch.int64)
-    hist = torch.bincount(pid64, minlength=num_partitions).to(_I32)
     nbits = max(1, (num_partitions - 1).bit_length())
-    perm = _iota(n, pid.device)
+    perm, words = None, pid
     for shift in range(0, nbits, radix_bits):
-        perm = _scatter_pass(perm, pid[perm], shift, radix_bits, tile)
-    offsets = torch.cumsum(hist, 0, dtype=_I32) - hist
-    return hist, _inverse(perm) - offsets[pid64]
+        perm, words = scatter_pass(perm, words, shift, radix_bits, tile)
+    # the ids are now in ascending order: each partition's first place
+    first = torch.searchsorted(words, torch.arange(
+        num_partitions + 1, dtype=_I32, device=pid.device)).to(_I32)
+    return first[1:] - first[:-1], \
+        _inverse(perm) - first[:-1][pid.to(torch.int64)]

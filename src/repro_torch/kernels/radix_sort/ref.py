@@ -5,7 +5,9 @@ sort word (see ``ops.sortable_word``):
 
 * ``hist``  — ``(2**radix_bits,)`` int32 row counts per digit value;
 * ``ranks`` — ``(n,)`` int32 stable rank of each row *within* its digit
-  (the i-th row carrying digit d gets rank i, in row order).
+  (the i-th row carrying digit d gets rank i, in row order);
+* :func:`scatter_pass_ref` — the stable counting-sort scatter those two
+  give, of ``perm`` and of the words themselves.
 
 ``>>`` on int32 is an arithmetic shift, as in JAX; the mask discards the
 sign-extension bits, so the digit is exact at every offset.  The one-hot
@@ -41,3 +43,19 @@ def digit_histogram_ranks_ref(words: torch.Tensor, shift: int,
         excl = torch.cumsum(onehot, 1, dtype=torch.int32) - onehot
         ranks += (excl * onehot).sum(0, dtype=torch.int32)
     return hist, ranks
+
+
+def scatter_pass_ref(perm: torch.Tensor | None, words: torch.Tensor,
+                     shift: int, radix_bits: int):
+    """One stable counting-sort pass: row i goes to ``offsets[d] +
+    ranks[i]`` -> (perm_out, words_out), ``perm_out[dest[i]] = perm[i]``
+    (``perm`` None: ``i``) and ``words_out[dest[i]] = words[i]``."""
+    d = extract_digits(words, shift, radix_bits)
+    hist, ranks = digit_histogram_ranks_ref(words, shift, radix_bits)
+    offsets = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+    dest = (offsets[d.to(torch.int64)] + ranks).to(torch.int64)
+    if perm is None:
+        perm = torch.arange(words.shape[0], dtype=torch.int32,
+                            device=words.device)
+    return (torch.empty_like(perm).index_copy_(0, dest, perm),
+            torch.empty_like(words).index_copy_(0, dest, words))

@@ -27,7 +27,8 @@ from repro_torch.kernels.hash_partition.ref import radix_histogram_ranks_ref
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 from repro_torch.kernels.radix_sort import ops as rs_ops
-from repro_torch.kernels.radix_sort.ref import digit_histogram_ranks_ref
+from repro_torch.kernels.radix_sort.ref import (digit_histogram_ranks_ref,
+                                                scatter_pass_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -177,6 +178,76 @@ def test_radix_digit_pass_equals_plain(cuda, bits, shift, n, tile, rng):
     assert equal(got, digit_histogram_ranks_ref(words, shift, bits))
 
 
+@pytest.mark.parametrize("tile", [512, 1024, 2048])
+@pytest.mark.parametrize("n", [1, 64, 1023, 5000])
+@pytest.mark.parametrize("bits", [1, 4, 8, 11])
+def test_radix_scatter_pass_equals_plain(cuda, bits, n, tile, rng):
+    """The CUDA pass (upsweep, scan, downsweep: one counted launch) ==
+    the plain composition: perm and words, and perm from the identity."""
+    shift = (5 * bits) % (33 - bits)
+    words = on(cuda, rng.integers(-2**31, 2**31, n, dtype=np.int64)
+               .astype(np.int32))
+    perm = on(cuda, rng.permutation(n).astype(np.int32))
+    before = rs_ops.launches
+    got = rs_ops.scatter_pass(perm, words, shift, bits, tile)
+    assert rs_ops.launches == before + 1
+    assert equal(got, scatter_pass_ref(perm, words, shift, bits))
+    ident, none = rs_ops.scatter_pass(None, words, shift, bits, tile,
+                                      keep_words=False)
+    assert none is None
+    assert torch.equal(ident, scatter_pass_ref(None, words, shift, bits)[0])
+
+
+@pytest.mark.parametrize("tile", [512, 1024, 2048])
+@pytest.mark.parametrize("kind", ["equal", "descending"])
+def test_radix_pass_skewed_words(cuda, kind, tile, rng):
+    """Every row on one digit, and words in descending order."""
+    n = 5000
+    w = np.full(n, 0x5A5A5A5A, np.int32) if kind == "equal" else \
+        ((n - np.arange(n)) * 400_000 - 2**30).astype(np.int32)
+    words = on(cuda, w)
+    perm = on(cuda, rng.permutation(n).astype(np.int32))
+    for bits, shift in ((1, 31), (4, 4), (8, 0), (8, 24), (11, 21)):
+        assert equal(rs_ops.scatter_pass(perm, words, shift, bits, tile),
+                     scatter_pass_ref(perm, words, shift, bits))
+        assert equal(rs_ops.digit_histogram_ranks(words, shift, bits, tile),
+                     digit_histogram_ranks_ref(words, shift, bits))
+
+
+@pytest.mark.parametrize("tile", [512, 1024])
+@pytest.mark.parametrize("bits", [8, 11])
+def test_radix_pass_many_tiles_per_block(cuda, bits, tile, rng):
+    """Past 2048 tiles a block walks several of them in turn."""
+    n = 3_000_007
+    words = on(cuda, rng.integers(-2**31, 2**31, n, dtype=np.int64)
+               .astype(np.int32))
+    perm = on(cuda, rng.permutation(n).astype(np.int32))
+    assert equal(rs_ops.scatter_pass(perm, words, 8, bits, tile),
+                 scatter_pass_ref(perm, words, 8, bits))
+    assert equal(rs_ops.digit_histogram_ranks(words, 8, bits, tile),
+                 digit_histogram_ranks_ref(words, 8, bits))
+
+
+def test_radix_pass_on_zero_rows_launches_nothing(cuda):
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = rs_ops.launches
+    perm, words = rs_ops.scatter_pass(empty, empty, 0, 8, 1024)
+    hist, ranks = rs_ops.digit_histogram_ranks(empty, 0, 8, 1024)
+    assert rs_ops.launches == before
+    assert perm.numel() == words.numel() == ranks.numel() == 0
+    assert hist.shape == (256,) and not hist.any()
+
+
+def test_radix_pass_wrong_input_raises(cuda):
+    words = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32 CUDA tensor"):
+        rs_ops.scatter_pass(None, words.long(), 0, 8, 1024)
+    with pytest.raises(ValueError, match="does not match"):
+        rs_ops.scatter_pass(words[:4].clone(), words, 0, 8, 1024)
+    with pytest.raises(ValueError, match="1-D"):
+        rs_ops.digit_histogram_ranks(words.view(2, 4), 0, 8, 1024)
+
+
 def test_radix_engine_equals_cpu(cuda, rng):
     """Sort, rank, partition and grouped ranks on the card == the same
     calls on CPU tensors (the plain digit pass)."""
@@ -278,12 +349,15 @@ def bf16_qkv(cuda, rng, B, Hq, Hkv, Sq, Skv, D):
                            (B, Hkv, Skv, D)))
 
 
-# (B, Hq, Hkv, Sq, Skv): square, ragged, right-aligned (Sq < Skv), one row
+# (B, Hq, Hkv, Sq, Skv): square, ragged, right-aligned (Sq < Skv), one row;
+# and past 4 rounds of the K/V ring (3 stages of 64 keys at D <= 64, 2 at
+# D = 128), one query row among them
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [
     (1, 4, 2, 128, 128), (2, 4, 1, 100, 100), (1, 2, 2, 37, 203),
-    (1, 8, 2, 1, 70), (3, 2, 1, 64, 1000)])
+    (1, 8, 2, 1, 70), (3, 2, 1, 64, 1000), (2, 4, 2, 1, 1100),
+    (1, 4, 1, 300, 2000)])
 def test_flash_attention_equals_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal,
                                       rng):
     q, k, v = bf16_qkv(cuda, rng, B, Hq, Hkv, Sq, Skv, D)

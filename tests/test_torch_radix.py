@@ -3,10 +3,10 @@ and the row operators on it against the JAX package, exactly.
 
 On the CPU the digit pass runs its plain PyTorch version; it is held to
 the JAX ``ref`` and to the JAX Pallas kernel in interpret mode, whose
-per-tile outputs the port's cross-tile composition (``add_tile_offsets``,
-what the CUDA wrapper runs) must turn into the whole-array ranking.  The
-CUDA kernel is held to the plain version on the card by
-``tests/test_torch_cuda.py``.
+per-tile outputs the port's cross-tile composition (``add_tile_offsets``)
+must turn into the whole-array ranking, and its scatter to the
+reference's ``_scatter_pass``.  The CUDA pass is held to the plain
+version on the card by ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +85,28 @@ def test_digit_pass_matches_jax(bits, shift, rng):
         t(hist_t), t(np.asarray(rank_t).reshape(-1)[:N]),
         TRref.extract_digits(t(w), shift, bits), 1 << bits, TILE)
     assert torch.equal(hist, th) and torch.equal(ranks, tr)
+
+
+@pytest.mark.parametrize("bits,shift", [(1, 0), (1, 31), (4, 28), (8, 8),
+                                        (11, 21)])
+def test_scatter_pass_matches_jax(bits, shift, rng):
+    """The plain scatter pass (what the CUDA pass is held to on the card)
+    == the reference's ``_scatter_pass``: the refined perm, and the words
+    moved with it (the reference's pass scattering the words as its
+    perm)."""
+    w = words(rng, N)
+    w[N // 2:N // 2 + 40] = w[0]              # a run of equal digits
+    perm = rng.permutation(N).astype(np.int32)
+    jw = jnp.asarray(w)
+    tp, tw = TR.scatter_pass(t(perm), t(w), shift, bits, 1024)
+    same(JR._scatter_pass(jnp.asarray(perm), jw, shift, bits, "ref", 1024),
+         tp)
+    same(JR._scatter_pass(jw, jw, shift, bits, "ref", 1024), tw)
+    ident, none = TR.scatter_pass(None, t(w), shift, bits, 1024,
+                                  keep_words=False)
+    assert none is None
+    same(JR._scatter_pass(jnp.arange(N, dtype=jnp.int32), jw, shift, bits,
+                          "ref", 1024), ident)
 
 
 def test_digit_pass_chunks_digits(monkeypatch, rng):

@@ -1,20 +1,27 @@
-"""Time the bucketed probe kernels of several kernel-source trees on the
-same inputs on one CUDA card.
+"""Time kernels of several kernel-source trees on the same inputs on one
+CUDA card: the bucketed probes (``hash_join``, ``hash_semi``), the tile
+rankings (``hash_partition``, ``fused_bucketing``), the radix digit pass
+and flash attention.
 
     python3 tools/probe_variants.py --tree new=src/repro_torch/kernels/csrc \\
-        --tree old=build/old_csrc [--edit 'label:OLD=>NEW'] [--rounds 3]
+        --tree old=build/old_csrc [--edit 'label:OLD=>NEW'] [--rounds 3] \\
+        [--cases SUBSTRING,...] [--profile]
 
 Each ``--tree LABEL=DIR`` is a copy of ``kernels/csrc``; ``--edit
 'LABEL:OLD=>NEW'`` makes a variant LABEL of the first tree with the text
-OLD replaced by NEW in its sources (it must occur).  Every tree's
-``hash_join.cu`` and ``hash_semi.cu`` (where it has one) is compiled with
-the port's ``nvcc`` flags and called through its C interface on the
-cases below; every variant must give the first one's outputs (a tree
-that refuses a case, as an older one with caps may, is reported and left
-out of it).  The variants run interleaved (A B ... B A per round), each
-call timed with CUDA events over 10 warmed calls; the median over rounds
-is printed per case and variant, one JSON line each, beside the card's
-name and power limit and the registers ``ptxas`` reports.  Exits
+OLD replaced by NEW in its sources (it must occur).  Every tree's sources
+of the kernels the chosen cases need are compiled with the port's
+``nvcc`` flags and called through their C interface on the cases below;
+every variant must give the first one's outputs (flash attention within
+2e-2, the rest exactly; a tree that refuses a case, as an older one with
+caps may, is reported and left out of it).  The variants run interleaved
+(A B ... B A per round), each call timed with CUDA events over 10 warmed
+calls (``--unchecked LABEL`` times a variant without the comparison: one
+that leaves work out on purpose, to see what that work costs); the
+median over rounds is printed per case and variant, one JSON line each,
+beside the card's name and power limit and the registers ``ptxas``
+reports.  ``--profile`` adds each variant's device time per
+call by kernel name, from ``torch.profiler`` over 5 calls.  Exits
 non-zero without a CUDA device.
 """
 import argparse
@@ -31,10 +38,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = {"hash_join": "hash_join_probe", "hash_semi": "hash_semi_member"}
 
 
-def compile_tree(label, src, edits, out_dir, flags, nvcc):
+def compile_tree(label, src, edits, out_dir, flags, nvcc, kernels):
     """Copy ``src`` (applying ``edits``), build its probe kernels; returns
     {kernel: (CDLL, registers)}."""
     tree = out_dir / label
@@ -49,7 +55,7 @@ def compile_tree(label, src, edits, out_dir, flags, nvcc):
         if not hit:
             raise SystemExit(f"{label}: {old!r} not found")
     libs, procs = {}, {}
-    for name in KERNELS:
+    for name in kernels:
         if (tree / f"{name}.cu").exists():
             so = tree / f"{name}.so"
             procs[name] = (so, subprocess.Popen(
@@ -107,6 +113,34 @@ def semi_case(rng, B, Lc, C, probe_fill, build_fill, hit, K=1):
             (np.arange(C)[None] < fb[:, None]).astype(np.int32))
 
 
+def flash_case(rng, B, Hq, Hkv, Sq, Skv, D, causal):
+    """bf16 q, k, v from a normal distribution, and the causal flag."""
+    return tuple(rng.normal(size=s).astype(np.float32)
+                 for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                           (B, Hkv, Skv, D))) + (causal,)
+
+
+def radix_case(rng, n, shift, bits, scatter=True, tile=1024):
+    """Random sort words, with a random perm for a scatter pass."""
+    words = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    if bits == 1:
+        words &= 1
+    head = (rng.permutation(n).astype(np.int32), words) if scatter \
+        else (words,)
+    return head + (shift, bits, tile)
+
+
+def partition_case(rng, n, P):
+    """Partition ids uniform over [0, P)."""
+    return (rng.integers(0, P, n).astype(np.int32), P)
+
+
+def bucketing_case(rng, n, P):
+    """One int32 key plane with ~10 rows a key, 80 % of the rows valid."""
+    return (rng.integers(0, max(n // 10, 1), (1, n)).astype(np.int32),
+            (np.arange(n) < int(n * 0.8)).astype(np.uint8), P)
+
+
 CASES = {
     # the Fig. 4 hash leg's slab shape (500 k rows a side), filled as the
     # leg (about 60 %) and as chip_smoke.py's case (85-100 %)
@@ -128,14 +162,130 @@ CASES = {
         "hash_semi", lambda r: semi_case(r, 65536, 612, 308, 153, 76, 0.5)),
     "semi B=16 Lc=256 C=32768": (
         "hash_semi", lambda r: pooled(r, 16, 1, 256, 32768)),
+    # chip_smoke.py's hash_partition (the world-1 shuffle, a 512-bucket
+    # ranking) and fused_bucketing (the hash join's 512 buckets) cases
+    "partition n=10M P=2": (
+        "hash_partition", lambda r: partition_case(r, 10_000_000, 2)),
+    "partition n=625k P=513": (
+        "hash_partition", lambda r: partition_case(r, 625_000, 513)),
+    "bucketing n=625k K=1 P=512": (
+        "fused_bucketing", lambda r: bucketing_case(r, 625_000, 512)),
+    # the shapes of chip_smoke.py's flash and radix cases
+    "flash (a) B=1 Hq=32 Hkv=8 S=1024 D=64 causal": (
+        "flash_attention", lambda r: flash_case(r, 1, 32, 8, 1024, 1024, 64,
+                                                True)),
+    "flash (g) B=4 Hq=32 Hkv=8 S=1024 D=64 causal": (
+        "flash_attention", lambda r: flash_case(r, 4, 32, 8, 1024, 1024, 64,
+                                                True)),
+    "flash (f) B=1 Hq=16 Hkv=16 S=1024 D=128 causal": (
+        "flash_attention", lambda r: flash_case(r, 1, 16, 16, 1024, 1024,
+                                                128, True)),
+    "flash (d) B=1 Hq=32 Hkv=8 S=1024 D=64 full": (
+        "flash_attention", lambda r: flash_case(r, 1, 32, 8, 1024, 1024, 64,
+                                                False)),
+    "radix scatter n=20M bits=8": (
+        "radix_sort", lambda r: radix_case(r, 20_000_000, 0, 8)),
+    "radix scatter n=20M bits=8 tile=2048": (
+        "radix_sort", lambda r: radix_case(r, 20_000_000, 0, 8, tile=2048)),
+    "radix ranks n=20M bits=8": (
+        "radix_sort", lambda r: radix_case(r, 20_000_000, 0, 8, False)),
+    "radix scatter n=20M bits=1": (
+        "radix_sort", lambda r: radix_case(r, 20_000_000, 0, 1)),
+    "radix scatter n=625k bits=11": (
+        "radix_sort", lambda r: radix_case(r, 625_000, 11, 11)),
 }
 
 
+def to_device(case, device):
+    """numpy arrays to the card (flash inputs as bf16), the rest as is."""
+    out = []
+    for x in case:
+        if isinstance(x, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            out.append(t.to(torch.bfloat16) if t.dtype == torch.float32
+                       else t)
+        else:
+            out.append(x)
+    return tuple(out)
+
+
+def same(kernel, got, want):
+    if kernel == "flash_attention":
+        return all(float((g.float() - w.float()).abs().max()) <= 2e-2
+                   for g, w in zip(got, want))
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def call(lib, kernel, args, device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if kernel == "flash_attention":
+        q, k, v, causal = args
+        B, Hq, Sq, D = q.shape
+        o = torch.empty_like(q)
+        fn = lib.flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        st = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                Hq, k.shape[1], Sq, k.shape[2], D, int(causal), D ** -0.5,
+                stream)
+        if st:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
+        return (o,)
+    if kernel == "radix_sort":
+        perm, words = args[:2] if len(args) == 5 else (None, args[0])
+        shift, bits, tile = args[-3:]
+        n = words.shape[0]
+        # (an older tree's radix_sort_blocks(n, tile) ignores the rest)
+        lib.radix_sort_blocks.argtypes = [ctypes.c_longlong] \
+            + [ctypes.c_int] * 3
+        lib.radix_sort_blocks.restype = ctypes.c_longlong
+        hist = torch.empty((lib.radix_sort_blocks(
+            n, tile, bits, int(perm is not None)), 1 << bits),
+            dtype=torch.int32, device=device)
+        total = torch.empty(1 << bits, dtype=torch.int32, device=device)
+        outs = [torch.empty_like(words) for _ in range(2 if perm is not None
+                                                       else 1)]
+        fn = lib.radix_sort_pass
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        ptr = [t.data_ptr() for t in outs]
+        st = fn(words.data_ptr(), perm.data_ptr() if perm is not None
+                else None, n, shift, bits, tile, hist.data_ptr(),
+                total.data_ptr(), *((ptr[1], ptr[0], None) if perm is not None
+                                    else (None, None, ptr[0])), stream)
+        if st:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
+        return (total, *outs)
+    if kernel in ("hash_partition", "fused_bucketing"):
+        ids, P = args[0], args[-1]
+        n = ids.shape[-1]
+        tiles = -(-n // getattr(lib, f"{kernel}_tile_rows")())
+        rank = torch.empty(n, dtype=torch.int32, device=device)
+        if kernel == "hash_partition":
+            hist = torch.empty((tiles, P), dtype=torch.int32, device=device)
+            fn = lib.hash_partition_tiles
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
+                + [ctypes.c_void_p] * 3
+            st = fn(ids.data_ptr(), n, P, hist.data_ptr(), rank.data_ptr(),
+                    stream)
+            out = (hist, rank)
+        else:
+            bid = torch.empty(n, dtype=torch.int32, device=device)
+            hist = torch.empty((tiles, P + 1), dtype=torch.int32,
+                               device=device)
+            fn = lib.fused_bucketing_tiles
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+                + [ctypes.c_void_p] * 4
+            st = fn(ids.data_ptr(), args[1].data_ptr(), n, ids.shape[0], P,
+                    bid.data_ptr(), hist.data_ptr(), rank.data_ptr(), stream)
+            out = (bid, hist, rank)
+        if st:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
+        return out
     pb, po, bb, bo = args
     B, K, Lc = pb.shape
     C = bb.shape[2]
-    stream = torch.cuda.current_stream(device).cuda_stream
     ptrs = [t.data_ptr() for t in args]
     if kernel == "hash_join":
         counts = torch.zeros((B, Lc), dtype=torch.int32, device=device)
@@ -171,12 +321,31 @@ def event_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps=5):
+    """Device milliseconds per call of each kernel ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", required=True)
     ap.add_argument("--edit", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--cases", default="", help="substring of case names")
+    ap.add_argument("--cases", default="",
+                    help="comma-separated substrings of case names")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--unchecked", action="append", default=[],
+                    help="a variant that is timed but not held to the "
+                         "first one's outputs (a deliberately partial one)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_variants: no CUDA device", file=sys.stderr)
@@ -195,24 +364,25 @@ def main() -> int:
         old, new = rest.split("=>", 1)
         edits.setdefault(label, []).append((old, new))
     device = torch.device("cuda")
+    chosen = {c: v for c, v in CASES.items()
+              if any(part in c for part in a.cases.split(","))}
+    kernels = sorted({kernel for kernel, _ in chosen.values()})
     work = Path(tempfile.mkdtemp(prefix="probe_variants_"))
     try:
         variants = {}
         for label, src in trees:
             variants[label] = compile_tree(label, Path(src), [], work, flags,
-                                           build._nvcc())
+                                           build._nvcc(), kernels)
         for label, es in edits.items():
             variants[label] = compile_tree(label, Path(trees[0][1]), es,
-                                           work, flags, build._nvcc())
+                                           work, flags, build._nvcc(),
+                                           kernels)
         for label, libs in variants.items():
             print(json.dumps({"variant": label, "registers": {
                 k: v[1] for k, v in libs.items()}}), flush=True)
         rng = np.random.default_rng(0)
-        for case, (kernel, make) in CASES.items():
-            if a.cases not in case:
-                continue
-            args = tuple(torch.from_numpy(np.ascontiguousarray(x))
-                         .to(device) for x in make(rng))
+        for case, (kernel, make) in chosen.items():
+            args = to_device(make(rng), device)
             have, first, got = [], None, None
             for v in (v for v in variants if kernel in variants[v]):
                 try:
@@ -221,9 +391,11 @@ def main() -> int:
                     print(json.dumps({"case": case, "variant": v,
                                       "refused": str(e)}), flush=True)
                     continue
-                if first is None:
+                if v in a.unchecked:
+                    pass
+                elif first is None:
                     first = got
-                elif not all(torch.equal(g, w) for g, w in zip(got, first)):
+                elif not same(kernel, got, first):
                     raise SystemExit(f"{case}: {v} differs from {have[0]}")
                 have.append(v)
             first = got = None
@@ -234,10 +406,13 @@ def main() -> int:
                     times[v].append(event_ms(
                         lambda: call(lib, kernel, args, device)))
             for v in have:
+                lib = variants[v][kernel][0]
+                prof = device_ms(lambda: call(lib, kernel, args, device)) \
+                    if a.profile else None
                 print(json.dumps({"case": case, "variant": v,
                                   "ms": float(np.median(times[v])),
-                                  "ms_all": times[v], "card": card}),
-                      flush=True)
+                                  "ms_all": times[v], "card": card,
+                                  "device_ms": prof}), flush=True)
             del args
             torch.cuda.empty_cache()
     finally:
