@@ -61,8 +61,11 @@ Phases, each fatal on failure:
    longest prefill's first layer and on six more shapes; tokens/s, TTFT,
    prefill and decode-step times and a profile;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
-   profile, and each kernel's CUDA-event time beside its plain version,
-   its bound and, where there is one, a library call (a stable
+   profile, and each kernel's CUDA-event time per call and the summed
+   profiler device time of the port's kernels that call launches (two or
+   three for ``hash_partition``, ``fused_bucketing`` and the radix pass),
+   beside its plain version, its bound and, where there is one, a
+   library call (a stable
    ``argsort`` of the ids beside ``hash_partition``, ``fused_bucketing``
    and the radix scatter pass; SDPA beside ``flash_attention``).
 
@@ -112,10 +115,11 @@ KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
            "hash_groupby", "hash_semi", "flash_attention", "mamba_scan")
 JOIN_KERNELS = KERNELS[:3]
 # the __global__ functions of csrc/*.cu, as the profiler names them
-PORT_KERNEL_FNS = ("hash_partition", "fused_bucketing", "hash_join",
-                   "radix_upsweep", "radix_scan", "radix_downsweep",
-                   "hash_groupby", "hash_semi", "flash_attention",
-                   "mamba_scan")
+# (the counting pass of tile_scan.cuh: count_upsweep, count_scan and
+# rank_downsweep, under hash_partition, fused_bucketing and radix_sort)
+PORT_KERNEL_FNS = ("count_upsweep", "count_scan", "rank_downsweep",
+                   "radix_downsweep", "hash_join", "hash_groupby",
+                   "hash_semi", "flash_attention", "mamba_scan")
 
 
 def _modules():
@@ -190,10 +194,14 @@ def _allocated(device) -> int:
 def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
                  scale=1.0, seed=1):
     """The inputs each kernel gets on the legs: hash_partition at P = 2
-    (the world-1 shuffle's live + trash partitions) on 10 M rows and at
-    P = 513 (a 512-bucket ranking) on 625 k rows; fused_bucketing at 512
-    buckets on 625 k rows with one int plane and with two float planes
-    (-0.0 and NaN included); hash_join on the 500 k leg's slab shapes;
+    (the world-1 shuffle's live + trash partitions) on 10 M rows, at
+    P = 513 (a 512-bucket ranking) on 625 k rows, and past those: 10 M
+    rows at P = 2 with every 7th id -1 (blocks of 4 tiles, the last
+    ragged), and P = 9 on 3 M + 5 rows (a ragged tile); fused_bucketing
+    at 512 buckets on 625 k rows with one int plane and with two float
+    planes (-0.0 and NaN included), and with three int planes at P = 9 on
+    3 M + 5 rows (the plain versions' (P, n) one-hots stay under 1 GB);
+    hash_join on the 500 k leg's slab shapes;
     radix_sort's digit pass on 20 M rows (the groupby and sort legs'
     shuffled capacity), as the scatter of a random perm with the words and
     as within-digit ranks, at 8 bits, shifts 0 and 24, and its 1-bit
@@ -230,6 +238,21 @@ def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
             valid, B)),
         dict(shape=f"n={n_slab} K=2 P={B} float", args=(
             tuple(dev(f.view(np.int32)) for f in floats), valid, B))]
+    # several tiles a block, ragged ends, uncounted ids, three planes: from
+    # their own generator so the later cases draw what they drew before
+    xrng = np.random.default_rng(seed + 200)
+    n_mid = max(int(3_000_005 * scale), 1)
+    skipped = xrng.integers(0, 2, n_big).astype(np.int32)
+    skipped[::7] = -1
+    cases["hash_partition"] += [
+        dict(shape=f"n={n_big} P=2 every 7th id -1", args=(dev(skipped), 2)),
+        dict(shape=f"n={n_mid} P=9", args=(
+            dev(xrng.integers(0, 9, n_mid).astype(np.int32)), 9))]
+    cases["fused_bucketing"].append(dict(
+        shape=f"n={n_mid} K=3 P=9 int", args=(
+            tuple(dev(xrng.integers(-2**31, 2**31, n_mid, dtype=np.int64)
+                      .astype(np.int32)) for _ in range(3)),
+            dev(xrng.random(n_mid) < 0.8), 9)))
     # each bucket holds ~1/B of the rows with ~10 rows per key, as on the
     # 500 k-row leg; the rest of each slab is empty
     fill_p = rng.integers(int(0.85 * Lc), Lc + 1, B)
@@ -1774,6 +1797,27 @@ def event_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
+def port_kernel_ms(fn, reps=5):
+    """Device milliseconds of the port's kernels that one call of ``fn``
+    launches, each once: their sum and each by name, from
+    ``torch.profiler`` over ``reps`` warmed calls, as each kernel's mean
+    over the launches the profile recorded (it may drop some).  (None,
+    {}) when it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = {e.key[:100]: e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and any(f"{k}_kernel" in e.key for k in PORT_KERNEL_FNS)}
+    return (sum(mine.values()) if mine else None), mine
+
+
 def bound(name, args):
     """(least milliseconds, what bounds it): each input read once, each
     output written once, at the device memory rate; the key compares and
@@ -1980,9 +2024,11 @@ def main() -> int:
                "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": extra["library_ms"]}
+        kernel_ms, by_name = port_kernel_ms(lambda: _kernel(m, kname, args))
         emit(dict(row, phase="kernel_timing", shape=case["shape"],
                   card=name, per_leg={leg: info["launches"][kname]
                                       for leg, info in legs.items()},
+                  kernel_ms=kernel_ms, kernel_ms_by_name=by_name,
                   **{k: v for k, v in extra.items() if k != "library_ms"}))
         table.append(row)
     for kname in KERNELS:
@@ -1992,6 +2038,8 @@ def main() -> int:
             emit({"phase": "kernel_timing", "name": kname,
                   "shape": extra["shape"], "card": name,
                   "ms": event_ms(lambda: _kernel(m, kname, extra["args"])),
+                  "kernel_ms": port_kernel_ms(
+                      lambda: _kernel(m, kname, extra["args"]))[0],
                   "plain_ms": event_ms(
                       lambda: _plain(m, kname, extra["args"]), reps=3),
                   "bound_ms": bound(kname, extra["args"])[0],

@@ -1,16 +1,17 @@
 // Shared pieces of the table kernels: the launch-error string, the
-// stable within-tile ranking that hash_partition, fused_bucketing and
-// radix_sort run, a block-wide exclusive scan, and the sizing of a slab
-// chunk staged in shared memory (hash_groupby, hash_join, hash_semi).
+// stable within-tile ranking under tile_scan.cuh's counting pass
+// (hash_partition, fused_bucketing, radix_sort), a block-wide exclusive
+// scan, and the sizing of a slab chunk staged in shared memory
+// (hash_groupby, hash_join, hash_semi).
 //
 // Layout of one tile: a block of kWarps warps ranks kThreads * Items
-// consecutive rows (Items rows per thread: kItems, or the count a kernel
-// picks).  Warp w owns the contiguous rows [w * Items * 32, (w + 1) *
-// Items * 32) of the tile and walks them 32 at a time, lane l on row
-// j * 32 + l of its range, so loads and stores are coalesced.  Within a
-// warp, __match_any_sync (or ballots, see peers_of) groups the lanes that
-// hold the same id and __popc of the lower peers gives each row its rank
-// among the warp's earlier rows; the group's lowest lane then adds the
+// consecutive rows (Items rows per thread, as the kernel picks).  Warp w
+// owns the contiguous rows [w * Items * 32, (w + 1) * Items * 32) of the
+// tile and walks them 32 at a time, lane l on row j * 32 + l of its range,
+// so loads and stores are coalesced.  Within a warp, __match_any_sync (or
+// ballots, see peers_of) groups the lanes that hold the same id and __popc
+// of the lower peers gives each row its rank among the warp's earlier
+// rows; the group's lowest lane then adds the
 // group size to the warp's count for that id in shared memory.  After
 // all warps are done, an exclusive scan over the warps of each id turns
 // the per-warp counts into per-warp offsets (and its total into the
@@ -29,21 +30,12 @@ namespace repro {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kItems = 4;                  // rows per thread
-constexpr int kTile = kThreads * kItems;   // rows per block
 constexpr int kMaxSharedBytes = 232448;    // 227 KB: Hopper's per-block cap
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
   asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
   return m;
-}
-
-// Row of the tile that item j of this thread covers.
-template <int Items = kItems>
-__device__ __forceinline__ int64_t tile_row(int j) {
-  return static_cast<int64_t>(blockIdx.x) * (kThreads * Items) +
-         (threadIdx.x >> 5) * (Items * 32) + j * 32 + (threadIdx.x & 31);
 }
 
 // The lanes of the warp whose id equals this lane's: __match_any_sync,
@@ -68,17 +60,21 @@ __device__ __forceinline__ unsigned peers_of(int p, int P) {
   return peers;
 }
 
-// Ranks one tile of rows by id: id[j] is the id of row tile_row(j) (or
-// of the same layout from another first row) in [0, P), or -1 for a row
-// past n or an id outside [0, P): such a row is not counted and gets rank
-// 0.  On return rank[j] is the row's stable rank among the tile's rows of
-// its id, and total[p] (global or shared memory) the tile's count of id p.
-// Uses kWarps * P ints of shared memory at `cnt`; begins by clearing them,
-// so a caller that ranks several tiles in turn synchronises between them.
+// Ranks one tile of rows by id: id[j] is the id of the tile's row
+// (threadIdx.x >> 5) * Items * 32 + j * 32 + (threadIdx.x & 31), in
+// [0, P), or -1 for a row past n or an id outside [0, P): such a row is
+// not counted and gets rank 0.  On return rank[j] is the row's stable rank
+// among the tile's rows of its id, plus carry[p] when `carry` is given
+// (carry[p] then advances by the tile's count of id p), and total[p], when
+// given, is the tile's count of id p (global or shared memory).  Uses
+// kWarps * P ints of shared memory at `cnt`; begins by clearing them and
+// reads them until it returns, so a caller that ranks several tiles in
+// turn synchronises between them or alternates two `cnt`.
 template <int Items, bool kBallot = false>
 __device__ __forceinline__ void block_rank(const int (&id)[Items], int P,
                                            int* cnt, int* total,
-                                           int (&rank)[Items]) {
+                                           int (&rank)[Items],
+                                           int* carry = nullptr) {
   const int warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < kWarps * P; i += kThreads) cnt[i] = 0;
   __syncthreads();
@@ -98,38 +94,21 @@ __device__ __forceinline__ void block_rank(const int (&id)[Items], int P,
   __syncthreads();
 
   for (int p = threadIdx.x; p < P; p += kThreads) {
-    int run = 0;
+    const int start = carry ? carry[p] : 0;
+    int run = start;
     for (int w = 0; w < kWarps; ++w) {
       const int c = cnt[w * P + p];
       cnt[w * P + p] = run;
       run += c;
     }
-    total[p] = run;
+    if (carry) carry[p] = run;
+    if (total) total[p] = run - start;
   }
   __syncthreads();
 
 #pragma unroll
   for (int j = 0; j < Items; ++j)
     rank[j] = id[j] >= 0 ? rank[j] + wcnt[id[j]] : 0;
-}
-
-// id[j] is the partition of row tile_row(j) in [0, P), or -1 for a row
-// past n or an id outside [0, P): such a row is not counted and gets
-// rank 0.  Writes this tile's histogram to hist_t[blockIdx.x * P + p] and
-// each row's within-tile rank to rank_out[row].  Needs kWarps * P ints of
-// dynamic shared memory.
-template <int Items>
-__device__ __forceinline__ void tile_rank(const int (&id)[Items], int64_t n,
-                                          int P, int* __restrict__ hist_t,
-                                          int* __restrict__ rank_out) {
-  extern __shared__ int cnt[];             // [kWarps][P]
-  int rank[Items];
-  block_rank(id, P, cnt, hist_t + static_cast<int64_t>(blockIdx.x) * P, rank);
-#pragma unroll
-  for (int j = 0; j < Items; ++j) {
-    const int64_t row = tile_row<Items>(j);
-    if (row < n) rank_out[row] = rank[j];
-  }
 }
 
 // Exclusive scan of in[0, len) into out[0, len) (shared memory, or `in`

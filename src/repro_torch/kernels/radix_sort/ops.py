@@ -14,10 +14,11 @@ digit first, then a 1-bit validity pass moves padding rows to the end.
 The digit pass replaces the TPU kernel ``digit_histogram_ranks_tiles`` of
 ``src/repro/kernels/radix_sort/kernel.py``.  On a CUDA tensor a pass is
 one call into ``csrc/radix_sort.cu``, which launches three kernels and
-nothing else: an upsweep of per-block digit histograms, their exclusive
-scan per digit, and a downsweep that ranks each tile's digits with warp
-matching (``csrc/tile_rank.cuh``) and scatters the words with ``perm``
-through a digit-ordered tile in shared memory.  Since the words move with
+nothing else: an upsweep of per-block digit histograms and their
+exclusive scan per digit (the counting pass of ``csrc/tile_scan.cuh``),
+and a downsweep that ranks each tile's digits with warp ballots
+(``csrc/tile_rank.cuh``) and scatters the words with ``perm`` through a
+digit-ordered tile in shared memory.  Since the words move with
 ``perm``, a key column is gathered once (``w[perm]``), not before every
 pass.  A pass is bound by memory: words and perm read and written, 16 B a
 row, plus the histograms.  ``launches`` counts passes, one per call into

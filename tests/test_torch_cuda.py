@@ -14,7 +14,9 @@ from repro_torch.core.table import Table
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_bucketing import fused_bucket_ranks
-from repro_torch.kernels.fused_bucketing.ref import fused_bucket_ranks_ref
+from repro_torch.kernels.fused_bucketing import ops as fb_ops
+from repro_torch.kernels.fused_bucketing.ref import (bucket_ids,
+                                                     fused_bucket_ranks_ref)
 from repro_torch.kernels.hash_groupby.ops import bucket_accumulate
 from repro_torch.kernels.hash_groupby.ref import bucket_accumulate_ref
 from repro_torch.kernels.hash_join.ops import bucket_probe
@@ -74,6 +76,71 @@ def test_fused_bucketing_equals_plain(cuda, P, K, kind, rng):
     valid = on(cuda, rng.random(3000) < 0.8)
     assert equal(fused_bucket_ranks(planes, valid, P),
                  fused_bucket_ranks_ref(planes, valid, P))
+
+
+def plain_ranks_by_chunks(pid, P, chunk=16):
+    """radix_histogram_ranks_ref over ``chunk`` partitions at a time, so
+    its (P, n) one-hot stays small at millions of rows: ids of other
+    chunks become -1, which the plain version neither counts nor ranks."""
+    hists, ranks = [], torch.zeros_like(pid)
+    for p0 in range(0, P, chunk):
+        width = min(chunk, P - p0)
+        local = torch.where((pid >= p0) & (pid < p0 + width), pid - p0, -1)
+        h, r = radix_histogram_ranks_ref(local, width)
+        hists.append(h)
+        ranks += r
+    return torch.cat(hists), ranks
+
+
+# blocks of the counting pass walk 2 tiles of 2048 rows from 2048 tiles
+# on and 4 from 4096; the last block and its last tile are ragged; every
+# 7th id is -1 and every 11th P, neither counted nor ranked
+@pytest.mark.parametrize("P", [2, 9, 513])
+@pytest.mark.parametrize("n", [4_200_001, 8_400_003])
+def test_hash_partition_many_tiles_per_block(cuda, P, n, rng):
+    pid = on(cuda, rng.integers(0, P, n).astype(np.int32))
+    pid[::7] = -1
+    pid[3::11] = P
+    before = hp_ops.launches
+    got = radix_histogram_ranks(pid, P)
+    assert hp_ops.launches == before + 1
+    assert equal(got, plain_ranks_by_chunks(pid, P))
+
+
+@pytest.mark.parametrize("P", [2, 5])
+def test_hash_partition_past_the_folded_offsets(cuda, P, rng):
+    """Past 2896 blocks of 8192 rows at P = 2 the few-id downsweep reads
+    offsets from the scan kernel instead of summing the blocks before
+    it."""
+    n = 24_000_003
+    pid = on(cuda, rng.integers(0, P, n).astype(np.int32))
+    pid[::7] = -1
+    assert equal(radix_histogram_ranks(pid, P),
+                 radix_histogram_ranks_ref(pid, P))
+
+
+@pytest.mark.parametrize("P", [2, 9, 512])
+def test_fused_bucketing_many_tiles_per_block(cuda, P, rng):
+    """K 3 key planes (passed by address), 4.2 M rows (blocks of 2
+    tiles), 20 % invalid."""
+    n = 4_200_001
+    planes = tuple(on(cuda, p) for p in key_planes(rng, n, 3, "int"))
+    valid = on(cuda, rng.random(n) < 0.8)
+    before = fb_ops.launches
+    got = fused_bucket_ranks(planes, valid, P)
+    assert fb_ops.launches == before + 1
+    bid = torch.where(valid, bucket_ids(planes, P), P)
+    assert equal(got, (bid, *plain_ranks_by_chunks(bid, P + 1)))
+
+
+def test_fused_bucketing_past_the_planes_passed_by_address(cuda, rng):
+    """More key planes than the kernel's parameters hold: one stacked
+    copy."""
+    K = fb_ops._entry()[1] + 3
+    planes = tuple(on(cuda, p) for p in key_planes(rng, 5000, K, "int"))
+    valid = on(cuda, rng.random(5000) < 0.8)
+    assert equal(fused_bucket_ranks(planes, valid, 9),
+                 fused_bucket_ranks_ref(planes, valid, 9))
 
 
 # (600, 2600, 8): 32 probe slots per warp and blocks that walk more than
@@ -325,6 +392,16 @@ def test_zero_rows_launch_nothing(cuda):
         torch.zeros(0, dtype=torch.int32, device=cuda), 3)
     assert hp_ops.launches == before
     assert hist.tolist() == [0, 0, 0] and ranks.numel() == 0
+
+
+def test_fused_bucketing_on_zero_rows_launches_nothing(cuda):
+    before = fb_ops.launches
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    bid, hist, ranks = fused_bucket_ranks(
+        (empty, empty), torch.zeros(0, dtype=torch.bool, device=cuda), 4)
+    assert fb_ops.launches == before
+    assert bid.numel() == ranks.numel() == 0
+    assert hist.tolist() == [0] * 5
 
 
 def test_wrong_input_raises(cuda):

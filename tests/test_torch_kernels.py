@@ -35,8 +35,8 @@ from repro_torch.kernels.hash_join import (default_hash_join_sizes,
 from repro_torch.kernels.hash_join.ops import bucket_probe
 from repro_torch.kernels.hash_partition import (partition_plan,
                                                 radix_histogram_ranks)
-from repro_torch.kernels.hash_partition.ops import add_tile_offsets
-from repro_torch.kernels.hash_partition.ref import radix_histogram_ranks_ref
+from repro_torch.kernels.hash_partition.ref import (
+    add_tile_offsets, radix_histogram_ranks_ref)
 
 TILE = 128
 N = 300          # > TILE and not a multiple of it
@@ -100,6 +100,57 @@ def test_tile_offsets_compose_the_jax_kernel_tiles(P, rng):
         t(pid), P, TILE)
     wh, wr = radix_histogram_ranks_ref(t(pid), P)
     assert torch.equal(hist, wh) and torch.equal(ranks, wr)
+
+
+def blocked_ranks(pid, P, tile, per):
+    """The counting pass of the CUDA launches in plain torch: per-block
+    histograms over ``per`` tiles of ``tile`` rows, their exclusive scan
+    over blocks for each id, then each row's rank in its tile plus the
+    rows of its id in earlier blocks and in earlier tiles of its block.
+    An id outside [0, P) is not counted and gets rank 0."""
+    n, rows = pid.shape[0], tile * per
+    starts = range(0, n, rows)
+    block_hist = torch.stack([radix_histogram_ranks_ref(pid[b:b + rows], P)[0]
+                              for b in starts])
+    offsets = torch.cumsum(block_hist, 0, dtype=torch.int32) - block_hist
+    inside = (pid >= 0) & (pid < P)
+    part = pid.clamp(0, P - 1).to(torch.int64)
+    ranks = torch.zeros(n, dtype=torch.int32)
+    for base, b in zip(offsets, starts):
+        base = base.clone()
+        for lo in range(b, min(b + rows, n), tile):
+            hi = min(lo + tile, n)
+            h, r = radix_histogram_ranks_ref(pid[lo:hi], P)
+            ranks[lo:hi] = torch.where(inside[lo:hi], r + base[part[lo:hi]],
+                                       0)
+            base += h
+    return block_hist.sum(0, dtype=torch.int32), ranks
+
+
+@pytest.mark.parametrize("P", [2, 9, 513])
+@pytest.mark.parametrize("tile,per", [(128, 1), (128, 3), (64, 4)])
+def test_blocked_counting_pass_matches_jax(P, tile, per, rng):
+    """The decomposition the CUDA launches compute (upsweep, scan over
+    blocks, in-tile ranks plus offsets), with a ragged last block and
+    tile, == the plain version and the JAX kernel; with ids outside
+    [0, P) (which the JAX kernel does not take: it ranks them
+    -2**31) == the plain version and the JAX ``ref``."""
+    n = 1000
+    pid = rng.integers(0, P, n).astype(np.int32)
+    hist, ranks = blocked_ranks(t(pid), P, tile, per)
+    wh, wr = radix_histogram_ranks_ref(t(pid), P)
+    assert torch.equal(hist, wh) and torch.equal(ranks, wr)
+    jh, jr = j_rank(jnp.asarray(pid), P, impl="pallas_interpret", tile=TILE)
+    same(jh, hist)
+    same(jr, ranks)
+    pid[::7] = -1
+    pid[3::11] = P
+    hist, ranks = blocked_ranks(t(pid), P, tile, per)
+    wh, wr = radix_histogram_ranks_ref(t(pid), P)
+    assert torch.equal(hist, wh) and torch.equal(ranks, wr)
+    jh, jr = j_rank(jnp.asarray(pid), P, impl="ref")
+    same(jh, hist)
+    same(jr, ranks)
 
 
 def test_out_of_range_ids_are_uncounted_rank_zero():

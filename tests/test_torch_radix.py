@@ -22,7 +22,7 @@ from repro.kernels.radix_sort.ref import digit_histogram_ranks_ref as j_ref
 from repro_torch.core import local_ops as TL
 from repro_torch.core.table import Table as TT
 from repro_torch.kernels import autotune as TA
-from repro_torch.kernels.hash_partition.ops import add_tile_offsets
+from repro_torch.kernels.hash_partition.ref import add_tile_offsets
 from repro_torch.kernels.radix_sort import ops as TR
 from repro_torch.kernels.radix_sort import ref as TRref
 

@@ -61,6 +61,16 @@ from repro_torch.serving import (AdmissionQueue, FeatureStore, Request,
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 LOGIT_TOL = 2e-2       # as tests/test_torch_model.py, for the same reason
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """The JAX engines built here fill ``jax.jit`` caches that outlive the
+    module, and ``tests/test_serving.py``, when it runs later in the same
+    process, counts its engine's compiled executables: drop them when
+    the module ends."""
+    yield
+    jax.clear_caches()
+
+
 # (prompt length, gen_len) of the served run, as the reference's fixture:
 # the gen_len = 1 edge and one key with no feature row (request 3)
 SHAPES = [(12, 6), (1, 1), (5, 3), (9, 2), (3, 4), (7, 1), (2, 5), (11, 3)]

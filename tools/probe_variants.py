@@ -1,7 +1,9 @@
 """Time kernels of several kernel-source trees on the same inputs on one
-CUDA card: the bucketed probes (``hash_join``, ``hash_semi``), the tile
-rankings (``hash_partition``, ``fused_bucketing``), the radix digit pass
-and flash attention.
+CUDA card: the bucketed probes (``hash_join``, ``hash_semi``), the
+counting passes (``hash_partition``, ``fused_bucketing``; for a tree
+older than their ``*_ranks`` entry points, the per-tile kernel followed by
+the cross-tile stage its wrapper composed), the radix digit pass and flash
+attention.
 
     python3 tools/probe_variants.py --tree new=src/repro_torch/kernels/csrc \\
         --tree old=build/old_csrc [--edit 'label:OLD=>NEW'] [--rounds 3] \\
@@ -135,9 +137,9 @@ def partition_case(rng, n, P):
     return (rng.integers(0, P, n).astype(np.int32), P)
 
 
-def bucketing_case(rng, n, P):
-    """One int32 key plane with ~10 rows a key, 80 % of the rows valid."""
-    return (rng.integers(0, max(n // 10, 1), (1, n)).astype(np.int32),
+def bucketing_case(rng, n, P, K=1):
+    """K int32 key planes with ~10 rows a key, 80 % of the rows valid."""
+    return (rng.integers(0, max(n // 10, 1), (K, n)).astype(np.int32),
             (np.arange(n) < int(n * 0.8)).astype(np.uint8), P)
 
 
@@ -170,6 +172,11 @@ CASES = {
         "hash_partition", lambda r: partition_case(r, 625_000, 513)),
     "bucketing n=625k K=1 P=512": (
         "fused_bucketing", lambda r: bucketing_case(r, 625_000, 512)),
+    # chip_smoke.py's cases past those: several tiles a block, P = 9
+    "partition n=3M P=9": (
+        "hash_partition", lambda r: partition_case(r, 3_000_005, 9)),
+    "bucketing n=3M K=3 P=9": (
+        "fused_bucketing", lambda r: bucketing_case(r, 3_000_005, 9, K=3)),
     # the shapes of chip_smoke.py's flash and radix cases
     "flash (a) B=1 Hq=32 Hkv=8 S=1024 D=64 causal": (
         "flash_attention", lambda r: flash_case(r, 1, 32, 8, 1024, 1024, 64,
@@ -259,16 +266,48 @@ def call(lib, kernel, args, device):
     if kernel in ("hash_partition", "fused_bucketing"):
         ids, P = args[0], args[-1]
         n = ids.shape[-1]
-        tiles = -(-n // getattr(lib, f"{kernel}_tile_rows")())
+        tile = getattr(lib, f"{kernel}_tile_rows")()
+        tiles = -(-n // tile)
         rank = torch.empty(n, dtype=torch.int32, device=device)
-        if kernel == "hash_partition":
+        whole = hasattr(lib, f"{kernel}_ranks")
+        if not whole:
+            # an older tree: per-tile outputs, the cross-tile stage composed
+            # here as its wrapper did
+            from repro_torch.kernels.hash_partition.ref import \
+                add_tile_offsets
+        if kernel == "hash_partition" and whole:
+            scratch = torch.empty(tiles * P, dtype=torch.int32, device=device)
+            hist = torch.empty(P, dtype=torch.int32, device=device)
+            fn = lib.hash_partition_ranks
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
+                + [ctypes.c_void_p] * 4
+            st = fn(ids.data_ptr(), n, P, scratch.data_ptr(), hist.data_ptr(),
+                    rank.data_ptr(), stream)
+            out = (hist, rank)
+        elif kernel == "hash_partition":
             hist = torch.empty((tiles, P), dtype=torch.int32, device=device)
             fn = lib.hash_partition_tiles
             fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] \
                 + [ctypes.c_void_p] * 3
             st = fn(ids.data_ptr(), n, P, hist.data_ptr(), rank.data_ptr(),
                     stream)
-            out = (hist, rank)
+            out = add_tile_offsets(hist, rank, ids, P, tile)
+        elif whole:
+            K = ids.shape[0]
+            bid = torch.empty(n, dtype=torch.int32, device=device)
+            scratch = torch.empty(tiles * (P + 1), dtype=torch.int32,
+                                  device=device)
+            hist = torch.empty(P + 1, dtype=torch.int32, device=device)
+            fn = lib.fused_bucketing_ranks
+            fn.argtypes = [ctypes.c_void_p] * 3 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+                + [ctypes.c_void_p] * 5
+            planes = (ctypes.c_void_p * K)(*(ids[k].data_ptr()
+                                             for k in range(K)))
+            st = fn(planes, None, args[1].data_ptr(), n, K, P,
+                    scratch.data_ptr(), bid.data_ptr(), hist.data_ptr(),
+                    rank.data_ptr(), stream)
+            out = (bid, hist, rank)
         else:
             bid = torch.empty(n, dtype=torch.int32, device=device)
             hist = torch.empty((tiles, P + 1), dtype=torch.int32,
@@ -279,7 +318,7 @@ def call(lib, kernel, args, device):
                 + [ctypes.c_void_p] * 4
             st = fn(ids.data_ptr(), args[1].data_ptr(), n, ids.shape[0], P,
                     bid.data_ptr(), hist.data_ptr(), rank.data_ptr(), stream)
-            out = (bid, hist, rank)
+            out = (bid, *add_tile_offsets(hist, rank, bid, P + 1, tile))
         if st:
             raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
         return out
