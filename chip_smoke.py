@@ -208,9 +208,11 @@ def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
     pass, at 11 bits on 625 k rows, and the scatter on one ragged 64-row
     tile; hash_groupby on slabs shaped and filled as the groupby leg's
     (``groupby_loads`` rows in each bucket), with NaN and -0.0 among the
-    values: once integer-valued, as the leg's, and once
-    normal-distributed, where the sums may round; hash_join also at K =
-    33 key planes and at a slab wider than a block's shared memory.
+    values: once integer-valued, as the leg's, once normal-distributed,
+    where the sums may round, and once with the occupied slots scattered
+    over each slab, one bucket all one key and one bucket empty;
+    hash_join also at K = 33 key planes and at a slab wider than a
+    block's shared memory.
     hash_semi's cases come from the UNOMT leg (:func:`semi_cases`)."""
     rng = np.random.default_rng(seed)
     n_big = max(int(SORTMERGE_ROWS * scale), 1)
@@ -319,10 +321,21 @@ def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
     normal[np.isnan(vals)] = np.nan
     kb = dev(keys.astype(np.int32))
     occ = dev((np.arange(C)[None, :] < fill[:, None]).astype(np.int32))
+    # the leg's fills with holes in the occupancy (not a prefix), one
+    # bucket whose every slot holds one key and one empty bucket, from
+    # their own generator so the cases above draw what they drew before
+    hrng = np.random.default_rng(seed + 300)
+    hocc = (hrng.random((B, C)) < (fill / C)[:, None]).astype(np.int32)
+    hkeys = keys.astype(np.int32)
+    hocc[0], hkeys[0] = 1, 7
+    if B > 1:
+        hocc[1] = 0
     cases["hash_groupby"] = [
         dict(shape=f"B={B} K=1 V=1 C={C} integer", args=(kb, occ, dev(vals))),
         dict(shape=f"B={B} K=1 V=1 C={C} normal", args=(kb, occ,
-                                                        dev(normal)))]
+                                                        dev(normal))),
+        dict(shape=f"B={B} K=1 V=1 C={C} integer, holes, a one-key and an "
+                   "empty bucket", args=(dev(hkeys), dev(hocc), dev(vals)))]
     return cases
 
 
@@ -1684,8 +1697,10 @@ def scan_cases(recorded, device, seed=4):
     """mamba_scan's cases: (a) the x, delta, A, B, C and D the longest
     prefill of the Mamba leg gave its first layer, with the final state;
     (b) that shape with random inputs; (c) ragged S = 1000; (d) S = 1;
-    (e) B = 4; (f) N = 8; (g) y alone (no final state).  No PyTorch call
-    computes the selective scan, so there is no library time."""
+    (e) B = 4; (f) N = 8; (g) y alone (no final state); (h) E = 8200, not
+    a multiple of the kernel's 32-channel tile; (i) S = 961, one past a
+    multiple of its 64-step time chunk.  No PyTorch call computes the
+    selective scan, so there is no library time."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rand(B, S, E, N):
@@ -1704,7 +1719,9 @@ def scan_cases(recorded, device, seed=4):
                                 ("(d)", (1, 1, E, N), True),
                                 ("(e)", (4, 1024, E, N), True),
                                 ("(f)", (1, 1024, E, 8), True),
-                                ("(g)", (1, 1024, E, N), False)):
+                                ("(g)", (1, 1024, E, N), False),
+                                ("(h)", (1, 1024, 8200, N), True),
+                                ("(i)", (1, 961, E, N), True)):
         cases.append(dict(
             shape=f"{label} B {shape[0]} S {shape[1]} E {shape[2]} "
                   f"N {shape[3]} {'with hT' if state else 'y alone'}",
@@ -1840,10 +1857,14 @@ def bound(name, args):
         kb, occ, vals = args
         B, K, C = kb.shape
         V = vals.shape[1]
-        nbytes = 4 * B * C * (K + 1 + V) + 4 * B * C * (2 + 3 * V)
-        # each occupied slot is compared with the occupied slots of its
-        # bucket
-        pairs = int((occ.sum(1).double() ** 2).sum())
+        # the occupancy and the keys and values of the occupied slots in
+        # (an empty slot's results do not depend on its keys or values),
+        # every slot's results out; each occupied slot is compared with
+        # the occupied slots of its bucket
+        filled = (occ > 0).sum(1).double()
+        nbytes = 4 * (B * C + int(filled.sum()) * (K + V)) \
+            + 4 * B * C * (2 + 3 * V)
+        pairs = int((filled ** 2).sum())
         ops = pairs * (K + 2 + 3 * V)
     elif name == "flash_attention":
         # q, k, v in and the output out, once each (bf16); 4 D operations

@@ -9,11 +9,12 @@ representative slot is its key's first occurrence.
 
 The accumulate replaces the TPU kernel ``bucket_accumulate_buckets`` of
 ``src/repro/kernels/hash_groupby/kernel.py``.  The CUDA kernel
-(``csrc/hash_groupby.cu``) gives each bucket one block and each slot one
-thread, which walks the bucket's slots through shared memory.  The
-function needs ``sum_b occ_b**2 * (K + 2 + 3 V)`` operations for
-``4 B C (3 + K + 4 V)`` bytes, so on sparse slabs such as the groupby
-leg's the bytes bound it; the kernel walks all ``B * C**2`` pairs.
+(``csrc/hash_groupby.cu``) gives each bucket one warp, compacts its
+occupied slots into shared memory, numbers its groups in the order of
+their first slots and folds each group's values over the occupied
+slots alone.  On sparse slabs such as the groupby leg's the bytes the
+function must move bound it: the occupancy and the occupied slots' keys
+and values in, ``4 B C (2 + 3 V)`` bytes of results out.
 
 Static-shape contract: a bucket holds at most ``bucket_capacity`` rows;
 overflowing rows are dropped and counted (``dropped``).

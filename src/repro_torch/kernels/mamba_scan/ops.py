@@ -3,11 +3,13 @@ version (``ref.selective_scan_ref``) for CPU tensors.
 
 The kernel (``csrc/mamba_scan.cu``) replaces the TPU kernel
 ``selective_scan_pallas`` of ``src/repro/kernels/mamba_scan/kernel.py``:
-one thread per (batch, channel, state) keeps its state in a register for
-the whole walk over time, the N states of a channel reduce ``h * C_t``
-by warp shuffles, and the final state is written when it is asked for
-(prefill needs it; the TPU kernel wrote none, so the reference's serving
-path never reached it).
+a block owns a tile of channels of one sequence and walks all of its
+time steps, each thread keeping several states of one channel in
+registers; time chunks stream through a shared-memory ring filled by
+``cp.async`` while earlier chunks run, the lanes of a channel reduce
+``h * C_t`` for several steps in one reduce-scatter, and the final state
+is written when it is asked for (prefill needs it; the TPU kernel wrote
+none, so the reference's serving path never reached it).
 
 Shapes it takes: x, delta ``(Bsz, S, E)``; A ``(E, N)``; Bm, Cm
 ``(Bsz, S, N)``; D ``(E,)``.  All float32 and contiguous, but x may be

@@ -386,6 +386,38 @@ def test_hash_groupby_integer_sums_exact(cuda, rng):
                        bucket_accumulate_ref(kb, occ, vals)[2])
 
 
+def edge_slabs(rng, C, K=1, V=1):
+    """Five buckets: holes in the occupancy (not a prefix), every slot
+    one key, no slot occupied, every key distinct, and a prefix."""
+    kb = rng.integers(-3, 3, (5, K, C)).astype(np.int32)
+    kb[1] = 7
+    kb[3] = np.arange(C)[None, :] * (np.arange(K)[:, None] + 1)
+    occ = (rng.random((5, C)) < 0.35).astype(np.int32)
+    occ[1], occ[2] = 1, 0
+    occ[3] = 1
+    occ[4] = np.arange(C) < C // 3
+    vals = rng.integers(-100, 100, (5, V, C)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.05] = -0.0
+    vals[rng.random(vals.shape) < 0.01] = np.nan
+    return kb, occ, vals
+
+
+@pytest.mark.parametrize("C,K,V", [(440, 1, 1), (1500, 2, 5), (12000, 1, 1),
+                                   (7000, 2, 5)])
+def test_hash_groupby_edge_buckets(cuda, C, K, V, rng):
+    """Holey occupancy, a bucket of one key, an empty bucket, all keys
+    distinct and a prefix; C 12000 and 7000 are past the shared-memory
+    workspace (it is then in device memory), 7000 with two key planes
+    and five value columns.  Integer-valued, so the sums are exact."""
+    kb, occ, vals = (on(cuda, a) for a in edge_slabs(rng, C, K, V))
+    got = bucket_accumulate(kb, occ, vals)
+    want = bucket_accumulate_ref(kb, occ, vals)
+    assert equal(got[:2], want[:2])
+    assert bool((got[1][2] == 0).all()) and int(got[1][1, 0]) == C
+    assert torch.equal(torch.nan_to_num(got[2]), torch.nan_to_num(want[2]))
+    assert same_value(got[3], want[3]) and same_value(got[4], want[4])
+
+
 def test_zero_rows_launch_nothing(cuda):
     before = hp_ops.launches
     hist, ranks = radix_histogram_ranks(
@@ -569,6 +601,50 @@ def test_mamba_scan_other_state_sizes_and_bf16_x(cuda, N, rng):
     # bf16 outputs: one rounding of the same float32 value, or of two
     # values within SCAN_TOL of each other
     torch.testing.assert_close(yb.float(), wb.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("E,S,N,bf16", [
+    (8200, 65, 16, False),            # E past a multiple of the tile
+    (200, 63, 16, False), (200, 64, 16, False), (200, 65, 16, False),
+    (200, 127, 16, True), (200, 128, 16, True), (200, 129, 16, True),
+    (200, 129, 32, True), (200, 65, 32, False),     # N 32, bf16 x
+    (200, 31, 4, True), (200, 33, 4, False),        # 32-step chunks
+    (200, 65, 8, True),
+    (77, 45, 16, True), (77, 45, 2, False), (77, 45, 1, True),  # E odd
+])
+def test_mamba_scan_ring_edges(cuda, E, S, N, bf16, rng):
+    """S at the time ring's chunk boundaries (64 steps, 32 at N 4 and
+    below) and one either side, E not a multiple of the channel tile (32
+    at N 8 to 32) or of a 16-byte row piece, and N 32 with bf16 x."""
+    args = scan_inputs(cuda, rng, 2, S, E, N)
+    if bf16:
+        args = (args[0].bfloat16(),) + args[1:]
+    y, h = scan_ops.selective_scan(*args, return_state=True)
+    wy, wh = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == args[0].dtype
+    tol = 2e-2 if bf16 else SCAN_TOL
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, wh, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+def test_mamba_scan_unaligned_inputs(cuda, rng):
+    """Inputs that start 4 bytes past a 16-byte boundary take the
+    element-wise and 4-byte staging."""
+    args = scan_inputs(cuda, rng, 1, 70, 96, 16)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    moved = tuple(shifted(a) for a in args)
+    assert moved[0].data_ptr() % 16 and moved[3].data_ptr() % 16
+    y, h = scan_ops.selective_scan(*moved, return_state=True)
+    wy, wh = selective_scan_ref(*args)
+    torch.testing.assert_close(y, wy, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(h, wh, atol=SCAN_TOL, rtol=SCAN_TOL)
 
 
 def test_mamba_scan_counts_launches(cuda, rng):

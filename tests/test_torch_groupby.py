@@ -95,6 +95,33 @@ def test_bucket_accumulate_matches_jax(B, K, V, C, integer, rng):
         values_equal(got[4], want[4])
 
 
+@pytest.mark.parametrize("K,V", [(1, 1), (2, 3)])
+def test_bucket_accumulate_edge_buckets_match_jax(K, V, rng):
+    """Buckets with holes in the occupancy (not a prefix), every slot one
+    key, no slot occupied, and every key distinct: the plain version
+    equals the reference's Pallas kernel (interpret mode) and its ref."""
+    C = 40
+    kb = rng.integers(-3, 3, (4, K, C)).astype(np.int32)
+    kb[1] = 7
+    kb[3] = np.arange(C)[None, :] * (np.arange(K)[:, None] + 1)
+    occ = (rng.random((4, C)) < 0.35).astype(np.int32)
+    occ[1], occ[2], occ[3] = 1, 0, 1
+    vals = rng.integers(-100, 100, (4, V, C)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.1] = -0.0
+    vals[rng.random(vals.shape) < 0.03] = np.nan
+    got = [x.numpy() for x in bucket_accumulate(t(kb), t(occ), t(vals))]
+    assert got[1][1, 0] == C and not got[1][2].any()
+    jargs = (jnp.asarray(kb), jnp.asarray(occ), jnp.asarray(vals))
+    for want in (j_ref(*jargs), bucket_accumulate_buckets(*jargs,
+                                                          interpret=True)):
+        want = [np.asarray(w) for w in want]
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g, w)
+        values_equal(got[2], want[2])        # integer-valued: exact
+        values_equal(got[3], want[3])
+        values_equal(got[4], want[4])
+
+
 def test_bucket_accumulate_chunks_buckets(monkeypatch, rng):
     """The plain version's chunking over buckets changes nothing."""
     args = tuple(t(a) for a in slab_inputs(rng, 7, 2, 2, 12))

@@ -2,8 +2,9 @@
 CUDA card: the bucketed probes (``hash_join``, ``hash_semi``), the
 counting passes (``hash_partition``, ``fused_bucketing``; for a tree
 older than their ``*_ranks`` entry points, the per-tile kernel followed by
-the cross-tile stage its wrapper composed), the radix digit pass and flash
-attention.
+the cross-tile stage its wrapper composed), the radix digit pass, flash
+attention, the selective scan (``mamba_scan``) and the groupby accumulate
+(``hash_groupby``).
 
     python3 tools/probe_variants.py --tree new=src/repro_torch/kernels/csrc \\
         --tree old=build/old_csrc [--edit 'label:OLD=>NEW'] [--rounds 3] \\
@@ -15,8 +16,9 @@ OLD replaced by NEW in its sources (it must occur).  Every tree's sources
 of the kernels the chosen cases need are compiled with the port's
 ``nvcc`` flags and called through their C interface on the cases below;
 every variant must give the first one's outputs (flash attention within
-2e-2, the rest exactly; a tree that refuses a case, as an older one with
-caps may, is reported and left out of it).  The variants run interleaved
+2e-2, the scan within 2e-4, or 2e-2 on bf16 y, the rest exactly; a tree
+that refuses a case, as an older one with caps may, is reported and left
+out of it).  The variants run interleaved
 (A B ... B A per round), each call timed with CUDA events over 10 warmed
 calls (``--unchecked LABEL`` times a variant without the comparison: one
 that leaves work out on purpose, to see what that work costs); the
@@ -200,25 +202,76 @@ CASES = {
         "radix_sort", lambda r: radix_case(r, 20_000_000, 0, 1)),
     "radix scatter n=625k bits=11": (
         "radix_sort", lambda r: radix_case(r, 625_000, 11, 11)),
+    # chip_smoke.py's scan case (a) (the Falcon-Mamba-7B prefill's first
+    # layer at 952 tokens) and (e) (batch 4)
+    "scan (a) B=1 S=952 E=8192 N=16 bf16 hT": (
+        "mamba_scan", lambda r: scan_case(r, 1, 952, 8192, 16, True, True)),
+    "scan (e) B=4 S=1024 E=8192 N=16 hT": (
+        "mamba_scan", lambda r: scan_case(r, 4, 1024, 8192, 16, False,
+                                          True)),
+    # the groupby leg's slabs (10 M rows over 65536 buckets of 440 slots)
+    "groupby B=65536 C=440 K=1 V=1 (leg slabs)": (
+        "hash_groupby", lambda r: groupby_case(r, 65536, 440, 153)),
+    "groupby B=65536 C=440 K=1 V=1 holes": (
+        "hash_groupby", lambda r: groupby_case(r, 65536, 440, 153, True)),
+    # slabs whose workspace is past a block's shared memory, a third full
+    "groupby B=512 C=7000 K=2 V=5 (past shared memory)": (
+        "hash_groupby", lambda r: groupby_case(r, 512, 7000, 2333, K=2,
+                                               V=5)),
 }
 
 
-def to_device(case, device):
-    """numpy arrays to the card (flash inputs as bf16), the rest as is."""
+def scan_case(rng, B, S, E, N, bf16, state):
+    """Selective-scan inputs as chip_smoke.py's random cases draw them,
+    x bf16 or float32, and whether the final state is asked for."""
+    x = rng.normal(size=(B, S, E)).astype(np.float32)
+    delta = np.log1p(np.exp(rng.normal(size=(B, S, E)))).astype(np.float32)
+    A = -np.exp(rng.normal(size=(E, N)) * 0.5).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, S, N)).astype(np.float32)
+              for _ in range(2))
+    D = rng.normal(size=E).astype(np.float32)
+    xt = torch.from_numpy(x)
+    return (xt.to(torch.bfloat16) if bf16 else xt, delta, A, Bm, Cm, D,
+            state)
+
+
+def groupby_case(rng, B, C, fill, holes=False, K=1, V=1):
+    """Groupby slabs filled as the groupby leg's: about ``fill`` occupied
+    slots a bucket (Poisson) with about 10 rows a key (K key planes, those
+    past the first functions of it), V integer-valued value columns; the
+    occupied slots a prefix, or (``holes``) scattered over the slab."""
+    n = np.minimum(rng.poisson(fill, B), C)
+    keys = rng.integers(0, np.maximum(n // 10, 1)[:, None, None], (B, 1, C))
+    keys = np.concatenate([keys * (2 * k + 1) + k for k in range(K)], 1)
+    if holes:
+        occ = rng.random((B, C)) < (n / C)[:, None]
+    else:
+        occ = np.arange(C)[None] < n[:, None]
+    return (keys.astype(np.int32), occ.astype(np.int32),
+            rng.integers(-100, 100, (B, V, C)).astype(np.float32))
+
+
+def to_device(case, device, kernel):
+    """Arrays to the card (flash inputs as bf16), the rest as is."""
     out = []
     for x in case:
         if isinstance(x, np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            out.append(t.to(torch.bfloat16) if t.dtype == torch.float32
-                       else t)
-        else:
-            out.append(x)
+            x = torch.from_numpy(np.ascontiguousarray(x))
+            if kernel == "flash_attention":
+                x = x.to(torch.bfloat16)
+        out.append(x.to(device) if isinstance(x, torch.Tensor) else x)
     return tuple(out)
 
 
 def same(kernel, got, want):
-    if kernel == "flash_attention":
-        return all(float((g.float() - w.float()).abs().max()) <= 2e-2
+    if kernel in ("flash_attention", "mamba_scan"):
+        def tol(g):
+            return 2e-2 if kernel == "flash_attention" \
+                or g.dtype == torch.bfloat16 else 2e-4
+        return all(torch.allclose(g.float(), w.float(), atol=tol(g),
+                                  rtol=tol(g)) for g, w in zip(got, want))
+    if kernel == "hash_groupby":
+        return all(torch.equal(g.nan_to_num(), w.nan_to_num())
                    for g, w in zip(got, want))
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
@@ -238,6 +291,37 @@ def call(lib, kernel, args, device):
         if st:
             raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
         return (o,)
+    if kernel == "mamba_scan":
+        x, delta, A, Bm, Cm, D, state = args
+        Bsz, S, E = x.shape
+        N = A.shape[1]
+        y = torch.empty_like(x)
+        hT = torch.empty((Bsz, E, N), device=device) if state else None
+        fn = lib.mamba_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        st = fn(*(t.data_ptr() for t in args[:6]), y.data_ptr(),
+                hT.data_ptr() if state else None, Bsz, S, E, N,
+                int(x.dtype == torch.bfloat16), stream)
+        if st:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
+        return (y, hT) if state else (y,)
+    if kernel == "hash_groupby":
+        kb, occ, vals = args
+        B, K, C = kb.shape
+        V = vals.shape[1]
+        rep, counts = (torch.empty((B, C), dtype=torch.int32, device=device)
+                       for _ in range(2))
+        sums, mins, maxs = torch.empty((3, B, V, C), device=device)
+        fn = lib.hash_groupby_accumulate
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p] * 6
+        st = fn(kb.data_ptr(), occ.data_ptr(), vals.data_ptr(), B, K, V, C,
+                rep.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+                mins.data_ptr(), maxs.data_ptr(), stream)
+        if st:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
+        return rep, counts, sums, mins, maxs
     if kernel == "radix_sort":
         perm, words = args[:2] if len(args) == 5 else (None, args[0])
         shift, bits, tile = args[-3:]
@@ -421,7 +505,7 @@ def main() -> int:
                 k: v[1] for k, v in libs.items()}}), flush=True)
         rng = np.random.default_rng(0)
         for case, (kernel, make) in chosen.items():
-            args = to_device(make(rng), device)
+            args = to_device(make(rng), device, kernel)
             have, first, got = [], None, None
             for v in (v for v in variants if kernel in variants[v]):
                 try:
