@@ -27,13 +27,14 @@ Phases, each fatal on failure:
    rows, 65536 drugs, 1024 cells: ``unomt_dist_pipeline`` with the
    sortmerge and the hash membership backends, bit-identical to each
    other, equal to an independent numpy pipeline and dropping nothing;
-   the hash run launches ``hash_semi`` twice (the drug and cell filters),
-   and the slabs it gave the kernel there are held against the plain
-   version, with float planes and a slab past a block's shared memory;
+   the hash run launches ``hash_semi`` twice (the drug and cell filters);
    then ``feature_label_arrays``;
 10. the set operators, 10 M x 5 M rows: ``dist_isin``,
    ``dist_intersect`` and ``dist_difference`` under both membership
-   backends, equal to each other and to numpy;
+   backends, equal to each other and to numpy; then the slabs the
+   UNOMT and set-op hash runs gave ``hash_semi`` (all five of its
+   launches) are held against the plain version, with float planes and
+   a slab past a block's shared memory;
 11. the LM serving path: Granite-3.0-2B at its published widths and
    depth, random weights from ``torch.Generator`` seed 0, served by
    ``ServingEngine`` (8 slots, prompts up to 1024 tokens, up to 64
@@ -67,7 +68,8 @@ Phases, each fatal on failure:
    beside its plain version, its bound and, where there is one, a
    library call (a stable
    ``argsort`` of the ids beside ``hash_partition``, ``fused_bucketing``
-   and the radix scatter pass; SDPA beside ``flash_attention``).
+   and the radix scatter pass; ``torch.isin`` of the occupied keys beside
+   each ``hash_semi`` slab of a leg; SDPA beside ``flash_attention``).
 
 The launch counters are set to 0 just before each leg's first run and
 read just after it; the Table 5, UNOMT and set-ops legs must launch
@@ -116,10 +118,12 @@ KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
 JOIN_KERNELS = KERNELS[:3]
 # the __global__ functions of csrc/*.cu, as the profiler names them
 # (the counting pass of tile_scan.cuh: count_upsweep, count_scan and
-# rank_downsweep, under hash_partition, fused_bucketing and radix_sort)
+# rank_downsweep, under hash_partition, fused_bucketing and radix_sort;
+# hash_semi_table builds hash_semi's tables past shared memory)
 PORT_KERNEL_FNS = ("count_upsweep", "count_scan", "rank_downsweep",
                    "radix_downsweep", "hash_join", "hash_groupby",
-                   "hash_semi", "flash_attention", "mamba_scan")
+                   "hash_semi", "hash_semi_table",
+                   "flash_attention", "mamba_scan")
 
 
 def _modules():
@@ -362,17 +366,20 @@ def float_semi_slabs(rng, dev, B=512, Lc=256, C=64):
 
 
 def semi_cases(recorded, device, seed=2):
-    """hash_semi's cases: the slabs its wrapper received on the UNOMT
-    leg's counted hash run (the drug and the cell filter, with the probe
-    and build keys of their occupied slots for ``torch.isin``), then two
-    float planes and a slab wider than a block's shared memory."""
+    """hash_semi's cases: the slabs its wrapper received on the counted
+    hash runs of the UNOMT leg (the drug and the cell filter) and of the
+    set-op legs (isin, intersect, difference), with the probe and build
+    keys of their occupied slots for ``torch.isin``, then two float
+    planes and a slab wider than a block's shared memory."""
     rng = np.random.default_rng(seed)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     cases = []
-    for col, (pb, po, bb, bo) in zip(("drug_id", "cell_id"), recorded):
+    for col, (pb, po, bb, bo) in zip(
+            ("drug_id", "cell_id", "isin", "intersect", "difference"),
+            recorded, strict=True):
         B, K, Lc = pb.shape
         cases.append(dict(
             shape=f"{col} B={B} K={K} Lc={Lc} C={bb.shape[2]}",
@@ -968,7 +975,8 @@ def run_setops(m, ctx, device, a, b):
     """``dist_isin``, ``dist_intersect`` and ``dist_difference`` once per
     membership backend (dedup by sort either way), counted and checked
     against numpy; the membership kernel must run exactly once per hash
-    call."""
+    call.  Returns the legs and the slabs the hash runs gave
+    ``bucket_member`` (isin, intersect, difference)."""
     D = m["D"]
     mask = np.isin(a["k"], b["k"])
     uk, first = np.unique(a["k"][mask], return_index=True)
@@ -988,13 +996,15 @@ def run_setops(m, ctx, device, a, b):
             dedup_impl="sort"),
         "difference": lambda c, x, y, impl: D.dist_difference(
             c, x, y, ["k"], overcommit=1.0, local_impl=impl)}
-    legs, summary = {}, {}
+    legs, summary, slabs = {}, {}, []
     for op, fn in ops.items():
         out = {}
         for impl in ("sortmerge", "hash"):
             run = pipeline(m, ctx, lambda c, x, y, fn=fn, impl=impl: fn(
                 c, x, y, impl), a, b)
-            (res, dropped), launches = counted_run(m, run, device)
+            with recording(m["ops"]["hash_semi"], "bucket_member",
+                           slabs if impl == "hash" else []):
+                (res, dropped), launches = counted_run(m, run, device)
             if int(dropped) != 0:
                 raise AssertionError(f"{op} {impl} dropped {int(dropped)}")
             expect_launches(f"{op}_{impl}", launches,
@@ -1015,7 +1025,7 @@ def run_setops(m, ctx, device, a, b):
           "keys": SETOP_KEYS, "out_rows": summary, "dropped": 0,
           "bit_identical_sortmerge_hash": True, "equal_to_numpy": True,
           "launches": {k: v["launches"] for k, v in legs.items()}})
-    return legs
+    return legs, slabs
 
 
 # --------------------------------------------------------------------------
@@ -1814,24 +1824,29 @@ def event_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
-def port_kernel_ms(fn, reps=5):
+def port_kernel_ms(fn, reps=5, tries=3):
     """Device milliseconds of the port's kernels that one call of ``fn``
     launches, each once: their sum and each by name, from
     ``torch.profiler`` over ``reps`` warmed calls, as each kernel's mean
-    over the launches the profile recorded (it may drop some).  (None,
-    {}) when it recorded none."""
+    over the launches the profile recorded (it may drop some, or all: a
+    profile that recorded none is taken again, up to ``tries`` times).
+    (None, {}) when none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    mine = {e.key[:100]: e.self_device_time_total / 1e3 / e.count
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count
-            and any(f"{k}_kernel" in e.key for k in PORT_KERNEL_FNS)}
+    mine = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = {e.key[:100]: e.self_device_time_total / 1e3 / e.count
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count
+                and any(f"{k}_kernel" in e.key for k in PORT_KERNEL_FNS)}
+        if mine:
+            break
     return (sum(mine.values()) if mine else None), mine
 
 
@@ -1908,12 +1923,11 @@ def bound(name, args):
         pb, po, bb, bo = args
         B, K, Lc = pb.shape
         # both occupancy slabs and the key planes of the occupied slots in,
-        # one member flag per probe slot out; at most K compares for each
-        # pair of occupied slots of a bucket
-        occ_p, occ_b = (po > 0).sum(1).double(), (bo > 0).sum(1).double()
-        nbytes = 4 * (po.numel() + bo.numel() + B * Lc
-                      + K * int(occ_p.sum() + occ_b.sum()))
-        ops = int((occ_p * occ_b).sum()) * K
+        # one member flag per probe slot out; each occupied slot's key
+        # compared once (a hash table meets about one key a probe)
+        occupied = int((po > 0).sum()) + int((bo > 0).sum())
+        nbytes = 4 * (po.numel() + bo.numel() + B * Lc + K * occupied)
+        ops = K * occupied
     else:
         pb, po, bb, bo = args
         B, K, Lc = pb.shape
@@ -2001,11 +2015,12 @@ def main() -> int:
     raw = unomt_data(m, UNOMT_ROWS, UNOMT_DRUGS, UNOMT_CELLS)
     unomt_legs, slabs = run_unomt(m, ctx, device, raw)
     legs.update(unomt_legs)
-    cases["hash_semi"] = semi_cases(slabs, device)
+    setop_legs, setop_slabs = run_setops(
+        m, ctx, device, *setop_data(*SETOP_ROWS, SETOP_KEYS))
+    legs.update(setop_legs)
+    cases["hash_semi"] = semi_cases(slabs + setop_slabs, device)
     errs.update(compare_kernels(m, {"hash_semi": cases["hash_semi"]},
                                 device))
-    legs.update(run_setops(m, ctx, device,
-                           *setop_data(*SETOP_ROWS, SETOP_KEYS)))
     serving_legs, qkv = run_serving(m, device, m["get_config"](SERVE_ARCH))
     legs.update(serving_legs)
     cases["flash_attention"] = flash_cases(qkv, device)
@@ -2054,8 +2069,9 @@ def main() -> int:
         table.append(row)
     for kname in KERNELS:
         for extra in cases[kname][1:]:
-            lib = extra.get("library") if kname == "flash_attention" \
-                else None
+            lib = extra.get("library")
+            if kname == "hash_semi" and lib is not None:
+                lib = (lambda p=lib[0], b=lib[1]: torch.isin(p, b))
             emit({"phase": "kernel_timing", "name": kname,
                   "shape": extra["shape"], "card": name,
                   "ms": event_ms(lambda: _kernel(m, kname, extra["args"])),

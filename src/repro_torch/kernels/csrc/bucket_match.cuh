@@ -1,4 +1,5 @@
-// The bucket compare shared by the bucketed probes (hash_join, hash_semi):
+// The bucket compare of the bucketed join probe (hash_join.cu, its only
+// user since hash_semi.cu looks its probes up in a per-bucket hash table):
 // which staged build slots of a bucket carry the same K key planes as one
 // probe slot.
 //

@@ -51,9 +51,13 @@
 // (K + V)), and write 4 * B * C * (2 + 3 V).
 #include <math.h>
 
+#include "bucket_table.cuh"
 #include "tile_rank.cuh"
 
 namespace {
+
+using repro::key_hash;
+using repro::table_size;
 
 constexpr int kStaged = 4;    // key planes staged in the workspace
 constexpr int kRound = 16;    // 32-slot batches whose loads issue at once
@@ -96,27 +100,6 @@ struct Space {
   int* table;       // [T] key hash -> group (-1: empty), open addressing
   int tmask;        // T - 1; T the power of two above C
 };
-
-// The table's size for C slots: a power of two above C, so a probe
-// always meets an empty entry.
-__host__ __device__ __forceinline__ int table_size(int C) {
-  int t = 1;
-  while (t <= C) t <<= 1;
-  return t;
-}
-
-// Key planes 0 .. ks - 1 hashed for the table (murmur3's finaliser on a
-// running product, so keys that share their bucket's hash bits spread).
-__device__ __forceinline__ unsigned key_hash(const int (&key)[kStaged],
-                                             int ks) {
-  unsigned h = 0x9e3779b9u;
-#pragma unroll
-  for (int k = 0; k < kStaged; ++k)
-    if (k < ks) h = (h ^ static_cast<unsigned>(key[k])) * 0x85ebca6bu;
-  h ^= h >> 16;
-  h *= 0xc2b2ae35u;
-  return h ^ (h >> 13);
-}
 
 // Group keys while groups are numbered: plane k < kStaged of group g at
 // gkey(w, k)[g], in the arrays the per-group results use afterwards.

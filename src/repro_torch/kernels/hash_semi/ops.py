@@ -9,13 +9,13 @@ membership without a join: no match ranks, no pair space, no sort.
 
 The probe replaces the TPU kernel ``bucket_member_buckets`` of
 ``src/repro/kernels/hash_semi/kernel.py``.  The CUDA kernel
-(``csrc/hash_semi.cu``, on the bucket compare of ``csrc/bucket_match.cuh``
-that ``hash_join`` shares) streams each bucket's build keys through
-shared memory and walks each probe slot's chain 32 slots per warp step
-with a ballot, stopping at the first hit; it writes one int32 per probe
-slot.  The function must read the slabs once and needs at most
-``sum_b occ_probe_b * occ_build_b * K`` compares; on the UNOMT filters'
-slabs the bytes bound it.
+(``csrc/hash_semi.cu``) enters each bucket's distinct occupied build keys
+into an open-addressing hash table (in shared memory, or, for a slab too
+wide for that, built once per bucket into a workspace this wrapper
+allocates) and looks each occupied probe slot up in it on its own
+thread, 4 slots a thread in 16-byte loads and stores; it writes one
+int32 per probe slot.  The function must read both occupancy slabs and
+the occupied slots' keys and write the flags: the bytes bound it.
 
 Static-shape contract: a bucket holds at most ``bucket_capacity`` build
 rows and ``probe_capacity`` probe rows; overflowing rows are dropped and
@@ -24,6 +24,7 @@ row's membership is unknown: it reports ``member=False`` /
 ``probed=False`` and is counted, never guessed.
 """
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -45,6 +46,21 @@ launches = 0
 default_hash_semi_sizes = default_hash_join_sizes
 
 
+@functools.cache
+def _entry():
+    """(library, ``hash_semi_workspace_bytes``, ``hash_semi_member``) with
+    argument types set."""
+    lib = build.library("hash_semi")
+    size = lib.hash_semi_workspace_bytes
+    size.argtypes = [ctypes.c_int] * 2
+    size.restype = ctypes.c_longlong
+    fn = lib.hash_semi_member
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib, size, fn
+
+
 def _bucket_member_cuda(pbits, pocc, bbits, bocc):
     global launches
     for name, t in (("pbits", pbits), ("pocc", pocc), ("bbits", bbits),
@@ -57,20 +73,23 @@ def _bucket_member_cuda(pbits, pocc, bbits, bocc):
         raise ValueError("inconsistent probe/build slab shapes: "
                          f"{tuple(pbits.shape)} {tuple(pocc.shape)} "
                          f"{tuple(bbits.shape)} {tuple(bocc.shape)}")
-    member = torch.zeros((B, Lc), dtype=torch.int32, device=pbits.device)
+    dev = pbits.device
     if B == 0 or Lc == 0 or C == 0:      # no build slot: nothing is a member
-        return member
+        return torch.zeros((B, Lc), dtype=torch.int32, device=dev)
     if K == 0:
         raise ValueError("the membership kernel needs at least one key "
                          "plane")
-    lib = build.library("hash_semi")
-    fn = lib.hash_semi_member
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
+    lib, size, fn = _entry()
+    # the kernel writes every slot; the tables of a slab too wide for
+    # shared memory go to a workspace in device memory
+    member = torch.empty((B, Lc), dtype=torch.int32, device=dev)
+    nbytes = size(B, C)
+    workspace = torch.empty(nbytes // 8, dtype=torch.int64, device=dev) \
+        if nbytes else None
     status = fn(pbits.data_ptr(), pocc.data_ptr(), bbits.data_ptr(),
-                bocc.data_ptr(), B, K, Lc, C, member.data_ptr(),
-                torch.cuda.current_stream(pbits.device).cuda_stream)
+                bocc.data_ptr(), B, K, Lc, C,
+                workspace.data_ptr() if nbytes else None, member.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, status, "hash_semi")
     launches += 1
     return member

@@ -173,9 +173,9 @@ def pooled_slabs(rng, B, K, Lc, C):
     return pbits, pocc, bbits, bocc
 
 
-# (K + 1) * C * 4 bytes past the 227 KB a block may hold: C = 30000 at
-# K = 1, C = 700 at K = 300; B = 600, Lc = 2600: 32 probe slots per warp
-# and blocks that walk more than one group of 256 slots
+# C = 30000 at K = 1 and 2500 at K = 2: tables past shared memory, in
+# the workspace; K = 33 and 40: planes past the hashed ones; B = 600,
+# Lc = 2600: blocks that take more than one round of probe slots
 @pytest.mark.parametrize("K,B,Lc,C", [(1, 4, 100, 33), (2, 64, 16, 200),
                                       (33, 6, 70, 150), (40, 3, 130, 300),
                                       (1, 3, 90, 30000), (2, 3, 40, 2500),
@@ -199,6 +199,120 @@ def test_hash_semi_without_build_slots_launches_nothing(cuda):
         torch.ones((2, 1, 0), dtype=torch.int32, device=cuda),
         torch.ones((2, 0), dtype=torch.int32, device=cuda))
     assert hs_ops.launches == before and not got.any()
+
+
+def member_slabs(rng, B, K, Lc, C, build_keys=6, probe_keys=12, fill=0.8,
+                 prefix=False, shared_planes=0, values=None):
+    """Membership slabs: each bucket's build keys are drawn from the first
+    ``build_keys`` of a pool of ``probe_keys`` K-plane vectors, its probe
+    keys from the whole pool, so some probes miss.  The pool's planes are
+    int32 over their whole range, or drawn from ``values`` (an array, or
+    "multiples" of B), and its first ``shared_planes`` planes are one
+    value for every key.  Slots are occupied with probability ``fill``,
+    scattered or (``prefix``) as a prefix; bucket 0 has no occupied slot
+    and, where B > 1, bucket 1 has every slot occupied."""
+    shape = (B, K, probe_keys)
+    if values is None:
+        pool = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+    elif isinstance(values, str):          # every key a multiple of B
+        pool = B * rng.integers(-2**31 // B, 2**31 // B, shape)
+    else:
+        pool = rng.choice(np.asarray(values, np.int64), shape)
+    pool[:, :shared_planes] = 7
+    pool = pool.astype(np.int32)
+
+    def side(L, keys):
+        pick = np.repeat(rng.integers(0, keys, (B, 1, L)), K, 1)
+        if prefix:
+            occ = np.arange(L)[None] < rng.binomial(L, fill, B)[:, None]
+        else:
+            occ = rng.random((B, L)) < fill
+        occ[0] = False
+        if B > 1:
+            occ[1] = True
+        return np.take_along_axis(pool, pick, 2), occ.astype(np.int32)
+
+    pbits, pocc = side(Lc, probe_keys)
+    bbits, bocc = side(C, build_keys)
+    return pbits, pocc, bbits, bocc
+
+
+def member_equals_plain(args, nontrivial=True):
+    """One launch, bit for bit the plain version, bucket 0 all zero; with
+    ``nontrivial``, some occupied probe slots hit and some miss."""
+    before = hs_ops.launches
+    got = hs_ops.bucket_member(*args)
+    assert hs_ops.launches == before + 1
+    want = bucket_member_ref(*args)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert not got[0].any()
+    if nontrivial:
+        assert 0 < int(want.sum()) < int((args[1] > 0).sum())
+
+
+INT32_EXTREMES = [-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1]
+
+
+# the edges of the hash-table kernel: keys repeated in the build side,
+# keys equal on their first planes (past the 4 hashed ones at K = 5),
+# keys sharing their bucket's hash bits, holes and prefixes, Lc not a
+# multiple of 4 (scalar path) and past one block's round, int32 extremes
+@pytest.mark.parametrize("case", [
+    dict(B=64, K=1, Lc=300, C=200, build_keys=40, probe_keys=80),
+    dict(B=32, K=2, Lc=200, C=100, build_keys=20, probe_keys=40,
+         shared_planes=1),
+    dict(B=32, K=3, Lc=200, C=100, build_keys=20, probe_keys=40,
+         shared_planes=2),
+    dict(B=32, K=5, Lc=200, C=100, build_keys=20, probe_keys=40,
+         shared_planes=4),
+    dict(B=512, K=1, Lc=64, C=300, build_keys=120, probe_keys=240,
+         values="multiples"),
+    dict(B=64, K=1, Lc=256, C=100, fill=0.5),
+    dict(B=64, K=2, Lc=256, C=100, fill=0.3, prefix=True),
+    dict(B=8, K=1, Lc=1, C=50),
+    dict(B=8, K=1, Lc=3, C=50),
+    dict(B=8, K=2, Lc=5, C=50),
+    dict(B=8, K=1, Lc=4097, C=50, prefix=True),
+    dict(B=16, K=1, Lc=64, C=32, build_keys=3, probe_keys=7,
+         values=INT32_EXTREMES),
+    dict(B=16, K=2, Lc=64, C=32, build_keys=20, probe_keys=40,
+         values=INT32_EXTREMES),
+], ids=["repeated-build-keys", "K2-same-plane0", "K3-same-planes01",
+        "K5-same-planes0123", "multiples-of-B", "holes", "prefix-K2",
+        "Lc1", "Lc3", "Lc5-K2", "Lc4097", "int32-extremes",
+        "int32-extremes-K2"])
+def test_hash_semi_edge_slabs(cuda, case, rng):
+    args = tuple(on(cuda, a) for a in member_slabs(rng, **case))
+    member_equals_plain(args, nontrivial=case["B"] * case["Lc"] >= 64)
+
+
+# tables past shared memory go to the workspace, built once per bucket in
+# device memory; C // 5 distinct build keys fill at most a tenth of each
+# table
+@pytest.mark.parametrize("B", [3, 600])
+@pytest.mark.parametrize("K,C", [(1, 30000), (1, 70000), (2, 2500)])
+def test_hash_semi_tables_in_the_workspace(cuda, B, K, C, rng):
+    args = tuple(on(cuda, a) for a in member_slabs(
+        rng, B, K, 90 if B == 3 else 20, C, build_keys=C // 5,
+        probe_keys=2 * C // 5))
+    assert hs_ops._entry()[1](B, C) > 0
+    member_equals_plain(args)
+
+
+def test_hash_semi_unaligned_rows(cuda, rng):
+    """Probe slabs whose base is 4 bytes past a 16-byte boundary (Lc a
+    multiple of 4): the scalar path."""
+    pbits, pocc, bbits, bocc = member_slabs(rng, 40, 2, 256, 64)
+
+    def offset(a):
+        flat = torch.empty(a.size + 1, dtype=torch.int32, device=cuda)
+        view = flat[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    member_equals_plain((offset(pbits), offset(pocc), on(cuda, bbits),
+                         on(cuda, bocc)))
 
 
 @pytest.mark.parametrize("K,B,Lc,C", [(33, 4, 70, 120), (40, 3, 64, 300),

@@ -97,14 +97,16 @@ def pooled(rng, B, K, Lc, C):
             np.take_along_axis(pool, bp, 2), np.ones((B, C), np.int32))
 
 
-def semi_case(rng, B, Lc, C, probe_fill, build_fill, hit, K=1):
+def semi_case(rng, B, Lc, C, probe_fill, build_fill, hit, K=1, per_key=1):
     """Membership slabs: prefixes of ``probe_fill`` and ``build_fill``
-    occupied slots per bucket (Poisson), build keys distinct, a share
-    ``hit`` of the probe keys among them; planes past the first are
-    functions of the first."""
+    occupied slots per bucket (Poisson), each build key on about
+    ``per_key`` of the build slots, a share ``hit`` of the probe keys
+    among them; planes past the first are functions of the first."""
     fp = np.minimum(rng.poisson(probe_fill, B), Lc)
     fb = np.minimum(rng.poisson(build_fill, B), C)
-    bb = (np.arange(C)[None] * 7919 + rng.integers(0, 1 << 20, (B, 1)))
+    nkeys = np.maximum(fb // per_key, 1)[:, None]
+    bb = (rng.integers(0, nkeys, (B, C)) * 7919
+          + rng.integers(0, 1 << 20, (B, 1)))
     pick = rng.integers(0, np.maximum(fb, 1)[:, None], (B, Lc))
     pb = np.where(rng.random((B, Lc)) < hit,
                   np.take_along_axis(bb, pick, 1), -1 - pick)
@@ -115,6 +117,17 @@ def semi_case(rng, B, Lc, C, probe_fill, build_fill, hit, K=1):
             (np.arange(Lc)[None] < fp[:, None]).astype(np.int32),
             planes(bb).astype(np.int32),
             (np.arange(C)[None] < fb[:, None]).astype(np.int32))
+
+
+def float_semi_case(rng, B, Lc, C):
+    """chip_smoke.py's float membership slabs: two float key planes (bits)
+    with -0.0, NaN, infinities and subnormals, about 80 % occupied."""
+    vals = np.float32([0.0, -0.0, np.nan, np.inf, -np.inf, 1e-40, 1.5,
+                       -2.25, 3.0e38])
+    return (rng.choice(vals, (B, 2, Lc)).view(np.int32),
+            (rng.random((B, Lc)) < 0.8).astype(np.int32),
+            rng.choice(vals, (B, 2, C)).view(np.int32),
+            (rng.random((B, C)) < 0.8).astype(np.int32))
 
 
 def flash_case(rng, B, Hq, Hkv, Sq, Skv, D, causal):
@@ -156,16 +169,22 @@ CASES = {
         "hash_join", lambda r: pooled(r, 64, 33, 64, 200)),
     "join B=4 Lc=64 C=32768": (
         "hash_join", lambda r: pooled(r, 4, 1, 64, 32768)),
-    # the UNOMT drug filter's and the set-ops leg's slab shapes and fills
+    # the UNOMT drug and cell filters' and the set-ops leg's slab shapes
+    # and fills, and chip_smoke.py's slab past shared memory
     "semi B=4096 Lc=9768 C=64 (UNOMT drugs)": (
         "hash_semi", lambda r: semi_case(r, 4096, 9768, 64, 2392, 16, 1.0)),
+    "semi B=128 Lc=312500 C=40 (UNOMT cells)": (
+        "hash_semi", lambda r: semi_case(r, 128, 312500, 40, 78125, 8, 1.0)),
     "semi B=4096 K=2 Lc=9768 C=64": (
         "hash_semi", lambda r: semi_case(r, 4096, 9768, 64, 2392, 16, 1.0,
                                          K=2)),
     "semi B=65536 Lc=612 C=308 (set ops)": (
-        "hash_semi", lambda r: semi_case(r, 65536, 612, 308, 153, 76, 0.5)),
+        "hash_semi", lambda r: semi_case(r, 65536, 612, 308, 153, 76, 0.5,
+                                         per_key=5)),
     "semi B=16 Lc=256 C=32768": (
         "hash_semi", lambda r: pooled(r, 16, 1, 256, 32768)),
+    "semi B=512 K=2 Lc=256 C=64 float": (
+        "hash_semi", lambda r: float_semi_case(r, 512, 256, 64)),
     # chip_smoke.py's hash_partition (the world-1 shuffle, a 512-bucket
     # ranking) and fused_bucketing (the hash join's 512 buckets) cases
     "partition n=10M P=2": (
@@ -419,6 +438,22 @@ def call(lib, kernel, args, device):
         st = fn(*ptrs, B, K, Lc, C, counts.data_ptr(), rank.data_ptr(),
                 stream)
         out = (counts, rank)
+    elif hasattr(lib, "hash_semi_workspace_bytes"):
+        # the hash-table kernel: every slot written, a workspace for tables
+        # past shared memory
+        member = torch.empty((B, Lc), dtype=torch.int32, device=device)
+        size = lib.hash_semi_workspace_bytes
+        size.argtypes = [ctypes.c_int] * 2
+        size.restype = ctypes.c_longlong
+        nbytes = size(B, C)
+        ws = torch.empty(nbytes // 8, dtype=torch.int64, device=device) \
+            if nbytes else None
+        fn = lib.hash_semi_member
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p] * 3
+        st = fn(*ptrs, B, K, Lc, C, ws.data_ptr() if nbytes else None,
+                member.data_ptr(), stream)
+        out = (member,)
     else:
         member = torch.zeros((B, Lc), dtype=torch.int32, device=device)
         fn = lib.hash_semi_member
