@@ -10,7 +10,9 @@ Phases, each fatal on failure:
    perm and words, three CUDA launches, and as ranks); the groupby
    accumulate's sums within 1e-6 of the group's sum of magnitudes and its
    mins and maxs as values (NaN == NaN, -0.0 == +0.0); the join probe past
-   32 key planes and past a block's shared memory;
+   32 key planes and past a block's shared memory; the groupby
+   accumulate also on B 512, C 7000 slabs, whose workspace the wrapper
+   allocates in device memory, checked and timed;
 3. the paper's Fig. 4 join with the sortmerge backend, 10 M rows per
    side at world 1, checked against the keys and a float64 sum;
 4. the same join with the hash backend at 500 k rows per side, which
@@ -35,6 +37,25 @@ Phases, each fatal on failure:
    UNOMT and set-op hash runs gave ``hash_semi`` (all five of its
    launches) are held against the plain version, with float planes and
    a slab past a block's shared memory;
+10b. out-of-core morsels (``core/morsel.py``) on
+   ``benchmarks/bench_outofcore.py``'s data: a 10 M-row probe side over
+   1 M keys against a 1 M-row build side with one row per key.  The
+   resident-build join in 1 M-row morsels (sort-merge, and again from
+   ``np.memmap`` files), in 500 k-row morsels under the hash join (its
+   slabs planned on one morsel), and re-streamed (1 M x 1 M rows in
+   250 k morsels, 16 joins), each streamed into a sink that checks every
+   row's rv and the sums; the chunked groupby (hash and sort) against
+   numpy; the chunked sort in 1 M morsels under the radix sort against
+   numpy's stable order, its host merge timed apart.  Launches pinned
+   (``OC_LAUNCHES``); each leg's peak device memory is printed beside the
+   monolithic Fig. 4 sortmerge leg's;
+10c. UNOMT stage 4: the drug-response net at the reference's widths
+   (1024 hidden, 3 blocks, tail 2, dropout 0.1, weights from
+   ``torch.Generator`` seed 0) trained for 100 DDP steps of 32 768 rows
+   of the UNOMT leg's features, exact and int8-compressed, at world 1;
+   the loss must fall in both; one step on the card against the port on
+   the CPU and a float64 evaluation (``TRAIN_*``); step time, samples/s,
+   peak memory and a profile of one step (GEMMs against the rest);
 11. the LM serving path: Granite-3.0-2B at its published widths and
    depth, random weights from ``torch.Generator`` seed 0, served by
    ``ServingEngine`` (8 slots, prompts up to 1024 tokens, up to 64
@@ -72,18 +93,21 @@ Phases, each fatal on failure:
    each ``hash_semi`` slab of a leg; SDPA beside ``flash_attention``).
 
 The launch counters are set to 0 just before each leg's first run and
-read just after it; the Table 5, UNOMT and set-ops legs must launch
+read just after it; the Table 5, UNOMT, set-ops, out-of-core and
+training legs must launch
 exactly the kernels their path runs, as often as it runs them.  The line before the last is the kernel table; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when there is no CUDA device.
 """
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -131,6 +155,7 @@ def _modules():
     from repro_torch.configs import get_config
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
+    from repro_torch.core import morsel
     from repro_torch.core.context import make_context
     from repro_torch.data import unomt
     from repro_torch.kernels import bucketing, build
@@ -154,9 +179,13 @@ def _modules():
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.mamba_scan import ref as ms_ref
     from repro_torch.models import mamba
+    from repro_torch.models import unomt_net
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import ddp
     from repro_torch.kernels.radix_sort import ops as rs_ops
     from repro_torch.kernels.radix_sort import ref as rs_ref
-    return dict(D=dist_ops, L=local_ops, U=unomt, make_context=make_context,
+    return dict(D=dist_ops, L=local_ops, U=unomt, Mo=morsel, Un=unomt_net,
+                Aw=adamw, Cp=compression, Rd=ddp, make_context=make_context,
                 build=build, bucketing=bucketing,
                 ops={"hash_partition": hp_ops, "fused_bucketing": fb_ops,
                      "hash_join": hj_ops, "radix_sort": rs_ops,
@@ -341,6 +370,37 @@ def kernel_cases(m, device, hash_plan, groupby_sizes, groupby_loads,
         dict(shape=f"B={B} K=1 V=1 C={C} integer, holes, a one-key and an "
                    "empty bucket", args=(dev(hkeys), dev(hocc), dev(vals)))]
     return cases
+
+
+def groupby_workspace_case(m, device, name, B=512, C=7000, K=2, V=5,
+                           seed=5):
+    """The groupby accumulate on slabs whose workspace is past a block's
+    shared memory, so the wrapper allocates it in device memory (B 512,
+    C 7000, K 2, V 5, about a third full, ~10 rows a key, as
+    ``tools/probe_variants.py`` draws them): held once to the plain
+    version, then timed.  Not a leg's shape, so it is not in
+    ``kernel_cases``."""
+    rng = np.random.default_rng(seed)
+    n = np.minimum(rng.poisson(C // 3, B), C)
+    keys = rng.integers(0, np.maximum(n // 10, 1)[:, None, None], (B, 1, C))
+    keys = np.concatenate([keys * (2 * k + 1) + k for k in range(K)], 1)
+    args = tuple(torch.from_numpy(a).to(device) for a in (
+        keys.astype(np.int32),
+        (np.arange(C)[None] < n[:, None]).astype(np.int32),
+        rng.integers(-100, 100, (B, V, C)).astype(np.float32)))
+    op = m["ops"]["hash_groupby"]
+    nbytes = op._entry()[1](B, K, V, C)
+    if nbytes <= 0:
+        raise AssertionError(f"hash_groupby: B {B} C {C} fits shared memory")
+    err, _ = _groupby_close(m, args, _kernel(m, "hash_groupby", args),
+                            _plain(m, "hash_groupby", args))
+    emit({"phase": "kernel_timing", "name": "hash_groupby", "card": name,
+          "shape": f"B={B} K={K} V={V} C={C} past shared memory",
+          "workspace_bytes": nbytes, "max_abs_err": err,
+          "ms": event_ms(lambda: _kernel(m, "hash_groupby", args)),
+          "kernel_ms": port_kernel_ms(
+              lambda: _kernel(m, "hash_groupby", args))[0],
+          "bound_ms": bound("hash_groupby", args)[0]})
 
 
 def pooled_slabs(rng, B, K, Lc, C):
@@ -881,17 +941,27 @@ def check_unomt(got: dict, want: dict) -> None:
             raise AssertionError(f"unomt: {c} differs from numpy")
 
 
+def _copied(a):
+    """A copy of a tensor argument, or of each tensor in a tuple of them."""
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    return tuple(_copied(x) for x in a) if isinstance(a, tuple) else a
+
+
 @contextlib.contextmanager
-def recording(op, fn_name, calls, limit=None):
+def recording(op, fn_name, calls, picks=None):
     """Context in which ``op.fn_name`` also appends a copy of the
-    arguments of each call (of the first ``limit`` calls), positional then
-    keyword, to ``calls``; launches are counted as without it."""
+    arguments of each call (of the calls whose index is in ``picks``),
+    positional then keyword, to ``calls``; launches are counted as
+    without it."""
     plain = getattr(op, fn_name)
+    seen = [0]
 
     def keep(*args, **kwargs):
-        if limit is None or len(calls) < limit:
-            calls.append(tuple(a.clone() for a in args)
+        if picks is None or seen[0] in picks:
+            calls.append(tuple(_copied(a) for a in args)
                          + tuple(kwargs.values()))
+        seen[0] += 1
         return plain(*args, **kwargs)
 
     setattr(op, fn_name, keep)
@@ -913,9 +983,9 @@ UNOMT_LAUNCHES = {
 
 def run_unomt(m, ctx, device, raw):
     """Drive ``unomt_dist_pipeline`` once per membership backend, counted
-    and checked; then the Table -> tensor hand-off.  Returns the legs and
-    the slabs the hash run gave ``bucket_member`` (drug, then cell
-    filter)."""
+    and checked; then the Table -> tensor hand-off.  Returns the legs, the
+    slabs the hash run gave ``bucket_member`` (drug, then cell filter) and
+    the hash run's features ``(X, y, mask, valid rows)`` on the device."""
     D, U = m["D"], m["U"]
     legs, out, slabs = {}, {}, []
     rows = len(raw["response"]["cell_id"])
@@ -949,7 +1019,7 @@ def run_unomt(m, ctx, device, raw):
           "dropped": 0, "bit_identical_sortmerge_hash": True,
           "equal_to_numpy": True,
           "launches": {i: legs[f"unomt_{i}"]["launches"] for i in out}})
-    return legs, slabs
+    return legs, slabs, (X, y, mask, n)
 
 
 def setop_data(rows_a, rows_b, nkeys, seed=0):
@@ -1026,6 +1096,529 @@ def run_setops(m, ctx, device, a, b):
           "bit_identical_sortmerge_hash": True, "equal_to_numpy": True,
           "launches": {k: v["launches"] for k, v in legs.items()}})
     return legs, slabs
+
+
+# --------------------------------------------------------------------------
+# out-of-core morsels (the shape of benchmarks/bench_outofcore.py)
+# --------------------------------------------------------------------------
+
+OC_ROWS, OC_CHUNK = 10_000_000, 1_000_000   # bench_outofcore ROWS, CHUNK
+# the hash join's morsel: its pair space B * Lc * C stays under 2^31
+OC_HASH_CHUNK = 500_000
+OC_RESTREAM_ROWS, OC_RESTREAM_CHUNK = 1_000_000, 250_000
+OC_GROUP_CAP = 2_000_000       # accumulator groups of the chunked groupby
+OC_AGGS = {"lv": ["sum", "count", "mean", "min", "max"]}
+OC_REPS = 1                    # timed runs of a leg after its warm run
+# exact launches of each leg at its size and seed (the same in every run).
+# Per probe morsel a join shuffles (1 hash_partition) and compacts the
+# shuffle's receive side by the cumsum, so the joins launch 1 + morsels
+# hash_partition (the build side is one morsel; restream shuffles each
+# build morsel once per probe morsel: 4 + 16); the sort-merge join sorts
+# the resident build side by its key (5 radix passes under
+# REPRO_SORT_IMPL=radix, none under the default "xla"); the hash join
+# buckets both sides (fused_bucketing 2) and probes once a morsel.  A
+# groupby morsel shuffles (1), aggregates its part and merges it into the
+# accumulator: under "hash" two hash_groupby, each bucketing the keys of
+# 65536 buckets by three radix passes and ranking the groups by five;
+# under "sort" each aggregation compacts its group boundaries (1 radix
+# pass).  A sort morsel is dist_sort's three radix sorts of one key (5
+# passes each) and its shuffle.
+OC_LAUNCHES = {
+    "oc_join_sortmerge": {"hash_partition": 11},
+    "oc_join_memmap": {"hash_partition": 11},
+    "oc_join_hash": {"hash_partition": 21, "fused_bucketing": 40,
+                     "hash_join": 20},
+    "oc_join_restream": {"hash_partition": 20},
+    "oc_groupby_hash": {"hash_partition": 10, "radix_sort": 160,
+                        "hash_groupby": 20},
+    "oc_groupby_sort": {"hash_partition": 10, "radix_sort": 20},
+    "oc_sort_radix": {"hash_partition": 10, "radix_sort": 150},
+}
+
+
+def oc_data(rows: int, seed: int = 0):
+    """``benchmarks/_subproc_outofcore.py``'s data: a ``rows``-row probe
+    side with k uniform over rows / 10 keys and lv normal float32, and a
+    build side with one row per key, rv normal float32."""
+    rng = np.random.default_rng(seed)
+    nkeys = max(rows // 10, 1)
+    left = {"k": rng.integers(0, nkeys, rows).astype(np.int32),
+            "lv": rng.normal(size=rows).astype(np.float32)}
+    right = {"k": np.arange(nkeys, dtype=np.int32),
+             "rv": rng.normal(size=nkeys).astype(np.float32)}
+    return left, right
+
+
+def to_memmap(cols: dict, tmpdir: Path) -> dict:
+    """The columns as read-only ``np.memmap`` files under ``tmpdir``."""
+    out = {}
+    for name, v in cols.items():
+        path = tmpdir / f"{name}.bin"
+        mm = np.memmap(path, dtype=v.dtype, mode="w+", shape=v.shape)
+        mm[:] = v
+        mm.flush()
+        del mm
+        out[name] = np.memmap(path, dtype=v.dtype, mode="r", shape=v.shape)
+    return out
+
+
+class JoinSink:
+    """Counts the output rows and checks each morsel as it arrives: every
+    row's rv is the build row's of its key, bit for bit; Σlv and Σrv in
+    float64 for the end."""
+
+    def __init__(self, rv_of_key):
+        self.rv, self.rows, self.slv, self.srv, self.bad = rv_of_key, 0, \
+            0.0, 0.0, 0
+
+    def __call__(self, part):
+        self.rows += len(part["k"])
+        self.slv += float(part["lv"].astype(np.float64).sum())
+        self.srv += float(part["rv"].astype(np.float64).sum())
+        if not np.array_equal(part["rv"].view(np.int32),
+                              self.rv[part["k"]].view(np.int32)):
+            self.bad += 1
+
+
+def oc_join_leg(M, ctx, probe, build_side, **kw):
+    """``run(sink)`` streams the probe side through ``chunked_dist_join``
+    into ``sink`` (a row counter when None); returns (rows, dropped)."""
+    def run(sink=None):
+        rows = [0]
+
+        def count(part):
+            rows[0] += len(part["k"])
+
+        _, dropped = M.chunked_dist_join(ctx, probe, build_side,
+                                         left_on=["k"], sink=sink or count,
+                                         **kw)
+        return (sink.rows if sink else rows[0]), dropped
+    return run
+
+
+def check_oc_join(leg, sink, dropped, left, right, want_rows):
+    """Rows, drops, the per-row rv, and the sums within float32
+    summation rounding (1e-6 of the summed magnitudes)."""
+    lv = left["lv"][:want_rows].astype(np.float64)
+    rv = right["rv"][left["k"][:want_rows]].astype(np.float64)
+    errs = {"lv": abs(sink.slv - lv.sum()), "rv": abs(sink.srv - rv.sum())}
+    tols = {"lv": 1e-6 * np.abs(lv).sum(), "rv": 1e-6 * np.abs(rv).sum()}
+    if sink.rows != want_rows or int(dropped) != 0 or sink.bad \
+            or any(errs[c] > tols[c] for c in errs):
+        raise AssertionError(f"{leg}: {sink.rows} rows (want {want_rows}), "
+                             f"dropped {int(dropped)}, {sink.bad} morsels "
+                             f"with a wrong rv, sum errors {errs} > {tols}")
+    return errs
+
+
+def oc_groupby_want(left) -> dict:
+    """numpy's groups of lv by k: float64 sums and magnitudes, int counts,
+    float32 min and max."""
+    k, v = left["k"], left["lv"]
+    uniq = np.unique(k)
+    nk = int(k.max()) + 1
+    mins = np.full(nk, np.inf, np.float32)
+    maxs = np.full(nk, -np.inf, np.float32)
+    np.minimum.at(mins, k, v)
+    np.maximum.at(maxs, k, v)
+    w = v.astype(np.float64)
+    return {"k": uniq.astype(np.int32),
+            "sum": np.bincount(k, weights=w, minlength=nk)[uniq],
+            "abs": np.bincount(k, weights=np.abs(w), minlength=nk)[uniq],
+            "count": np.bincount(k, minlength=nk)[uniq].astype(np.int32),
+            "min": mins[uniq], "max": maxs[uniq]}
+
+
+def check_oc_groupby(leg, got, want) -> float:
+    """Keys, counts, mins and maxs exactly; sums and means within
+    float32 addition-order rounding (1e-6 of the group's summed
+    magnitudes); returns the largest sum error."""
+    if list(got) != ["k"] + [f"lv_{op}" for op in OC_AGGS["lv"]]:
+        raise AssertionError(f"{leg}: columns {list(got)}")
+    exact = {"k": "k", "lv_count": "count", "lv_min": "min",
+             "lv_max": "max"}
+    for c, w in exact.items():
+        if got[c].dtype != want[w].dtype or not np.array_equal(
+                got[c].view(np.int32), want[w].view(np.int32)):
+            raise AssertionError(f"{leg}: {c} differs from numpy")
+    tol = 1e-6 * want["abs"] + 1e-30
+    serr = np.abs(got["lv_sum"].astype(np.float64) - want["sum"])
+    merr = np.abs(got["lv_mean"].astype(np.float64)
+                  - want["sum"] / want["count"]) * want["count"]
+    if not (np.all(serr <= tol) and np.all(merr <= tol + 1e-7 * want["abs"])):
+        raise AssertionError(f"{leg}: sums off by {serr.max()}, means by "
+                             f"{merr.max()}")
+    return float(serr.max())
+
+
+def oc_counted(m, leg, run, device, legs, rows):
+    """One counted run of an out-of-core leg, pinned to ``OC_LAUNCHES``;
+    the leg is kept for the timing phase."""
+    out, launches = counted_run(m, run, device)
+    expect_launches(leg, launches, OC_LAUNCHES[leg])
+    legs[leg] = dict(run=run, launches=launches, rows=rows, reps=OC_REPS)
+    return out
+
+
+def oc_recorders(m, leg):
+    """What ``leg`` records of one morsel: (module, wrapper, picks, kernel)
+    for each kernel held to its plain version at the leg's shapes.  The
+    hash join: the build shuffle and the first probe morsel's
+    (hash_partition), both sides' bucketing and the probe of the first
+    probe morsel; the hash groupby: the last morsel's partial aggregate
+    and its merge into the full accumulator; the sort: the first
+    morsel's radix passes."""
+    ops, n = m["ops"], OC_LAUNCHES[leg]
+    if leg == "oc_join_hash":
+        return [(m["D"], "radix_histogram_ranks", {0, 1}, "hash_partition"),
+                (m["bucketing"], "fused_bucket_ranks", {0, 1},
+                 "fused_bucketing"),
+                (ops["hash_join"], "bucket_probe", {0}, "hash_join")]
+    if leg == "oc_groupby_hash":
+        k = n["hash_groupby"]
+        return [(ops["hash_groupby"], "bucket_accumulate", {k - 2, k - 1},
+                 "hash_groupby")]
+    return [(ops["radix_sort"], "scatter_pass",
+             range(n["radix_sort"] // (OC_ROWS // OC_CHUNK)), "radix_sort")]
+
+
+@contextlib.contextmanager
+def oc_recording(m, leg, cases: dict):
+    """Context in which ``leg``'s wrappers record one morsel's arguments
+    (:func:`oc_recorders`); on leaving, the calls are added to ``cases``
+    as kernel cases (a scatter pass's ``keep_words`` dropped: the case
+    keeps the words, which the plain version returns too)."""
+    recs = oc_recorders(m, leg)
+    calls = [[] for _ in recs]
+    with contextlib.ExitStack() as stack:
+        for (mod, fn, picks, _), kept in zip(recs, calls):
+            stack.enter_context(recording(mod, fn, kept, picks))
+        yield
+    for (_, fn, _, kname), kept in zip(recs, calls):
+        for j, args in enumerate(kept):
+            if fn == "scatter_pass":
+                args = args[:5]
+            cases.setdefault(kname, []).append(dict(
+                shape=f"{leg} {fn} #{j} {case_shape(kname, args)}",
+                args=args))
+
+
+def case_shape(kname, args) -> str:
+    """A recorded call's shape, as the kernel cases name theirs."""
+    if kname == "hash_partition":
+        return f"n={args[0].numel()} P={args[1]}"
+    if kname == "fused_bucketing":
+        return f"n={args[1].numel()} K={len(args[0])} P={args[2]}"
+    if kname == "radix_sort":
+        return f"scatter n={args[1].numel()} bits={args[3]} shift={args[2]}"
+    B, K, width = args[0].shape
+    if kname == "hash_groupby":
+        return f"B={B} K={K} V={args[2].shape[1]} C={width}"
+    return f"B={B} K={K} Lc={width} C={args[2].shape[2]}"
+
+
+def run_outofcore(m, ctx, device, tmpdir: Path):
+    """The seven out-of-core legs, each driven once, counted and checked
+    against numpy.  Returns the legs and, as kernel cases, the arguments
+    the kernels received on one morsel of the hash join, the hash
+    groupby and the sort (:func:`oc_recorders`)."""
+    M, D = m["Mo"], m["D"]
+    legs, cases = {}, {}
+    left, right = oc_data(OC_ROWS)
+    probe = M.ChunkedTable(left, OC_CHUNK)
+    summary = {}
+
+    for leg, src, kw in (
+            ("oc_join_sortmerge", probe, {"local_impl": "sortmerge"}),
+            ("oc_join_memmap",
+             M.ChunkedTable(to_memmap(left, tmpdir), OC_CHUNK),
+             {"local_impl": "sortmerge"})):
+        run = oc_join_leg(M, ctx, src, right, **kw)
+        sink = JoinSink(right["rv"])
+        _, dropped = oc_counted(m, leg, lambda: run(sink), device, legs,
+                                OC_ROWS)
+        legs[leg]["run"] = run
+        summary[leg] = {"chunks": src.num_chunks, "out_rows": sink.rows,
+                        "sum_errors": check_oc_join(leg, sink, dropped, left,
+                                                    right, OC_ROWS)}
+
+    hprobe = M.ChunkedTable(left, OC_HASH_CHUNK)
+    plan = D.plan_dist_join_sizes([hprobe.chunk(0)["k"]], [right["k"]],
+                                  world=1, local_impl="hash")
+    sizes = plan["local_join_sizes"]
+    B, Lc, C = (sizes[k] for k in ("num_buckets", "probe_capacity",
+                                   "bucket_capacity"))
+    run = oc_join_leg(M, ctx, hprobe, right, local_impl="hash",
+                      local_join_sizes=sizes)
+    sink = JoinSink(right["rv"])
+    with oc_recording(m, "oc_join_hash", cases):
+        _, dropped = oc_counted(m, "oc_join_hash", lambda: run(sink), device,
+                                legs, OC_ROWS)
+    legs["oc_join_hash"]["run"] = run
+    summary["oc_join_hash"] = {
+        "chunks": hprobe.num_chunks, "out_rows": sink.rows,
+        "B": B, "Lc": Lc, "C": C, "pairs": B * Lc * C,
+        "sum_errors": check_oc_join("oc_join_hash", sink, dropped, left,
+                                    right, OC_ROWS)}
+
+    rl = {k: v[:OC_RESTREAM_ROWS] for k, v in left.items()}
+    rprobe = M.ChunkedTable(rl, OC_RESTREAM_CHUNK)
+    rbuild = M.ChunkedTable(right, OC_RESTREAM_CHUNK)
+    run = oc_join_leg(M, ctx, rprobe, rbuild, build="restream",
+                      local_impl="sortmerge")
+    sink = JoinSink(right["rv"])
+    _, dropped = oc_counted(m, "oc_join_restream", lambda: run(sink),
+                            device, legs, OC_RESTREAM_ROWS)
+    legs["oc_join_restream"]["run"] = run
+    summary["oc_join_restream"] = {
+        "chunks": [rprobe.num_chunks, rbuild.num_chunks],
+        "joins": rprobe.num_chunks * rbuild.num_chunks,
+        "out_rows": sink.rows,
+        "sum_errors": check_oc_join("oc_join_restream", sink, dropped, left,
+                                    right, OC_RESTREAM_ROWS)}
+
+    # slabs for the hash groupby: a morsel's rows, and the merge's
+    # accumulator plus a partial, where a key is at most twice
+    uniq = np.unique(left["k"])
+    bk = m["bucketing"]
+    gsizes = {"num_buckets": GROUPBY_BUCKETS, "bucket_capacity": max(
+        bk.plan_bucket_sizes([keys], num_buckets=GROUPBY_BUCKETS)[1]
+        for keys in [np.concatenate([uniq, uniq])]
+        + [c["k"] for c in probe.chunks()])}
+    want = oc_groupby_want(left)
+    for impl in ("hash", "sort"):
+        leg = f"oc_groupby_{impl}"
+        kw = dict(group_capacity_per_shard=OC_GROUP_CAP, local_impl=impl,
+                  groupby_sizes=gsizes if impl == "hash" else None)
+        run = (lambda kw=kw: M.chunked_dist_groupby(ctx, probe, ["k"],
+                                                    OC_AGGS, **kw))
+        with (oc_recording(m, leg, cases) if impl == "hash"
+              else contextlib.nullcontext()):
+            got, dropped = oc_counted(m, leg, run, device, legs, OC_ROWS)
+        if int(dropped) != 0:
+            raise AssertionError(f"{leg} dropped {int(dropped)}")
+        summary[leg] = {"chunks": probe.num_chunks, "groups": len(got["k"]),
+                        "sizes": kw["groupby_sizes"],
+                        "max_sum_error": check_oc_groupby(leg, got, want)}
+
+    run = (lambda: M.chunked_dist_sort(ctx, probe, ["k"],
+                                       local_impl="radix"))
+    with oc_recording(m, "oc_sort_radix", cases):
+        got, dropped = oc_counted(m, "oc_sort_radix", run, device, legs,
+                                  OC_ROWS)
+    order = np.argsort(left["k"], kind="stable")
+    if int(dropped) != 0 or not (
+            np.array_equal(got["k"], left["k"][order])
+            and np.array_equal(got["lv"].view(np.int32),
+                               left["lv"][order].view(np.int32))):
+        raise AssertionError("oc_sort_radix: not numpy's stable order of k")
+    # the leg's two halves apart: each morsel's dist_sort collected to a
+    # host run, then the host merge of the runs
+    t0 = time.perf_counter()
+    runs = [D.collect_table(ctx, D.dist_sort(ctx, g, ["k"],
+                                             local_impl="radix")[0])
+            for g in probe.distribute(ctx)]
+    morsels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merged = M.merge_sorted_runs(runs, ["k"])
+    merge_s = time.perf_counter() - t0
+    if not all(np.array_equal(merged[c].view(np.int32),
+                              got[c].view(np.int32)) for c in got):
+        raise AssertionError("oc_sort_radix: the merged runs differ")
+    summary["oc_sort_radix"] = {"chunks": probe.num_chunks,
+                                "host_merge_s": merge_s,
+                                "morsels_s": morsels_s}
+    emit({"phase": "outofcore", "rows": OC_ROWS, "chunk_rows": OC_CHUNK,
+          "dropped": 0, "equal_to_numpy": True, "legs": summary,
+          "launches": {k: v["launches"] for k, v in legs.items()}})
+    return legs, cases
+
+
+# --------------------------------------------------------------------------
+# UNOMT stage 4: DDP training of the drug-response net on the card
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, CHECK_BATCH = 100, 32_768, 4_096
+# one step on the card against the port on the CPU (float32 both, no
+# TF32): the loss within TRAIN_LOSS_TOL * (1 + |loss|); an AdamW update
+# on the same gradients within TRAIN_UPDATE_TOL * (1 + |p|).  Gradients:
+# the float32 GEMMs add in other orders on the two devices, and a leaf's
+# reduction over the batch cancels, so on 4096 rows of UNOMT features
+# the CPU's own float32 gradients sit 2.3e-4 * max|g| from a float64
+# evaluation (input.w, as this script records it), and the card's input.w
+# 1.1e-4 * max|g| from the CPU's.  Each leaf on the card is held to a
+# float64 evaluation on the CPU within TRAIN_GRAD_TOL * max|g64|, a few
+# times the CPU's float32 error.  Two controls on the card must exceed
+# it, and the run fails if one does not: TF32 matmuls (inputs rounded to
+# 11 bits) and a step one batch row short read 6.8e-3 and 4.6e-3 on an
+# H100 80GB HBM3 at 700 W.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-3, 1e-6
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "sm90_", "ampere_")
+
+
+def loss_and_grads(N, cfg, params, batch):
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss, _ = N.mse_loss(leaves, cfg, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def check_train_on_cpu(m, cfg, params, batch) -> dict:
+    """One step's loss and gradients on the card, with the port on the
+    CPU and in float64 on the CPU; then an AdamW update on the same
+    gradients on the card and on the CPU."""
+    N, A = m["Un"], m["Aw"]
+    cpu = torch.device("cpu")
+    cparams = {k: v.cpu() for k, v in params.items()}
+    cbatch = {k: v.cpu() for k, v in batch.items()}
+    loss, grads = loss_and_grads(N, cfg, params, batch)
+    closs, cgrads = loss_and_grads(N, cfg, cparams, cbatch)
+    _, g64 = loss_and_grads(N, cfg, {k: v.double() for k, v in
+                                     cparams.items()},
+                            dict(cbatch, x=cbatch["x"].double(),
+                                 y=cbatch["y"].double()))
+    loss_err = abs(float(loss) - float(closs))
+
+    def err(g, k):      # largest error against float64, / max|g64|
+        return float((g.double().cpu() - g64[k]).abs().max()) \
+            / max(float(g64[k].abs().max()), 1e-300)
+
+    grad_err = {k: (err(grads[k], k), err(cgrads[k], k)) for k in g64}
+    bad = {k: e for k, e in grad_err.items() if e[0] > TRAIN_GRAD_TOL}
+    # the check's controls, on the card: TF32 matmuls, and a step that
+    # leaves the batch's last valid row out (a product one row short)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = loss_and_grads(N, cfg, params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    short = batch["mask"].clone()
+    short[int(torch.nonzero(short > 0).max())] = 0
+    controls = {}
+    for what, (cl, cg) in (("tf32", tf32), ("row_left_out", loss_and_grads(
+            N, cfg, params, dict(batch, mask=short)))):
+        worst = max(g64, key=lambda k: err(cg[k], k))
+        controls[what] = {"loss_err": abs(float(cl) - float(closs)),
+                          "grad_err": err(cg[worst], worst), "leaf": worst}
+        if controls[what]["grad_err"] <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"unomt_train: the gradient check misses "
+                                 f"its {what} control: {controls[what]}")
+    opt = A.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=100)
+    dev = next(iter(params.values())).device
+    new, _, _ = A.update(params, {k: g.to(dev) for k, g in cgrads.items()},
+                         A.init(params, opt), opt)
+    cnew, _, _ = A.update(cparams, cgrads, A.init(cparams, opt), opt)
+    upd_err = max(float(((new[k].to(cpu) - v).abs() / (1 + v.abs())).max())
+                  for k, v in cnew.items())
+    if not (loss_err <= TRAIN_LOSS_TOL * (1 + abs(float(closs)))
+            and not bad and upd_err <= TRAIN_UPDATE_TOL):
+        raise AssertionError(f"unomt_train: card vs CPU loss {loss_err}, "
+                             f"gradients (card, CPU) against float64 "
+                             f"{bad}, update {upd_err}")
+    card_vs_cpu = {k: float((grads[k].cpu() - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for k, g in cgrads.items()}
+    return {"loss": float(closs), "loss_err": loss_err,
+            "grad_err_vs_float64": grad_err,
+            "grad_card_vs_cpu_max": max(card_vs_cpu.values()),
+            "update_err": upd_err, "controls": controls}
+
+
+def profile_step(fn, top=6):
+    """One warmed call of ``fn`` under torch.profiler: device ms of the
+    GEMM kernels and of the rest (elementwise, reductions, copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    gemm = [e for e in kernels
+            if any(g in e.key.lower() for g in GEMM_NAMES)]
+    rest = [e for e in kernels if e not in gemm]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"gemm_ms": sum(e.self_device_time_total for e in gemm) / 1e3,
+            "gemm_launches": sum(e.count for e in gemm),
+            "other_ms": sum(e.self_device_time_total for e in rest) / 1e3,
+            "other_launches": sum(e.count for e in rest),
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in kernels[:top]]}
+
+
+def run_unomt_train(m, ctx, device, X, y, mask, n, name):
+    """UNOMT stage 4 on the UNOMT leg's features: 100 DDP steps of
+    32 768 rows in order, exact and int8-compressed, with dropout; the
+    loss must fall in both.  Then one step on the card against the CPU,
+    and the step's time, memory and profile.  Returns the leg."""
+    N, A, Cp, R = m["Un"], m["Aw"], m["Cp"], m["Rd"]
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the net runs float32")
+    if n < TRAIN_STEPS * TRAIN_BATCH:
+        raise AssertionError(f"unomt_train: {n} valid rows are fewer than "
+                             f"{TRAIN_STEPS} batches")
+    cfg = N.UnomtNetConfig(n_features=X.shape[1])
+    opt = A.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    runs, launches = {}, None
+    for compress in (False, True):
+        params = N.init(torch.Generator(device).manual_seed(0), cfg)
+        gen = torch.Generator(device).manual_seed(1)
+        step = R.make_ddp_train_step(
+            lambda p, b: N.mse_loss(p, cfg, b, train=True, generator=gen),
+            opt, ctx, compress=compress)
+        state = (params, A.init(params, opt), Cp.init_residuals(params))
+
+        def train():
+            nonlocal state
+            losses = []
+            for i in range(TRAIN_STEPS):
+                rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+                *state, met = step(*state, {"x": X[rows], "y": y[rows],
+                                            "mask": mask[rows]})
+                losses.append(met["loss"])
+            return [float(v) for v in torch.stack(losses).cpu()]
+
+        t0 = time.perf_counter()
+        losses, lc = counted_run(m, train, device)
+        seconds = time.perf_counter() - t0
+        expect_launches(f"unomt_train/{compress}", lc, {})
+        launches = lc
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        if not last < first:
+            raise AssertionError(f"unomt_train compress={compress}: loss "
+                                 f"{first} -> {last} did not fall")
+        batch = {"x": X[:TRAIN_BATCH], "y": y[:TRAIN_BATCH],
+                 "mask": mask[:TRAIN_BATCH]}
+        st = tuple(state)
+        step_ms = event_ms(lambda: step(*st, batch), reps=10)
+        torch.cuda.reset_peak_memory_stats(device)
+        resident = torch.cuda.memory_allocated(device)
+        step(*st, batch)
+        _sync(device)
+        runs[f"compress={compress}"] = {
+            "seconds": seconds, "loss_first10": first, "loss_last10": last,
+            "step_ms": step_ms, "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+            "peak_bytes_above_resident":
+                torch.cuda.max_memory_allocated(device) - resident,
+            "profile": profile_step(lambda: step(*st, batch))}
+    params = N.init(torch.Generator(device).manual_seed(0),
+                    dataclasses.replace(cfg, dropout=0.0))
+    check = check_train_on_cpu(m, dataclasses.replace(cfg, dropout=0.0),
+                               params, {"x": X[:CHECK_BATCH],
+                                        "y": y[:CHECK_BATCH],
+                                        "mask": mask[:CHECK_BATCH]})
+    emit({"phase": "unomt_train", "card": name, "rows": n,
+          "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+          "net": dataclasses.asdict(cfg), "allow_tf32": False,
+          "params": sum(p.numel() for p in params.values()),
+          "runs": runs, "card_vs_cpu": check,
+          "tolerances": {"loss": TRAIN_LOSS_TOL, "grad": TRAIN_GRAD_TOL,
+                         "update": TRAIN_UPDATE_TOL}})
+    return {"unomt_train": dict(launches=launches, rows=n)}
 
 
 # --------------------------------------------------------------------------
@@ -1323,7 +1916,7 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
     rec = Recorder(engine, keep=set(pick))
     with recording(ops["flash_attention"], "flash_attention", recorded,
-                   limit=1):
+                   picks={0}):
         done, rejected, seconds = serve.drive(engine, reqs, slots)
     _sync(device)
     launches = {k: op.launches for k, op in ops.items()}
@@ -1983,6 +2576,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    # the memmap leg's probe columns live here until the timing phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run_all(Path(tmp))
+
+
+def run_all(tmpdir: Path) -> int:
     m = _modules()
     device = torch.device("cuda")
     name = card()
@@ -2008,16 +2607,32 @@ def main() -> int:
         [gdata["k"]], sizes["num_buckets"]), minlength=sizes["num_buckets"])
     cases = kernel_cases(m, device, hash_plan, sizes, loads)
     errs = compare_kernels(m, cases, device)
+    groupby_workspace_case(m, device, name)
     emit({"kernels": list(KERNELS)})
 
     legs = run_legs(m, ctx, SORTMERGE_ROWS, HASH_ROWS, device)
     legs.update(run_table5(m, ctx, device, gdata, sizes))
     raw = unomt_data(m, UNOMT_ROWS, UNOMT_DRUGS, UNOMT_CELLS)
-    unomt_legs, slabs = run_unomt(m, ctx, device, raw)
+    unomt_legs, slabs, features = run_unomt(m, ctx, device, raw)
     legs.update(unomt_legs)
+    del raw
     setop_legs, setop_slabs = run_setops(
         m, ctx, device, *setop_data(*SETOP_ROWS, SETOP_KEYS))
     legs.update(setop_legs)
+    oc_legs, oc_cases = run_outofcore(m, ctx, device, tmpdir)
+    legs.update(oc_legs)
+    for kname, err in compare_kernels(m, oc_cases, device).items():
+        errs[kname] = max(errs[kname], err)
+    for kname, runs in oc_cases.items():
+        for case in runs:
+            emit({"phase": "kernel_timing", "name": kname,
+                  "shape": case["shape"], "card": name,
+                  "ms": event_ms(lambda: _kernel(m, kname, case["args"]),
+                                 reps=5),
+                  "bound_ms": bound(kname, case["args"])[0]})
+    del oc_cases
+    legs.update(run_unomt_train(m, ctx, device, *features, name))
+    del features
     cases["hash_semi"] = semi_cases(slabs + setop_slabs, device)
     errs.update(compare_kernels(m, {"hash_semi": cases["hash_semi"]},
                                 device))
@@ -2033,15 +2648,25 @@ def main() -> int:
     errs.update(compare_kernels(
         m, {"mamba_scan": cases["mamba_scan"]}, device))
 
+    peaks = {}
     for leg, info in legs.items():
-        if "run" not in info:          # the serving legs time themselves
-            continue
-        seconds, peak, resident = time_leg(info["run"], device)
+        if "run" not in info:          # the serving and training legs
+            continue                   # time themselves
+        seconds, peak, resident = time_leg(info["run"], device,
+                                           reps=info.get("reps", 3))
+        peaks[leg] = peak
         emit({"phase": "timing", "leg": leg, "rows": info["rows"],
               "median_s": seconds, "peak_bytes_above_resident": peak,
               "resident_bytes": resident, "card": name})
         emit({"phase": "profile", "leg": leg, "card": name,
               **profile_leg(info["run"])})
+    # what the morsels are for: the device holds one morsel and the
+    # resident state, not the table
+    emit({"phase": "outofcore_memory", "card": name,
+          "fig4_sortmerge_peak_bytes": peaks["sortmerge"],
+          "fig4_sortmerge_rows_per_side": SORTMERGE_ROWS,
+          "peak_bytes": {k: v for k, v in peaks.items()
+                         if k.startswith("oc_")}})
 
     library = library_times(m, cases, gdata, sizes, device)
     table = []

@@ -511,6 +511,86 @@ def _hash_groupby(table: Table, by: list, aggs: Mapping[str, list],
     return Table(columns=out_cols, nvalid=ngroups), plan.dropped
 
 
+# merge rule per partial-aggregate column suffix: how two partials of the
+# same group combine into the partial of their union
+_PARTIAL_MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
+
+
+def partial_agg_columns(aggs: Mapping[str, Sequence[str] | str]):
+    """Expand requested aggregations to the *partial* set that chunked
+    (morsel) execution accumulates: ``mean`` needs ``sum`` + ``count``,
+    everything else is its own partial.  Returns ``{col: [partial ops]}``
+    in canonical (sum, count, min, max) order."""
+    out: dict[str, list] = {}
+    for col, ops in aggs.items():
+        ops = [ops] if isinstance(ops, str) else list(ops)
+        need = set()
+        for op in ops:
+            if op not in _AGGS:
+                raise ValueError(f"unknown aggregation {op!r}")
+            need.update(("sum", "count") if op == "mean" else (op,))
+        out[col] = [op for op in ("sum", "count", "min", "max")
+                    if op in need]
+    return out
+
+
+def merge_partial_aggregates(acc: Table, part: Table, by: Sequence[str], *,
+                             impl: str | None = None,
+                             return_overflow: bool = False,
+                             num_buckets: int | None = None,
+                             bucket_capacity: int | None = None):
+    """Merge two canonical partial-aggregate tables into one with
+    ``acc``'s capacity: the associative combine step of morsel-driven
+    groupby (``core/morsel.py``).
+
+    Both inputs carry the ``by`` key columns plus partial columns named
+    ``{col}_{op}`` with ``op`` in sum/count/min/max (the shape
+    :func:`groupby_aggregate` emits, see :func:`partial_agg_columns`).
+    Equal keys combine through the matching reduction (sum of sums, sum
+    of counts, min of mins, max of maxs) by re-running the aggregation
+    backend (``impl`` 'sort' | 'hash', the latter on the ``hash_groupby``
+    slabs, sized by ``num_buckets`` / ``bucket_capacity`` or the
+    heuristics, never planned from the keys, as the reference's traced
+    merge) over the concatenation, so the output is again canonical (one
+    row per key, key-sorted) and any chunking of the rows folds to the
+    same table.
+
+    Counts are re-summed as float32 and cast back to int32, as the
+    reference does (exact below 2^24 rows a group).  Groups past
+    ``acc.capacity`` and hash-slab overflow are dropped and counted:
+    ``return_overflow=True`` returns ``(merged, dropped)``."""
+    by = list(by)
+    t = concat(acc, part)
+    merge_op: dict[str, str] = {}
+    for name in acc.names:
+        if name in by:
+            continue
+        _, _, suffix = name.rpartition("_")
+        if suffix not in _PARTIAL_MERGE:
+            raise ValueError(
+                f"column {name!r} is not a partial-aggregate column "
+                "(expected a _sum/_count/_min/_max suffix)")
+        merge_op[name] = _PARTIAL_MERGE[suffix]
+    g, over = groupby_aggregate(t, by, {n: [op] for n, op in
+                                        merge_op.items()},
+                                impl=impl, return_overflow=True,
+                                num_buckets=num_buckets,
+                                bucket_capacity=bucket_capacity,
+                                may_plan=False)
+    cap = acc.capacity
+    cols = {k: g.columns[k][:cap] for k in by}
+    for name, op in merge_op.items():
+        v = g.columns[f"{name}_{op}"][:cap]
+        if name.endswith("_count"):
+            v = v.to(_I32)
+        cols[name] = v
+    out = Table(columns=cols, nvalid=torch.clamp(g.nvalid, max=cap))
+    dropped = over + torch.clamp(g.nvalid - cap, min=0)
+    if return_overflow:
+        return out, dropped
+    return out
+
+
 def aggregate(table: Table, col: str, op: str) -> torch.Tensor:
     """Whole-column masked reduction -> 0-d tensor (paper's Aggregate):
     ``count`` is int32, every other aggregation float32."""

@@ -38,12 +38,13 @@
 //
 // The workspace (8 + ks ints a slot, the ballots and a table of up to
 // 2 C ints) lives in the block's shared memory.  A slab whose workspace
-// does not fit there takes the same steps with it in device memory,
-// allocated on the stream for at most kScratchBytes of workspaces, the
-// blocks taking buckets in turn (B 512, C 7000, K 2, V 5, a third full:
-// 1.11 ms, where a warp a bucket scanning the earlier slots in place in
-// the outputs took 26.6 and a 256-thread block a bucket comparing every
-// pair of slots 54.0; by probe, on an H100).
+// does not fit there takes the same steps with it in device memory, in
+// a workspace the wrapper allocates (hash_groupby_workspace_bytes) for at
+// most kScratchBytes of workspaces, the blocks taking buckets in turn
+// (B 512, C 7000, K 2, V 5, a third full: 1.11 ms, where a warp a bucket
+// scanning the earlier slots in place in the outputs took 26.6 and a
+// 256-thread block a bucket comparing every pair of slots 54.0; by probe,
+// on an H100 80GB HBM3 at 700 W).
 //
 // Work: per occupied slot about one table probe (up to K key compares)
 // and one value update per column; bytes: it must read the occupancy and
@@ -339,57 +340,81 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+// The workspace of one warp in bytes for K key planes and C slots (ks of
+// them staged), and the blocks that take the buckets in turn when the
+// workspaces are in device memory: as many as kScratchBytes holds.
+int64_t space_bytes(int K, int C) {
+  return space_ints(C, K < kStaged ? K : kStaged) * 4;
+}
+
+int64_t scratch_blocks(int B, int64_t bytes) {
+  const int64_t fit = kScratchBytes / bytes;
+  return fit < 1 ? 1 : fit < B ? fit : B;
+}
+
+// The current device's opt-in shared memory a block.
+cudaError_t optin_bytes(int* optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (!e)
+    e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  return e;
+}
+
 }  // namespace
+
+// Bytes of device memory the workspaces of a (B, K, C) slab with V value
+// columns need outside shared memory: 0 when one fits in a block's shared
+// memory; -1 when the device cannot be queried.
+extern "C" long long hash_groupby_workspace_bytes(int B, int K, int V,
+                                                  int C) {
+  if (B <= 0 || C <= 0 || V <= 0 || K <= 0) return 0;
+  int optin = 0;
+  if (optin_bytes(&optin)) return -1;
+  const int64_t bytes = space_bytes(K, C);
+  return bytes <= optin ? 0 : scratch_blocks(B, bytes) * bytes;
+}
 
 // kbits int32 (B, K, C), occ int32 (B, C), vals float32 (B, V, C) ->
 // rep, counts int32 (B, C), sums, mins, maxs float32 (B, V, C).
-// B, C, V, K > 0.  Returns the launch's cudaError_t.
+// B, C, V, K > 0; `workspace` holds hash_groupby_workspace_bytes(B, K, V,
+// C) bytes (4-byte aligned; unused, and may be null, when that is 0).
+// Returns the launch's cudaError_t.
 extern "C" int hash_groupby_accumulate(const int* kbits, const int* occ,
                                        const float* vals, int B, int K, int V,
-                                       int C, int* rep, int* counts,
-                                       float* sums, float* mins, float* maxs,
-                                       void* stream) {
+                                       int C, void* workspace, int* rep,
+                                       int* counts, float* sums, float* mins,
+                                       float* maxs, void* stream) {
   if (B <= 0 || C <= 0 || V <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (!e)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
+  int optin = 0;
+  const cudaError_t e = optin_bytes(&optin);
   if (e) return static_cast<int>(e);
-  // the workspace in shared memory where it fits, else in device memory
-  // for as many blocks as kScratchBytes holds
+  // the workspace in shared memory where it fits, else in the caller's
+  // device memory for as many blocks as kScratchBytes holds
   const int ks = K < kStaged ? K : kStaged;
-  const int64_t bytes = space_ints(C, ks) * 4;
+  const int64_t bytes = space_bytes(K, C);
   const bool in_shared = bytes <= optin;
-  int64_t blocks = B;
-  int* scratch = nullptr;
+  int* scratch = static_cast<int*>(workspace);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!in_shared) {
-    const int64_t fit = kScratchBytes / bytes;
-    blocks = fit < 1 ? 1 : fit < B ? fit : B;
-    e = cudaMallocAsync(reinterpret_cast<void**>(&scratch), blocks * bytes,
-                        st);
-    if (e) return static_cast<int>(e);
-  } else if (bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(hash_groupby_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e) return static_cast<int>(e);
+  if (!in_shared && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (in_shared && bytes > 48 * 1024) {
+    const cudaError_t f = cudaFuncSetAttribute(
+        hash_groupby_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (f) return static_cast<int>(f);
   }
   if (in_shared)
-    hash_groupby_kernel<true><<<static_cast<unsigned>(blocks), 32,
+    hash_groupby_kernel<true><<<static_cast<unsigned>(B), 32,
                                 static_cast<size_t>(bytes), st>>>(
         kbits, occ, vals, B, K, V, C, ks, nullptr, rep, counts, sums, mins,
         maxs);
   else
-    hash_groupby_kernel<false><<<static_cast<unsigned>(blocks), 32, 0, st>>>(
+    hash_groupby_kernel<false>
+        <<<static_cast<unsigned>(scratch_blocks(B, bytes)), 32, 0, st>>>(
         kbits, occ, vals, B, K, V, C, ks, scratch, rep, counts, sums, mins,
         maxs);
-  e = cudaGetLastError();
-  if (scratch) {
-    const cudaError_t f = cudaFreeAsync(scratch, st);
-    if (!e) e = f;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

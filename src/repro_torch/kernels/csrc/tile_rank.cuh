@@ -2,7 +2,7 @@
 // stable within-tile ranking under tile_scan.cuh's counting pass
 // (hash_partition, fused_bucketing, radix_sort), a block-wide exclusive
 // scan, and the sizing of a slab chunk staged in shared memory
-// (hash_groupby, hash_join, hash_semi).
+// (hash_join).
 //
 // Layout of one tile: a block of kWarps warps ranks kThreads * Items
 // consecutive rows (Items rows per thread, as the kernel picks).  Warp w

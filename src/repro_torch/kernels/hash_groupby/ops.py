@@ -12,7 +12,8 @@ The accumulate replaces the TPU kernel ``bucket_accumulate_buckets`` of
 (``csrc/hash_groupby.cu``) gives each bucket one warp, compacts its
 occupied slots into shared memory, numbers its groups in the order of
 their first slots and folds each group's values over the occupied
-slots alone.  On sparse slabs such as the groupby leg's the bytes the
+slots alone; a slab too wide for shared memory works in a workspace
+this wrapper allocates.  On sparse slabs such as the groupby leg's the bytes the
 function must move bound it: the occupancy and the occupied slots' keys
 and values in, ``4 B C (2 + 3 V)`` bytes of results out.
 
@@ -20,6 +21,7 @@ Static-shape contract: a bucket holds at most ``bucket_capacity`` rows;
 overflowing rows are dropped and counted (``dropped``).
 """
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -34,6 +36,21 @@ SOURCE = "src/repro_torch/kernels/csrc/hash_groupby.cu"
 
 # kernel launches in this process; chip_smoke.py resets and reads it
 launches = 0
+
+
+@functools.cache
+def _entry():
+    """(library, ``hash_groupby_workspace_bytes``,
+    ``hash_groupby_accumulate``) with argument types set."""
+    lib = build.library("hash_groupby")
+    size = lib.hash_groupby_workspace_bytes
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
+    fn = lib.hash_groupby_accumulate
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    return lib, size, fn
 
 
 def _bucket_accumulate_cuda(kbits, occ, vals):
@@ -58,13 +75,18 @@ def _bucket_accumulate_cuda(kbits, occ, vals):
     counts = torch.empty((B, C), dtype=torch.int32, device=dev)
     sums, mins, maxs = torch.empty((3, B, V, C), dtype=torch.float32,
                                    device=dev)
-    lib = build.library("hash_groupby")
-    fn = lib.hash_groupby_accumulate
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
+    lib, size, fn = _entry()
+    # a slab whose per-warp workspace does not fit a block's shared memory
+    # works in device memory allocated here
+    nbytes = size(B, K, V, C)
+    if nbytes < 0:
+        raise RuntimeError("hash_groupby: cannot query the device's shared "
+                           "memory")
+    workspace = torch.empty(nbytes // 4, dtype=torch.int32, device=dev) \
+        if nbytes else None
     status = fn(kbits.data_ptr(), occ.data_ptr(), vals.data_ptr(), B, K, V,
-                C, rep.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+                C, workspace.data_ptr() if nbytes else None,
+                rep.data_ptr(), counts.data_ptr(), sums.data_ptr(),
                 mins.data_ptr(), maxs.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, status, "hash_groupby")

@@ -8,8 +8,8 @@ pair, the original row ids and the within-row match rank.
 
 The probe replaces the TPU kernel ``bucket_probe_buckets`` of
 ``src/repro/kernels/hash_join/kernel.py``.  The CUDA kernel
-(``csrc/hash_join.cu``, on the bucket compare of ``csrc/bucket_match.cuh``
-that ``hash_semi`` shares) streams each bucket's build keys through shared
+(``csrc/hash_join.cu``, on the bucket compare of
+``csrc/bucket_match.cuh``) streams each bucket's build keys through shared
 memory in chunks and walks every probe slot's chain 32 slots per warp step
 with a ballot, writing the dense ``(B, Lc, C)`` rank tensor once,
 coalesced; any number of key planes and any slab width run.  That write

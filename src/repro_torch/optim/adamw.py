@@ -1,0 +1,105 @@
+"""AdamW with global-norm clipping and a cosine schedule (PyTorch port of
+``repro/optim/adamw.py``).
+
+Parameters, gradients and moments are dicts of tensors keyed by the
+reference's tree paths (``"blocks.0.fc1.w"``), in the order the
+reference flattens its tree.  The arithmetic is the reference's, in
+float32 throughout (the step, the schedule and the bias corrections are
+float32 tensors, never Python doubles): gradients clipped by
+``min(1, clip / (norm + 1e-9))``, ``delta = m̂ / (√v̂ + eps) + wd · p``
+applied as ``p - lr · delta``, no decay on leaves named ``scale``,
+``b``, ``conv_b``, ``D`` or ``A_log``.  ``torch.optim.AdamW`` applies
+its decoupled decay differently and would not match.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    moment_dtype: torch.dtype = torch.float32
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up then cosine decay to ``min_lr_ratio``: a float32
+    0-d tensor for the int32 step."""
+    step = step.to(F32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio
+                            + (1 - cfg.min_lr_ratio) * cos)
+
+
+def init(params: dict, cfg: AdamWConfig) -> dict:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+
+    device = next(iter(params.values())).device
+    return {"m": {k: zeros(p) for k, p in params.items()},
+            "v": {k: zeros(p) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum over leaves, in order, of each leaf's sum of
+    squares (float32)."""
+    total = 0
+    for leaf in tree.values():
+        total = total + torch.sum(torch.square(leaf.to(F32)))
+    return torch.sqrt(total)
+
+
+def _decay_mask(path: str) -> bool:
+    """No weight decay on norms, biases and 1-D parameters: the last
+    name of the path (list indices skipped, as the reference reads only
+    dict keys) decides."""
+    names = [p for p in path.split(".") if not p.isdigit()]
+    if not names:
+        return True
+    return names[-1] not in ("scale", "b", "conv_b", "D", "A_log")
+
+
+@torch.no_grad()
+def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
+    """Returns (new_params, new_state, metrics)."""
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    gnorm = global_norm(grads)
+    scale_clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(F32)
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k].to(F32) * scale_clip
+        m = b1 * state["m"][k].to(F32) + (1 - b1) * g
+        v = b2 * state["v"][k].to(F32) + (1 - b2) * g * g
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if _decay_mask(k):
+            delta = delta + cfg.weight_decay * p.to(F32)
+        new_p[k] = (p.to(F32) - lr * delta).to(p.dtype)
+        new_m[k] = m.to(state["m"][k].dtype)
+        new_v[k] = v.to(state["v"][k].dtype)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics

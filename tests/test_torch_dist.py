@@ -1,8 +1,10 @@
-"""The port's distributed join, Table 5 operators, set operators and
-UNOMT pipeline at world 2 against the JAX package at world 2: bit for bit,
-but for the UNOMT columns the pipeline scales, whose float32 sums add in
-another order in each package and are held to
-``|port - jax| <= 2e-5 * (1 + |jax|)``.
+"""The port's distributed join, Table 5 operators, set operators, UNOMT
+pipeline and morsel operators at world 2 against the JAX package at
+world 2: bit for bit, but for the UNOMT columns the pipeline scales, whose
+float32 sums add in another order in each package and are held to
+``|port - jax| <= 2e-5 * (1 + |jax|)``, and the DDP step of the UNOMT
+net, whose loss, gradient norm and updated parameters are held to the
+same bound.
 
 Two gloo processes meet through a ``file://`` store under ``tmp_path``
 with a 120 s timeout on the process group, so a hung collective raises;
@@ -20,6 +22,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "dist", "torch_join_conformance.py")
 SETOP_WORKER = os.path.join(HERE, "dist", "torch_setop_conformance.py")
+MORSEL_WORKER = os.path.join(HERE, "dist",
+                             "torch_morsel_train_conformance.py")
 SRC = os.path.join(os.path.dirname(HERE), "src")
 WORLD = 2
 LIMIT_S = 600
@@ -106,3 +110,24 @@ def test_dist_setops_and_unomt_world2_match_jax(tmp_path):
         # subnormal and zero keys met on one rank: one group, not several
         assert len(want[f"subnormal_groupby/"
                         f"{'hash' if impl == 'hash' else 'sort'}/f"]) == 3
+
+
+def test_dist_morsels_and_ddp_step_world2_match_jax(tmp_path):
+    want, got = _run_both(tmp_path, MORSEL_WORKER)
+    assert sorted(want.files) == sorted(got.files)
+    for key in want.files:
+        a, b = want[key], got[key]
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if key.startswith("ddp/"):
+            a64 = a.astype(np.float64)
+            assert np.all(np.abs(b - a64) <= 2e-5 * (1 + np.abs(a64))), key
+            continue
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=key)
+    drops = {k: int(want[k]) for k in want.files if k.endswith("/dropped")}
+    assert not any(drops.values()), drops
+    for build in ("resident", "restream"):
+        for impl in ("sortmerge", "hash"):
+            assert len(want[f"join/{build}/{impl}/k"]) == 2000
+    assert len(want["groupby/hash/k"]) == 150

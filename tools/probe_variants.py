@@ -333,10 +333,21 @@ def call(lib, kernel, args, device):
                        for _ in range(2))
         sums, mins, maxs = torch.empty((3, B, V, C), device=device)
         fn = lib.hash_groupby_accumulate
+        # a tree with hash_groupby_workspace_bytes takes the workspace of a
+        # slab past shared memory from its caller; an older one allocates it
+        ws = ()
+        if hasattr(lib, "hash_groupby_workspace_bytes"):
+            size = lib.hash_groupby_workspace_bytes
+            size.argtypes = [ctypes.c_int] * 4
+            size.restype = ctypes.c_longlong
+            nbytes = size(B, K, V, C)
+            buf = torch.empty(nbytes // 4, dtype=torch.int32,
+                              device=device) if nbytes else None
+            ws = (buf.data_ptr() if nbytes else None,)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p] * 6
+            + [ctypes.c_void_p] * (6 + len(ws))
         st = fn(kb.data_ptr(), occ.data_ptr(), vals.data_ptr(), B, K, V, C,
-                rep.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+                *ws, rep.data_ptr(), counts.data_ptr(), sums.data_ptr(),
                 mins.data_ptr(), maxs.data_ptr(), stream)
         if st:
             raise RuntimeError(f"{kernel} launch failed: CUDA error {st}")
