@@ -56,6 +56,35 @@ Phases, each fatal on failure:
    the loss must fall in both; one step on the card against the port on
    the CPU and a float64 evaluation (``TRAIN_*``); step time, samples/s,
    peak memory and a profile of one step (GEMMs against the rest);
+10d. LM training (``lm_train``): lm100m at its full width and depth
+   (12 layers, d_model 768, 138.4 M parameters, tied embeddings), float32
+   masters from ``torch.Generator`` seed 0, ``AdamWConfig(lr=3e-4,
+   total_steps=50)``, remat ``full``: 50 steps on 8 x 512 batches of
+   ``lm_batch_at`` in order (their losses printed), then 20 on the next
+   batch repeated, whose loss must fall; the first step on 2 x 512
+   tokens held to the same step of the port on the CPU (loss within
+   2e-3, grad norm within 2e-2 relative); step ms by CUDA events (median
+   of the last 40 in order), tokens/s, peak memory, one profiled step
+   (GEMMs against the rest) and one asynchronous checkpoint of the
+   1.66 GB state, timed;
+10e. the LM restart drill (``lm_drill``): ``launch.train.main`` on the
+   same config, 40 steps of ``lm_batch_at`` batches in order, a
+   checkpoint every 10, once plainly and once with ``--fail-at 23``; the
+   restarted run's last checkpoint (every parameter and AdamW moment)
+   must equal the plain run's bit for bit, and its records the plain
+   run's;
+10f. the UNOMT restart drill (``unomt_drill``):
+   ``launch.unomt_e2e.train_stage`` on the UNOMT leg's features, 100
+   steps of 32 768 rows, a checkpoint every 25, a failure at step 50,
+   bit-identical to the plain run; then the checkpoint write of its
+   state, host copy and thread timed apart;
+10g. Mamba training (``mamba_train``): Falcon-Mamba-7B at full width (d_model
+   4096, E 8192, N 16, dt_rank 256, vocab 65024), 2 of its 64 layers
+   (all 64 need ~116 GB of float32 masters, gradients and moments):
+   5 steps on one 1 x 1000 batch, one microbatch, through the chunked
+   scan's forward and backward (the last chunk 104 steps);
+   the loss must fall, the first step's held to the port on the CPU
+   within 2e-3; step ms, peak memory.  No kernel runs in these four;
 11. the LM serving path: Granite-3.0-2B at its published widths and
    depth, random weights from ``torch.Generator`` seed 0, served by
    ``ServingEngine`` (8 slots, prompts up to 1024 tokens, up to 64
@@ -105,6 +134,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -152,16 +182,17 @@ PORT_KERNEL_FNS = ("count_upsweep", "count_scan", "rank_downsweep",
 
 def _modules():
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
     from repro_torch.core import morsel
     from repro_torch.core.context import make_context
-    from repro_torch.data import unomt
+    from repro_torch.data import synthetic, unomt
     from repro_torch.kernels import bucketing, build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train, unomt_e2e
     from repro_torch.models import attention as attn
     from repro_torch.models import layers
     from repro_torch.models import model
@@ -194,7 +225,8 @@ def _modules():
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
                 hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref, ms_ref=ms_ref,
                 get_config=get_config, M=model, A=attn, Ly=layers, Mb=mamba,
-                serve=serve, ServingEngine=ServingEngine)
+                serve=serve, ServingEngine=ServingEngine, Ck=checkpoint,
+                Sy=synthetic, Tr=train, Ue=unomt_e2e)
 
 
 def card() -> str:
@@ -1622,6 +1654,383 @@ def run_unomt_train(m, ctx, device, X, y, mask, n, name):
 
 
 # --------------------------------------------------------------------------
+# LM training: lm100m, the two restart drills, Falcon-Mamba at full width
+# --------------------------------------------------------------------------
+
+LM_ARCH = "lm100m"              # full width and depth
+LM_STEPS, LM_BATCH, LM_SEQ, LM_TIMED = 50, 8, 512, 40
+LM_FIT_STEPS = 20               # then the next batch, repeated
+LM_CHECK_BATCH = 2              # rows of the card-vs-CPU step
+# the first step on the card against the same step of the port on the
+# CPU, from the same float32 masters and batch: the port's tolerances
+# against the reference (tests/test_torch_lm_train.py), bf16 products
+# with float32 sums in other orders on the two devices
+LM_LOSS_RTOL, LM_GNORM_RTOL = 2e-3, 2e-2
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 40, 10, 23
+UNOMT_DRILL_STEPS, UNOMT_DRILL_EVERY, UNOMT_DRILL_FAIL = 100, 25, 50
+# Falcon-Mamba-7B at full width, 2 of its 64 layers (all 64 need about
+# 116 GB of float32 masters, gradients and moments); one row of 1000
+# tokens, no multiple of the 128-step scan chunk, so one microbatch (its
+# TrainSettings' 2 need two rows)
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 2, 1, 1000
+MAMBA_TRAIN_STEPS = 5
+
+
+def lm_batch(m, cfg, step, batch, seq, device):
+    b = m["Sy"].lm_batch_at(step, vocab=cfg.vocab, batch=batch, seq=seq)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated(device) \
+        if torch.device(device).type == "cuda" else 0
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _free(device) -> None:
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def event_pair():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def timed_steps(step, params, opt, batches):
+    """``step`` over ``batches`` in order, each between two CUDA events.
+    Returns (params, opt, losses, ms per step)."""
+    losses, events = [], []
+    for b in batches:
+        ev = event_pair()
+        ev[0].record()
+        params, opt, met = step(params, opt, b)
+        ev[1].record()
+        losses.append(met["loss"])
+        events.append(ev)
+    torch.cuda.synchronize()
+    return (params, opt, [float(v) for v in losses],
+            [a.elapsed_time(b) for a, b in events])
+
+
+def rel_err(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def lm_step_on_cpu(m, cfg, params, batch, opt_cfg) -> dict:
+    """The first train step from ``params`` on ``batch`` on the card and
+    the same step of the port on the CPU: loss and grad norm within
+    LM_LOSS_RTOL and LM_GNORM_RTOL."""
+    M, A, Ck = m["M"], m["Aw"], m["Ck"]
+    cpu = torch.device("cpu")
+    out = {}
+    for where, p, b in (
+            ("card", params, batch),
+            ("cpu", Ck.tree_map(lambda t: t.to(cpu), params),
+             {k: v.to(cpu) for k, v in batch.items()})):
+        t0 = time.perf_counter()
+        _, _, met = M.make_train_step(cfg, opt_cfg)(
+            p, A.init(A.flatten_params(p), opt_cfg), b)
+        out[where] = {"loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "seconds": time.perf_counter() - t0}
+    out["loss_rel_err"] = rel_err(out["card"]["loss"], out["cpu"]["loss"])
+    out["grad_norm_rel_err"] = rel_err(out["card"]["grad_norm"],
+                                       out["cpu"]["grad_norm"])
+    if not (out["loss_rel_err"] <= LM_LOSS_RTOL
+            and out["grad_norm_rel_err"] <= LM_GNORM_RTOL):
+        raise AssertionError(f"lm_train: card vs CPU {out}")
+    return out
+
+
+def run_lm_train(m, device, name, tmpdir: Path):
+    """lm100m at full width and depth from float32 masters (seed 0),
+    remat ``full``, ``AdamWConfig(lr=3e-4, total_steps=LM_STEPS)``:
+    LM_STEPS steps on ``lm_batch_at(0..)`` of LM_BATCH x LM_SEQ tokens in
+    order, then LM_FIT_STEPS steps on the next batch repeated, whose loss
+    must fall.  The steps in order are timed and their losses printed,
+    not held: each batch is new, and on these batches the loss of the
+    randomly initialised model rises for the first hundreds of steps
+    under every warm-up tried (``tools/lm_schedule_probe.py``).  The
+    first step is held to the CPU; step times by CUDA events (the median
+    of the last LM_TIMED in order), tokens/s, peak memory, one profiled
+    step and one asynchronous checkpoint of the final state, timed."""
+    wall = time.perf_counter()
+    M, A = m["M"], m["Aw"]
+    cfg = m["get_config"](LM_ARCH)
+    if cfg.train.remat != "full":
+        raise AssertionError(f"lm_train: remat {cfg.train.remat!r}")
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=LM_STEPS)
+    check = lm_step_on_cpu(m, cfg, params, lm_batch(
+        m, cfg, 0, LM_CHECK_BATCH, LM_SEQ, device), opt_cfg)
+    step = M.make_train_step(cfg, opt_cfg)
+    opt = A.init(A.flatten_params(params), opt_cfg)
+    batches = [lm_batch(m, cfg, s, LM_BATCH, LM_SEQ, device)
+               for s in range(LM_STEPS)]
+    batches += [lm_batch(m, cfg, LM_STEPS, LM_BATCH, LM_SEQ,
+                         device)] * LM_FIT_STEPS
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    t0 = time.perf_counter()
+    (params, opt, losses, ms), launches = counted_run(
+        m, lambda: timed_steps(step, params, opt, batches), device)
+    seconds = time.perf_counter() - t0
+    expect_launches("lm_train", launches, {})
+    peak = _peak(device) - resident
+    losses, fit = losses[:LM_STEPS], losses[LM_STEPS:]
+    step_ms = float(np.median(ms[LM_STEPS - LM_TIMED:LM_STEPS]))
+    prof = profile_step(lambda: step(params, opt, batches[0]))
+    ckpt = m["Ck"].AsyncCheckpointer(str(tmpdir / "lm_ckpt"), keep_last=1)
+    t0 = time.perf_counter()
+    ckpt.save(LM_STEPS + LM_FIT_STEPS, (params, opt))
+    copy_s = time.perf_counter() - t0
+    ckpt.wait()
+    write_s = time.perf_counter() - t0 - copy_s
+    emit({"phase": "lm_train", "card": name,
+          "wall_s": time.perf_counter() - wall, "arch": cfg.name,
+          "params": sum(p.numel() for p in
+                        A.flatten_params(params).values()),
+          "steps": LM_STEPS, "fit_steps": LM_FIT_STEPS, "batch": LM_BATCH,
+          "seq": LM_SEQ, "remat": cfg.train.remat, "seconds": seconds,
+          "step_ms_median_last": step_ms, "timed_steps": LM_TIMED,
+          "step_ms": ms, "tokens_per_s": LM_BATCH * LM_SEQ / step_ms * 1e3,
+          "peak_bytes_above_resident": peak, "resident_bytes": resident,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "loss_first10": float(np.mean(losses[:10])),
+          "loss_last10": float(np.mean(losses[-10:])),
+          "losses": losses, "fit_losses": fit, "profile": prof,
+          "gemm_share": prof["gemm_ms"]
+          / max(prof["gemm_ms"] + prof["other_ms"], 1e-9),
+          "checkpoint": {"host_copy_s": copy_s, "write_s": write_s,
+                         "bytes": sum(f.stat().st_size for f in
+                                      (tmpdir / "lm_ckpt").rglob("*")
+                                      if f.is_file())},
+          "card_vs_cpu": check, "card_vs_cpu_batch": LM_CHECK_BATCH,
+          "tolerances": {"loss_rel": LM_LOSS_RTOL,
+                         "grad_norm_rel": LM_GNORM_RTOL}})
+    if not fit[-1] < fit[0]:
+        raise AssertionError(f"lm_train: the loss of one batch, repeated, "
+                             f"went {fit[0]} -> {fit[-1]}: it did not fall")
+    return {"lm_train": dict(launches=launches,
+                             rows=(LM_STEPS + LM_FIT_STEPS) * LM_BATCH)}
+
+
+def _final_arrays(path: Path) -> list:
+    with np.load(path / "arrays.npz") as f:
+        return [f[f"a{i}"] for i in range(len(f.files))]
+
+
+def same_bits(a, b) -> bool:
+    """Two lists of arrays (or tensors) equal bit for bit."""
+    def raw(x):
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and np.array_equal(raw(x), raw(y)) for x, y in zip(a, b))
+
+
+def same_history(plain, failed) -> bool:
+    """The restarted run's records are the plain run's last ones."""
+    keys = ("loss", "grad_norm", "lr")
+    return len(failed) > 0 and [[h[k] for k in keys] for h in failed] == \
+        [[h[k] for k in keys] for h in plain[-len(failed):]]
+
+
+def run_lm_drill(m, device, name, tmpdir: Path):
+    """``launch.train.main`` on lm100m: DRILL_STEPS steps, a checkpoint
+    every DRILL_EVERY, once plainly and once with ``--fail-at
+    DRILL_FAIL``; the restarted run must end bit-identical (every
+    parameter and AdamW moment of the last checkpoint) and with the same
+    records."""
+    wall = time.perf_counter()
+    argv = ["--arch", LM_ARCH, "--steps", str(DRILL_STEPS),
+            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+            "--ckpt-every", str(DRILL_EVERY), "--log-every", "0",
+            "--device", torch.device(device).type]
+    runs = {}
+
+    def drill():
+        for what, extra in (("plain", []),
+                            ("failed", ["--fail-at", str(DRILL_FAIL)])):
+            d = tmpdir / f"lm_drill_{what}"
+            t0 = time.perf_counter()
+            hist = m["Tr"].main(argv + ["--ckpt-dir", str(d)] + extra)
+            runs[what] = dict(history=hist, dir=d,
+                              seconds=time.perf_counter() - t0)
+
+    _, launches = counted_run(m, drill, device)
+    expect_launches("lm_drill", launches, {})
+    final = [_final_arrays(runs[w]["dir"] / f"step_{DRILL_STEPS}")
+             for w in ("plain", "failed")]
+    identical = same_bits(*final)
+    same = same_history(runs["plain"]["history"], runs["failed"]["history"])
+    emit({"phase": "lm_drill", "card": name,
+          "wall_s": time.perf_counter() - wall, "arch": LM_ARCH,
+          "steps": DRILL_STEPS, "ckpt_every": DRILL_EVERY,
+          "fail_at": DRILL_FAIL, "leaves": len(final[0]),
+          "checkpoint_bytes": (runs["plain"]["dir"] / f"step_{DRILL_STEPS}"
+                               / "arrays.npz").stat().st_size,
+          "seconds": {w: r["seconds"] for w, r in runs.items()},
+          "restarted_records": len(runs["failed"]["history"]),
+          "bit_identical": identical, "same_records": same,
+          "deterministic_algorithms":
+              torch.are_deterministic_algorithms_enabled()})
+    if not (identical and same):
+        raise AssertionError("lm_drill: the restarted run differs from the "
+                             "plain one")
+    for r in runs.values():
+        shutil.rmtree(r["dir"])
+    return {"lm_drill": dict(launches=launches,
+                             rows=2 * DRILL_STEPS * LM_BATCH)}
+
+
+def run_unomt_drill(m, ctx, device, X, y, mask, n, name, tmpdir: Path):
+    """``launch.unomt_e2e.train_stage`` on the UNOMT leg's features:
+    UNOMT_DRILL_STEPS steps of TRAIN_BATCH rows, a checkpoint every
+    UNOMT_DRILL_EVERY, once plainly and once with a failure at
+    UNOMT_DRILL_FAIL; the restarted run must end with the same
+    (params, opt, residuals) bit for bit and the same records.  Then an
+    ``AsyncCheckpointer`` write of the state, its host copy and its
+    thread timed apart."""
+    wall = time.perf_counter()
+    E, Ck = m["Ue"], m["Ck"]
+    if n < TRAIN_BATCH:
+        raise AssertionError(f"unomt_drill: {n} valid rows")
+    runs = {}
+
+    def drill():
+        for what, fail in (("plain", None), ("failed", UNOMT_DRILL_FAIL)):
+            t0 = time.perf_counter()
+            state, hist = E.train_stage(
+                ctx, X, y, mask, steps=UNOMT_DRILL_STEPS,
+                ckpt_dir=str(tmpdir / f"unomt_drill_{what}"),
+                batch_rows=TRAIN_BATCH, ckpt_every=UNOMT_DRILL_EVERY,
+                fail_at=fail, log_every=0)
+            runs[what] = dict(state=state, history=hist,
+                              seconds=time.perf_counter() - t0)
+
+    _, launches = counted_run(m, drill, device)
+    expect_launches("unomt_drill", launches, {})
+    leaves = [Ck.tree_leaves(runs[w]["state"]) for w in ("plain", "failed")]
+    identical = same_bits(*leaves)
+    same = same_history(runs["plain"]["history"], runs["failed"]["history"])
+    writes = []
+    ckpt = Ck.AsyncCheckpointer(str(tmpdir / "unomt_ckpt"), keep_last=1)
+    for i in range(3):
+        t0 = time.perf_counter()
+        ckpt.save(i, runs["plain"]["state"])
+        t1 = time.perf_counter()
+        ckpt.wait()
+        writes.append({"host_copy_s": t1 - t0,
+                       "thread_s": time.perf_counter() - t1})
+    emit({"phase": "unomt_drill", "card": name,
+          "wall_s": time.perf_counter() - wall,
+          "steps": UNOMT_DRILL_STEPS, "batch": TRAIN_BATCH,
+          "ckpt_every": UNOMT_DRILL_EVERY, "fail_at": UNOMT_DRILL_FAIL,
+          "seconds": {w: r["seconds"] for w, r in runs.items()},
+          "loss_first_last": [runs["plain"]["history"][0]["loss"],
+                              runs["plain"]["history"][-1]["loss"]],
+          "restarted_records": len(runs["failed"]["history"]),
+          "bit_identical": identical, "same_records": same,
+          "state_bytes": sum(t.numel() * t.element_size()
+                             for t in leaves[0]),
+          "checkpoint_writes": writes,
+          "deterministic_algorithms":
+              torch.are_deterministic_algorithms_enabled()})
+    if not (identical and same):
+        raise AssertionError("unomt_drill: the restarted run differs from "
+                             "the plain one")
+    return {"unomt_drill": dict(launches=launches,
+                                rows=2 * UNOMT_DRILL_STEPS * TRAIN_BATCH)}
+
+
+def mamba_loss_on_cpu(m, cfg, params, batch) -> float:
+    """The port's loss on the CPU (no gradients; the plain scan),
+    averaged over the microbatches as the train step averages it."""
+    M, Ck = m["M"], m["Ck"]
+    cpu = torch.device("cpu")
+    p = Ck.tree_map(lambda t: t.to(cpu), params)
+    n = max(1, cfg.train.microbatches)
+    rows = MAMBA_TRAIN_BATCH // n
+    loss_fn = M.make_loss_fn(cfg, M.StackOpts(attn_impl="xla",
+                                              mamba_impl="xla"))
+    with torch.no_grad():
+        return float(np.mean([float(loss_fn(p, {
+            k: v[i * rows:(i + 1) * rows].to(cpu)
+            for k, v in batch.items()})[1]["loss"]) for i in range(n)]))
+
+
+def run_mamba_train(m, device, name):
+    """Falcon-Mamba-7B at full width, MAMBA_TRAIN_LAYERS layers:
+    MAMBA_TRAIN_STEPS steps on one batch of MAMBA_TRAIN_BATCH x
+    MAMBA_TRAIN_SEQ tokens through the chunked scan's forward and
+    backward; its loss must fall (five warm-up steps learn less than one
+    batch differs from the next), and the first step's is held to the
+    CPU within LM_LOSS_RTOL."""
+    wall = time.perf_counter()
+    M, A = m["M"], m["Aw"]
+    full = m["get_config"](MAMBA_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=MAMBA_TRAIN_LAYERS,
+        train=dataclasses.replace(full.train, microbatches=1))
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=MAMBA_TRAIN_STEPS)
+    step = M.make_train_step(cfg, opt_cfg)
+    opt = A.init(A.flatten_params(params), opt_cfg)
+    batches = [lm_batch(m, cfg, 0, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
+                        device)] * MAMBA_TRAIN_STEPS
+    t0 = time.perf_counter()
+    cpu_loss = mamba_loss_on_cpu(m, cfg, params, batches[0])
+    cpu_s = time.perf_counter() - t0
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    (params, opt, losses, ms), launches = counted_run(
+        m, lambda: timed_steps(step, params, opt, batches), device)
+    expect_launches("mamba_train", launches, {})
+    peak = _peak(device) - resident
+    err = rel_err(losses[0], cpu_loss)
+    emit({"phase": "mamba_train", "card": name,
+          "wall_s": time.perf_counter() - wall, "arch": cfg.name,
+          "layers": cfg.n_layers, "of_layers": full.n_layers,
+          "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "params": sum(
+              p.numel() for p in A.flatten_params(params).values()),
+          "batch": MAMBA_TRAIN_BATCH, "seq": MAMBA_TRAIN_SEQ,
+          "microbatches": cfg.train.microbatches,
+          "steps": MAMBA_TRAIN_STEPS,
+          "step_ms": ms, "step_ms_median_after_first":
+              float(np.median(ms[1:])),
+          "tokens_per_s": MAMBA_TRAIN_BATCH * MAMBA_TRAIN_SEQ
+          / float(np.median(ms[1:])) * 1e3,
+          "peak_bytes_above_resident": peak, "resident_bytes": resident,
+          "losses": losses, "cpu_loss_first": cpu_loss,
+          "cpu_seconds": cpu_s, "loss_rel_err": err,
+          "tolerance": LM_LOSS_RTOL})
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"mamba_train: loss {losses[0]} -> "
+                             f"{losses[-1]} did not fall")
+    if not err <= LM_LOSS_RTOL:
+        raise AssertionError(f"mamba_train: first loss {losses[0]} vs the "
+                             f"CPU's {cpu_loss}")
+    del params, opt, batches
+    _free(device)
+    return {"mamba_train": dict(launches=launches,
+                                rows=MAMBA_TRAIN_STEPS * MAMBA_TRAIN_BATCH)}
+
+
+# --------------------------------------------------------------------------
 # the LM serving path: ServingEngine with feature fetch, flash attention
 # --------------------------------------------------------------------------
 
@@ -2038,9 +2447,7 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     legs = {"serving": dict(launches=launches, rows=n_req),
             "serving_xla": dict(launches=xlaunches, rows=n_req)}
     del params, engine, xla, stores, prefill, step, full
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _free(device)
     return legs, recorded[0]
 
 
@@ -2290,9 +2697,7 @@ def run_serving_mamba(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         "busy_share_prefill_plus_8_decode": busy, "profile": prof})
     legs = {"serving_mamba": dict(launches=launches, rows=n_req)}
     del params, engine, stores, prefill, step, full
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _free(device)
     return legs, recorded[0]
 
 
@@ -2632,7 +3037,13 @@ def run_all(tmpdir: Path) -> int:
                   "bound_ms": bound(kname, case["args"])[0]})
     del oc_cases
     legs.update(run_unomt_train(m, ctx, device, *features, name))
+    legs.update(run_lm_train(m, device, name, tmpdir))
+    _free(device)
+    legs.update(run_lm_drill(m, device, name, tmpdir))
+    _free(device)
+    legs.update(run_unomt_drill(m, ctx, device, *features, name, tmpdir))
     del features
+    legs.update(run_mamba_train(m, device, name))
     cases["hash_semi"] = semi_cases(slabs + setop_slabs, device)
     errs.update(compare_kernels(m, {"hash_semi": cases["hash_semi"]},
                                 device))

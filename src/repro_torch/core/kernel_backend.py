@@ -20,8 +20,9 @@ never a fallback.  Environment overrides mirror the JAX package's:
   kept for parity with the JAX package) on CPU tensors.  Like
   ``REPRO_KERNEL_IMPL`` it may only confirm what the device implies;
 * ``REPRO_MAMBA_IMPL`` — the Mamba selective scan: ``cuda`` (the scan
-  kernel) on CUDA tensors, ``xla`` (the plain scan, ``mamba_scan/ref.py``)
-  on CPU tensors; it too may only confirm what the device implies.
+  kernel) on CUDA tensors, ``xla`` (the plain scan in chunks,
+  ``models.mamba.scan_chunked``) on CPU tensors; it too may only confirm
+  what the device implies.
 """
 import os
 

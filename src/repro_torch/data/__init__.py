@@ -1,2 +1,3 @@
 """Application data for the port: the UNOMT data-engineering pipeline
-(``unomt``)."""
+(``unomt``) and the step-addressable synthetic LM batches
+(``synthetic``)."""

@@ -9,7 +9,7 @@ Three implementations share one contract (``q (B,Hq,Sq,D)``, ``k/v
   two the ``xla`` path, and the port keeps the name;
 * ``cuda``    — the hand-written flash-attention kernel
   (``kernels/flash_attention``), the counterpart of the reference's
-  ``pallas`` path.
+  ``pallas`` path; forward only, so a call that wants gradients raises.
 
 GQA is computed without repeating KV: q is grouped as ``(B, Hkv, G, Sq,
 D)`` and contracted against ungrouped KV.  ``decode_attention`` has no
@@ -94,6 +94,10 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
     flash kernel), ``ref`` (its plain version) or ``xla`` (full or
     chunked attention, as the reference picks them)."""
     if impl == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise ValueError("the flash_attention kernel has no backward; "
+                             "train with attn_impl='xla'")
         return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal)
     if impl == "ref":

@@ -3,11 +3,13 @@
 Functional, with parameters in nested dicts as in the reference.  Compute
 dtype is bf16; softmax, norms and the logits run in float32.  The
 reference keeps float32 master weights and casts them to bf16 at every
-use; the port serves and so holds the matmul weights and the embedding as
+use.  For serving the port holds the matmul weights and the embedding as
 bf16 once, at load (``model.params_from_jax`` / ``model.init_params``):
-the numbers that reach each product are the same.  Norm scales stay
-float32.  Dense weights are ``(d_in, d_out)`` as in the reference.  There
-are no sharding policies: the port serves at world 1.
+the numbers that reach each product are the same.  Training holds
+float32 masters (the init functions' ``dtype``) and casts them at use, as
+the reference does.  Norm scales stay float32.  Dense weights are
+``(d_in, d_out)`` as in the reference.  There are no sharding policies:
+the port runs at world 1.
 """
 from __future__ import annotations
 
@@ -39,8 +41,8 @@ def normal(gen: torch.Generator, shape, std: float, dtype=BF16):
 
 
 def dense_init(gen, n: int, d_in: int, d_out: int, bias: bool = False,
-               std: float = INIT_STD):
-    p = {"w": normal(gen, (n, d_in, d_out), std)}
+               std: float = INIT_STD, dtype=BF16):
+    p = {"w": normal(gen, (n, d_in, d_out), std, dtype)}
     if bias:
         p["b"] = torch.zeros((n, d_out), device=gen.device)
     return p
@@ -50,14 +52,18 @@ def rms_norm_init(gen, n: int, d: int):
     return {"scale": torch.ones((n, d), device=gen.device)}
 
 
-def attn_init(gen, cfg, n: int):
+def attn_init(gen, cfg, n: int, dtype=BF16):
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     p = {
-        "wq": dense_init(gen, n, d, hq * dh, bias=cfg.qkv_bias),
-        "wk": dense_init(gen, n, d, hkv * dh, bias=cfg.qkv_bias),
-        "wv": dense_init(gen, n, d, hkv * dh, bias=cfg.qkv_bias),
+        "wq": dense_init(gen, n, d, hq * dh, bias=cfg.qkv_bias,
+                         dtype=dtype),
+        "wk": dense_init(gen, n, d, hkv * dh, bias=cfg.qkv_bias,
+                         dtype=dtype),
+        "wv": dense_init(gen, n, d, hkv * dh, bias=cfg.qkv_bias,
+                         dtype=dtype),
         "wo": dense_init(gen, n, hq * dh, d,
-                         std=INIT_STD / math.sqrt(2 * cfg.n_layers)),
+                         std=INIT_STD / math.sqrt(2 * cfg.n_layers),
+                         dtype=dtype),
     }
     if cfg.qk_norm:
         p["q_norm"] = rms_norm_init(gen, n, dh)
@@ -65,20 +71,22 @@ def attn_init(gen, cfg, n: int):
     return p
 
 
-def swiglu_init(gen, n: int, d: int, f: int, n_layers: int):
+def swiglu_init(gen, n: int, d: int, f: int, n_layers: int, dtype=BF16):
     return {
-        "w_gate": dense_init(gen, n, d, f),
-        "w_up": dense_init(gen, n, d, f),
+        "w_gate": dense_init(gen, n, d, f, dtype=dtype),
+        "w_up": dense_init(gen, n, d, f, dtype=dtype),
         "w_down": dense_init(gen, n, f, d,
-                             std=INIT_STD / math.sqrt(2 * n_layers)),
+                             std=INIT_STD / math.sqrt(2 * n_layers),
+                             dtype=dtype),
     }
 
 
-def gelu_mlp_init(gen, n: int, d: int, f: int, n_layers: int):
+def gelu_mlp_init(gen, n: int, d: int, f: int, n_layers: int, dtype=BF16):
     return {
-        "w_in": dense_init(gen, n, d, f),
+        "w_in": dense_init(gen, n, d, f, dtype=dtype),
         "w_out": dense_init(gen, n, f, d,
-                            std=INIT_STD / math.sqrt(2 * n_layers)),
+                            std=INIT_STD / math.sqrt(2 * n_layers),
+                            dtype=dtype),
     }
 
 

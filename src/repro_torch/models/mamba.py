@@ -3,11 +3,15 @@ layers.
 
 Two scan paths for the full sequence, both returning the final state:
 
-* ``cuda`` — the ``kernels/mamba_scan`` kernel (CUDA tensors only);
-* ``xla``  — the plain scan, ``mamba_scan/ref.py`` (the name is kept for
-  parity with the JAX package, whose ``xla`` path is a chunked
-  ``lax.scan``; the chunking with ``jax.checkpoint`` bounds training
-  memory and gives the same numbers, so it comes with training).
+* ``cuda`` — the ``kernels/mamba_scan`` kernel (CUDA tensors only;
+  forward only, so a call that wants gradients raises);
+* ``xla``  — :func:`scan_chunked`, the reference's chunked
+  ``_scan_chunked_xla`` (the name is kept for parity with the JAX
+  package): one ``torch.utils.checkpoint`` per chunk of steps, so a
+  backward holds one chunk's per-step decays, inputs and states at a
+  time.  ``mamba_scan/ref.py``, which forms them for the whole sequence
+  and writes its states with ``out=`` (autograd refuses that), is only
+  the kernel's plain version.
 
 and ``mamba_step``, the O(1) single-token decode on the (conv, ssm)
 state.  Parameters are stacked over layers as the rest of the model's
@@ -22,9 +26,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.mamba_scan import ops as scan_ops
-from ..kernels.mamba_scan.ref import selective_scan_ref
 from . import layers as Ly
 
 F32 = torch.float32
@@ -34,17 +38,18 @@ def dt_rank(cfg) -> int:
     return cfg.dt_rank or max(1, math.ceil(cfg.d_model / 16))
 
 
-def mamba_init(gen: torch.Generator, cfg, n: int) -> dict:
-    """``n`` stacked Mamba blocks with the reference's initialisers."""
+def mamba_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16) -> dict:
+    """``n`` stacked Mamba blocks with the reference's initialisers; the
+    in, x and out projections in ``dtype``."""
     d, E, N, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     R = dt_rank(cfg)
     dev = gen.device
     A = torch.arange(1, N + 1, dtype=F32, device=dev).expand(n, E, N)
     return {
-        "in_proj": Ly.dense_init(gen, n, d, 2 * E),
+        "in_proj": Ly.dense_init(gen, n, d, 2 * E, dtype=dtype),
         "conv_w": Ly.normal(gen, (n, K, E), Ly.INIT_STD, F32),
         "conv_b": torch.zeros((n, E), device=dev),
-        "x_proj": Ly.dense_init(gen, n, E, R + 2 * N),
+        "x_proj": Ly.dense_init(gen, n, E, R + 2 * N, dtype=dtype),
         "dt_proj": {
             "w": Ly.normal(gen, (n, R, E), R ** -0.5, F32),
             "b": torch.full((n, E), math.log(math.expm1(0.01)),
@@ -53,7 +58,8 @@ def mamba_init(gen: torch.Generator, cfg, n: int) -> dict:
         "A_log": torch.log(A).contiguous(),
         "D": torch.ones((n, E), device=dev),
         "out_proj": Ly.dense_init(
-            gen, n, E, d, std=Ly.INIT_STD / math.sqrt(2 * cfg.n_layers)),
+            gen, n, E, d, std=Ly.INIT_STD / math.sqrt(2 * cfg.n_layers),
+            dtype=dtype),
     }
 
 
@@ -91,23 +97,64 @@ def _conv_state(x_in, K: int):
     return F.pad(xf, (0, 0, K - 1 - S, 0))
 
 
-def mamba_apply(p, cfg, x, *, impl: str = "xla", return_state: bool = False):
+def _scan_steps(x, delta, A, Bm, Cm, h):
+    """One chunk, out of place: x, delta (B,c,E); Bm, Cm (B,c,N); h
+    (B,E,N) -> (y (B,c,E) without the D term, h after the chunk).  The
+    chunk's decays and inputs are formed at once, (B,c,E,N) each; a step
+    is then one multiply-add, and y one contraction over N."""
+    dA = torch.exp(delta[..., None] * A)
+    dBx = (delta * x)[..., None] * Bm[:, :, None, :]
+    hs = []
+    for t in range(x.shape[1]):
+        h = torch.addcmul(dBx[:, t], dA[:, t], h)
+        hs.append(h)
+    y = torch.einsum("bcen,bcn->bce", torch.stack(hs, dim=1), Cm)
+    return y, h
+
+
+def scan_chunked(x, delta, A, Bm, Cm, D, h0=None, chunk: int = 128):
+    """The selective scan for training (the reference's
+    ``_scan_chunked_xla``), float32: one ``torch.utils.checkpoint`` per
+    chunk of ``min(chunk, S)`` steps; the last chunk may be shorter, so
+    any S.  x, delta (B,S,E); A (E,N); Bm, Cm (B,S,N); D (E,); optional
+    h0 (B,E,N) -> (y (B,S,E), hT (B,E,N))."""
+    Bsz, S, E = x.shape
+    h = x.new_zeros((Bsz, E, A.shape[1])) if h0 is None else h0
+    c = max(1, min(chunk, S))
+    ys = []
+    for s0 in range(0, S, c):
+        t = slice(s0, s0 + c)
+        y, h = checkpoint(_scan_steps, x[:, t], delta[:, t], A, Bm[:, t],
+                          Cm[:, t], h, use_reentrant=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else x.new_zeros(x.shape)
+    return y + x * D, h
+
+
+def mamba_apply(p, cfg, x, *, impl: str = "xla", scan_chunk: int = 128,
+                return_state: bool = False):
     """Full-sequence Mamba block.  x (B,S,d) -> (y (B,S,d), state | None)
     with state ``{"conv" (B,K-1,E), "ssm" (B,E,N)}`` float32.  ``impl``:
     ``cuda`` (the scan kernel; on CPU tensors its wrapper's plain version)
-    or ``xla`` (the plain scan)."""
+    or ``xla`` (:func:`scan_chunked` in chunks of ``scan_chunk``
+    steps)."""
     E, K = cfg.d_inner, cfg.ssm_conv
     xz = Ly.dense(p["in_proj"], x)                        # (B,S,2E)
     x_in, z = xz[..., :E], xz[..., E:]
     xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
     delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
     D = p["D"].float()
+    grads = torch.is_grad_enabled() and (xc.requires_grad
+                                         or delta.requires_grad)
+    if impl == "cuda" and grads:
+        raise ValueError("the mamba_scan kernel has no backward; train "
+                         "with mamba_impl='xla'")
     if impl == "cuda":
         y = scan_ops.selective_scan(xc, delta, A, Bm, Cm, D,
                                     return_state=return_state)
         y, hT = y if return_state else (y, None)
     elif impl == "xla":
-        y, hT = selective_scan_ref(xc, delta, A, Bm, Cm, D)
+        y, hT = scan_chunked(xc, delta, A, Bm, Cm, D, chunk=scan_chunk)
     else:
         raise ValueError(f"unknown mamba impl {impl!r} (expected 'cuda' or "
                          "'xla')")

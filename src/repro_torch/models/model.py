@@ -1,12 +1,16 @@
-"""Model assembly for serving (PyTorch port of ``repro/models/model.py``):
-parameters, prefill, slot prefill, the decode step and the cache layout.
+"""Model assembly (PyTorch port of ``repro/models/model.py``):
+parameters, the loss and the train step, prefill, slot prefill, the
+decode step and the cache layout.
 
-Training (``ce_loss``, ``make_train_step``) is a later slice.  Parameters
-are the reference's nested dicts with every layer leaf stacked over the
-layers; the matmul weights and the embedding are held as bf16 (the
-reference casts its float32 masters to bf16 at every use, so the numbers
-in each product are the same) and norm scales and biases as float32.
-:func:`params_from_jax` carries the reference's weights across.
+Parameters are the reference's nested dicts with every layer leaf
+stacked over the layers.  For serving the matmul weights and the
+embedding are held as bf16 (the reference casts its float32 masters to
+bf16 at every use, so the numbers in each product are the same) and norm
+scales and biases as float32.  Training holds every leaf as a float32
+master (``master=True``), casts the matmul weights to bf16 at the top of
+the loss (``_cast_weights_bf16``) and updates the masters with AdamW
+(:func:`make_train_step`).  :func:`params_from_jax` carries the
+reference's weights across.
 
 ``attn_impl=None`` picks the attention path from the tokens' device
 (``kernel_backend.attention_impl``): the flash kernel on the card, plain
@@ -21,13 +25,16 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import kernel_backend as KB
+from ..optim import adamw
 from . import layers as Ly
 from . import transformer as Tf
 from .transformer import StackOpts
 
 CACHE_DTYPE = torch.bfloat16
+F32 = torch.float32
 
 
 def opts_from_cfg(cfg, tokens, *, decode_len: int = 0,
@@ -53,20 +60,23 @@ def has_mamba(cfg) -> bool:
 # --------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg) -> dict:
+def init_params(gen: torch.Generator, cfg, *, master: bool = False) -> dict:
     """Random weights at the config's widths, drawn from ``gen`` on its
     device (the reference's initialisers and scales; torch's random
-    numbers, not JAX's)."""
+    numbers, not JAX's).  The matmul weights and the embedding are bf16
+    for serving, float32 masters with ``master`` (the same draws)."""
     Tf.check_supported(cfg)
     V = cfg.padded_vocab()
+    dtype = F32 if master else Ly.BF16
     params: dict[str, Any] = {
-        "embed": {"embed": Ly.normal(gen, (V, cfg.d_model), Ly.INIT_STD)},
-        "layers": Tf.stack_init(gen, cfg),
+        "embed": {"embed": Ly.normal(gen, (V, cfg.d_model), Ly.INIT_STD,
+                                     dtype)},
+        "layers": Tf.stack_init(gen, cfg, dtype),
         "final_norm": {"scale": torch.ones(cfg.d_model, device=gen.device)},
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": Ly.normal(gen, (cfg.d_model, V),
-                                            Ly.INIT_STD)}
+                                            Ly.INIT_STD, dtype)}
     return params
 
 
@@ -78,12 +88,14 @@ def _is_matmul_weight(parent: str, name: str, a: np.ndarray) -> bool:
         and a.ndim >= 2
 
 
-def params_from_jax(tree: Mapping, cfg, device) -> dict:
+def params_from_jax(tree: Mapping, cfg, device, *,
+                    master: bool = False) -> dict:
     """The port's parameters from the reference's ``init_params`` tree
     given as numpy arrays (layer leaves stacked over the layers, as the
     reference's ``vmap`` makes them): matmul weights and the embedding to
     bf16 (round to nearest even, as ``astype(bfloat16)``), the rest
-    float32, all on ``device``."""
+    float32, all on ``device``; with ``master`` every leaf float32 (the
+    reference's training masters)."""
     Tf.check_supported(cfg)
 
     def conv(node, parent=""):
@@ -95,7 +107,7 @@ def params_from_jax(tree: Mapping, cfg, device) -> dict:
             a = np.array(a, np.float32)          # a writable copy
             t = torch.from_numpy(a).to(device)
             out[name] = t.to(torch.bfloat16) \
-                if _is_matmul_weight(parent, name, a) else t
+                if not master and _is_matmul_weight(parent, name, a) else t
         return out
 
     return conv(tree)
@@ -206,6 +218,148 @@ def write_cache_slot(caches, one, slot: int):
     for name, buf in caches.items():
         buf[:, slot:slot + 1] = one[name].to(buf.dtype)
     return caches
+
+
+# --------------------------------------------------------------------------
+# loss (seq-chunked cross entropy: caps live logits at (B, S/chunks, V))
+# --------------------------------------------------------------------------
+
+
+def _head_weight(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"]["embed"].T
+    return params["lm_head"]["w"]
+
+
+def _chunk_loss(xc, yc, w):
+    """(sum of the unmasked tokens' cross entropy, their count): bf16
+    operands, float32 logits (B,c,V)."""
+    logits = xc.to(Ly.BF16).float() @ w.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(yc, min=0).long()[..., None])[..., 0]
+    mask = (yc >= 0).to(F32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def ce_loss(params, cfg, x, labels, chunks: int = 1):
+    """x (B,S,d) float or bf16, labels (B,S) int (-1 = masked).  The
+    sequence is cut into the largest divisor of S not above ``chunks``;
+    each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``), so at most one chunk's live."""
+    B, S, d = x.shape
+    w = _head_weight(params, cfg).to(Ly.BF16)
+    chunks = max(1, min(chunks, S))
+    while S % chunks != 0:
+        chunks -= 1
+    c = S // chunks
+    total = count = 0
+    for i in range(chunks):
+        t = slice(i * c, (i + 1) * c)
+        loss, n = checkpoint(_chunk_loss, x[:, t], labels[:, t], w,
+                             use_reentrant=False)
+        total, count = total + loss, count + n
+    return total / torch.clamp(count, min=1.0)
+
+
+# matmul weights that every layer casts to bf16 at use anyway: casting
+# them once at the top gives the same numbers (the reference's reason is
+# its weight gathers and gradient collectives; here it is one cast per
+# leaf a step, and the tied embedding's two uses share it)
+_BF16_CASTABLE = ("embed", "e_gate", "e_up", "e_down")
+
+
+def _cast_weights_bf16(params):
+    """The tree with its float32 matmul weights (leaves named ``w``, but
+    ``dt_proj.w``, or in ``_BF16_CASTABLE``, of two dims or more) as
+    bf16; every other leaf as it is."""
+    def cast(node, parent=""):
+        out = {}
+        for name, p in node.items():
+            if isinstance(p, Mapping):
+                out[name] = cast(p, name)
+                continue
+            castable = (name == "w" and parent != "dt_proj") \
+                or name in _BF16_CASTABLE
+            out[name] = p.to(Ly.BF16) if castable and p.dtype == F32 \
+                and p.dim() >= 2 else p
+        return out
+    return cast(params)
+
+
+def make_loss_fn(cfg, opts: StackOpts, aux_coeff: float = 0.01):
+    """``loss_fn(params, batch) -> (total, {"loss", "moe_aux"})``.  No MoE
+    layer runs in the port yet, so ``moe_aux`` is 0."""
+    def loss_fn(params, batch):
+        if cfg.train.bf16_weight_cast:
+            params = _cast_weights_bf16(params)
+        x, _, n_prefix = backbone(params, cfg, batch, opts)
+        labels = batch["labels"]
+        if n_prefix:
+            x = x[:, n_prefix:]
+        loss = ce_loss(params, cfg, x, labels, cfg.train.loss_seq_chunks)
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        return loss + aux_coeff * aux, {"loss": loss, "moe_aux": aux}
+    return loss_fn
+
+
+# --------------------------------------------------------------------------
+# train step (microbatched grad accumulation + AdamW)
+# --------------------------------------------------------------------------
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on float32 masters (``init_params(..., master=True)``)
+    and ``opt_state = adamw.init(adamw.flatten_params(params), opt_cfg)``.
+    The batch's rows are split into ``cfg.train.microbatches``
+    microbatches whose float32 gradients and losses are averaged.
+    Attention and the scan run their plain paths on every device (the
+    kernels are forward only; the reference trains with
+    ``attn_impl="xla"`` too); layers are rematerialised as
+    ``cfg.train.remat`` says."""
+    t = cfg.train
+    opts = StackOpts(attn_impl="xla", mamba_impl="xla",
+                     q_chunk=t.attn_q_chunk, k_chunk=t.attn_k_chunk,
+                     remat=t.remat)
+    loss_fn = make_loss_fn(cfg, opts)
+    n_micro = max(1, t.microbatches)
+
+    def train_step(params, opt_state, batch):
+        flat = adamw.flatten_params(params)
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in flat.items()}
+        tree = adamw.unflatten_params(leaves)
+        if n_micro == 1:
+            total, metrics = loss_fn(tree, batch)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                total, list(leaves.values()))))
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % n_micro:
+                raise ValueError(f"a batch of {rows} rows does not split "
+                                 f"into {n_micro} microbatches")
+            grads = {k: torch.zeros(v.shape, dtype=F32, device=v.device)
+                     for k, v in leaves.items()}
+            loss_sum = aux_sum = 0
+            for i in range(n_micro):
+                mb = {k: v.reshape((n_micro, rows // n_micro)
+                                   + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                total, met = loss_fn(tree, mb)
+                for k, g in zip(leaves, torch.autograd.grad(
+                        total, list(leaves.values()))):
+                    grads[k] += g.to(F32)
+                loss_sum = loss_sum + met["loss"].detach()
+                aux_sum = aux_sum + met["moe_aux"].detach()
+            grads = {k: g / n_micro for k, g in grads.items()}
+            metrics = {"loss": loss_sum / n_micro,
+                       "moe_aux": aux_sum / n_micro}
+        flat, opt_state, om = adamw.update(flat, grads, opt_state, opt_cfg)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return adamw.unflatten_params(flat), opt_state, dict(metrics, **om)
+
+    return train_step
 
 
 # --------------------------------------------------------------------------

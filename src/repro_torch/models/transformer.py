@@ -7,20 +7,25 @@ gelu or none.  Parameters stay stacked over layers (a leading
 do the caches: ``{"k", "v"}`` (n_layers, B, Hkv, S, D) bf16 for attention
 layers, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B, E, N)}``
 float32 for Mamba layers; the reference's ``lax.scan`` over the stack is
-a loop over that axis.  Two traversal modes share the layer definitions:
-``prefill`` (emit per-layer cache) and ``decode`` (consume and update the
-cache, one token).  This slice serves uniform decoder-only stacks (dense
-or Mamba); MoE layers, period stacks (Jamba's attention every
-``attn_period`` layers), cross-attention and frontends raise
-``NotImplementedError``.
+a loop over that axis.  Three traversal modes share the layer
+definitions: ``train`` (no cache; each layer's body under
+``torch.utils.checkpoint`` as ``StackOpts.remat`` says, the reference's
+``jax.checkpoint`` of its scan body), ``prefill`` (emit per-layer cache)
+and ``decode`` (consume and update the cache, one token).  The port runs
+uniform decoder-only stacks (dense or Mamba); MoE layers, period stacks
+(Jamba's attention every ``attn_period`` layers), cross-attention and
+frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as Ly
 from . import mamba as Mb
@@ -33,6 +38,8 @@ class StackOpts:
     mamba_impl: str = "xla"
     q_chunk: int = 1024
     k_chunk: int = 1024
+    remat: str = "full"          # none | full | dots
+    mamba_chunk: int = 128
     decode_len: int = 0          # static cache length for decode/prefill
 
 
@@ -78,24 +85,24 @@ def layer_at(stack: dict, i: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def layer_init(gen: torch.Generator, cfg, n: int) -> dict:
+def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16) -> dict:
     """``n`` stacked layers of the stack's one kind (attention + swiglu or
-    gelu MLP, or a Mamba block alone)."""
+    gelu MLP, or a Mamba block alone), matmul weights in ``dtype``."""
     check_supported(cfg)
     mixer, ffn, _ = layer_kind(cfg, 0)
     p: dict[str, Any] = {"ln1": Ly.rms_norm_init(gen, n, cfg.d_model)}
     if mixer == "attn":
-        p["attn"] = Ly.attn_init(gen, cfg, n)
+        p["attn"] = Ly.attn_init(gen, cfg, n, dtype)
     else:
-        p["mamba"] = Mb.mamba_init(gen, cfg, n)
+        p["mamba"] = Mb.mamba_init(gen, cfg, n, dtype)
     if ffn != "none":
         p["ln2"] = Ly.rms_norm_init(gen, n, cfg.d_model)
         if ffn == "gelu":
             p["ffn_gelu"] = Ly.gelu_mlp_init(gen, n, cfg.d_model, cfg.d_ff,
-                                             cfg.n_layers)
+                                             cfg.n_layers, dtype)
         else:
             p["ffn_mlp"] = Ly.swiglu_init(gen, n, cfg.d_model, cfg.d_ff,
-                                          cfg.n_layers)
+                                          cfg.n_layers, dtype)
     return p
 
 
@@ -118,8 +125,8 @@ def _cache_pad(k, decode_len: int):
 
 def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, want_cache: bool = False):
-    """Full-sequence layer (prefill).  Returns (x, cache) — cache is {}
-    unless want_cache."""
+    """Full-sequence layer (train / prefill).  Returns (x, cache) — cache
+    is {} unless want_cache."""
     cache = {}
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
     if "attn" in p:
@@ -132,6 +139,7 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
             cache["v"] = _cache_pad(v, opts.decode_len)
     else:
         y, state = Mb.mamba_apply(p["mamba"], cfg, h, impl=opts.mamba_impl,
+                                  scan_chunk=opts.mamba_chunk,
                                   return_state=want_cache)
         if want_cache:
             cache.update(state)
@@ -154,19 +162,67 @@ def layer_decode(p, cfg, x, cache, cache_len):
 # --------------------------------------------------------------------------
 
 
-def stack_init(gen: torch.Generator, cfg) -> dict:
-    return layer_init(gen, cfg, cfg.n_layers)
+def stack_init(gen: torch.Generator, cfg, dtype=Ly.BF16) -> dict:
+    return layer_init(gen, cfg, cfg.n_layers, dtype)
+
+
+def unstack(stack: dict) -> list[dict]:
+    """The layers of a stacked tree as views, from one ``unbind`` per leaf
+    (whose backward stacks the layers' gradients in one op, where a
+    ``select`` per layer would each give a stack-sized gradient)."""
+    leaves = {k: unstack(v) if isinstance(v, dict) else v.unbind(0)
+              for k, v in stack.items()}
+    n = len(next(iter(leaves.values())))
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matmul outputs, recompute the rest (the
+    reference's ``checkpoint_dots`` policy)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _requires_grad(tree: dict) -> bool:
+    return any(_requires_grad(v) if isinstance(v, dict) else v.requires_grad
+               for v in tree.values())
+
+
+def _wrap_remat(fn, remat: str, grads: bool):
+    """``fn`` under ``torch.utils.checkpoint`` as ``remat`` says: ``none``
+    saves every activation, ``full`` only ``fn``'s inputs, ``dots`` the
+    inputs and the matmul outputs.  ``fn`` itself when no gradients are
+    wanted (serving)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r} (expected 'none', "
+                         "'full' or 'dots')")
+    if remat == "none" or not grads:
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, want_cache: bool = False):
     """Run the stack.  Returns (x, stacked caches | None): each layer's
     cache leaves stacked over the layers (see the module docstring)."""
-    n = cfg.n_layers
+    def body(p, x):
+        return layer_apply(p, cfg, x, positions, opts, causal=causal,
+                           want_cache=want_cache)
+
+    grads = torch.is_grad_enabled() and (x.requires_grad
+                                         or _requires_grad(stack_params))
+    body = _wrap_remat(body, opts.remat, grads)
     caches = []
-    for i in range(n):
-        x, cache = layer_apply(layer_at(stack_params, i), cfg, x, positions,
-                               opts, causal=causal, want_cache=want_cache)
+    for p in unstack(stack_params):
+        x, cache = body(p, x)
         caches.append(cache)
     if not want_cache:
         return x, None

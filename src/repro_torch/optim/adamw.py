@@ -3,7 +3,9 @@
 
 Parameters, gradients and moments are dicts of tensors keyed by the
 reference's tree paths (``"blocks.0.fc1.w"``), in the order the
-reference flattens its tree.  The arithmetic is the reference's, in
+reference flattens its tree; :func:`flatten_params` makes such a dict of
+a nested tree (the LM's parameters) and :func:`unflatten_params` nests
+it again.  The arithmetic is the reference's, in
 float32 throughout (the step, the schedule and the bias corrections are
 float32 tensors, never Python doubles): gradients clipped by
 ``min(1, clip / (norm + 1e-9))``, ``delta = m̂ / (√v̂ + eps) + wd · p``
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Mapping
 
 import torch
 
@@ -33,6 +36,32 @@ class AdamWConfig:
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
     moment_dtype: torch.dtype = torch.float32
+
+
+def flatten_params(tree: Mapping, prefix: str = "") -> dict:
+    """A nested dict of tensors as one dict keyed by dotted paths
+    (``"layers.attn.wq.w"``), in the reference's flatten order (keys
+    sorted at every level)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out.update(flatten_params(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def unflatten_params(flat: Mapping) -> dict:
+    """The nested dict that :func:`flatten_params` flattened."""
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, name = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = v
+    return tree
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

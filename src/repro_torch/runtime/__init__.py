@@ -1,1 +1,2 @@
-"""Training runtime of the port (``repro.runtime``)."""
+"""Training runtime of the port (``repro.runtime``): the DDP step
+(``ddp``) and the fault-tolerant loop (``trainer``)."""

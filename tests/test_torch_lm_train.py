@@ -1,0 +1,331 @@
+"""LM training in the port against the JAX package, on reduced
+``lm100m``, ``granite-3-2b`` (GQA) and ``falcon-mamba-7b`` at B 2, S 32:
+the reference's ``init_params(PRNGKey(0))`` weights carried across as
+float32 masters (``params_from_jax(..., master=True)``).
+
+Tolerances: ``lm_batch_at`` equal; ``ce_loss`` (chunks 1 and 4) and one
+``make_train_step``'s loss within ``LOSS_RTOL`` relative, its
+``grad_norm`` within ``GNORM_RTOL``, and every updated parameter within
+``2·lr + 1e-6`` absolute of the reference's (a first AdamW step moves a
+leaf by about ``lr·sign(g)``: a sign flip on a near-zero gradient costs
+``2·lr``, and nothing larger is excused).  Beside that bound, which an
+unchanged or reversed update would also meet: each leaf's AdamW moments
+within ``M_RTOL`` (``m``, 0.1·g: the leaf's gradient) and ``V_RTOL``
+(``v``, 0.05·g²) of the leaf's largest reference moment; the elements
+whose reference gradient is at least ``SURE_FRAC`` of their leaf's
+largest, whose sign bf16 sums cannot flip, within ``STEP_TOL·lr``; and
+no more than ``LOOSE_SHARE`` of all elements beyond ``STEP_TOL·lr``.
+Both packages run bf16 products with float32 sums in different orders.
+``IN_ORDER_STEPS`` steps on the batches in order hold every step's loss
+and grad norm to the same tolerances.  The chunked selective
+scan against the reference's ``_scan_chunked_xla``, forward and VJP,
+float32, within ``SCAN_RTOL`` of each array's largest magnitude; at a
+sequence that is no multiple of the chunk, against its own unchunked
+run.  Remat ``none``, ``full`` and ``dots`` give the same gradients
+(``REMAT_TOL``), and ``launch.train.main`` with ``--fail-at`` ends bit
+for bit where the run without it does."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_reduced as j_reduced
+from repro.data.synthetic import lm_batch_at as j_lm_batch_at
+from repro.models import mamba as JMb
+from repro.models import model as JM
+from repro.optim import adamw as JA
+from repro_torch import checkpoint as Ck
+from repro_torch.configs import TrainSettings, get_reduced
+from repro_torch.data.synthetic import lm_batch_at
+from repro_torch.launch import train as train_cli
+from repro_torch.models import mamba as TMb
+from repro_torch.models import model as TM
+from repro_torch.models.transformer import StackOpts
+from repro_torch.optim import adamw as TA
+
+LOSS_RTOL, GNORM_RTOL, SCAN_RTOL, REMAT_TOL = 2e-3, 2e-2, 1e-5, 1e-6
+M_RTOL, V_RTOL = 1e-2, 2e-2
+SURE_FRAC, STEP_TOL, LOOSE_SHARE = 0.05, 1e-3, 0.02
+IN_ORDER_STEPS = 8
+B, S = 2, 32
+ARCHS = ("lm100m", "granite-3-2b", "falcon-mamba-7b")
+OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Two intra-op threads: the suite runs six workers on the machine's
+    cores, and small ops on more threads each spend most of their time
+    waiting for one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def np_tree(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def jbatch(cfg, step=0):
+    return {k: jnp.asarray(v) for k, v in
+            j_lm_batch_at(step, vocab=cfg.vocab, batch=B, seq=S).items()}
+
+
+def tbatch(cfg, step=0):
+    return {k: torch.from_numpy(v) for k, v in
+            lm_batch_at(step, vocab=cfg.vocab, batch=B, seq=S).items()}
+
+
+def with_micro(cfg, n):
+    return dataclasses.replace(cfg, train=TrainSettings(microbatches=n))
+
+
+@pytest.fixture(scope="module", params=ARCHS + ("lm100m/micro2",))
+def case(request):
+    """One config: the reference's weights and one reference train step
+    on lm_batch_at(0) (compiled once), and the port's masters."""
+    arch, _, micro = request.param.partition("/")
+    jcfg, cfg = j_reduced(arch), get_reduced(arch)
+    if micro:
+        jcfg = dataclasses.replace(
+            jcfg, train=dataclasses.replace(jcfg.train, microbatches=2))
+        cfg = with_micro(cfg, 2)
+    jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    jopt_cfg = JA.AdamWConfig(**OPT)
+    step = jax.jit(JM.make_train_step(jcfg, None, jopt_cfg))
+    jnew, jopt, jmet = step(jparams, JA.init(jparams, jopt_cfg),
+                            jbatch(jcfg))
+    return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, jstep_fn=step,
+                jopt_cfg=jopt_cfg,
+                params=TM.params_from_jax(np_tree(jparams), cfg, "cpu",
+                                          master=True),
+                jnew=np_tree(jnew), jm=np_tree(jopt["m"]),
+                jv=np_tree(jopt["v"]),
+                jmet={k: float(v) for k, v in jmet.items()},
+                jstep=int(jopt["step"]))
+
+
+def rel(got, want):
+    return abs(got - want) / abs(want)
+
+
+@pytest.mark.parametrize("step", [0, 1, 99])
+def test_lm_batch_at_matches_reference(step):
+    for vocab, batch, seq in ((1024, 2, 32), (32768, 8, 512)):
+        got = lm_batch_at(step, vocab=vocab, batch=batch, seq=seq)
+        want = j_lm_batch_at(step, vocab=vocab, batch=batch, seq=seq)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_masters_are_float32_and_serving_bf16():
+    cfg = get_reduced("falcon-mamba-7b")
+    master = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            master=True)
+    serve = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    flat, sflat = TA.flatten_params(master), TA.flatten_params(serve)
+    assert {v.dtype for v in flat.values()} == {torch.float32}
+    assert sflat["layers.mamba.in_proj.w"].dtype == torch.bfloat16
+    assert sflat["layers.mamba.dt_proj.w"].dtype == torch.float32
+    for k, v in flat.items():            # the same draws
+        assert torch.equal(v.to(sflat[k].dtype), sflat[k]), k
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_ce_loss_matches_reference(case, chunks):
+    cfg, jcfg = case["cfg"], case["jcfg"]
+    rng = np.random.default_rng(chunks)
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    labels[0, :5] = -1                          # masked
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = float(JM.ce_loss(case["jparams"], jcfg, xb, jnp.asarray(labels),
+                            chunks))
+    got = float(TM.ce_loss(case["params"], cfg,
+                           torch.from_numpy(np.asarray(xb, np.float32))
+                           .to(torch.bfloat16), torch.from_numpy(labels),
+                           chunks))
+    assert rel(got, want) <= LOSS_RTOL, (got, want)
+
+
+def test_train_step_matches_reference(case):
+    cfg = case["cfg"]
+    opt_cfg = TA.AdamWConfig(**OPT)
+    params = case["params"]
+    opt = TA.init(TA.flatten_params(params), opt_cfg)
+    new, opt, met = TM.make_train_step(cfg, opt_cfg)(params, opt,
+                                                     tbatch(cfg))
+    jmet = case["jmet"]
+    assert rel(float(met["loss"]), jmet["loss"]) <= LOSS_RTOL, \
+        (float(met["loss"]), jmet["loss"])
+    assert rel(float(met["grad_norm"]), jmet["grad_norm"]) <= GNORM_RTOL, \
+        (float(met["grad_norm"]), jmet["grad_norm"])
+    lr = float(met["lr"])
+    assert lr == pytest.approx(jmet["lr"], rel=1e-6)
+    assert opt["step"].dtype == torch.int32 and int(opt["step"]) == \
+        case["jstep"] == 1
+    want = TA.flatten_params(case["jnew"])
+    got = TA.flatten_params(new)
+    assert list(got) == list(want)
+    jm, jv = (TA.flatten_params(case[j]) for j in ("jm", "jv"))
+    loose = total = 0
+    for k, w in want.items():
+        assert got[k].dtype == torch.float32, k
+        for moment, ref, tol in (("m", jm, M_RTOL), ("v", jv, V_RTOL)):
+            merr = float(np.abs(opt[moment][k].numpy() - ref[k]).max())
+            assert merr <= tol * float(np.abs(ref[k]).max()), \
+                (k, moment, merr)
+        err = np.abs(got[k].numpy() - w)
+        assert float(err.max()) <= 2 * lr + 1e-6, (k, float(err.max()))
+        gm = np.abs(jm[k])
+        sure = gm >= SURE_FRAC * gm.max()
+        assert float(err[sure].max()) <= STEP_TOL * lr, \
+            (k, float(err[sure].max()) / lr)
+        loose += int((err > STEP_TOL * lr).sum())
+        total += err.size
+    assert loose <= LOOSE_SHARE * total, (loose, total)
+
+
+def test_train_steps_in_order_follow_reference(case):
+    """IN_ORDER_STEPS steps on ``lm_batch_at(0..)`` in order from the
+    same masters: every step's loss and grad norm within the first
+    step's tolerances of the reference's, so the port's training follows
+    the reference's past its first update."""
+    cfg = case["cfg"]
+    opt_cfg = TA.AdamWConfig(**OPT)
+    params, jparams = case["params"], case["jparams"]
+    opt = TA.init(TA.flatten_params(params), opt_cfg)
+    jopt = JA.init(jparams, case["jopt_cfg"])
+    step = TM.make_train_step(cfg, opt_cfg)
+    for s in range(IN_ORDER_STEPS):
+        params, opt, met = step(params, opt, tbatch(cfg, s))
+        jparams, jopt, jmet = case["jstep_fn"](jparams, jopt, jbatch(cfg, s))
+        for k, tol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL)):
+            assert rel(float(met[k]), float(jmet[k])) <= tol, \
+                (s, k, float(met[k]), float(jmet[k]))
+
+
+# --------------------------------------------------------------------------
+# the chunked scan
+# --------------------------------------------------------------------------
+
+
+def scan_inputs(S, E=16, N=4, Bsz=2, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    return dict(x=f(Bsz, S, E), delta=np.log1p(np.exp(f(Bsz, S, E))),
+                A=-np.exp(0.5 * f(E, N)), Bm=f(Bsz, S, N), Cm=f(Bsz, S, N),
+                D=f(E))
+
+
+def close_to(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    assert err <= SCAN_RTOL * float(np.abs(want).max()), (what, err)
+
+
+def port_scan_vjp(inp, h0, gy, gh, chunk):
+    t = {k: torch.from_numpy(v).requires_grad_(True) for k, v in inp.items()}
+    h0 = torch.from_numpy(h0).requires_grad_(True)
+    y, hT = TMb.scan_chunked(**t, h0=h0, chunk=chunk)
+    grads = torch.autograd.grad((y, hT), list(t.values()) + [h0],
+                                (torch.from_numpy(gy), torch.from_numpy(gh)))
+    return y.detach(), hT.detach(), [g.numpy() for g in grads]
+
+
+def test_scan_chunked_matches_reference_forward_and_vjp():
+    S, chunk = 32, 8
+    inp = scan_inputs(S)
+    rng = np.random.default_rng(1)
+    h0 = rng.normal(size=(2, 16, 4)).astype(np.float32)
+    gy = rng.normal(size=(2, S, 16)).astype(np.float32)
+    gh = rng.normal(size=(2, 16, 4)).astype(np.float32)
+    names = list(inp) + ["h0"]
+
+    def ref(x, delta, A, Bm, Cm, D, h0):
+        return JMb._scan_chunked_xla(x, delta, A, Bm, Cm, D, h0, chunk)
+
+    (jy, jh), vjp = jax.vjp(ref, *[jnp.asarray(v) for v in inp.values()],
+                            jnp.asarray(h0))
+    jgrads = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+    y, hT, grads = port_scan_vjp(inp, h0, gy, gh, chunk)
+    close_to(y, jy, "y")
+    close_to(hT, jh, "hT")
+    for name, g, w in zip(names, grads, jgrads):
+        close_to(g, w, name)
+
+
+def test_scan_chunked_takes_any_length():
+    """S 40 in chunks of 16 (the last one 8 long) against one chunk."""
+    S = 40
+    inp = scan_inputs(S, seed=2)
+    rng = np.random.default_rng(3)
+    h0 = rng.normal(size=(2, 16, 4)).astype(np.float32)
+    gy = rng.normal(size=(2, S, 16)).astype(np.float32)
+    gh = rng.normal(size=(2, 16, 4)).astype(np.float32)
+    y, hT, grads = port_scan_vjp(inp, h0, gy, gh, 16)
+    y1, hT1, grads1 = port_scan_vjp(inp, h0, gy, gh, S)
+    close_to(y, y1, "y")
+    close_to(hT, hT1, "hT")
+    for name, g, w in zip(list(inp) + ["h0"], grads, grads1):
+        close_to(g, w, name)
+
+
+# --------------------------------------------------------------------------
+# remat modes and the launcher's drill
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["lm100m", "falcon-mamba-7b"])
+def test_remat_modes_give_equal_gradients(arch):
+    cfg = get_reduced(arch)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            master=True)
+    batch = tbatch(cfg)
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        flat = {k: p.detach().requires_grad_(True)
+                for k, p in TA.flatten_params(params).items()}
+        loss_fn = TM.make_loss_fn(cfg, StackOpts(remat=remat,
+                                                 mamba_chunk=8))
+        total, _ = loss_fn(TA.unflatten_params(flat), batch)
+        grads[remat] = torch.autograd.grad(total, list(flat.values()))
+    for remat in ("full", "dots"):
+        for g, w in zip(grads[remat], grads["none"]):
+            torch.testing.assert_close(g, w, rtol=REMAT_TOL, atol=REMAT_TOL)
+
+
+def test_train_cli_restart_drill_is_bit_identical(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch lm100m --reduced
+    --device cpu --steps 12 --fail-at 7``: the restart from the step-5
+    checkpoint ends with the final params and AdamW moments, bit for
+    bit, and the history of the run without the failure."""
+    argv = ["--arch", "lm100m", "--reduced", "--device", "cpu",
+            "--steps", "12", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "5", "--log-every", "0"]
+    ref = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "ref")])
+    # a stale checkpoint of another run is removed, a file of the user's
+    # in the directory stays
+    Ck.save(str(tmp_path / "fail"), 10, {"stale": torch.zeros(1)})
+    (tmp_path / "fail" / "notes.txt").write_text("kept")
+    got = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "fail"),
+                                 "--fail-at", "7"])
+    assert (tmp_path / "fail" / "notes.txt").read_text() == "kept"
+    assert "[fault] injected failure at step 7" in capsys.readouterr().out
+    keys = ("loss", "grad_norm", "lr")
+    assert [h["step"] for h in got] == list(range(6, 13))
+    assert [[h[k] for k in keys] for h in got] == \
+        [[h[k] for k in keys] for h in ref[5:]]
+    final = []
+    for d in ("ref", "fail"):
+        with np.load(tmp_path / d / "step_12" / "arrays.npz") as f:
+            final.append([f[f"a{i}"] for i in range(len(f.files))])
+    assert len(final[0]) == len(final[1]) > 2 * 11
+    for a, b in zip(*final):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
