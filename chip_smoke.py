@@ -111,6 +111,26 @@ Phases, each fatal on failure:
    ``selective_scan_ref`` within ``SCAN_TOL`` on the inputs of the
    longest prefill's first layer and on six more shapes; tokens/s, TTFT,
    prefill and decode-step times and a profile;
+11c. the MoE serving path (``serving_moe``): Granite-3.0-MoE-3B-A800M at
+   its published widths and depth (32 layers, d_model 1536, 24 q / 8 KV
+   heads, 40 experts of 512 padded to 48, top-8; 7.8 GB of bf16
+   weights), random weights from ``torch.Generator`` seed 0, the same
+   engine settings, request stream and checks as phase 11 (the Mamba
+   weights freed first); every MoE layer runs all 40 experts on every
+   token (``moe_dense``, the reference's path at world 1).  Also checked:
+   the experts resident as bf16, the routers as float32, TF32 off; the
+   routing sets of the two requests held to the one-shot loop, flash
+   engine against ``xla`` engine, counted with the smallest and largest
+   probability gap among those that differ (printed, not held: a
+   near-tie may pick another expert); then ``flash_attention`` against ``attention_ref``
+   on the q, k, v its first prefill gave it, case (h) (Hq 24, Hkv 8);
+11d. MoE training (``moe_train``): Granite-3.0-MoE at full width,
+   12 of its 32 layers (16 do not fit in 80 GB: float32 masters,
+   gradients and AdamW moments take 1.91 GB a layer), remat full, 5
+   steps on one 4 x 1024 batch repeated, whose loss must fall; the first
+   step of ``MOE_CHECK_LAYERS`` layers on 1 x 128 tokens held to the port
+   on the CPU (loss and ``moe_aux`` within 2e-3); step ms, tokens/s,
+   peak memory and a profile.  No kernel runs here;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time per call and the summed
    profiler device time of the port's kernels that call launches (two or
@@ -159,6 +179,8 @@ SETOP_ROWS = (10_000_000, 5_000_000)   # set-ops leg: a and b
 SETOP_KEYS = 1_000_000         # a.k over [0, 1 M), b.k over [500 k, 1.5 M)
 SERVE_ARCH = "granite-3-2b"    # the serving leg's model, full width and depth
 MAMBA_ARCH = "falcon-mamba-7b"  # the Mamba serving leg's, full width and depth
+MOE_ARCH = "granite-moe-3b-a800m"  # the MoE serving leg's (full width and
+                                   # depth) and training leg's
 SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 SERVE_QUEUE, SERVE_REQUESTS = 64, 32
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
@@ -210,6 +232,7 @@ def _modules():
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.mamba_scan import ref as ms_ref
     from repro_torch.models import mamba
+    from repro_torch.models import moe
     from repro_torch.models import unomt_net
     from repro_torch.optim import adamw, compression
     from repro_torch.runtime import ddp
@@ -225,6 +248,7 @@ def _modules():
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
                 hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref, ms_ref=ms_ref,
                 get_config=get_config, M=model, A=attn, Ly=layers, Mb=mamba,
+                Moe=moe,
                 serve=serve, ServingEngine=ServingEngine, Ck=checkpoint,
                 Sy=synthetic, Tr=train, Ue=unomt_e2e)
 
@@ -1674,6 +1698,19 @@ UNOMT_DRILL_STEPS, UNOMT_DRILL_EVERY, UNOMT_DRILL_FAIL = 100, 25, 50
 # TrainSettings' 2 need two rows)
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 2, 1, 1000
 MAMBA_TRAIN_STEPS = 5
+# Granite-3.0-MoE-3B-A800M at full width (40 experts of 512 padded to 48,
+# top-8), MOE_TRAIN_LAYERS of its 32 layers: a layer's float32 master,
+# gradient and two AdamW moments take 1.91 GB, AdamW holds its new
+# parameters and moments beside the old until the step ends, and a
+# layer's recompute and backward hold (T, E, d) float32 products of 1 GB
+# at 4 x 1024 tokens.  On an 80 GB H100, 8 layers peaked at 33.7 GB above
+# 12.5 GB resident and 16 did not fit; 12 leave room for the ~6 GB the
+# earlier phases keep resident.  The first step's loss and moe_aux are
+# held to the CPU on MOE_CHECK_LAYERS layers and 1 x MOE_CHECK_SEQ
+# tokens, which the CPU runs in seconds
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 12, 4, 1024
+MOE_TRAIN_STEPS = 5
+MOE_CHECK_LAYERS, MOE_CHECK_SEQ = 2, 128
 
 
 def lm_batch(m, cfg, step, batch, seq, device):
@@ -1702,19 +1739,22 @@ def event_pair():
             torch.cuda.Event(enable_timing=True))
 
 
-def timed_steps(step, params, opt, batches):
+def timed_steps(step, params, opt, batches, aux=None):
     """``step`` over ``batches`` in order, each between two CUDA events.
-    Returns (params, opt, losses, ms per step)."""
-    losses, events = [], []
+    Returns (params, opt, losses, ms per step); ``aux``, when given, gets
+    each step's ``moe_aux``."""
+    mets, events = [], []
     for b in batches:
         ev = event_pair()
         ev[0].record()
         params, opt, met = step(params, opt, b)
         ev[1].record()
-        losses.append(met["loss"])
+        mets.append(met)
         events.append(ev)
     torch.cuda.synchronize()
-    return (params, opt, [float(v) for v in losses],
+    if aux is not None:
+        aux.extend(float(met["moe_aux"]) for met in mets)
+    return (params, opt, [float(met["loss"]) for met in mets],
             [a.elapsed_time(b) for a, b in events])
 
 
@@ -2030,6 +2070,106 @@ def run_mamba_train(m, device, name):
                                 rows=MAMBA_TRAIN_STEPS * MAMBA_TRAIN_BATCH)}
 
 
+def no_tf32(leg: str) -> None:
+    """The MoE router's float32 product must not run in TF32 (ten
+    mantissa bits would move its top-k choices)."""
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError(f"{leg}: float32 products run in TF32")
+
+
+def moe_step_on_cpu(m, full, device, opt_cfg) -> dict:
+    """The first train step of ``full`` cut to MOE_CHECK_LAYERS layers, on
+    1 x MOE_CHECK_SEQ tokens, on the card, and the port's loss on the CPU
+    from the same float32 masters and batch: loss and moe_aux within
+    LM_LOSS_RTOL."""
+    M, A, Ck = m["M"], m["Aw"], m["Ck"]
+    cfg = dataclasses.replace(full, n_layers=MOE_CHECK_LAYERS)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    batch = lm_batch(m, cfg, 0, 1, MOE_CHECK_SEQ, device)
+    _, _, met = M.make_train_step(cfg, opt_cfg)(
+        params, A.init(A.flatten_params(params), opt_cfg), batch)
+    out = {"layers": MOE_CHECK_LAYERS, "tokens": MOE_CHECK_SEQ,
+           "card": {"loss": float(met["loss"]),
+                    "moe_aux": float(met["moe_aux"])}}
+    cpu = torch.device("cpu")
+    loss_fn = M.make_loss_fn(cfg, M.StackOpts(attn_impl="xla",
+                                              mamba_impl="xla"))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, cm = loss_fn(Ck.tree_map(lambda t: t.to(cpu), params),
+                        {k: v.to(cpu) for k, v in batch.items()})
+    out["cpu"] = {"loss": float(cm["loss"]), "moe_aux": float(cm["moe_aux"]),
+                  "seconds": time.perf_counter() - t0}
+    for k in ("loss", "moe_aux"):
+        out[f"{k}_rel_err"] = rel_err(out["card"][k], out["cpu"][k])
+    if not (out["loss_rel_err"] <= LM_LOSS_RTOL
+            and out["moe_aux_rel_err"] <= LM_LOSS_RTOL):
+        raise AssertionError(f"moe_train: card vs CPU {out}")
+    return out
+
+
+def run_moe_train(m, device, name):
+    """Granite-3.0-MoE at full width, MOE_TRAIN_LAYERS layers, remat
+    ``full``: MOE_TRAIN_STEPS steps on one batch of MOE_TRAIN_BATCH x
+    MOE_TRAIN_SEQ tokens repeated, whose loss must fall; every MoE layer
+    runs all 40 experts on every token (``moe_dense``, as the reference
+    at world 1) and the auxiliary loss enters the total.  The first step
+    of a shallower model is held to the CPU (:func:`moe_step_on_cpu`);
+    step ms by CUDA events, tokens/s, peak memory, one profiled step."""
+    wall = time.perf_counter()
+    M, A = m["M"], m["Aw"]
+    no_tf32("moe_train")
+    full = m["get_config"](MOE_ARCH)
+    if full.train.remat != "full":
+        raise AssertionError(f"moe_train: remat {full.train.remat!r}")
+    opt_cfg = A.AdamWConfig(lr=3e-4, warmup_steps=1,
+                            total_steps=MOE_TRAIN_STEPS)
+    check = moe_step_on_cpu(m, full, device, opt_cfg)
+    _free(device)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    step = M.make_train_step(cfg, opt_cfg)
+    opt = A.init(A.flatten_params(params), opt_cfg)
+    batches = [lm_batch(m, cfg, 0, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                        device)] * MOE_TRAIN_STEPS
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    aux = []
+    (params, opt, losses, ms), launches = counted_run(
+        m, lambda: timed_steps(step, params, opt, batches, aux), device)
+    expect_launches("moe_train", launches, {})
+    peak = _peak(device) - resident
+    prof = profile_step(lambda: step(params, opt, batches[0]))
+    step_ms = float(np.median(ms[1:]))
+    emit({"phase": "moe_train", "card": name,
+          "wall_s": time.perf_counter() - wall, "arch": cfg.name,
+          "layers": cfg.n_layers, "of_layers": full.n_layers,
+          "d_model": cfg.d_model, "experts": cfg.n_experts,
+          "experts_padded": m["Moe"].n_experts_padded(cfg),
+          "top_k": cfg.top_k, "params": sum(
+              p.numel() for p in A.flatten_params(params).values()),
+          "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+          "remat": cfg.train.remat, "steps": MOE_TRAIN_STEPS,
+          "step_ms": ms, "step_ms_median_after_first": step_ms,
+          "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / step_ms * 1e3,
+          "peak_bytes_above_resident": peak, "resident_bytes": resident,
+          "losses": losses, "moe_aux": aux, "profile": prof,
+          "gemm_share": prof["gemm_ms"]
+          / max(prof["gemm_ms"] + prof["other_ms"], 1e-9),
+          "card_vs_cpu": check, "tolerance": LM_LOSS_RTOL})
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe_train: loss {losses[0]} -> "
+                             f"{losses[-1]} did not fall")
+    del params, opt, batches
+    _free(device)
+    return {"moe_train": dict(launches=launches,
+                              rows=MOE_TRAIN_STEPS * MOE_TRAIN_BATCH)}
+
+
 # --------------------------------------------------------------------------
 # the LM serving path: ServingEngine with feature fetch, flash attention
 # --------------------------------------------------------------------------
@@ -2060,13 +2200,46 @@ def _margin(logits) -> np.ndarray:
     return (top[..., 0] - top[..., 1]).cpu().numpy()
 
 
+class RouteLog:
+    """While active (a context), ``moe._route`` also logs, for the rows
+    that ``rows`` maps a request id to, each call's top-k expert ids (as a
+    sorted set) and the gap between the k-th and (k+1)-th router
+    probability: ``log[req_id]`` is a list of (ids, gaps) on the host, one
+    per MoE layer call, in call order.  ``rows`` is set by
+    :class:`Recorder`'s hooks around a kept request's prefill or step."""
+
+    def __init__(self, moe):
+        self.moe, self.plain = moe, moe._route
+        self.rows = None
+        self.log = collections.defaultdict(list)
+
+    def route(self, router, x2d, top_k):
+        out = self.plain(router, x2d, top_k)
+        if self.rows:
+            probs = torch.softmax(x2d.float() @ router.float(), dim=-1)
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            gaps = (top[:, top_k - 1] - top[:, top_k]).cpu()
+            ids = torch.sort(out[1], dim=-1).values.cpu()
+            for rid, rows in self.rows.items():
+                self.log[rid].append((ids[rows], gaps[rows]))
+        return out
+
+    def __enter__(self):
+        self.moe._route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.plain
+
+
 class Recorder:
     """Hooks on an engine: each request's prefill logits (float32, on the
     host) and its top-2 logit margin at every token it emits, in the order
     of its ``out_tokens``; for the requests of ``keep`` also the logits of
-    every token (``steps``)."""
+    every token (``steps``) and, with a :class:`RouteLog` as ``routes``,
+    the routing of their real positions."""
 
-    def __init__(self, engine, keep=()):
+    def __init__(self, engine, keep=(), routes=None):
         self.logits = {}
         self.margins = collections.defaultdict(list)
         self.steps = collections.defaultdict(list)
@@ -2080,8 +2253,14 @@ class Recorder:
             return good
 
         def prefill_hook(params, batch, length):
-            logits, caches = prefill(params, batch, length)
             rid = upcoming.popleft().req_id
+            if routes is not None and rid in keep:
+                routes.rows = {rid: slice(0, int(length))}
+            try:
+                logits, caches = prefill(params, batch, length)
+            finally:
+                if routes is not None:
+                    routes.rows = None
             self.logits[rid] = logits[0].float().cpu()
             self.margins[rid].append(float(_margin(logits)[0]))
             if rid in keep:
@@ -2089,7 +2268,16 @@ class Recorder:
             return logits, caches
 
         def step_hook(params, caches, tokens, cache_lens):
-            logits, caches = step(params, caches, tokens, cache_lens)
+            if routes is not None:
+                routes.rows = {engine.batch.request_at(slot).req_id: [slot]
+                               for slot in engine.batch.active()
+                               if engine.batch.request_at(slot).req_id
+                               in keep}
+            try:
+                logits, caches = step(params, caches, tokens, cache_lens)
+            finally:
+                if routes is not None:
+                    routes.rows = None
             mg = _margin(logits)
             for slot in engine.batch.active():
                 rid = engine.batch.request_at(slot).req_id
@@ -2292,20 +2480,80 @@ def against_oneshot(m, cfg, params, rec, by_id, pick, device) -> dict:
     return oneshot
 
 
+def routing_flips(cfg, routes, xroutes, pick, by_id, want) -> dict:
+    """The routing sets of the requests of ``pick`` in the flash engine
+    (``routes``) against the ``xla`` engine (``xroutes``): every prompt
+    position of every MoE layer, and the decode steps while both engines'
+    tokens so far agree (their contexts are the same).  Counts the sets
+    compared and those that differ, the smallest and largest k-th to
+    (k+1)-th probability gap (the smaller of the two engines') among the
+    differing ones and the smallest among all."""
+    L = cfg.n_layers
+    out = {"sets_compared": 0, "sets_differ": 0, "by_request": {}}
+    gaps_all, gaps_bad = [], []
+    for rid in pick:
+        got, ref = by_id[rid].out_tokens, want[rid].out_tokens
+        same = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                    len(got))
+        # the prefill's L calls, then L a decode step: step j is fed token
+        # j - 1, so its context is the same in both while tokens[:j] are
+        n = L * (1 + min(len(routes.log[rid]) // L - 1, same))
+        bad = []
+        for (ids, gaps), (xids, xgaps) in zip(routes.log[rid][:n],
+                                              xroutes.log[rid][:n],
+                                              strict=True):
+            bad.append((ids != xids).any(dim=-1))
+            gaps_all.append(torch.minimum(gaps, xgaps))
+            gaps_bad.append(gaps_all[-1][bad[-1]])
+        bad = torch.cat(bad)
+        out["by_request"][rid] = {"sets_compared": len(bad),
+                                  "sets_differ": int(bad.sum()),
+                                  "tokens_equal_prefix": same}
+        out["sets_compared"] += len(bad)
+        out["sets_differ"] += int(bad.sum())
+    gaps_bad = torch.cat(gaps_bad)
+    out["min_gap"] = float(torch.cat(gaps_all).min())
+    out["min_gap_differing"], out["max_gap_differing"] = (
+        float(gaps_bad.min()), float(gaps_bad.max())) if len(gaps_bad) \
+        else (None, None)
+    return out
+
+
+def experts_bf16(leg, params) -> int:
+    """The MoE experts resident as bf16 and the routers as float32;
+    returns the experts' bytes."""
+    ffn = params["layers"]["ffn_moe"]
+    if ffn["router"].dtype != torch.float32 or any(
+            ffn[k].dtype != torch.bfloat16
+            for k in ("e_gate", "e_up", "e_down")):
+        raise AssertionError(f"{leg}: MoE leaves "
+                             f"{ {k: v.dtype for k, v in ffn.items()} }")
+    return sum(ffn[k].numel() * ffn[k].element_size()
+               for k in ("e_gate", "e_up", "e_down"))
+
+
 def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
                 gen_cap=SERVE_GEN, n_req=SERVE_REQUESTS, slots=SERVE_SLOTS,
-                queue=SERVE_QUEUE, attn_impl=None):
+                queue=SERVE_QUEUE, attn_impl=None, leg="serving"):
     """Drive the serving path once with the flash kernel, counted and
     checked, then against the one-shot loop and the ``xla`` attention
     path; time and profile it.  ``attn_impl`` is the first engine's
     attention path (``None``: what the device implies; a rehearsal on the
     CPU passes ``"cuda"`` to reach the flash wrapper's plain version).
-    Returns (legs, the q, k, v and causal flag of the first flash
-    call)."""
+    ``leg`` names the phase and its legs (``leg`` and ``leg``_xla).  A
+    config with MoE layers also checks that its experts are resident as
+    bf16 and TF32 is off, logs the routing of the two requests held to
+    the one-shot loop in both engines (:func:`routing_flips`) and labels
+    the experts and the router in the profile.  Returns (legs, the q, k,
+    v and causal flag of the first flash call)."""
     M, serve = m["M"], m["serve"]
     ops = m["ops"]
+    moe = cfg.n_experts > 0
     params = M.init_params(torch.Generator(device=device).manual_seed(0),
                            cfg)
+    expert_bytes = experts_bf16(leg, params) if moe else 0
+    if moe:
+        no_tf32(leg)
     _sync(device)
     resident = _allocated(device)
     if device.type == "cuda":
@@ -2323,9 +2571,11 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         attn_impl=attn_impl, device=device)
     reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
     pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
-    rec = Recorder(engine, keep=set(pick))
+    routes, xroutes = (RouteLog(m["Moe"]), RouteLog(m["Moe"])) if moe \
+        else (None, None)
+    rec = Recorder(engine, keep=set(pick), routes=routes)
     with recording(ops["flash_attention"], "flash_attention", recorded,
-                   picks={0}):
+                   picks={0}), (routes or contextlib.nullcontext()):
         done, rejected, seconds = serve.drive(engine, reqs, slots)
     _sync(device)
     launches = {k: op.launches for k, op in ops.items()}
@@ -2333,10 +2583,10 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
             if device.type == "cuda" else 0) - resident
 
     mt = engine.metrics
-    check_engine_run("serving", engine, done, rejected, reqs, tables, stores)
+    check_engine_run(leg, engine, done, rejected, reqs, tables, stores)
     # one shuffle per ingest chunk and per lookup; the lookups' sortmerge
     # join and the ingest append run no radix pass
-    expect_launches("serving", launches, {
+    expect_launches(leg, launches, {
         "flash_attention": cfg.n_layers * mt.count("prefills"),
         "hash_partition": store_chunks(serve, stores) + lookups[0],
         "radix_sort": 0})
@@ -2351,26 +2601,31 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         cfg, params, slots=slots, prompt_capacity=prompt_cap,
         gen_capacity=gen_cap, queue_capacity=queue, feature_stores=stores,
         attn_impl="xla", device=device)
-    xrec = Recorder(xla)
+    xrec = Recorder(xla, keep=set(pick) if moe else (), routes=xroutes)
     xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
-    xdone, _, xseconds = serve.drive(xla, xreqs, slots)
+    with xroutes or contextlib.nullcontext():
+        xdone, _, xseconds = serve.drive(xla, xreqs, slots)
     _sync(device)
     xlaunches = {k: op.launches for k, op in ops.items()}
-    expect_launches("serving_xla", xlaunches, {
+    expect_launches(f"{leg}_xla", xlaunches, {
         "hash_partition": lookups[0] - n_lookups, "radix_sort": 0})
     check_served(xdone, xreqs, tables, n_req)
     want = {r.req_id: r for r in xdone}
+    routing = routing_flips(cfg, routes, xroutes, pick, by_id, want) \
+        if moe else None
+    if moe:
+        emit({"phase": f"{leg}_routing", **routing})
     diffs = {rid: float((lg - xrec.logits[rid]).abs().max())
              for rid, lg in rec.logits.items()}
     worst = max(diffs.values())
     if worst > SERVE_LOGIT_TOL:
-        raise AssertionError(f"serving: flash and xla prefill logits differ "
+        raise AssertionError(f"{leg}: flash and xla prefill logits differ "
                              f"by {worst} > {SERVE_LOGIT_TOL}")
     compared = sum(greedy_agree(r.out_tokens, want[r.req_id].out_tokens,
                                 xrec.margins[r.req_id], SERVE_LOGIT_TOL)
                    for r in done)
     if compared == 0:
-        raise AssertionError("serving: no token compared with the xla run")
+        raise AssertionError(f"{leg}: no token compared with the xla run")
     # the noise of plain attention alone: attention_ref (float32, -inf
     # masks, other sums) against xla on the first request's prompt
     r0 = reqs[0]
@@ -2404,18 +2659,20 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         for _ in range(8):
             step(params, engine.caches, toks, lens)
 
+    labelled = [(m["Ly"], "dense"), (m["A"], "decode_attention"),
+                (m["Ly"], "logits_out"),
+                (ops["flash_attention"], "flash_attention")]
+    if moe:
+        labelled += [(m["Moe"], "_expert_ffn"), (m["Moe"], "_route")]
     prof = profile_serving(m, {
         "prefill": lambda: prefill(params, full, prompt_cap),
-        "decode_8_steps": decode8}, device,
-        [(m["Ly"], "dense"), (m["A"], "decode_attention"),
-         (m["Ly"], "logits_out"), (ops["flash_attention"],
-                                   "flash_attention")],
+        "decode_8_steps": decode8}, device, labelled,
         ("flash_attention", "flash_attention_kernel"))
     busy = sum(p["device_busy_ms"] for p in prof.values()) \
         / sum(p["wall_ms"] for p in prof.values())
     tokens = mt.count("tokens_generated")
     summary = {
-        "phase": "serving", "arch": cfg.name, "layers": cfg.n_layers,
+        "phase": leg, "arch": cfg.name, "layers": cfg.n_layers,
         "d_model": cfg.d_model, "slots": slots, "prompt_capacity":
         prompt_cap, "gen_capacity": gen_cap, "requests": n_req,
         "completed": mt.count("completed"), "prefills": mt.count("prefills"),
@@ -2431,6 +2688,7 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         "peak_bytes_above_resident": peak, "resident_bytes": resident,
         "weight_bytes": sum(t.numel() * t.element_size()
                             for t in _leaves(params)),
+        "expert_bytes": expert_bytes, "routing": routing,
         "feature_lookups": n_lookups, "dropped": 0, "launches": launches,
         "oneshot": oneshot, "xla_seconds": xseconds,
         "xla_tokens_per_s": xla.metrics.count("tokens_generated")
@@ -2444,20 +2702,41 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
                                 for r in done),
         "busy_share_prefill_plus_8_decode": busy, "profile": prof}
     emit(summary)
-    legs = {"serving": dict(launches=launches, rows=n_req),
-            "serving_xla": dict(launches=xlaunches, rows=n_req)}
+    legs = {leg: dict(launches=launches, rows=n_req),
+            f"{leg}_xla": dict(launches=xlaunches, rows=n_req)}
     del params, engine, xla, stores, prefill, step, full
     _free(device)
     return legs, recorded[0]
+
+
+def with_sdpa(case):
+    """Where Sq == Skv the case's library call is
+    ``scaled_dot_product_attention`` (top-left causal, so only there),
+    with ``enable_gqa``."""
+    q, k, v, causal = case["args"]
+    if q.shape[2] == k.shape[2]:
+        case["library"] = lambda q=q, k=k, v=v, c=causal: \
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=True)
+    return case
+
+
+def recorded_flash_case(label, recorded):
+    """A flash_attention case of the q, k, v and causal flag one prefill
+    layer gave the kernel."""
+    q, k, v, causal = recorded
+    return with_sdpa(dict(shape=f"{label} prefill q {tuple(q.shape)} kv "
+                                f"{tuple(k.shape)} causal",
+                          args=(q, k, v, causal)))
 
 
 def flash_cases(recorded, device, seed=3):
     """flash_attention's cases: (a) the q, k, v one layer of the serving
     leg's first prefill gave it; (b) (1, 32, 1024, 1024, 64) causal; (c)
     right-aligned Sq 256 < Skv 1024; (d) not causal; (e) ragged Sq = Skv
-    = 1000; (f) D = 128 with Hq = Hkv; (g) B = 4.  Where Sq == Skv the
-    library call is ``scaled_dot_product_attention`` (top-left causal, so
-    only there), with ``enable_gqa``."""
+    = 1000; (f) D = 128 with Hq = Hkv; (g) B = 4; case (h), the MoE
+    serving leg's (Hq 24, Hkv 8), is added after that leg
+    (:func:`recorded_flash_case`).  Library calls as :func:`with_sdpa`."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def qkv(B, Hq, Hkv, Sq, Skv, D):
@@ -2466,9 +2745,7 @@ def flash_cases(recorded, device, seed=3):
                      for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
                                (B, Hkv, Skv, D)))
 
-    q, k, v, causal = recorded
-    cases = [dict(shape=f"(a) serving prefill q {tuple(q.shape)} kv "
-                        f"{tuple(k.shape)} causal", args=(q, k, v, causal))]
+    cases = [recorded_flash_case("(a) serving", recorded)]
     for label, shape, causal in (
             ("(b)", (1, 32, 8, 1024, 1024, 64), True),
             ("(c)", (1, 32, 8, 256, 1024, 64), True),
@@ -2477,16 +2754,10 @@ def flash_cases(recorded, device, seed=3):
             ("(f)", (1, 16, 16, 1024, 1024, 128), True),
             ("(g)", (4, 32, 8, 1024, 1024, 64), True)):
         B, Hq, Hkv, Sq, Skv, D = shape
-        cases.append(dict(
+        cases.append(with_sdpa(dict(
             shape=f"{label} B {B} Hq {Hq} Hkv {Hkv} Sq {Sq} Skv {Skv} "
                   f"D {D} {'causal' if causal else 'full'}",
-            args=(*qkv(*shape), causal)))
-    for case in cases:
-        q, k, v, causal = case["args"]
-        if q.shape[2] == k.shape[2]:
-            case["library"] = lambda q=q, k=k, v=v, c=causal: \
-                torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=c, enable_gqa=True)
+            args=(*qkv(*shape), causal))))
     return cases
 
 
@@ -3058,6 +3329,14 @@ def run_all(tmpdir: Path) -> int:
     cases["mamba_scan"] = scan_cases(scan_args, device)
     errs.update(compare_kernels(
         m, {"mamba_scan": cases["mamba_scan"]}, device))
+    moe_legs, moe_qkv = run_serving(m, device, m["get_config"](MOE_ARCH),
+                                    leg="serving_moe")
+    legs.update(moe_legs)
+    case_h = recorded_flash_case("(h) serving_moe", moe_qkv)
+    errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
+        m, {"flash_attention": [case_h]}, device)["flash_attention"])
+    cases["flash_attention"].append(case_h)
+    legs.update(run_moe_train(m, device, name))
 
     peaks = {}
     for leg, info in legs.items():

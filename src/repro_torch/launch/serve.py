@@ -15,8 +15,9 @@ before its prompt enters a slot.  Prints the metrics snapshot and
 asserts the accounting identity: submitted == completed + rejected +
 feature_misses.  Runs on the CUDA card unless ``--device cpu``.  Any
 uniform decoder-only config serves: a dense one (``lm100m``,
-``granite-3-2b``, ...) or a Mamba one (``falcon-mamba-7b``, prefilled at
-each prompt's true length).
+``granite-3-2b``, ...), an MoE one (``granite-moe-3b-a800m``,
+``qwen3-moe-235b-a22b``) or a Mamba one (``falcon-mamba-7b``, prefilled
+at each prompt's true length).
 """
 import argparse
 import time

@@ -3,13 +3,13 @@ parameters, the loss and the train step, prefill, slot prefill, the
 decode step and the cache layout.
 
 Parameters are the reference's nested dicts with every layer leaf
-stacked over the layers.  For serving the matmul weights and the
-embedding are held as bf16 (the reference casts its float32 masters to
-bf16 at every use, so the numbers in each product are the same) and norm
-scales and biases as float32.  Training holds every leaf as a float32
-master (``master=True``), casts the matmul weights to bf16 at the top of
-the loss (``_cast_weights_bf16``) and updates the masters with AdamW
-(:func:`make_train_step`).  :func:`params_from_jax` carries the
+stacked over the layers.  For serving the matmul weights, the MoE
+experts and the embedding are held as bf16 (the reference casts its
+float32 masters to bf16 at every use, so the numbers in each product are
+the same) and norm scales, biases and MoE routers as float32.  Training
+holds every leaf as a float32 master (``master=True``), casts the matmul
+weights to bf16 at the top of the loss (``_cast_weights_bf16``) and
+updates the masters with AdamW (:func:`make_train_step`).  :func:`params_from_jax` carries the
 reference's weights across.
 
 ``attn_impl=None`` picks the attention path from the tokens' device
@@ -63,8 +63,9 @@ def has_mamba(cfg) -> bool:
 def init_params(gen: torch.Generator, cfg, *, master: bool = False) -> dict:
     """Random weights at the config's widths, drawn from ``gen`` on its
     device (the reference's initialisers and scales; torch's random
-    numbers, not JAX's).  The matmul weights and the embedding are bf16
-    for serving, float32 masters with ``master`` (the same draws)."""
+    numbers, not JAX's).  The matmul weights, the MoE experts and the
+    embedding are bf16 for serving, float32 masters with ``master`` (the
+    same draws); MoE routers are float32 in both."""
     Tf.check_supported(cfg)
     V = cfg.padded_vocab()
     dtype = F32 if master else Ly.BF16
@@ -80,12 +81,20 @@ def init_params(gen: torch.Generator, cfg, *, master: bool = False) -> dict:
     return params
 
 
-def _is_matmul_weight(parent: str, name: str, a: np.ndarray) -> bool:
-    """The leaves the reference casts to bf16 at use: matmul weights but
-    ``dt_proj.w``, which stays float32 (``_cast_weights_bf16``), and the
-    embedding."""
-    return ((name == "w" and parent != "dt_proj") or name == "embed") \
-        and a.ndim >= 2
+# matmul weights that every layer casts to bf16 at use anyway, beside the
+# leaves named ``w``: casting them once gives the same numbers (the
+# reference's reason is its weight gathers and gradient collectives; here
+# it is one cast per leaf a training step, and the tied embedding's two
+# uses share it; serving holds them as bf16)
+_BF16_CASTABLE = ("embed", "e_gate", "e_up", "e_down")
+
+
+def _is_matmul_weight(parent: str, name: str, ndim: int) -> bool:
+    """The leaves the reference casts to bf16 at use: matmul weights
+    (``w``) but ``dt_proj.w``, which stays float32, the embedding and the
+    MoE experts, of two dims or more.  A MoE router stays float32."""
+    return ((name == "w" and parent != "dt_proj")
+            or name in _BF16_CASTABLE) and ndim >= 2
 
 
 def params_from_jax(tree: Mapping, cfg, device, *,
@@ -107,7 +116,8 @@ def params_from_jax(tree: Mapping, cfg, device, *,
             a = np.array(a, np.float32)          # a writable copy
             t = torch.from_numpy(a).to(device)
             out[name] = t.to(torch.bfloat16) \
-                if not master and _is_matmul_weight(parent, name, a) else t
+                if not master and _is_matmul_weight(parent, name, a.ndim) \
+                else t
         return out
 
     return conv(tree)
@@ -124,16 +134,17 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False):
-    """Embed -> stack -> final norm.  Returns (x, caches, n_prefix); no
+    """Embed -> stack -> final norm.  Returns (x, aux, caches, n_prefix):
+    ``aux`` is the MoE layers' auxiliary loss summed over the stack; no
     frontend prepends tokens in this slice, so n_prefix is 0."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = Ly.embed_lookup(params["embed"], tokens)
-    x, caches = Tf.stack_apply(params["layers"], cfg, x,
-                               _positions(B, S, tokens.device), opts,
-                               causal=True, want_cache=want_cache)
+    x, aux, caches = Tf.stack_apply(params["layers"], cfg, x,
+                                    _positions(B, S, tokens.device), opts,
+                                    causal=True, want_cache=want_cache)
     x = Ly.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches, 0
+    return x, aux, caches, 0
 
 
 def _logits(params, cfg, x):
@@ -149,7 +160,8 @@ def make_prefill(cfg, *, decode_len: int, attn_impl: str | None = None,
     def prefill(params, batch):
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
-        x, caches, _ = backbone(params, cfg, batch, opts, want_cache=True)
+        x, _, caches, _ = backbone(params, cfg, batch, opts,
+                                   want_cache=True)
         return _logits(params, cfg, x[:, -1:])[:, 0], caches
     return prefill
 
@@ -204,8 +216,8 @@ def make_slot_prefill(cfg, *, decode_len: int,
             batch = dict(batch, tokens=batch["tokens"][:, :int(length)])
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
-        x, caches, n_prefix = backbone(params, cfg, batch, opts,
-                                       want_cache=True)
+        x, _, caches, n_prefix = backbone(params, cfg, batch, opts,
+                                          want_cache=True)
         idx = n_prefix + int(length) - 1
         return _logits(params, cfg, x[:, idx:idx + 1])[:, 0], caches
     return slot_prefill
@@ -262,43 +274,33 @@ def ce_loss(params, cfg, x, labels, chunks: int = 1):
     return total / torch.clamp(count, min=1.0)
 
 
-# matmul weights that every layer casts to bf16 at use anyway: casting
-# them once at the top gives the same numbers (the reference's reason is
-# its weight gathers and gradient collectives; here it is one cast per
-# leaf a step, and the tied embedding's two uses share it)
-_BF16_CASTABLE = ("embed", "e_gate", "e_up", "e_down")
-
-
 def _cast_weights_bf16(params):
-    """The tree with its float32 matmul weights (leaves named ``w``, but
-    ``dt_proj.w``, or in ``_BF16_CASTABLE``, of two dims or more) as
-    bf16; every other leaf as it is."""
+    """The tree with its float32 matmul weights (``_is_matmul_weight``)
+    as bf16; every other leaf as it is."""
     def cast(node, parent=""):
         out = {}
         for name, p in node.items():
             if isinstance(p, Mapping):
                 out[name] = cast(p, name)
                 continue
-            castable = (name == "w" and parent != "dt_proj") \
-                or name in _BF16_CASTABLE
-            out[name] = p.to(Ly.BF16) if castable and p.dtype == F32 \
-                and p.dim() >= 2 else p
+            out[name] = p.to(Ly.BF16) if p.dtype == F32 \
+                and _is_matmul_weight(parent, name, p.dim()) else p
         return out
     return cast(params)
 
 
 def make_loss_fn(cfg, opts: StackOpts, aux_coeff: float = 0.01):
-    """``loss_fn(params, batch) -> (total, {"loss", "moe_aux"})``.  No MoE
-    layer runs in the port yet, so ``moe_aux`` is 0."""
+    """``loss_fn(params, batch) -> (loss + aux_coeff * moe_aux, {"loss",
+    "moe_aux"})``: ``moe_aux`` is the MoE layers' auxiliary loss summed
+    over the stack (0 without MoE layers)."""
     def loss_fn(params, batch):
         if cfg.train.bf16_weight_cast:
             params = _cast_weights_bf16(params)
-        x, _, n_prefix = backbone(params, cfg, batch, opts)
+        x, aux, _, n_prefix = backbone(params, cfg, batch, opts)
         labels = batch["labels"]
         if n_prefix:
             x = x[:, n_prefix:]
         loss = ce_loss(params, cfg, x, labels, cfg.train.loss_seq_chunks)
-        aux = torch.zeros((), dtype=F32, device=x.device)
         return loss + aux_coeff * aux, {"loss": loss, "moe_aux": aux}
     return loss_fn
 

@@ -2,7 +2,7 @@
 
 A *layer* = (norm -> mixer -> residual) [+ (norm -> ffn -> residual)]
 where the mixer is GQA attention or a Mamba block and the ffn swiglu,
-gelu or none.  Parameters stay stacked over layers (a leading
+gelu, MoE or none.  Parameters stay stacked over layers (a leading
 ``n_layers`` axis on every leaf, the reference's ``vmap``-ed init) and so
 do the caches: ``{"k", "v"}`` (n_layers, B, Hkv, S, D) bf16 for attention
 layers, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B, E, N)}``
@@ -11,9 +11,12 @@ a loop over that axis.  Three traversal modes share the layer
 definitions: ``train`` (no cache; each layer's body under
 ``torch.utils.checkpoint`` as ``StackOpts.remat`` says, the reference's
 ``jax.checkpoint`` of its scan body), ``prefill`` (emit per-layer cache)
-and ``decode`` (consume and update the cache, one token).  The port runs
-uniform decoder-only stacks (dense or Mamba); MoE layers, period stacks
-(Jamba's attention every ``attn_period`` layers), cross-attention and
+and ``decode`` (consume and update the cache, one token).  ``train`` and
+``prefill`` also return the sum over the layers of the MoE layers'
+auxiliary load-balancing loss (0 without MoE layers); ``decode`` drops
+it, as the reference does.  The port runs uniform decoder-only stacks
+(dense, MoE or Mamba); period stacks (Jamba's attention every
+``attn_period`` and MoE every ``moe_period`` layers), cross-attention and
 frontends raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -29,6 +32,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import layers as Ly
 from . import mamba as Mb
+from . import moe as Moe
+
+F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +70,11 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: encoder and "
                                   "cross-attention come with the audio "
                                   "slice")
-    if any(layer_kind(cfg, i)[1] == "moe" for i in range(cfg.n_layers)):
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
-                                  "MoE slice")
-    if cfg.attn_period > 1:
+    if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
-                                  f"every {cfg.attn_period} layers) come "
-                                  "with the hybrid slice")
+                                  f"every {cfg.attn_period}, MoE every "
+                                  f"{cfg.moe_period} layers) come with the "
+                                  "hybrid slice")
 
 
 def layer_at(stack: dict, i: int) -> dict:
@@ -86,8 +90,9 @@ def layer_at(stack: dict, i: int) -> dict:
 
 
 def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16) -> dict:
-    """``n`` stacked layers of the stack's one kind (attention + swiglu or
-    gelu MLP, or a Mamba block alone), matmul weights in ``dtype``."""
+    """``n`` stacked layers of the stack's one kind (attention + swiglu,
+    gelu MLP or MoE, or a Mamba block alone), matmul weights in
+    ``dtype`` (a MoE router stays float32)."""
     check_supported(cfg)
     mixer, ffn, _ = layer_kind(cfg, 0)
     p: dict[str, Any] = {"ln1": Ly.rms_norm_init(gen, n, cfg.d_model)}
@@ -97,7 +102,9 @@ def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16) -> dict:
         p["mamba"] = Mb.mamba_init(gen, cfg, n, dtype)
     if ffn != "none":
         p["ln2"] = Ly.rms_norm_init(gen, n, cfg.d_model)
-        if ffn == "gelu":
+        if ffn == "moe":
+            p["ffn_moe"] = Moe.moe_init(gen, cfg, n, dtype)
+        elif ffn == "gelu":
             p["ffn_gelu"] = Ly.gelu_mlp_init(gen, n, cfg.d_model, cfg.d_ff,
                                              cfg.n_layers, dtype)
         else:
@@ -107,13 +114,19 @@ def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16) -> dict:
 
 
 def _apply_ffn(p, cfg, x):
-    if "ffn_gelu" in p:
+    """(x after the layer's ffn, its MoE auxiliary loss or None)."""
+    aux = None
+    if "ffn_moe" in p:
+        y, aux = Moe.moe_apply(p["ffn_moe"], cfg,
+                               Ly.rms_norm(p["ln2"], x, cfg.norm_eps))
+        x = x + y
+    elif "ffn_gelu" in p:
         x = x + Ly.gelu_mlp(p["ffn_gelu"],
                             Ly.rms_norm(p["ln2"], x, cfg.norm_eps))
     elif "ffn_mlp" in p:
         x = x + Ly.swiglu(p["ffn_mlp"],
                           Ly.rms_norm(p["ln2"], x, cfg.norm_eps))
-    return x
+    return x, aux
 
 
 def _cache_pad(k, decode_len: int):
@@ -125,8 +138,8 @@ def _cache_pad(k, decode_len: int):
 
 def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, want_cache: bool = False):
-    """Full-sequence layer (train / prefill).  Returns (x, cache) — cache
-    is {} unless want_cache."""
+    """Full-sequence layer (train / prefill).  Returns (x, aux, cache) —
+    aux is None without an MoE FFN, cache is {} unless want_cache."""
     cache = {}
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
     if "attn" in p:
@@ -143,18 +156,20 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
                                   return_state=want_cache)
         if want_cache:
             cache.update(state)
-    return _apply_ffn(p, cfg, x + y), cache
+    x, aux = _apply_ffn(p, cfg, x + y)
+    return x, aux, cache
 
 
 def layer_decode(p, cfg, x, cache, cache_len):
     """One-token decode through one layer; ``cache`` is updated in place.
-    Returns (x, cache)."""
+    Returns (x, cache); a MoE layer's auxiliary loss is dropped."""
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
     if "attn" in p:
         y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len)
     else:
         y, cache = Mb.mamba_step(p["mamba"], cfg, h, cache)
-    return _apply_ffn(p, cfg, x + y), cache
+    x, _aux = _apply_ffn(p, cfg, x + y)
+    return x, cache
 
 
 # --------------------------------------------------------------------------
@@ -211,8 +226,9 @@ def _wrap_remat(fn, remat: str, grads: bool):
 
 def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, want_cache: bool = False):
-    """Run the stack.  Returns (x, stacked caches | None): each layer's
-    cache leaves stacked over the layers (see the module docstring)."""
+    """Run the stack.  Returns (x, the MoE auxiliary loss summed over the
+    layers, stacked caches | None): each layer's cache leaves stacked over
+    the layers (see the module docstring)."""
     def body(p, x):
         return layer_apply(p, cfg, x, positions, opts, causal=causal,
                            want_cache=want_cache)
@@ -220,13 +236,17 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
     grads = torch.is_grad_enabled() and (x.requires_grad
                                          or _requires_grad(stack_params))
     body = _wrap_remat(body, opts.remat, grads)
+    aux = torch.zeros((), dtype=F32, device=x.device)
     caches = []
     for p in unstack(stack_params):
-        x, cache = body(p, x)
+        x, a, cache = body(p, x)
+        if a is not None:
+            aux = aux + a
         caches.append(cache)
     if not want_cache:
-        return x, None
-    return x, {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        return x, aux, None
+    return x, aux, {k: torch.stack([c[k] for c in caches])
+                    for k in caches[0]}
 
 
 def stack_decode(stack_params, cfg, x, caches, cache_len):

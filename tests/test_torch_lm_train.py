@@ -1,14 +1,19 @@
 """LM training in the port against the JAX package, on reduced
-``lm100m``, ``granite-3-2b`` (GQA) and ``falcon-mamba-7b`` at B 2, S 32:
-the reference's ``init_params(PRNGKey(0))`` weights carried across as
-float32 masters (``params_from_jax(..., master=True)``).
+``lm100m``, ``granite-3-2b`` (GQA), ``falcon-mamba-7b`` and
+``granite-moe-3b-a800m`` (MoE, 8 experts top-2) at B 2, S 32, and
+lm100m and granite-moe at 2 microbatches: the reference's
+``init_params(PRNGKey(0))`` weights carried across as float32 masters
+(``params_from_jax(..., master=True)``).  At 2 microbatches the
+reference's ``loss`` metric is the mean total, loss plus 0.01 moe_aux
+(``as_reference_reports``); the port's is the cross entropy, as
+without microbatches.
 
 Tolerances: ``lm_batch_at`` equal; ``ce_loss`` (chunks 1 and 4) and one
-``make_train_step``'s loss within ``LOSS_RTOL`` relative, its
-``grad_norm`` within ``GNORM_RTOL``, and every updated parameter within
-``2·lr + 1e-6`` absolute of the reference's (a first AdamW step moves a
-leaf by about ``lr·sign(g)``: a sign flip on a near-zero gradient costs
-``2·lr``, and nothing larger is excused).  Beside that bound, which an
+``make_train_step``'s loss and MoE auxiliary loss within ``LOSS_RTOL``
+relative, its ``grad_norm`` within ``GNORM_RTOL``, and every updated
+parameter within ``2·lr + 1e-6`` absolute of the reference's (a first
+AdamW step moves a leaf by about ``lr·sign(g)``: a sign flip on a
+near-zero gradient costs ``2·lr``, and nothing larger is excused).  Beside that bound, which an
 unchanged or reversed update would also meet: each leaf's AdamW moments
 within ``M_RTOL`` (``m``, 0.1·g: the leaf's gradient) and ``V_RTOL``
 (``v``, 0.05·g²) of the leaf's largest reference moment; the elements
@@ -52,8 +57,9 @@ M_RTOL, V_RTOL = 1e-2, 2e-2
 SURE_FRAC, STEP_TOL, LOOSE_SHARE = 0.05, 1e-3, 0.02
 IN_ORDER_STEPS = 8
 B, S = 2, 32
-ARCHS = ("lm100m", "granite-3-2b", "falcon-mamba-7b")
+ARCHS = ("lm100m", "granite-3-2b", "falcon-mamba-7b", "granite-moe-3b-a800m")
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+AUX_COEFF = 0.01                 # make_loss_fn's default, in both packages
 
 
 @pytest.fixture(autouse=True)
@@ -85,7 +91,8 @@ def with_micro(cfg, n):
     return dataclasses.replace(cfg, train=TrainSettings(microbatches=n))
 
 
-@pytest.fixture(scope="module", params=ARCHS + ("lm100m/micro2",))
+@pytest.fixture(scope="module",
+                params=ARCHS + ("lm100m/micro2", "granite-moe-3b-a800m/micro2"))
 def case(request):
     """One config: the reference's weights and one reference train step
     on lm_batch_at(0) (compiled once), and the port's masters."""
@@ -112,6 +119,18 @@ def case(request):
 
 def rel(got, want):
     return abs(got - want) / abs(want)
+
+
+def as_reference_reports(cfg, met):
+    """The port's metrics as the reference reports them: with
+    microbatches its ``loss`` is the mean of each microbatch's total,
+    ``loss + AUX_COEFF * moe_aux`` (it accumulates the value of
+    ``value_and_grad``), without them the cross entropy alone; the port
+    reports the cross entropy in both."""
+    met = {k: float(v) for k, v in met.items()}
+    if cfg.train.microbatches > 1:
+        met["loss"] += AUX_COEFF * met["moe_aux"]
+    return met
 
 
 @pytest.mark.parametrize("step", [0, 1, 99])
@@ -162,10 +181,15 @@ def test_train_step_matches_reference(case):
     new, opt, met = TM.make_train_step(cfg, opt_cfg)(params, opt,
                                                      tbatch(cfg))
     jmet = case["jmet"]
-    assert rel(float(met["loss"]), jmet["loss"]) <= LOSS_RTOL, \
-        (float(met["loss"]), jmet["loss"])
+    reported = as_reference_reports(cfg, met)
+    assert rel(reported["loss"], jmet["loss"]) <= LOSS_RTOL, \
+        (reported["loss"], jmet["loss"])
     assert rel(float(met["grad_norm"]), jmet["grad_norm"]) <= GNORM_RTOL, \
         (float(met["grad_norm"]), jmet["grad_norm"])
+    # the MoE auxiliary loss (0 in both without MoE layers)
+    assert abs(float(met["moe_aux"]) - jmet["moe_aux"]) \
+        <= LOSS_RTOL * abs(jmet["moe_aux"]), \
+        (float(met["moe_aux"]), jmet["moe_aux"])
     lr = float(met["lr"])
     assert lr == pytest.approx(jmet["lr"], rel=1e-6)
     assert opt["step"].dtype == torch.int32 and int(opt["step"]) == \
@@ -206,9 +230,11 @@ def test_train_steps_in_order_follow_reference(case):
     for s in range(IN_ORDER_STEPS):
         params, opt, met = step(params, opt, tbatch(cfg, s))
         jparams, jopt, jmet = case["jstep_fn"](jparams, jopt, jbatch(cfg, s))
-        for k, tol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL)):
-            assert rel(float(met[k]), float(jmet[k])) <= tol, \
-                (s, k, float(met[k]), float(jmet[k]))
+        met = as_reference_reports(cfg, met)
+        for k, tol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL),
+                       ("moe_aux", LOSS_RTOL)):
+            assert abs(met[k] - float(jmet[k])) \
+                <= tol * abs(float(jmet[k])), (s, k, met[k], float(jmet[k]))
 
 
 # --------------------------------------------------------------------------
@@ -282,7 +308,8 @@ def test_scan_chunked_takes_any_length():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["lm100m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["lm100m", "falcon-mamba-7b",
+                                  "granite-moe-3b-a800m"])
 def test_remat_modes_give_equal_gradients(arch):
     cfg = get_reduced(arch)
     params = TM.init_params(torch.Generator().manual_seed(0), cfg,

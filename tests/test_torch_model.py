@@ -2,8 +2,9 @@
 ``init_params(PRNGKey(0))`` weights carried across by ``params_from_jax``
 on reduced ``granite-3-2b``, ``lm100m`` and ``falcon-mamba-7b``, then
 ``make_prefill``, ``make_slot_prefill`` and ``make_serve_step`` (scalar
-and per-slot ``cache_len``) on the same numpy tokens, and the configs'
-analytic sizes.
+and per-slot ``cache_len``) on the same numpy tokens, on reduced
+``granite-moe-3b-a800m`` (MoE layers: 8 experts, top-2) too, and the
+configs' analytic sizes.
 
 Tolerance: logits within ``LOGIT_TOL = 2e-2`` absolute and KV caches
 within 2e-2 (rtol and atol); a Mamba stack's conv and ssm states within
@@ -38,7 +39,7 @@ from repro_torch.models import transformer as TT
 
 LOGIT_TOL = 2e-2
 DENSE = ("granite-3-2b", "lm100m")
-ARCHS = DENSE + ("falcon-mamba-7b",)
+ARCHS = DENSE + ("falcon-mamba-7b", "granite-moe-3b-a800m")
 P, G = 16, 6                      # prompt length and tokens generated
 
 
@@ -115,9 +116,10 @@ def test_params_from_jax(pair):
         for n in names:
             node = node[n]
         assert tuple(node.shape) == leaf.shape, names
-        # bf16 as the reference casts them at use; dt_proj.w stays float32
-        if names[-1] == "embed" or (names[-1] == "w"
-                                    and names[-2] != "dt_proj"):
+        # bf16 as the reference casts them at use; dt_proj.w and the MoE
+        # router stay float32
+        if names[-1] in ("embed", "e_gate", "e_up", "e_down") \
+                or (names[-1] == "w" and names[-2] != "dt_proj"):
             assert node.dtype == torch.bfloat16, names
             want = np.asarray(leaf.astype(jnp.bfloat16).astype(jnp.float32))
         else:
@@ -248,8 +250,18 @@ def test_config_sizes_match_reference(arch):
         assert t.padded_vocab() == j.padded_vocab()
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_configs_supported(arch):
+    for get in (TC.get_config, TC.get_reduced):
+        TT.check_supported(get(arch))
+    cfg = TC.get_reduced(arch)
+    struct = TM.cache_struct(cfg, 2, 8)
+    assert set(struct) == {"k", "v"}
+
+
 @pytest.mark.parametrize("arch,what", [
-    ("qwen3-moe-235b-a22b", "MoE"), ("jamba-1.5-large-398b", "MoE"),
+    ("jamba-1.5-large-398b", "period"),
     ("internvl2-2b", "frontend"),
     ("seamless-m4t-large-v2", "frontend|encoder")])
 def test_later_slices_raise(arch, what):

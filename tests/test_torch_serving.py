@@ -25,9 +25,11 @@
   engine itself.  Logits within ``LOGIT_TOL``; tokens compared up to the
   first position whose top-2 margin is at most twice the largest logit
   difference measured (the rule of ``tests/test_torch_model.py``).
+* Reduced ``granite-moe-3b-a800m`` (MoE layers) through both engines on
+  the same requests, held as the dense run is.
 * ``append_rows`` and ``ChunkedTable`` against the reference, and the
-  ``repro_torch.launch.serve`` CLI on the CPU (``lm100m`` and
-  ``falcon-mamba-7b``).
+  ``repro_torch.launch.serve`` CLI on the CPU (``lm100m``,
+  ``granite-moe-3b-a800m`` and ``falcon-mamba-7b``).
 """
 import collections
 import dataclasses
@@ -61,6 +63,7 @@ from repro_torch.serving import (AdmissionQueue, FeatureStore, Request,
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 LOGIT_TOL = 2e-2       # as tests/test_torch_model.py, for the same reason
+MOE = "granite-moe-3b-a800m"
 @pytest.fixture(scope="module", autouse=True)
 def _clear_jax_caches():
     """The JAX engines built here fill ``jax.jit`` caches that outlive the
@@ -208,32 +211,46 @@ def serve_all(engine, reqs):
     return rejected, done + engine.run_until_drained()
 
 
-@pytest.fixture(scope="module")
-def weights():
-    cfg = jax_reduced("lm100m")
+def reference_weights(arch):
+    """(reference cfg, its ``init_params(PRNGKey(0))``, port cfg, the
+    port's copy) of a reduced config."""
+    cfg = jax_reduced(arch)
     jp = JM.init_params(jax.random.PRNGKey(0), cfg)
-    tcfg = get_reduced("lm100m")
+    tcfg = get_reduced(arch)
     return cfg, jp, tcfg, M.params_from_jax(
         jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
 
 
 @pytest.fixture(scope="module")
-def request_data():
+def weights():
+    return reference_weights("lm100m")
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    return reference_weights(MOE)
+
+
+def make_request_data(vocab):
     rng = np.random.default_rng(1)
     n_keys = 32
     feats = {"drug_id": np.arange(n_keys, dtype=np.int32),
              "d0": rng.normal(size=n_keys).astype(np.float32)}
-    reqs = [(i, rng.integers(0, 1024, p_len).astype(np.int32), g,
+    reqs = [(i, rng.integers(0, vocab, p_len).astype(np.int32), g,
              999 if i == 3 else i) for i, (p_len, g) in enumerate(SHAPES)]
     return feats, reqs
+
+
+@pytest.fixture(scope="module")
+def request_data():
+    return make_request_data(1024)
 
 
 ENGINE_KW = dict(slots=2, prompt_capacity=12, gen_capacity=6,
                  queue_capacity=4)
 
 
-@pytest.fixture(scope="module")
-def served(weights, request_data):
+def serve_port(weights, request_data):
     """The port's engine over the requests, with a feature store."""
     _, _, cfg, params = weights
     feats, spec = request_data
@@ -248,8 +265,7 @@ def served(weights, request_data):
     return eng, store, feats, reqs, rejected, done, margins
 
 
-@pytest.fixture(scope="module")
-def jax_served(weights, request_data):
+def serve_jax(weights, request_data):
     """The JAX package's engine over the same requests and weights."""
     cfg, params, _, _ = weights
     feats, spec = request_data
@@ -262,6 +278,16 @@ def jax_served(weights, request_data):
             for i, p, g, d in spec]
     rejected, done = serve_all(eng, reqs)
     return eng, rejected, done
+
+
+@pytest.fixture(scope="module")
+def served(weights, request_data):
+    return serve_port(weights, request_data)
+
+
+@pytest.fixture(scope="module")
+def jax_served(weights, request_data):
+    return serve_jax(weights, request_data)
 
 
 def test_engine_every_admitted_request_completes(served):
@@ -301,7 +327,9 @@ def test_engine_validates_request_bounds(served):
                            gen_len=7, drug_id=0))
 
 
-def test_engine_tokens_match_the_jax_engine(served, jax_served):
+def tokens_match(served, jax_served):
+    """The same statuses, features and counts as the JAX engine, and the
+    same greedy tokens up to the first margin below 2 * LOGIT_TOL."""
     _, _, _, _, rejected, done, margins = served
     jeng, jrejected, jdone = jax_served
     assert [r.req_id for r in rejected] == [r.req_id for r in jrejected]
@@ -316,6 +344,21 @@ def test_engine_tokens_match_the_jax_engine(served, jax_served):
         compared += greedy_agree(r.out_tokens, w.out_tokens,
                                  margins[r.req_id], 2 * LOGIT_TOL)
     assert compared >= 1
+
+
+def test_engine_tokens_match_the_jax_engine(served, jax_served):
+    tokens_match(served, jax_served)
+
+
+def test_moe_engine_tokens_match_the_jax_engine(moe_weights):
+    """Reduced granite-moe (MoE layers, 8 experts top-2) through both
+    engines on the same requests, as the dense engine above."""
+    data = make_request_data(moe_weights[2].vocab)
+    served = serve_port(moe_weights, data)
+    tokens_match(served, serve_jax(moe_weights, data))
+    eng, store, feats, reqs, rejected, done, _ = served
+    assert sorted(r.req_id for r in done) == list(range(len(reqs)))
+    assert store.dropped == 0
 
 
 def eng_counts(eng):
@@ -585,6 +628,18 @@ def test_serve_cli_on_the_cpu():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "serve OK" in proc.stdout
     assert "counter          completed = 8" in proc.stdout
+
+
+def test_serve_cli_serves_granite_moe_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         MOE, "--reduced", "--device", "cpu", "--requests", "6",
+         "--prompt-len", "16", "--gen", "4"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "serve OK" in proc.stdout
+    assert "counter          completed = 6" in proc.stdout
 
 
 def test_serve_cli_serves_falcon_mamba_on_the_cpu():
