@@ -131,6 +131,35 @@ Phases, each fatal on failure:
    step of ``MOE_CHECK_LAYERS`` layers on 1 x 128 tokens held to the port
    on the CPU (loss and ``moe_aux`` within 2e-3); step ms, tokens/s,
    peak memory and a profile.  No kernel runs here;
+11e. the enc-dec and vision stacks (``serving_seamless``,
+   ``serving_internvl``): SeamlessM4T-Large-v2 (24 encoder and 24
+   decoder layers, d_model 1024, 16 heads, gelu MLP 8192, vocab 256206
+   padded to 256256, untied; 1.63 B parameters) and InternVL2-2B (24
+   layers, d_model 2048, 16 q / 8 KV heads of 128, vocab 92553; 1.89 B)
+   at their published widths and depth, random weights from
+   ``torch.Generator`` seed 0, served through ``make_prefill`` +
+   ``make_serve_step`` (the reference's entry points for these
+   families; its engine serves decoder-only configs): 4 one-shot
+   batches of 8 requests of 1024 tokens with 256 float frames (Seamless)
+   or 256 float patch embeddings in front (InternVL; its decode starts
+   at position 1280), from ``default_rng(0)``, 32 greedy tokens each.
+   Checked: ``flash_attention`` exactly 72 (encoder, decoder self,
+   cross) or 24 launches a prefill, finite logits, the first batch on
+   the plain ``xla`` path (prefill logits within ``SERVE_LOGIT_TOL``,
+   greedy tokens equal up to the first difference at a margin below
+   it), one request's decode-step logits against the full forward at
+   the same positions (teacher forcing) within ``SERVE_LOGIT_TOL``;
+   tokens/s, prefill and decode-step ms, peak memory, a profile (the
+   Seamless prefill by encoder, cross-attention and flash); then
+   ``flash_attention`` against ``attention_ref`` on the q, k, v the
+   first prefills gave it: (i) the encoder's self-attention, (j) the
+   decoder's cross-attention (Sq 1024 > Skv 256, not causal), (k)
+   InternVL's causal GQA at D 128 over 1280 positions;
+11f. training both (``seamless_train``, ``internvl_train``) at full
+   width and depth from float32 masters (seed 0), AdamW, remat full: 3
+   steps on one 2 x 1024 batch of ``lm_batch_at(0)`` with its frames
+   or patch embeddings, repeated, whose loss must fall; step ms, peak
+   memory, a profile.  No kernel runs here;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time per call and the summed
    profiler device time of the port's kernels that call launches (two or
@@ -183,6 +212,12 @@ MOE_ARCH = "granite-moe-3b-a800m"  # the MoE serving leg's (full width and
                                    # depth) and training leg's
 SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 SERVE_QUEUE, SERVE_REQUESTS = 64, 32
+# the enc-dec and vision legs (full width and depth), served through
+# make_prefill + make_serve_step, as the reference reaches them: the
+# engine serves decoder-only configs alone
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+INTERNVL_ARCH = "internvl2-2b"
+ONESHOT_BATCHES, ONESHOT_ROWS, ONESHOT_PROMPT, ONESHOT_GEN = 4, 8, 1024, 32
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
 BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
@@ -233,6 +268,7 @@ def _modules():
     from repro_torch.kernels.mamba_scan import ref as ms_ref
     from repro_torch.models import mamba
     from repro_torch.models import moe
+    from repro_torch.models import transformer
     from repro_torch.models import unomt_net
     from repro_torch.optim import adamw, compression
     from repro_torch.runtime import ddp
@@ -248,7 +284,7 @@ def _modules():
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
                 hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref, ms_ref=ms_ref,
                 get_config=get_config, M=model, A=attn, Ly=layers, Mb=mamba,
-                Moe=moe,
+                Moe=moe, Tf=transformer,
                 serve=serve, ServingEngine=ServingEngine, Ck=checkpoint,
                 Sy=synthetic, Tr=train, Ue=unomt_e2e)
 
@@ -2189,9 +2225,10 @@ FLASH_TOL = 2e-2
 # kernels at other batch shapes).  Greedy tokens are compared where the
 # reference's top-2 logit margin is at least SERVE_LOGIT_TOL: below it a
 # difference within the tolerance may pick the other token.  Against the
-# ``xla`` run, which decodes freely, up to the first such position (the
-# sequences may go apart there); against the one-shot loop, fed the
-# engine's tokens, at every position.
+# ``xla`` run, which decodes freely, up to the first position where the
+# two sequences differ (they may go apart at a smaller margin, and their
+# contexts differ after it); against the one-shot loop, fed the engine's
+# tokens, at every position.
 SERVE_LOGIT_TOL = 0.3
 
 
@@ -2292,15 +2329,18 @@ class Recorder:
 
 
 def greedy_agree(got, want, margins, tol) -> int:
-    """Tokens compared before the first position whose margin is below
-    ``tol``; raises on a difference before it."""
+    """Tokens compared up to the first position where the two sequences
+    differ (their contexts are the same until there): each one whose
+    margin is at least ``tol`` must be equal; a difference at a smaller
+    margin ends the comparison.  Returns the tokens compared."""
     n = 0
-    for g, w, mg in zip(got, want, margins):
-        if mg < tol:
+    for i, (g, w, mg) in enumerate(zip(got, want, margins)):
+        if mg >= tol:
+            if g != w:
+                raise AssertionError(f"token {i}: {g} != {w} at margin {mg}")
+            n += 1
+        elif g != w:
             break
-        if g != w:
-            raise AssertionError(f"token {n}: {g} != {w} at margin {mg}")
-        n += 1
     return n
 
 
@@ -2371,9 +2411,10 @@ def profile_serving(m, fns, device, labelled, kernel):
     torch.profiler with the functions of ``labelled`` ((module, name)
     pairs, none calling another) in labelled ranges: wall ms, device busy
     ms and share, and device ms under each label.  ``kernel`` is (label,
-    the port kernel's name): that kernel is launched through ctypes, not
-    by an operator of its wrapper's range, so its label's time is read
-    from the kernel itself."""
+    the port kernel's name), or None when no label wraps a port kernel:
+    that kernel is launched through ctypes, not by an operator of its
+    wrapper's range, so its label's time is read from the kernel
+    itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     plain = {name: getattr(mod, name) for mod, name in labelled}
@@ -2415,8 +2456,10 @@ def profile_serving(m, fns, device, labelled, kernel):
                     spans[part] += e.device_time_total / 1e3
                 else:       # the kernels of the range's operators
                     by_label[part] += e.device_time_total / 1e3
-        by_label[kernel[0]] = sum(e.self_device_time_total for e in kernels
-                                  if kernel[1] in e.key) / 1e3
+        if kernel is not None:
+            by_label[kernel[0]] = sum(e.self_device_time_total
+                                      for e in kernels
+                                      if kernel[1] in e.key) / 1e3
         kernels.sort(key=lambda e: -e.self_device_time_total)
         out[key] = {"wall_ms": wall_ms, "device_busy_ms": busy,
                     "device_busy_share": busy / wall_ms,
@@ -2710,11 +2753,11 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
 
 
 def with_sdpa(case):
-    """Where Sq == Skv the case's library call is
-    ``scaled_dot_product_attention`` (top-left causal, so only there),
-    with ``enable_gqa``."""
+    """Where Sq == Skv or without the mask the case's library call is
+    ``scaled_dot_product_attention`` (its causal mask is top-left, so
+    only there), with ``enable_gqa``."""
     q, k, v, causal = case["args"]
-    if q.shape[2] == k.shape[2]:
+    if q.shape[2] == k.shape[2] or not causal:
         case["library"] = lambda q=q, k=k, v=v, c=causal: \
             torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=c, enable_gqa=True)
@@ -2726,7 +2769,8 @@ def recorded_flash_case(label, recorded):
     layer gave the kernel."""
     q, k, v, causal = recorded
     return with_sdpa(dict(shape=f"{label} prefill q {tuple(q.shape)} kv "
-                                f"{tuple(k.shape)} causal",
+                                f"{tuple(k.shape)} "
+                                f"{'causal' if causal else 'full'}",
                           args=(q, k, v, causal)))
 
 
@@ -2735,8 +2779,10 @@ def flash_cases(recorded, device, seed=3):
     leg's first prefill gave it; (b) (1, 32, 1024, 1024, 64) causal; (c)
     right-aligned Sq 256 < Skv 1024; (d) not causal; (e) ragged Sq = Skv
     = 1000; (f) D = 128 with Hq = Hkv; (g) B = 4; case (h), the MoE
-    serving leg's (Hq 24, Hkv 8), is added after that leg
-    (:func:`recorded_flash_case`).  Library calls as :func:`with_sdpa`."""
+    serving leg's (Hq 24, Hkv 8), and (i)-(k), the enc-dec leg's encoder
+    and cross-attention and the vision leg's GQA at D 128, are added
+    after their legs (:func:`recorded_flash_case`).  Library calls as
+    :func:`with_sdpa`."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def qkv(B, Hq, Hkv, Sq, Skv, D):
@@ -2775,6 +2821,299 @@ def _flash_close(case, got, want) -> float:
         raise AssertionError(f"flash_attention {case['shape']}: differs "
                              f"from attention_ref by {float(diff.max())}")
     return float(diff.max())
+
+
+# --------------------------------------------------------------------------
+# the enc-dec and vision stacks: SeamlessM4T-Large-v2 and InternVL2-2B
+# --------------------------------------------------------------------------
+
+
+def frontend_inputs(cfg, rows, seq, rng) -> dict:
+    """The float inputs a config's stub frontend takes, drawn by numpy
+    (as the reference's smoke test draws them): an enc-dec config's
+    frames, ``seq // enc_len_ratio`` a row, and a vision config's
+    ``frontend_tokens`` patch embeddings a row."""
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(size=(rows, seq // cfg.enc_len_ratio,
+                                         cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = rng.normal(
+            size=(rows, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def prefix_len(cfg) -> int:
+    """The positions a vision config puts in front of the tokens."""
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def flash_per_prefill(cfg) -> int:
+    """flash_attention calls of one prefill: the decoder's self-attention,
+    and an enc-dec config's encoder and cross-attention."""
+    return cfg.n_layers + (cfg.encoder_layers + cfg.n_layers
+                           if cfg.is_encdec else 0)
+
+
+def greedy_run(cfg, params, batch, prefill, step, gen):
+    """The one-shot loop: ``prefill`` on ``batch``, then ``gen`` - 1
+    greedy decode steps from position P + S (a vision config's decode
+    counts its patch positions).  Returns the tokens and top-2 margins
+    (rows, gen) and the prefill logits (rows, V) on the host, row 0's
+    logits at every position (gen, V) on the host and the caches."""
+    logits, caches = prefill(params, batch)
+    first = logits.float().cpu()
+    pos0 = prefix_len(cfg) + batch["tokens"].shape[1]
+    toks, margins, row0 = [], [], []
+    for i in range(gen):
+        top = torch.topk(logits, 2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        toks.append(torch.argmax(logits, dim=-1))
+        row0.append(logits[0].float().clone())
+        if i < gen - 1:
+            logits, caches = step(params, caches, toks[-1][:, None].to(
+                torch.int32), pos0 + i)
+    return dict(tokens=torch.stack(toks, 1).cpu().numpy(),
+                margins=torch.stack(margins, 1).float().cpu().numpy(),
+                prefill_logits=first, row0=torch.stack(row0).cpu(),
+                caches=caches)
+
+
+def teacher_forced(M, cfg, params, batch, run, gen) -> float:
+    """Row 0's decode-step logits against the full forward over its
+    prompt and the tokens it generated, at the same positions (a slot
+    prefill of the whole sequence, cut at each position): the largest
+    difference."""
+    seq = torch.cat([batch["tokens"][:1], torch.from_numpy(
+        run["tokens"][:1, :gen - 1].astype(np.int32)).to(
+        batch["tokens"].device)], dim=1)
+    one = {k: v[:1] for k, v in batch.items()}
+    one["tokens"] = seq
+    n = batch["tokens"].shape[1]
+    prefill = M.make_slot_prefill(cfg, decode_len=prefix_len(cfg) + n + gen)
+    worst = 0.0
+    for j in range(gen):
+        logits, _ = prefill(params, one, n + j)
+        worst = max(worst, float((logits[0].float().cpu()
+                                  - run["row0"][j]).abs().max()))
+    return worst
+
+
+def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
+                        rows=ONESHOT_ROWS, prompt=ONESHOT_PROMPT,
+                        gen=ONESHOT_GEN, attn_impl=None, picks=(0,)):
+    """Serve ``batches`` one-shot batches of ``rows`` requests (``prompt``
+    tokens each, with the config's frames or patch embeddings from
+    ``default_rng(0)``) through ``make_prefill`` + ``make_serve_step``,
+    ``gen`` greedy tokens each, counted (flash_attention exactly
+    :func:`flash_per_prefill` a prefill) and timed; then the first batch
+    on the plain ``xla`` attention path (prefill logits within
+    SERVE_LOGIT_TOL, greedy tokens as :func:`greedy_agree` compares
+    them), row 0 of the first batch teacher-forced (its decode-step
+    logits against the full forward, within SERVE_LOGIT_TOL), prefill
+    and decode-step ms by CUDA events, and a profile of the prefill (an
+    enc-dec config's by block) and of 4 decode steps.  ``attn_impl`` is
+    the first path (``None``: what the device implies).  Returns (legs, the
+    q, k, v and causal flag of the first prefill's flash calls whose
+    index is in ``picks``)."""
+    M, ops = m["M"], m["ops"]
+    wall = time.perf_counter()
+    params = M.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg)
+    _sync(device)
+    spent = {"init_s": time.perf_counter() - wall}
+    rng = np.random.default_rng(0)
+    data = [{k: torch.from_numpy(v).to(device) for k, v in dict(
+        tokens=rng.integers(0, cfg.vocab, (rows, prompt)).astype(np.int32),
+        **frontend_inputs(cfg, rows, prompt, rng)).items()}
+        for _ in range(batches)]
+    P = prefix_len(cfg)
+    decode_len = P + prompt + gen
+    prefill = M.make_prefill(cfg, decode_len=decode_len, attn_impl=attn_impl)
+    step = M.make_serve_step(cfg)
+    _sync(device)
+    resident = _allocated(device)
+    _reset_peak(device)
+    recorded = []
+
+    def drive():
+        out = []
+        t0 = time.perf_counter()
+        for i, b in enumerate(data):
+            with recording(ops["flash_attention"], "flash_attention",
+                           recorded, picks=set(picks)) if i == 0 \
+                    else contextlib.nullcontext():
+                out.append(greedy_run(cfg, params, b, prefill, step, gen))
+            if i < len(data) - 1:       # the last batch's are timed below
+                del out[-1]["caches"]
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    (runs, seconds), launches = counted_run(m, drive, device)
+    spent["drive_s"] = seconds
+    peak = _peak(device) - resident
+    expect_launches(leg, launches, {
+        "flash_attention": flash_per_prefill(cfg) * batches})
+    for r in runs:
+        if r["tokens"].shape != (rows, gen) or not bool(
+                torch.isfinite(r["prefill_logits"]).all()):
+            raise AssertionError(f"{leg}: tokens {r['tokens'].shape}, "
+                                 "or logits not finite")
+
+    # the first batch on the plain attention path
+    t0 = time.perf_counter()
+    xrun, xlaunches = counted_run(m, lambda: greedy_run(
+        cfg, params, data[0], M.make_prefill(
+            cfg, decode_len=decode_len, attn_impl="xla"), step, gen),
+        device)
+    expect_launches(f"{leg}_xla", xlaunches, {})
+    diff = (runs[0]["prefill_logits"] - xrun["prefill_logits"]).abs() \
+        .amax(dim=-1)
+    worst = float(diff.max())
+    if worst > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: flash and xla prefill logits differ "
+                             f"by {worst} > {SERVE_LOGIT_TOL}")
+    compared = sum(greedy_agree(runs[0]["tokens"][i], xrun["tokens"][i],
+                                xrun["margins"][i], SERVE_LOGIT_TOL)
+                   for i in range(rows))
+    if compared == 0:
+        raise AssertionError(f"{leg}: no token compared with the xla run")
+    del xrun
+    spent["xla_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forced = teacher_forced(M, cfg, params, data[0], runs[0], gen)
+    spent["teacher_forcing_s"] = time.perf_counter() - t0
+    if forced > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: decode and the full forward differ "
+                             f"by {forced} > {SERVE_LOGIT_TOL}")
+
+    caches = runs[-1].pop("caches")
+    toks = torch.zeros((rows, 1), dtype=torch.int32, device=device)
+    last = decode_len - 1
+    t0 = time.perf_counter()
+    prefill_ms = event_ms(lambda: prefill(params, data[0]), reps=3)
+    step_ms = event_ms(lambda: step(params, caches, toks, last), reps=10)
+
+    def decode4():
+        for _ in range(4):
+            step(params, caches, toks, last)
+
+    spent["event_timing_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # an enc-dec prefill by block (the flash kernel's time is read from
+    # its own name: the encoder and cross-attention labels hold their
+    # other kernels), the rest by operation
+    flash = ("flash_attention", "flash_attention_kernel")
+    blocks = [(M, "_encode"), (m["Tf"], "_cross_block")] if cfg.is_encdec \
+        else [(m["Ly"], "dense")]
+    prof = profile_serving(m, {"prefill": lambda: prefill(params, data[0])},
+                           device, blocks + [(m["Ly"], "logits_out"),
+                                             (ops["flash_attention"],
+                                              "flash_attention")], flash)
+    # 4 decode steps: the profiler's host-side parsing of a step's ~1500
+    # launches takes seconds
+    prof.update(profile_serving(
+        m, {"decode_4_steps": decode4}, device,
+        [(m["Ly"], "dense"), (m["A"], "decode_attention"),
+         (m["Ly"], "logits_out")], None))
+    spent["profile_s"] = time.perf_counter() - t0
+    tokens = batches * rows * gen
+    emit({"phase": leg, "arch": cfg.name, "layers": cfg.n_layers,
+          "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+          "batches": batches, "rows": rows, "prompt": prompt,
+          "prefix": P, "frames": prompt // cfg.enc_len_ratio
+          if cfg.is_encdec else 0, "gen": gen, "decode_len": decode_len,
+          "seconds": seconds, "tokens": tokens,
+          "tokens_per_s": tokens / seconds, "prefill_ms": prefill_ms,
+          "decode_step_ms": step_ms, "launches": launches,
+          "xla_launches": xlaunches,
+          "flash_per_prefill": flash_per_prefill(cfg),
+          "peak_bytes_above_resident": peak, "resident_bytes": resident,
+          "weight_bytes": sum(t.numel() * t.element_size()
+                              for t in _leaves(params)),
+          "cache_bytes": sum(t.numel() * t.element_size()
+                             for t in caches.values()),
+          "logit_tol": SERVE_LOGIT_TOL, "prefill_logit_diff_max": worst,
+          "prefill_logit_diff_median": float(diff.median()),
+          "tokens_compared_with_xla": compared,
+          "teacher_forcing_logit_diff": forced,
+          "profile": prof, "spent": spent,
+          "wall_s": time.perf_counter() - wall})
+    legs = {leg: dict(launches=launches, rows=batches * rows),
+            f"{leg}_xla": dict(launches=xlaunches, rows=rows)}
+    del params, data, runs, caches, prefill, step
+    _free(device)
+    return legs, recorded
+
+
+# both trained from float32 masters, 3 steps of AdamW on one batch of 2 x
+# 1024 tokens with its frames or patch embeddings, repeated
+FRONTEND_TRAIN_STEPS, FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ = 3, 2, 1024
+
+
+def run_frontend_train(m, device, name, arch, leg):
+    """``arch`` at full width and depth from float32 masters (seed 0),
+    remat as its config says: FRONTEND_TRAIN_STEPS steps on one batch of
+    FRONTEND_TRAIN_BATCH x FRONTEND_TRAIN_SEQ tokens of ``lm_batch_at(0)``
+    with the config's frames or patch embeddings (``default_rng(0)``),
+    repeated; the loss must fall.  Step ms by CUDA events, tokens/s, peak
+    memory above the resident masters and moments, one profiled step.
+    Attention runs the plain path (the kernel is forward only)."""
+    wall = time.perf_counter()
+    M, A = m["M"], m["Aw"]
+    cfg = m["get_config"](arch)
+    # the other LM phases' schedule (100 warm-up steps): at warmup_steps=1
+    # SeamlessM4T's loss rose on the third step on an H100 80GB HBM3 at
+    # 700 W (12.695, 12.303, 13.307)
+    opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=FRONTEND_TRAIN_STEPS)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    step = M.make_train_step(cfg, opt_cfg)
+    opt = A.init(A.flatten_params(params), opt_cfg)
+    batch = lm_batch(m, cfg, 0, FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ,
+                     device)
+    batch.update({k: torch.from_numpy(v).to(device) for k, v in
+                  frontend_inputs(cfg, FRONTEND_TRAIN_BATCH,
+                                  FRONTEND_TRAIN_SEQ,
+                                  np.random.default_rng(0)).items()})
+    batches = [batch] * FRONTEND_TRAIN_STEPS
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    # handed over, so that the first step's masters and moments are freed
+    # with the second's, as in a training loop
+    state = [params, opt]
+    del params, opt
+    (params, opt, losses, ms), launches = counted_run(
+        m, lambda: timed_steps(step, state.pop(0), state.pop(0), batches),
+        device)
+    expect_launches(leg, launches, {})
+    peak = _peak(device) - resident
+    prof = profile_step(lambda: step(params, opt, batch))
+    step_ms = float(np.median(ms[1:]))
+    emit({"phase": leg, "card": name, "wall_s": time.perf_counter() - wall,
+          "arch": cfg.name, "layers": cfg.n_layers,
+          "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+          "params": sum(p.numel()
+                        for p in A.flatten_params(params).values()),
+          "batch": FRONTEND_TRAIN_BATCH, "seq": FRONTEND_TRAIN_SEQ,
+          "prefix": prefix_len(cfg), "remat": cfg.train.remat,
+          "loss_seq_chunks": cfg.train.loss_seq_chunks,
+          "steps": FRONTEND_TRAIN_STEPS, "step_ms": ms,
+          "step_ms_median_after_first": step_ms,
+          "tokens_per_s": FRONTEND_TRAIN_BATCH * FRONTEND_TRAIN_SEQ
+          / step_ms * 1e3,
+          "peak_bytes_above_resident": peak, "resident_bytes": resident,
+          "losses": losses, "profile": prof,
+          "gemm_share": prof["gemm_ms"]
+          / max(prof["gemm_ms"] + prof["other_ms"], 1e-9)})
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{leg}: loss {losses[0]} -> {losses[-1]} "
+                             "did not fall")
+    del params, opt, batches, batch
+    _free(device)
+    return {leg: dict(launches=launches,
+                      rows=FRONTEND_TRAIN_STEPS * FRONTEND_TRAIN_BATCH)}
 
 
 # --------------------------------------------------------------------------
@@ -3337,6 +3676,29 @@ def run_all(tmpdir: Path) -> int:
         m, {"flash_attention": [case_h]}, device)["flash_attention"])
     cases["flash_attention"].append(case_h)
     legs.update(run_moe_train(m, device, name))
+    # the enc-dec and vision stacks: the encoder's self-attention and the
+    # decoder's cross-attention are the first prefill's flash calls 0 and
+    # 25 (24 encoder layers, then the decoder's layer 0: self, cross)
+    seamless = m["get_config"](SEAMLESS_ARCH)
+    seamless_legs, seamless_qkv = run_serving_oneshot(
+        m, device, seamless, leg="serving_seamless",
+        picks=(0, seamless.encoder_layers + 1))
+    legs.update(seamless_legs)
+    internvl_legs, internvl_qkv = run_serving_oneshot(
+        m, device, m["get_config"](INTERNVL_ARCH), leg="serving_internvl")
+    legs.update(internvl_legs)
+    new_cases = [recorded_flash_case(label, qkv) for label, qkv in (
+        ("(i) serving_seamless encoder", seamless_qkv[0]),
+        ("(j) serving_seamless cross", seamless_qkv[1]),
+        ("(k) serving_internvl", internvl_qkv[0]))]
+    del seamless_qkv, internvl_qkv
+    errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
+        m, {"flash_attention": new_cases}, device)["flash_attention"])
+    cases["flash_attention"] += new_cases
+    legs.update(run_frontend_train(m, device, name, SEAMLESS_ARCH,
+                                   "seamless_train"))
+    legs.update(run_frontend_train(m, device, name, INTERNVL_ARCH,
+                                   "internvl_train"))
 
     peaks = {}
     for leg, info in legs.items():

@@ -130,19 +130,23 @@ def _split_heads(y, n_heads: int, d_head: int):
     return y.reshape(B, S, n_heads, d_head).transpose(1, 2)
 
 
-def attn_apply(p, cfg, x, positions, *, causal: bool = True,
+def attn_apply(p, cfg, x, positions, *, causal: bool = True, kv_x=None,
                attn_impl: str = "xla", q_chunk: int = 1024,
                k_chunk: int = 1024):
-    """Full-sequence self-attention (prefill).  Returns (y, (k, v)) with
-    k, v in the (B, Hkv, S, D) cache layout."""
+    """Full-sequence attention (train / prefill); ``kv_x`` (B, Skv, d)
+    makes it cross-attention: q from ``x``, k and v from ``kv_x`` and no
+    RoPE on either side (``positions`` unused).  Returns (y, (k, v)) with
+    k, v in the (B, Hkv, Skv, D) cache layout."""
+    kv_src = x if kv_x is None else kv_x
     q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
-    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
-    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
+    k = _split_heads(dense(p["wk"], kv_src), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(dense(p["wv"], kv_src), cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_x is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     o = A.attention(q, k, v, causal=causal, impl=attn_impl,
                     q_chunk=q_chunk, k_chunk=k_chunk)
     B, S = x.shape[:2]
@@ -150,32 +154,38 @@ def attn_apply(p, cfg, x, positions, *, causal: bool = True,
     return dense(p["wo"], y), (k, v)
 
 
-def attn_decode(p, cfg, x, cache, cache_len):
+def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False):
     """One-token decode.  ``cache = {"k", "v"}`` (B, Hkv, S, D); the new
     token's k and v are written at ``cache_len`` IN PLACE (the reference
     returns a new cache and donates the old buffer; here the caller's
     tensors change).  ``cache_len`` is a scalar or a ``(B,)`` tensor of
-    per-slot positions, each ``< S``."""
+    per-slot positions, each ``< S``.  With ``cross`` the cache is the
+    (static) encoder memory: only q is projected, without RoPE, nothing
+    is written and every one of its S positions is attended to."""
     q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-    cl = torch.as_tensor(cache_len, device=x.device).long()
-    pos = cl if cl.dim() == 0 else cl[:, None]           # rope: (B,1)
-    k_new = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
-    v_new = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
-    if cfg.qk_norm:
-        k_new = rms_norm(p["k_norm"], k_new, cfg.norm_eps)
-    q = rope(q, pos, cfg.rope_theta)
-    k_new = rope(k_new, pos, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
-    if cl.dim() == 0:
-        kc[:, :, cl] = k_new[:, :, 0].to(kc.dtype)
-        vc[:, :, cl] = v_new[:, :, 0].to(vc.dtype)
-    else:                            # per-slot write position
-        rows = torch.arange(x.shape[0], device=x.device)
-        kc[rows, :, cl] = k_new[:, :, 0].to(kc.dtype)
-        vc[rows, :, cl] = v_new[:, :, 0].to(vc.dtype)
-    o = A.decode_attention(q, kc, vc, cache_len)
+    if cross:
+        live_len = kc.shape[2] - 1               # the whole encoder memory
+    else:
+        cl = torch.as_tensor(cache_len, device=x.device).long()
+        pos = cl if cl.dim() == 0 else cl[:, None]       # rope: (B,1)
+        k_new = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
+        v_new = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
+        if cfg.qk_norm:
+            k_new = rms_norm(p["k_norm"], k_new, cfg.norm_eps)
+        q = rope(q, pos, cfg.rope_theta)
+        k_new = rope(k_new, pos, cfg.rope_theta)
+        if cl.dim() == 0:
+            kc[:, :, cl] = k_new[:, :, 0].to(kc.dtype)
+            vc[:, :, cl] = v_new[:, :, 0].to(vc.dtype)
+        else:                        # per-slot write position
+            rows = torch.arange(x.shape[0], device=x.device)
+            kc[rows, :, cl] = k_new[:, :, 0].to(kc.dtype)
+            vc[rows, :, cl] = v_new[:, :, 0].to(vc.dtype)
+        live_len = cache_len
+    o = A.decode_attention(q, kc, vc, live_len)
     B = x.shape[0]
     y = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)
     return dense(p["wo"], y), cache

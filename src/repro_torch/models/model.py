@@ -78,6 +78,11 @@ def init_params(gen: torch.Generator, cfg, *, master: bool = False) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": Ly.normal(gen, (cfg.d_model, V),
                                             Ly.INIT_STD, dtype)}
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": Tf.stack_init(gen, cfg, dtype, encoder=True),
+            "norm": {"scale": torch.ones(cfg.d_model, device=gen.device)},
+        }
     return params
 
 
@@ -133,18 +138,38 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
                         device=device)[None].expand(B, S)
 
 
+def _encode(params, cfg, frames, opts: StackOpts):
+    """An enc-dec config's encoder over the stub frame embeddings (B,
+    Senc, d): bf16, positions 0 .. Senc - 1, the stack not causal, then
+    the encoder's own norm."""
+    x = frames.to(Ly.BF16)
+    x, _, _ = Tf.stack_apply(params["encoder"]["layers"], cfg, x,
+                             _positions(x.shape[0], x.shape[1], x.device),
+                             opts, causal=False)
+    return Ly.rms_norm(params["encoder"]["norm"], x, cfg.norm_eps)
+
+
 def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False):
     """Embed -> stack -> final norm.  Returns (x, aux, caches, n_prefix):
-    ``aux`` is the MoE layers' auxiliary loss summed over the stack; no
-    frontend prepends tokens in this slice, so n_prefix is 0."""
+    ``aux`` is the MoE layers' auxiliary loss summed over the stack.  A
+    vision config's ``batch["patch_embeds"]`` (B, P, d) go in front of
+    the tokens (n_prefix = P, positions over P + S); an enc-dec config's
+    decoder attends to the encoder's output over ``batch["frames"]``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = Ly.embed_lookup(params["embed"], tokens)
-    x, aux, caches = Tf.stack_apply(params["layers"], cfg, x,
-                                    _positions(B, S, tokens.device), opts,
-                                    causal=True, want_cache=want_cache)
+    n_prefix = 0
+    if cfg.frontend == "vision":
+        patches = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
+    enc_out = _encode(params, cfg, batch["frames"], opts) \
+        if cfg.is_encdec else None
+    x, aux, caches = Tf.stack_apply(
+        params["layers"], cfg, x, _positions(B, x.shape[1], tokens.device),
+        opts, causal=True, enc_out=enc_out, want_cache=want_cache)
     x = Ly.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return x, aux, caches, 0
+    return x, aux, caches, n_prefix
 
 
 def _logits(params, cfg, x):
@@ -156,7 +181,9 @@ def _logits(params, cfg, x):
 def make_prefill(cfg, *, decode_len: int, attn_impl: str | None = None,
                  mamba_impl: str | None = None):
     """``(params, batch) -> (logits (B,V) at the last position, caches)``
-    with attention caches padded to ``decode_len``."""
+    with attention caches padded to ``decode_len`` (a vision config's
+    count its P patch positions: the first decode step is at P + S);
+    cross-attention caches stay at the encoder's length."""
     def prefill(params, batch):
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
@@ -173,10 +200,12 @@ def make_serve_step(cfg):
 
     ``cache_len`` is a scalar (the one-shot loop: the whole batch at one
     position) or a ``(B,)`` array of per-slot positions (the engine's
-    continuous batching), every value below the attention cache's length
-    (a Mamba layer's state has no positions and ignores it).  A decode
-    step's attention and Mamba step are plain PyTorch on every device (the
-    reference has no kernel there either), so it takes no ``*_impl``."""
+    continuous batching), every value below the self-attention cache's
+    length (a Mamba layer's state has no positions and ignores it; an
+    enc-dec decoder's cross-attention reads its whole ``ck``/``cv``).  A
+    decode step's attention and Mamba step are plain PyTorch on every
+    device (the reference has no kernel there either), so it takes no
+    ``*_impl``."""
     def serve_step(params, caches, tokens, cache_len):
         cl = cache_len if isinstance(cache_len, torch.Tensor) \
             else torch.as_tensor(np.array(cache_len))
@@ -369,11 +398,13 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
 # --------------------------------------------------------------------------
 
 
-def cache_struct(cfg, batch_size: int, decode_len: int) -> dict:
+def cache_struct(cfg, batch_size: int, decode_len: int,
+                 enc_len: int = 0) -> dict:
     """name -> (shape, dtype) of the stacked cache that ``stack_apply``
     emits: ``{"k", "v"}`` (n_layers, B, Hkv, decode_len, D) bf16 for an
-    attention stack, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B,
-    E, N)}`` float32 for a Mamba stack."""
+    attention stack, and for an enc-dec decoder also ``{"ck", "cv"}``
+    (n_layers, B, Hkv, enc_len, D) bf16; ``{"conv" (n_layers, B, K-1, E),
+    "ssm" (n_layers, B, E, N)}`` float32 for a Mamba stack."""
     Tf.check_supported(cfg)
     L, B = cfg.n_layers, batch_size
     if has_mamba(cfg):
@@ -381,11 +412,16 @@ def cache_struct(cfg, batch_size: int, decode_len: int) -> dict:
                          torch.float32),
                 "ssm": ((L, B, cfg.d_inner, cfg.ssm_state), torch.float32)}
     kv = (L, B, cfg.n_kv_heads, decode_len, cfg.d_head)
-    return {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
+    out = {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
+    if cfg.is_encdec:
+        ckv = (L, B, cfg.n_kv_heads, enc_len, cfg.d_head)
+        out.update(ck=(ckv, CACHE_DTYPE), cv=(ckv, CACHE_DTYPE))
+    return out
 
 
-def init_caches(cfg, batch_size: int, decode_len: int, device) -> dict:
+def init_caches(cfg, batch_size: int, decode_len: int, device,
+                enc_len: int = 0) -> dict:
     """Zero caches of :func:`cache_struct`'s layout on ``device``."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k, (shape, dtype) in
-            cache_struct(cfg, batch_size, decode_len).items()}
+            cache_struct(cfg, batch_size, decode_len, enc_len).items()}

@@ -6,18 +6,23 @@ gelu, MoE or none.  Parameters stay stacked over layers (a leading
 ``n_layers`` axis on every leaf, the reference's ``vmap``-ed init) and so
 do the caches: ``{"k", "v"}`` (n_layers, B, Hkv, S, D) bf16 for attention
 layers, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B, E, N)}``
-float32 for Mamba layers; the reference's ``lax.scan`` over the stack is
-a loop over that axis.  Three traversal modes share the layer
-definitions: ``train`` (no cache; each layer's body under
-``torch.utils.checkpoint`` as ``StackOpts.remat`` says, the reference's
-``jax.checkpoint`` of its scan body), ``prefill`` (emit per-layer cache)
-and ``decode`` (consume and update the cache, one token).  ``train`` and
+float32 for Mamba layers; an enc-dec decoder's layers also keep their
+cross-attention's ``{"ck", "cv"}`` (n_layers, B, Hkv, Senc, D) bf16, the
+encoder memory's k and v, which decode reads and never writes; the
+reference's ``lax.scan`` over the stack is a loop over that axis.  Three
+traversal modes share the layer definitions: ``train`` (no cache; each
+layer's body under ``torch.utils.checkpoint`` as ``StackOpts.remat``
+says, the reference's ``jax.checkpoint`` of its scan body), ``prefill``
+(emit per-layer cache) and ``decode`` (consume and update the cache, one
+token).  ``train`` and
 ``prefill`` also return the sum over the layers of the MoE layers'
 auxiliary load-balancing loss (0 without MoE layers); ``decode`` drops
-it, as the reference does.  The port runs uniform decoder-only stacks
-(dense, MoE or Mamba); period stacks (Jamba's attention every
-``attn_period`` and MoE every ``moe_period`` layers), cross-attention and
-frontends raise ``NotImplementedError``.
+it, as the reference does.  The port runs uniform stacks (dense, MoE or
+Mamba), an enc-dec config's encoder stack (attention and the family's
+MLP, not causal) and its decoder (self-attention, then cross-attention
+on the encoder's output, then the MLP); period stacks (Jamba's attention
+every ``attn_period`` and MoE every ``moe_period`` layers) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,19 +67,17 @@ def layer_kind(cfg, i: int) -> tuple[str, str, bool]:
 
 
 def check_supported(cfg) -> None:
-    """Raise for a config whose layers this slice does not port yet."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} "
-                                  "frontend comes with the VLM/audio slice")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder and "
-                                  "cross-attention come with the audio "
-                                  "slice")
+    """Raise for a config whose layers the port does not run: period
+    stacks.  A stack is a whole number of periods, and one period of the
+    only such config (Jamba-1.5-Large, 8 layers) holds 88.3 GB of bf16
+    weights, more than one card's memory, so these wait for a path over
+    several cards."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
-                                  f"{cfg.moe_period} layers) come with the "
-                                  "hybrid slice")
+                                  f"{cfg.moe_period} layers) wait for a "
+                                  "path over several cards: one period "
+                                  "of the full config does not fit one")
 
 
 def layer_at(stack: dict, i: int) -> dict:
@@ -89,17 +92,26 @@ def layer_at(stack: dict, i: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16) -> dict:
+def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16, *,
+               encoder: bool = False) -> dict:
     """``n`` stacked layers of the stack's one kind (attention + swiglu,
-    gelu MLP or MoE, or a Mamba block alone), matmul weights in
-    ``dtype`` (a MoE router stays float32)."""
+    gelu MLP or MoE, or a Mamba block alone; an enc-dec decoder's with
+    cross-attention after the self-attention; ``encoder``: attention and
+    the family's MLP, no cross-attention), matmul weights in ``dtype`` (a
+    MoE router stays float32)."""
     check_supported(cfg)
-    mixer, ffn, _ = layer_kind(cfg, 0)
+    mixer, ffn, cross = layer_kind(cfg, 0)
+    if encoder:
+        mixer, ffn, cross = "attn", ("gelu" if cfg.family == "audio"
+                                     else "mlp"), False
     p: dict[str, Any] = {"ln1": Ly.rms_norm_init(gen, n, cfg.d_model)}
     if mixer == "attn":
         p["attn"] = Ly.attn_init(gen, cfg, n, dtype)
     else:
         p["mamba"] = Mb.mamba_init(gen, cfg, n, dtype)
+    if cross:
+        p["ln_cross"] = Ly.rms_norm_init(gen, n, cfg.d_model)
+        p["cross"] = Ly.attn_init(gen, cfg, n, dtype)
     if ffn != "none":
         p["ln2"] = Ly.rms_norm_init(gen, n, cfg.d_model)
         if ffn == "moe":
@@ -136,10 +148,22 @@ def _cache_pad(k, decode_len: int):
     return k
 
 
+def _cross_block(p, cfg, x, enc_out, opts: StackOpts):
+    """A decoder layer's cross-attention on the encoder's output (its own
+    norm, no mask, no RoPE) -> (y, (ck, cv)), ck and cv unpadded."""
+    h = Ly.rms_norm(p["ln_cross"], x, cfg.norm_eps)
+    return Ly.attn_apply(p["cross"], cfg, h, None, causal=False,
+                         kv_x=enc_out, attn_impl=opts.attn_impl,
+                         q_chunk=opts.q_chunk, k_chunk=opts.k_chunk)
+
+
 def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
-                causal: bool = True, want_cache: bool = False):
-    """Full-sequence layer (train / prefill).  Returns (x, aux, cache) —
-    aux is None without an MoE FFN, cache is {} unless want_cache."""
+                causal: bool = True, enc_out=None,
+                want_cache: bool = False):
+    """Full-sequence layer (train / prefill / encoder); a layer with
+    cross-attention reads ``enc_out`` (B, Senc, d).  Returns (x, aux,
+    cache) — aux is None without an MoE FFN, cache is {} unless
+    want_cache."""
     cache = {}
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
     if "attn" in p:
@@ -156,19 +180,35 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
                                   return_state=want_cache)
         if want_cache:
             cache.update(state)
-    x, aux = _apply_ffn(p, cfg, x + y)
+    x = x + y
+    if "cross" in p:
+        if enc_out is None:
+            raise ValueError("a layer with cross-attention needs enc_out")
+        y, (ck, cv) = _cross_block(p, cfg, x, enc_out, opts)
+        x = x + y
+        if want_cache:
+            cache["ck"], cache["cv"] = ck, cv
+    x, aux = _apply_ffn(p, cfg, x)
     return x, aux, cache
 
 
 def layer_decode(p, cfg, x, cache, cache_len):
-    """One-token decode through one layer; ``cache`` is updated in place.
+    """One-token decode through one layer; ``cache`` is updated in place
+    (but for its cross-attention's ``ck``/``cv``, which are only read).
     Returns (x, cache); a MoE layer's auxiliary loss is dropped."""
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
     if "attn" in p:
         y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len)
     else:
         y, cache = Mb.mamba_step(p["mamba"], cfg, h, cache)
-    x, _aux = _apply_ffn(p, cfg, x + y)
+    x = x + y
+    if "cross" in p:
+        hc = Ly.rms_norm(p["ln_cross"], x, cfg.norm_eps)
+        y, _ = Ly.attn_decode(p["cross"], cfg, hc,
+                              {"k": cache["ck"], "v": cache["cv"]},
+                              cache_len, cross=True)
+        x = x + y
+    x, _aux = _apply_ffn(p, cfg, x)
     return x, cache
 
 
@@ -177,8 +217,12 @@ def layer_decode(p, cfg, x, cache, cache_len):
 # --------------------------------------------------------------------------
 
 
-def stack_init(gen: torch.Generator, cfg, dtype=Ly.BF16) -> dict:
-    return layer_init(gen, cfg, cfg.n_layers, dtype)
+def stack_init(gen: torch.Generator, cfg, dtype=Ly.BF16, *,
+               encoder: bool = False) -> dict:
+    """The decoder stack (``cfg.n_layers``), or with ``encoder`` an
+    enc-dec config's encoder stack (``cfg.encoder_layers``)."""
+    n = cfg.encoder_layers if encoder else cfg.n_layers
+    return layer_init(gen, cfg, n, dtype, encoder=encoder)
 
 
 def unstack(stack: dict) -> list[dict]:
@@ -225,13 +269,15 @@ def _wrap_remat(fn, remat: str, grads: bool):
 
 
 def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
-                causal: bool = True, want_cache: bool = False):
-    """Run the stack.  Returns (x, the MoE auxiliary loss summed over the
-    layers, stacked caches | None): each layer's cache leaves stacked over
-    the layers (see the module docstring)."""
-    def body(p, x):
+                causal: bool = True, enc_out=None,
+                want_cache: bool = False):
+    """Run the stack (an encoder stack with ``causal=False``; a decoder
+    with cross-attention on ``enc_out``).  Returns (x, the MoE auxiliary
+    loss summed over the layers, stacked caches | None): each layer's
+    cache leaves stacked over the layers (see the module docstring)."""
+    def body(p, x, enc_out):
         return layer_apply(p, cfg, x, positions, opts, causal=causal,
-                           want_cache=want_cache)
+                           enc_out=enc_out, want_cache=want_cache)
 
     grads = torch.is_grad_enabled() and (x.requires_grad
                                          or _requires_grad(stack_params))
@@ -239,7 +285,7 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
     aux = torch.zeros((), dtype=F32, device=x.device)
     caches = []
     for p in unstack(stack_params):
-        x, a, cache = body(p, x)
+        x, a, cache = body(p, x, enc_out)
         if a is not None:
             aux = aux + a
         caches.append(cache)

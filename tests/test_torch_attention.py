@@ -110,12 +110,19 @@ def test_decode_attention_matches_jax(per_slot):
 # (B, Hq, Hkv, Sq, Skv, D): GQA groups 1, 2 and 4, Sq < Skv, D 16 and 64
 FLASH_SHAPES = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 64, 128, 16),
                 (1, 4, 1, 128, 128, 16), (1, 8, 2, 64, 192, 64)]
+# an enc-dec decoder's cross-attention (not causal, Sq > Skv) and a vision
+# backbone's GQA at D 128 (causal)
+CROSS_SHAPE, GQA128_SHAPE = (2, 4, 4, 128, 64, 64), (1, 4, 2, 128, 128, 128)
+BOTH_DTYPES = (("float32", F32_TOL), ("bfloat16", BF16_TOL))
 
 
 @pytest.mark.parametrize("shape,causal,dtype,tol", [
     (shape, True, dtype, tol) for shape in FLASH_SHAPES
-    for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL))]
-    + [(FLASH_SHAPES[3], False, "float32", F32_TOL)])
+    for dtype, tol in BOTH_DTYPES]
+    + [(FLASH_SHAPES[3], False, "float32", F32_TOL)]
+    + [(shape, causal, dtype, tol)
+       for shape, causal in ((CROSS_SHAPE, False), (GQA128_SHAPE, True))
+       for dtype, tol in BOTH_DTYPES])
 def test_flash_plain_matches_pallas_interpret(shape, causal, dtype, tol):
     (jq, jk, jv), (tq, tk, tv) = both(*qkv(*shape, seed=sum(shape)),
                                       dtype=dtype)

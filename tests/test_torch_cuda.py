@@ -592,6 +592,25 @@ def test_flash_attention_equals_plain(cuda, B, Hq, Hkv, Sq, Skv, D, causal,
                                rtol=FLASH_TOL)
 
 
+# the enc-dec and vision shapes: cross-attention, not causal, with Sq > Skv
+# (the test file's small one, a ragged one and SeamlessM4T's 1024 decoder
+# positions against 256 frames), and causal GQA at D 128 (InternVL2's
+# 16 q / 8 KV heads over 1280 positions, and the small one)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (2, 4, 4, 128, 64, 64, False), (1, 4, 2, 300, 70, 64, False),
+    (2, 16, 16, 1024, 256, 64, False), (1, 4, 2, 128, 128, 128, True),
+    (2, 16, 8, 1280, 1280, 128, True)])
+def test_flash_attention_encdec_and_vision_shapes(cuda, B, Hq, Hkv, Sq, Skv,
+                                                  D, causal, rng):
+    q, k, v = bf16_qkv(cuda, rng, B, Hq, Hkv, Sq, Skv, D)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
 def test_flash_attention_counts_launches(cuda, rng):
     q, k, v = bf16_qkv(cuda, rng, 1, 2, 2, 64, 64, 64)
     before = flash_ops.launches

@@ -1,7 +1,11 @@
 """LM training in the port against the JAX package, on reduced
-``lm100m``, ``granite-3-2b`` (GQA), ``falcon-mamba-7b`` and
-``granite-moe-3b-a800m`` (MoE, 8 experts top-2) at B 2, S 32, and
-lm100m and granite-moe at 2 microbatches: the reference's
+``lm100m``, ``granite-3-2b`` (GQA), ``falcon-mamba-7b``,
+``granite-moe-3b-a800m`` (MoE, 8 experts top-2),
+``seamless-m4t-large-v2`` (encoder and cross-attention, 8 frames a row)
+and ``internvl2-2b`` (16 patch embeddings a row in front of the tokens,
+which the loss skips) at B 2, S 32, the frames and patch embeddings
+float32 from a numpy seed, and lm100m and granite-moe at 2 microbatches:
+the reference's
 ``init_params(PRNGKey(0))`` weights carried across as float32 masters
 (``params_from_jax(..., master=True)``).  At 2 microbatches the
 reference's ``loss`` metric is the mean total, loss plus 0.01 moe_aux
@@ -16,10 +20,17 @@ AdamW step moves a leaf by about ``lr·sign(g)``: a sign flip on a
 near-zero gradient costs ``2·lr``, and nothing larger is excused).  Beside that bound, which an
 unchanged or reversed update would also meet: each leaf's AdamW moments
 within ``M_RTOL`` (``m``, 0.1·g: the leaf's gradient) and ``V_RTOL``
-(``v``, 0.05·g²) of the leaf's largest reference moment; the elements
+(``v``, 0.05·g²) of the leaf's largest reference moment (the enc-dec
+stack's within ``ENCDEC_MOMENTS`` times those: its gradients pass
+through three blocks a decoder layer and the encoder, and each package's
+bf16 gradient lies up to 0.74 % (the port) and 0.98 % (the reference) of
+the leaf's largest from the port's float32 gradient, which measured the
+two 1.26 % apart in ``m`` and 2.5 % in ``v`` on ``embed``); the elements
 whose reference gradient is at least ``SURE_FRAC`` of their leaf's
-largest, whose sign bf16 sums cannot flip, within ``STEP_TOL·lr``; and
-no more than ``LOOSE_SHARE`` of all elements beyond ``STEP_TOL·lr``.
+largest, whose sign bf16 sums cannot flip, within ``STEP_TOL·lr`` (in
+the enc-dec stack only those of at least ``ENCDEC_SIGN_G``); and
+no more than ``LOOSE_SHARE`` of all elements beyond ``STEP_TOL·lr`` (of
+those of at least ``ENCDEC_SIGN_G`` in the enc-dec stack).
 Both packages run bf16 products with float32 sums in different orders.
 ``IN_ORDER_STEPS`` steps on the batches in order hold every step's loss
 and grad norm to the same tolerances.  The chunked selective
@@ -54,10 +65,16 @@ from repro_torch.optim import adamw as TA
 
 LOSS_RTOL, GNORM_RTOL, SCAN_RTOL, REMAT_TOL = 2e-3, 2e-2, 1e-5, 1e-6
 M_RTOL, V_RTOL = 1e-2, 2e-2
+ENCDEC_MOMENTS = 2
 SURE_FRAC, STEP_TOL, LOOSE_SHARE = 0.05, 1e-3, 0.02
+# the enc-dec stack's sure elements also have |g| >= ENCDEC_SIGN_G (200
+# AdamW eps): a first AdamW step is lr g / (|g| + eps), lr sign(g) only
+# where |g| >> eps, and its encoder's q and k gradients are about 1e-7
+ENCDEC_SIGN_G = 2e-6
 IN_ORDER_STEPS = 8
 B, S = 2, 32
-ARCHS = ("lm100m", "granite-3-2b", "falcon-mamba-7b", "granite-moe-3b-a800m")
+ARCHS = ("lm100m", "granite-3-2b", "falcon-mamba-7b", "granite-moe-3b-a800m",
+         "seamless-m4t-large-v2", "internvl2-2b")
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 AUX_COEFF = 0.01                 # make_loss_fn's default, in both packages
 
@@ -77,14 +94,31 @@ def np_tree(tree):
     return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
 
 
+def float_inputs(cfg, step=0) -> dict:
+    """An enc-dec config's frames (S / enc_len_ratio a row) and a vision
+    config's patch embeddings, float32 from a numpy seed: the same numbers
+    for both packages."""
+    rng = np.random.default_rng(1000 + step)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(
+            size=(B, S // cfg.enc_len_ratio, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = rng.normal(
+            size=(B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def jbatch(cfg, step=0):
     return {k: jnp.asarray(v) for k, v in
-            j_lm_batch_at(step, vocab=cfg.vocab, batch=B, seq=S).items()}
+            dict(j_lm_batch_at(step, vocab=cfg.vocab, batch=B, seq=S),
+                 **float_inputs(cfg, step)).items()}
 
 
 def tbatch(cfg, step=0):
     return {k: torch.from_numpy(v) for k, v in
-            lm_batch_at(step, vocab=cfg.vocab, batch=B, seq=S).items()}
+            dict(lm_batch_at(step, vocab=cfg.vocab, batch=B, seq=S),
+                 **float_inputs(cfg, step)).items()}
 
 
 def with_micro(cfg, n):
@@ -201,18 +235,22 @@ def test_train_step_matches_reference(case):
     loose = total = 0
     for k, w in want.items():
         assert got[k].dtype == torch.float32, k
-        for moment, ref, tol in (("m", jm, M_RTOL), ("v", jv, V_RTOL)):
+        f = ENCDEC_MOMENTS if cfg.is_encdec else 1
+        for moment, ref, tol in (("m", jm, f * M_RTOL), ("v", jv, f * V_RTOL)):
             merr = float(np.abs(opt[moment][k].numpy() - ref[k]).max())
             assert merr <= tol * float(np.abs(ref[k]).max()), \
                 (k, moment, merr)
         err = np.abs(got[k].numpy() - w)
         assert float(err.max()) <= 2 * lr + 1e-6, (k, float(err.max()))
         gm = np.abs(jm[k])
-        sure = gm >= SURE_FRAC * gm.max()
-        assert float(err[sure].max()) <= STEP_TOL * lr, \
-            (k, float(err[sure].max()) / lr)
-        loose += int((err > STEP_TOL * lr).sum())
-        total += err.size
+        # the elements whose step is lr sign(g) (m = 0.1 g)
+        sign_like = gm >= 0.1 * ENCDEC_SIGN_G if cfg.is_encdec \
+            else np.ones(gm.shape, bool)
+        sure = sign_like & (gm >= SURE_FRAC * gm.max())
+        assert float(err[sure].max(initial=0)) <= STEP_TOL * lr, \
+            (k, float(err[sure].max(initial=0)) / lr)
+        loose += int((err[sign_like] > STEP_TOL * lr).sum())
+        total += int(sign_like.sum())
     assert loose <= LOOSE_SHARE * total, (loose, total)
 
 
@@ -309,7 +347,8 @@ def test_scan_chunked_takes_any_length():
 
 
 @pytest.mark.parametrize("arch", ["lm100m", "falcon-mamba-7b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m",
+                                  "seamless-m4t-large-v2"])
 def test_remat_modes_give_equal_gradients(arch):
     cfg = get_reduced(arch)
     params = TM.init_params(torch.Generator().manual_seed(0), cfg,

@@ -3,8 +3,13 @@
 on reduced ``granite-3-2b``, ``lm100m`` and ``falcon-mamba-7b``, then
 ``make_prefill``, ``make_slot_prefill`` and ``make_serve_step`` (scalar
 and per-slot ``cache_len``) on the same numpy tokens, on reduced
-``granite-moe-3b-a800m`` (MoE layers: 8 experts, top-2) too, and the
-configs' analytic sizes.
+``granite-moe-3b-a800m`` (MoE layers: 8 experts, top-2),
+``seamless-m4t-large-v2`` (an encoder over numpy-seeded float frames,
+P / 4 of them, and a decoder with cross-attention, whose ``ck``/``cv``
+caches are compared like the KV caches) and ``internvl2-2b`` (16
+numpy-seeded float patch embeddings in front of the tokens: its caches
+hold P + S + G positions and its first decode step is at P + S) too, and
+the configs' analytic sizes.
 
 Tolerance: logits within ``LOGIT_TOL = 2e-2`` absolute and KV caches
 within 2e-2 (rtol and atol); a Mamba stack's conv and ssm states within
@@ -16,11 +21,14 @@ but XLA and PyTorch's CPU kernels sum bf16 dots in different orders and
 round them back to bf16 at different places, so an activation may differ
 by one bf16 ulp (2^-8 relative) and the logits (magnitude about 2) by a
 few thousandths after two layers (measured: at most 5e-3).  Greedy
-tokens are compared up to the first position where the reference's
-top-2 logit margin is at most twice the largest difference of the two
-packages' logits there (itself within ``LOGIT_TOL``): above it the
-argmax is the same in both, below it a difference within the tolerance
-could swap the two; at least one token must be compared.
+tokens are compared up to the first position where the two packages'
+tokens differ (their contexts are the same until there): wherever the
+reference's top-2 logit margin is above twice the largest difference of
+the two packages' logits there (itself within ``LOGIT_TOL``) the tokens
+must be equal, as the argmax is the same in both; at a smaller margin a
+difference within the tolerance could swap the two, so a difference
+there ends the comparison.  At least one token of each sequence must be
+compared.
 """
 import dataclasses
 
@@ -39,7 +47,8 @@ from repro_torch.models import transformer as TT
 
 LOGIT_TOL = 2e-2
 DENSE = ("granite-3-2b", "lm100m")
-ARCHS = DENSE + ("falcon-mamba-7b", "granite-moe-3b-a800m")
+ARCHS = DENSE + ("falcon-mamba-7b", "granite-moe-3b-a800m",
+                 "seamless-m4t-large-v2", "internvl2-2b")
 P, G = 16, 6                      # prompt length and tokens generated
 
 
@@ -48,18 +57,20 @@ def margin(logits: np.ndarray) -> np.ndarray:
     return top[..., -1] - top[..., -2]
 
 
-def greedy_agree(got, want, want_margins, tol) -> int:
-    """Tokens compared before the first position whose margin is not
-    above ``tol`` (a number, or one per position); raises on a difference
-    before it."""
+def greedy_agree(got, want, want_margins, tol) -> tuple[int, int]:
+    """(tokens compared, the first position whose tokens differ or the
+    length): up to that position every token whose margin is above
+    ``tol`` (a number, or one per position) is compared and must be
+    equal; a difference at a margin not above it ends the comparison."""
     n = 0
-    for g, w, m, t in zip(got, want, want_margins,
-                          np.broadcast_to(tol, len(got))):
-        if m <= t:
-            break
-        assert g == w, f"token {n}: {g} != {w} at margin {m}"
-        n += 1
-    return n
+    for i, (g, w, m, t) in enumerate(zip(got, want, want_margins,
+                                         np.broadcast_to(tol, len(got)))):
+        if m > t:
+            assert g == w, f"token {i}: {g} != {w} at margin {m}"
+            n += 1
+        elif g != w:
+            return n, i
+    return n, len(got)
 
 
 def close(got, want, tol=LOGIT_TOL):
@@ -76,7 +87,7 @@ def close_caches(got, want):
     for k, w in want.items():
         w = np.asarray(jnp.asarray(w, jnp.float32))
         assert tuple(got[k].shape) == w.shape, k
-        if k in ("k", "v"):
+        if k in ("k", "v", "ck", "cv"):
             assert got[k].dtype == torch.bfloat16
             close(got[k], w)
         else:
@@ -98,13 +109,42 @@ def pair(request):
     tp = TM.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
                             "cpu")
     return (cfg, jp, tcfg, tp,
-            jax.jit(JM.make_prefill(cfg, None, decode_len=P + G)),
+            jax.jit(JM.make_prefill(cfg, None, decode_len=cap(cfg))),
             jax.jit(JM.make_serve_step(cfg, None)))
 
 
 def tokens(cfg, shape, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab, shape).astype(np.int32)
+
+
+def prefix(cfg) -> int:
+    """The positions a vision config puts in front of the tokens."""
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def cap(cfg) -> int:
+    """The caches' positions: the prefix, the prompt and the tokens
+    generated."""
+    return prefix(cfg) + P + G
+
+
+def batch(cfg, toks, seed=0):
+    """``toks`` with the config's float inputs, drawn by numpy: an
+    enc-dec config's frames (one per ``enc_len_ratio`` tokens of P), a
+    vision config's patch embeddings.  Returns (the JAX batch, the
+    port's)."""
+    b = {"tokens": toks}
+    rng = np.random.default_rng(100 + seed)
+    B = toks.shape[0]
+    if cfg.is_encdec:
+        b["frames"] = rng.normal(size=(B, P // cfg.enc_len_ratio,
+                                       cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        b["patch_embeds"] = rng.normal(size=(B, cfg.frontend_tokens,
+                                             cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
 
 
 def test_params_from_jax(pair):
@@ -130,13 +170,13 @@ def test_params_from_jax(pair):
 
 def test_prefill_matches_jax(pair):
     cfg, jp, tcfg, tp, jprefill, jserve = pair
-    toks = tokens(cfg, (3, P))
-    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
-    tl, tc = TM.make_prefill(tcfg, decode_len=P + G)(
-        tp, {"tokens": torch.from_numpy(toks)})
+    jb, tb = batch(cfg, tokens(cfg, (3, P)))
+    jl, jc = jprefill(jp, jb)
+    tl, tc = TM.make_prefill(tcfg, decode_len=cap(cfg))(tp, tb)
     close(tl, jl)
     close_caches(tc, jc)
-    struct = TM.cache_struct(tcfg, 3, P + G)
+    struct = TM.cache_struct(tcfg, 3, cap(cfg),
+                             P // cfg.enc_len_ratio if cfg.is_encdec else 0)
     assert {k: tuple(v.shape) for k, v in tc.items()} == \
         {k: s for k, (s, _) in struct.items()}
 
@@ -146,10 +186,10 @@ def test_slot_prefill_matches_jax(pair):
     length = 9
     toks = np.zeros((1, P), np.int32)
     toks[0, :length] = tokens(cfg, length, seed=1)
-    jl, jc = jax.jit(JM.make_slot_prefill(cfg, None, decode_len=P + G))(
-        jp, {"tokens": jnp.asarray(toks)}, jnp.int32(length))
-    tl, tc = TM.make_slot_prefill(tcfg, decode_len=P + G)(
-        tp, {"tokens": torch.from_numpy(toks)}, length)
+    jb, tb = batch(cfg, toks, seed=1)
+    jl, jc = jax.jit(JM.make_slot_prefill(cfg, None, decode_len=cap(cfg)))(
+        jp, jb, jnp.int32(length))
+    tl, tc = TM.make_slot_prefill(tcfg, decode_len=cap(cfg))(tp, tb, length)
     close(tl, jl)
     if TM.has_mamba(tcfg):
         # the reference's state at the true length; its slot prefill's
@@ -162,20 +202,21 @@ def test_slot_prefill_matches_jax(pair):
     else:
         close_caches(tc, jc)
     # the slot's logits are the unpadded prompt's last-position logits
-    ul, _ = TM.make_prefill(tcfg, decode_len=P + G)(
-        tp, {"tokens": torch.from_numpy(toks[:, :length])})
+    ul, _ = TM.make_prefill(tcfg, decode_len=cap(cfg))(
+        tp, dict(tb, tokens=tb["tokens"][:, :length]))
     close(tl, ul.numpy(), 1e-6)
 
 
 @pytest.mark.parametrize("per_slot", [False, True])
 def test_serve_step_matches_jax(pair, per_slot):
     cfg, jp, tcfg, tp, jprefill, jserve = pair
-    toks = tokens(cfg, (3, P), seed=2)
-    jl, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
-    tl, tc = TM.make_prefill(tcfg, decode_len=P + G)(
-        tp, {"tokens": torch.from_numpy(toks)})
+    jb, tb = batch(cfg, tokens(cfg, (3, P), seed=2), seed=2)
+    jl, jc = jprefill(jp, jb)
+    tl, tc = TM.make_prefill(tcfg, decode_len=cap(cfg))(tp, tb)
     nxt = tokens(cfg, (3, 1), seed=3)
-    cl = np.array([P, P - 5, P + 2], np.int32) if per_slot else P
+    # a vision config's first decode position is past its prefix
+    cl = prefix(cfg) + (np.array([P, P - 5, P + 2], np.int32) if per_slot
+                        else P)
     jd, jc = jserve(jp, jc, jnp.asarray(nxt), jnp.asarray(cl))
     td, tc = TM.make_serve_step(tcfg)(tp, tc, torch.from_numpy(nxt), cl)
     close(td, jd)
@@ -196,8 +237,9 @@ def test_serve_step_rejects_positions_past_the_cache(arch):
 def test_greedy_tokens_match_jax(pair):
     """Three sequences decoded greedily by the one-shot loop in both."""
     cfg, jp, tcfg, tp, jprefill, jserve = pair
-    toks = tokens(cfg, (3, P), seed=4)
-    logits, caches = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    jb, tb = batch(cfg, tokens(cfg, (3, P), seed=4), seed=4)
+    pos = prefix(cfg) + P                # the first decode position
+    logits, caches = jprefill(jp, jb)
     want, margins, jlogits = [], [], []
     for i in range(G):
         lg = np.asarray(logits)
@@ -207,24 +249,23 @@ def test_greedy_tokens_match_jax(pair):
         if i < G - 1:
             logits, caches = jserve(jp, caches,
                                     jnp.asarray(want[-1][:, None]),
-                                    jnp.int32(P + i))
+                                    jnp.int32(pos + i))
     tserve = TM.make_serve_step(tcfg)
-    logits, caches = TM.make_prefill(tcfg, decode_len=P + G)(
-        tp, {"tokens": torch.from_numpy(toks)})
+    logits, caches = TM.make_prefill(tcfg, decode_len=cap(cfg))(tp, tb)
     got, diffs = [], []
     for i in range(G):
         got.append(logits.argmax(-1).numpy())
         diffs.append(np.abs(logits.numpy() - jlogits[i]).max(-1))
         if i < G - 1:
             logits, caches = tserve(tp, caches, torch.from_numpy(
-                got[-1][:, None].astype(np.int32)), P + i)
+                got[-1][:, None].astype(np.int32)), pos + i)
     got, want, margins, diffs = (np.stack(a, 1)
                                  for a in (got, want, margins, diffs))
     for b in range(3):
         # the logits are the same function of the same context up to the
-        # first difference of tokens, which is past the compared prefix
-        n = greedy_agree(got[b], want[b], margins[b], 2 * diffs[b])
-        assert n >= 1 and diffs[b, :n + 1].max() <= LOGIT_TOL
+        # first difference of tokens, included
+        n, same = greedy_agree(got[b], want[b], margins[b], 2 * diffs[b])
+        assert n >= 1 and diffs[b, :same + 1].max() <= LOGIT_TOL
 
 
 def test_write_cache_slot_in_place():
@@ -260,10 +301,29 @@ def test_moe_configs_supported(arch):
     assert set(struct) == {"k", "v"}
 
 
+@pytest.mark.parametrize("arch,cross", [("seamless-m4t-large-v2", True),
+                                        ("internvl2-2b", False)])
+def test_encdec_and_vision_configs_supported(arch, cross):
+    for get in (TC.get_config, TC.get_reduced):
+        TT.check_supported(get(arch))
+    cfg = TC.get_reduced(arch)
+    struct = TM.cache_struct(cfg, 2, 8, enc_len=3)
+    assert set(struct) == ({"k", "v", "ck", "cv"} if cross else {"k", "v"})
+    if cross:
+        # the cross caches at the encoder's length, not padded
+        assert struct["ck"][0] == (cfg.n_layers, 2, cfg.n_kv_heads, 3,
+                                   cfg.d_head)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    assert ("encoder" in params) == cross
+    assert ("cross" in params["layers"]) == cross
+    if cross:
+        enc = params["encoder"]["layers"]
+        assert enc["attn"]["wq"]["w"].shape[0] == cfg.encoder_layers
+        assert "cross" not in enc and "ffn_gelu" in enc
+
+
 @pytest.mark.parametrize("arch,what", [
-    ("jamba-1.5-large-398b", "period"),
-    ("internvl2-2b", "frontend"),
-    ("seamless-m4t-large-v2", "frontend|encoder")])
+    ("jamba-1.5-large-398b", "period")])
 def test_later_slices_raise(arch, what):
     cfg = TC.get_reduced(arch)
     with pytest.raises(NotImplementedError, match=what):
