@@ -124,6 +124,29 @@ Phases, each fatal on failure:
    probability gap among those that differ (printed, not held: a
    near-tie may pick another expert); then ``flash_attention`` against ``attention_ref``
    on the q, k, v its first prefill gave it, case (h) (Hq 24, Hkv 8);
+11c'. the MoE serving path at world 2 (``serving_moe_tp2``): the same
+   model and engine settings, requests and feature stores, served by two
+   rank processes on the one card through ``launch/serve.py``'s ``--mesh``
+   set-up (``spawn``, ``init_rank``, ``make_mesh``, ``make_policy(mesh,
+   "fsdp_tp")``; gloo, as NCCL refuses two ranks on one device, so every
+   exchange is staged through host memory): each rank holds its 24 of
+   the 48 padded experts, 12 q / 4 KV heads and half the vocabulary
+   (3.9 GB); MoE layers run ``moe_shuffle`` in prefill (the dispatch plan
+   on ``hash_partition``, n = 4096 ids at P = 40, ``C_send`` 128) and
+   ``moe_decode`` in decode (n = 64 at P = 25).  Checked on each rank:
+   the accounting identity, tokens and features, exact launch counts
+   (``flash_attention`` 32 a prefill, ``hash_partition`` 32 a prefill and
+   a decode step beside the stores' shuffles), the first request at
+   ``capacity_factor = E / top_k`` (no row can drop) within
+   ``SERVE_LOGIT_TOL`` of ``serving_moe``'s world-1 logits, and the twin
+   ``serving_moe_tp2_xla`` (the same engine on plain attention and plain
+   ranks, the first 4 requests: prefill logits within
+   ``SERVE_LOGIT_TOL``, greedy tokens by ``greedy_agree``); both ranks'
+   tokens equal.  Then the first prefill's 32 dispatch plans and the
+   first decode plan held to the plain ranks bit for bit, and case (l),
+   q (1, 12, 1024, 64) against KV (1, 4, 1024, 64), within ``FLASH_TOL``;
+   tokens/s, TTFT, prefill and decode-step ms by CUDA events, each rank's
+   weight bytes, peak memory and dropped rows by layer;
 11d. MoE training (``moe_train``): Granite-3.0-MoE at full width,
    12 of its 32 layers (16 do not fit in 80 GB: float32 masters,
    gradients and AdamW moments take 1.91 GB a layer), remat full, 5
@@ -240,7 +263,7 @@ PORT_KERNEL_FNS = ("count_upsweep", "count_scan", "rank_downsweep",
 def _modules():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import checkpoint
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
     from repro_torch.core import morsel
@@ -249,7 +272,7 @@ def _modules():
     from repro_torch.kernels import bucketing, build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.launch import serve, train, unomt_e2e
+    from repro_torch.launch import mesh, serve, train, unomt_e2e
     from repro_torch.models import attention as attn
     from repro_torch.models import layers
     from repro_torch.models import model
@@ -268,6 +291,7 @@ def _modules():
     from repro_torch.kernels.mamba_scan import ref as ms_ref
     from repro_torch.models import mamba
     from repro_torch.models import moe
+    from repro_torch.models import sharding
     from repro_torch.models import transformer
     from repro_torch.models import unomt_net
     from repro_torch.optim import adamw, compression
@@ -283,8 +307,9 @@ def _modules():
                      "flash_attention": fa_ops, "mamba_scan": ms_ops},
                 hp_ref=hp_ref, fb_ref=fb_ref, hj_ref=hj_ref, rs_ref=rs_ref,
                 hg_ref=hg_ref, hs_ref=hs_ref, fa_ref=fa_ref, ms_ref=ms_ref,
-                get_config=get_config, M=model, A=attn, Ly=layers, Mb=mamba,
-                Moe=moe, Tf=transformer,
+                get_config=get_config, get_reduced=get_reduced, M=model,
+                A=attn, Ly=layers, Mb=mamba,
+                Moe=moe, Tf=transformer, Me=mesh, Sh=sharding,
                 serve=serve, ServingEngine=ServingEngine, Ck=checkpoint,
                 Sy=synthetic, Tr=train, Ue=unomt_e2e)
 
@@ -2577,7 +2602,8 @@ def experts_bf16(leg, params) -> int:
 
 def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
                 gen_cap=SERVE_GEN, n_req=SERVE_REQUESTS, slots=SERVE_SLOTS,
-                queue=SERVE_QUEUE, attn_impl=None, leg="serving"):
+                queue=SERVE_QUEUE, attn_impl=None, leg="serving",
+                first_logits=None):
     """Drive the serving path once with the flash kernel, counted and
     checked, then against the one-shot loop and the ``xla`` attention
     path; time and profile it.  ``attn_impl`` is the first engine's
@@ -2587,8 +2613,10 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     config with MoE layers also checks that its experts are resident as
     bf16 and TF32 is off, logs the routing of the two requests held to
     the one-shot loop in both engines (:func:`routing_flips`) and labels
-    the experts and the router in the profile.  Returns (legs, the q, k,
-    v and causal flag of the first flash call)."""
+    the experts and the router in the profile.  ``first_logits``, a dict,
+    receives the first request's prefill logits (float32, host) under
+    ``"logits"``.  Returns (legs, the q, k, v and causal flag of the
+    first flash call)."""
     M, serve = m["M"], m["serve"]
     ops = m["ops"]
     moe = cfg.n_experts > 0
@@ -2627,6 +2655,8 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
 
     mt = engine.metrics
     check_engine_run(leg, engine, done, rejected, reqs, tables, stores)
+    if first_logits is not None:
+        first_logits["logits"] = rec.logits[reqs[0].req_id]
     # one shuffle per ingest chunk and per lookup; the lookups' sortmerge
     # join and the ingest append run no radix pass
     expect_launches(leg, launches, {
@@ -2750,6 +2780,336 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     del params, engine, xla, stores, prefill, step, full
     _free(device)
     return legs, recorded[0]
+
+
+# --------------------------------------------------------------------------
+# the MoE serving path at world 2: tensor and expert parallelism, as two
+# rank processes on the one card
+# --------------------------------------------------------------------------
+
+TP_WORLD = 2
+# requests of the plain-path twin: the first 4 of the leg's 32 (8 made
+# the phase take 151 s; the twin is cut, never the main leg)
+TP_TWIN_REQUESTS = 4
+
+
+class DispatchLog:
+    """While active (a context), ``moe.radix_histogram_ranks`` also keeps
+    copies (host) of the ids of the first ``n_prefill`` calls at P =
+    ``n_experts`` (the first prefill's ``moe_shuffle`` plans, one a
+    layer) and of the first call at P = ``local experts + 1`` (a
+    ``moe_decode`` plan).  Launches are counted as without it."""
+
+    def __init__(self, moe, n_experts, n_local, n_prefill):
+        self.moe, self.plain = moe, moe.radix_histogram_ranks
+        self.P, self.P_dec, self.n = n_experts, n_local + 1, n_prefill
+        self.prefill, self.decode = [], []
+
+    def ranks(self, pid, P):
+        if P == self.P and len(self.prefill) < self.n:
+            self.prefill.append((pid.cpu(), P))
+        elif P == self.P_dec and not self.decode:
+            self.decode.append((pid.cpu(), P))
+        return self.plain(pid, P)
+
+    def __enter__(self):
+        self.moe.radix_histogram_ranks = self.ranks
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.radix_histogram_ranks = self.plain
+
+
+def profile_tp2(fns, device, rank):
+    """Each of ``fns`` once warmed, then once more, under
+    ``torch.profiler`` on rank 0 (the other ranks run the same calls
+    unprofiled, so the collectives pair up): wall ms, device busy ms and
+    share, the host ms of the collectives (gloo's ranges) and of the
+    staging copies, and the top host and device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for key, fn in fns.items():
+        fn()
+        _sync(device)
+        if rank:
+            fn()
+            _sync(device)
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        gloo = [e for e in host if e.key.startswith("gloo:")]
+        copies = [e for e in dev if "Memcpy" in e.key]
+        host.sort(key=lambda e: -e.self_cpu_time_total)
+        dev.sort(key=lambda e: -e.self_device_time_total)
+        out[key] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "collective_host_ms": sum(e.cpu_time_total for e in gloo) / 1e3,
+            "collectives": sum(e.count for e in gloo),
+            "copy_device_ms": sum(e.self_device_time_total
+                                  for e in copies) / 1e3,
+            "top_host": [{"name": e.key[:60], "count": e.count,
+                          "self_ms": e.self_cpu_time_total / 1e3}
+                         for e in host[:6]],
+            "top_device": [{"name": e.key[:60], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in dev[:6]]}
+    return out
+
+
+def tp2_rank(rank, world, store, tmp):
+    """One rank of ``serving_moe_tp2``: the normal ``--mesh`` rank set-up
+    of ``launch/serve.py`` (its device, the process group, the mesh and
+    ``make_policy(mesh, "fsdp_tp")``), then :func:`serve_tp2`; writes its
+    record to ``tmp/tp2_rank<r>.json`` (and rank 0 the kernel inputs to
+    ``tmp/tp2_cases.pt``)."""
+    m = _modules()
+    device = m["serve"].rank_device(rank, world)
+    m["Me"].init_rank(rank, world, store, device, timeout_s=600)
+    try:
+        policy = m["Sh"].make_policy(
+            m["Me"].make_mesh({"data": 1, "model": world}), "fsdp_tp")
+        record, cases = serve_tp2(m, device, policy,
+                                  Path(tmp, "w1_logits.pt"))
+        Path(tmp, f"tp2_rank{rank}.json").write_text(json.dumps(record))
+        if rank == 0:
+            torch.save(cases, Path(tmp, "tp2_cases.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def serve_tp2(m, device, policy, w1_path):
+    """Serve the MoE leg's requests under ``policy`` with the feature
+    stores over both ranks; check and time them; then the first request
+    at a capacity where no row drops against the world-1 logits in
+    ``w1_path``, and the plain-path twin.  Returns (this rank's record,
+    the kernel inputs it recorded)."""
+    M, serve, ops, Moe = m["M"], m["serve"], m["ops"], m["Moe"]
+    leg = "serving_moe_tp2"
+    cfg = m["get_config"](MOE_ARCH)
+    slots, prompt_cap, gen_cap = SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN
+    n_req = SERVE_REQUESTS
+    no_tf32(leg)
+    params = serve.sharded_params(cfg, device, 0, policy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    experts_bf16(leg, params)
+    _sync(device)
+    resident = _allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+
+    for op in ops.values():
+        op.launches = 0
+    stores, tables = serve.feature_stores(m["make_context"](device), 0,
+                                          max(slots, 8))
+    lookups = count_lookups(stores)
+    engine = m["ServingEngine"](
+        cfg, params, policy=policy, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=SERVE_QUEUE,
+        feature_stores=stores, device=device)
+    reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
+    rec = Recorder(engine)
+    drops = []
+    prefill_hooked = engine._slot_prefill
+
+    def first_prefill(*args):
+        if drops:
+            return prefill_hooked(*args)
+        Moe.drop_log = []
+        try:
+            return prefill_hooked(*args)
+        finally:
+            drops.extend(int(d) for d in Moe.drop_log)
+            Moe.drop_log = None
+
+    engine._slot_prefill = first_prefill
+    E_loc = Moe.n_experts_padded(cfg) // policy.world_m
+    plans = DispatchLog(Moe, cfg.n_experts, E_loc, cfg.n_layers)
+    flash = []
+    with recording(ops["flash_attention"], "flash_attention", flash,
+                   picks={0}), plans:
+        done, rejected, seconds = serve.drive(engine, reqs, slots)
+    _sync(device)
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = torch.cuda.max_memory_allocated(device) - resident
+    mt = engine.metrics
+    check_engine_run(leg, engine, done, rejected, reqs, tables, stores)
+    # a moe_shuffle plan per layer of each prefill and a moe_decode plan
+    # per layer of each step, beside the stores' shuffles
+    expect_launches(leg, launches, {
+        "flash_attention": cfg.n_layers * mt.count("prefills"),
+        "hash_partition": cfg.n_layers * (mt.count("prefills")
+                                          + mt.count("decode_steps"))
+        + store_chunks(serve, stores) + lookups[0],
+        "radix_sort": 0})
+    if len(drops) != cfg.n_layers or len(plans.prefill) != cfg.n_layers \
+            or len(plans.decode) != 1:
+        raise AssertionError(f"{leg}: {len(drops)} drop counts, "
+                             f"{len(plans.prefill)} prefill and "
+                             f"{len(plans.decode)} decode plans recorded")
+
+    # the first request where no row can drop (C_send = the rank's rows)
+    # against world 1, whose MoE layers run every expert
+    r0 = reqs[0]
+    padded = np.zeros((1, prompt_cap), np.int32)
+    padded[0, :len(r0.prompt)] = r0.prompt
+    batch = {"tokens": torch.from_numpy(padded).to(device)}
+    cf = cfg.n_experts / cfg.top_k
+    cfg_nodrop = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, moe_capacity_factor=cf))
+    Moe.drop_log = []
+    logits, _ = M.make_slot_prefill(
+        cfg_nodrop, policy, decode_len=prompt_cap + gen_cap)(
+        params, batch, len(r0.prompt))
+    nodrop_drops = sum(int(d) for d in Moe.drop_log)
+    Moe.drop_log = None
+    w1 = torch.load(w1_path)
+    vs_world1 = float((logits[0].float().cpu() - w1).abs().max())
+    engine_vs_world1 = float((rec.logits[r0.req_id] - w1).abs().max())
+    if nodrop_drops or vs_world1 > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: at capacity factor {cf} "
+                             f"{nodrop_drops} rows dropped and the logits "
+                             f"differ from world 1 by {vs_world1}")
+
+    # a full-length prefill and a decode step of all slots, timed on both
+    # ranks at once (their collectives pair up)
+    prefill = M.make_slot_prefill(cfg, policy,
+                                  decode_len=prompt_cap + gen_cap)
+    full = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt_cap)).astype(np.int32)).to(device)}
+    step = M.make_serve_step(cfg, policy)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    lens = np.full(slots, prompt_cap - 1, np.int32)
+    prefill_ms = event_ms(lambda: prefill(params, full, prompt_cap), reps=3)
+    step_ms = event_ms(lambda: step(params, engine.caches, toks, lens),
+                       reps=10)
+    prof = profile_tp2({
+        "prefill": lambda: prefill(params, full, prompt_cap),
+        "decode_4_steps": lambda: [step(params, engine.caches, toks, lens)
+                                   for _ in range(4)]},
+        device, policy.model_rank)
+
+    # the twin: the same world-2 engine on plain attention and plain ranks
+    for op in ops.values():
+        op.launches = 0
+    n_lookups = lookups[0]
+    xla = m["ServingEngine"](
+        cfg, params, policy=policy, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=SERVE_QUEUE,
+        feature_stores=stores, attn_impl="xla", device=device)
+    xrec = Recorder(xla)
+    xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap,
+                                seed=0)[:TP_TWIN_REQUESTS]
+    Moe.radix_histogram_ranks = m["hp_ref"].radix_histogram_ranks_ref
+    try:
+        xdone, _, xseconds = serve.drive(xla, xreqs, slots)
+    finally:
+        Moe.radix_histogram_ranks = plans.plain
+    _sync(device)
+    xlaunches = {k: op.launches for k, op in ops.items()}
+    expect_launches(f"{leg}_xla", xlaunches, {
+        "flash_attention": 0, "hash_partition": lookups[0] - n_lookups,
+        "radix_sort": 0})
+    check_served(xdone, xreqs, tables, len(xreqs))
+    by_id = {r.req_id: r for r in done}
+    diffs = {rid: float((rec.logits[rid] - lg).abs().max())
+             for rid, lg in xrec.logits.items()}
+    worst = max(diffs.values())
+    if worst > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: prefill logits differ from the "
+                             f"plain twin's by {worst} > {SERVE_LOGIT_TOL}")
+    compared = sum(greedy_agree(by_id[r.req_id].out_tokens, r.out_tokens,
+                                xrec.margins[r.req_id], SERVE_LOGIT_TOL)
+                   for r in xdone)
+    if compared == 0:
+        raise AssertionError(f"{leg}: no token compared with the twin")
+
+    tokens = mt.count("tokens_generated")
+    record = {
+        "phase": leg, "rank": policy.model_rank, "world": policy.world_m,
+        "arch": cfg.name, "layers": cfg.n_layers, "requests": n_req,
+        "device": str(device), "backend": torch.distributed.get_backend(),
+        "completed": mt.count("completed"), "prefills": mt.count("prefills"),
+        "decode_steps": mt.count("decode_steps"), "tokens": tokens,
+        "seconds": seconds, "tokens_per_s": tokens / seconds,
+        "ttft_p50_ms": mt.percentile("ttft", 50) * 1e3,
+        "ttft_p99_ms": mt.percentile("ttft", 99) * 1e3,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "weight_bytes": weight_bytes, "resident_bytes": resident,
+        "peak_bytes_above_resident": peak,
+        "first_prefill_dropped_by_layer": drops,
+        "capacity_send": math.ceil(prompt_cap // policy.world_m * cfg.top_k
+                                   / cfg.n_experts
+                                   * cfg.train.moe_capacity_factor),
+        "launches": launches, "xla_launches": xlaunches,
+        "nodrop_capacity_factor": cf,
+        "nodrop_logit_diff_vs_world1": vs_world1,
+        "engine_logit_diff_vs_world1": engine_vs_world1,
+        "logit_tol": SERVE_LOGIT_TOL,
+        "twin_requests": len(xreqs), "twin_seconds": xseconds,
+        "twin_prefill_logit_diff_max": worst,
+        "twin_tokens_compared": compared,
+        "twin_tokens_equal": sum(r.out_tokens == by_id[r.req_id].out_tokens
+                                 for r in xdone),
+        "profile": prof,
+        "out_tokens": {r.req_id: r.out_tokens for r in done}}
+    cases = {"plans": plans.prefill + plans.decode,
+             "flash": tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                            for a in flash[0])}
+    del engine, xla, params
+    return record, cases
+
+
+def run_serving_tp2(m, device, w1_logits, tmpdir: Path):
+    """``serving_moe_tp2`` and its twin ``serving_moe_tp2_xla``: two rank
+    processes on the one card, started by ``launch/serve.py``'s
+    :func:`spawn` (gloo: NCCL refuses two ranks on one device), serving
+    Granite-3.0-MoE-3B-A800M at full width and depth with the
+    ``serving_moe`` settings and requests (:func:`serve_tp2`).  A rank
+    that fails fails the phase.  Then the first prefill's 32 dispatch
+    plans and one decode plan against the plain ranks, and the first
+    flash call's q, k, v as case (l).  Returns (legs, kernel cases)."""
+    torch.save(w1_logits, tmpdir / "w1_logits.pt")
+    t0 = time.perf_counter()
+    m["serve"].spawn(TP_WORLD, tp2_rank, (str(tmpdir),), timeout_s=900)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(Path(tmpdir, f"tp2_rank{r}.json").read_text())
+            for r in range(TP_WORLD)]
+    if any(r["out_tokens"] != recs[0]["out_tokens"] for r in recs):
+        raise AssertionError("serving_moe_tp2: the ranks' tokens differ")
+    for r in recs:
+        r.pop("out_tokens")
+    emit({"phase": "serving_moe_tp2", "wall_s": wall, "ranks": recs})
+    cases = torch.load(tmpdir / "tp2_cases.pt")
+    legs = {}
+    for leg, key, rows in (("serving_moe_tp2", "launches",
+                            recs[0]["requests"]),
+                           ("serving_moe_tp2_xla", "xla_launches",
+                            recs[0]["twin_requests"])):
+        legs[leg] = dict(rows=rows, launches={
+            k: sum(r[key][k] for r in recs) for k in recs[0][key]})
+    plans = []
+    for i, (pid, P) in enumerate(cases["plans"]):
+        pid = pid.to(device)
+        what = f"prefill layer {i}" if i < len(cases["plans"]) - 1 \
+            else "decode"
+        plans.append(dict(
+            shape=f"(tp2) {what} n={pid.numel()} P={P}", args=(pid, P),
+            library=lambda pid=pid: torch.argsort(pid, stable=True)))
+    flash = recorded_flash_case("(l) serving_moe_tp2", tuple(
+        a.to(device) if isinstance(a, torch.Tensor) else a
+        for a in cases["flash"]))
+    return legs, {"hash_partition": plans, "flash_attention": [flash]}
 
 
 def with_sdpa(case):
@@ -3668,13 +4028,26 @@ def run_all(tmpdir: Path) -> int:
     cases["mamba_scan"] = scan_cases(scan_args, device)
     errs.update(compare_kernels(
         m, {"mamba_scan": cases["mamba_scan"]}, device))
+    moe_first = {}
     moe_legs, moe_qkv = run_serving(m, device, m["get_config"](MOE_ARCH),
-                                    leg="serving_moe")
+                                    leg="serving_moe", first_logits=moe_first)
     legs.update(moe_legs)
     case_h = recorded_flash_case("(h) serving_moe", moe_qkv)
     errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
         m, {"flash_attention": [case_h]}, device)["flash_attention"])
     cases["flash_attention"].append(case_h)
+    # the same model at world 2: two ranks on the card; every dispatch
+    # plan recorded is held to the plain ranks, the first prefill's first
+    # and the decode plan are timed with case (l)
+    tp_legs, tp_cases = run_serving_tp2(m, device, moe_first["logits"],
+                                        tmpdir)
+    legs.update(tp_legs)
+    for kname, err in compare_kernels(m, tp_cases, device).items():
+        errs[kname] = max(errs[kname], err)
+    cases["hash_partition"] += [tp_cases["hash_partition"][0],
+                                tp_cases["hash_partition"][-1]]
+    cases["flash_attention"] += tp_cases["flash_attention"]
+    del moe_first, tp_cases
     legs.update(run_moe_train(m, device, name))
     # the enc-dec and vision stacks: the encoder's self-attention and the
     # decoder's cross-attention are the first prefill's flash calls 0 and

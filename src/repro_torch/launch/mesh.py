@@ -1,0 +1,135 @@
+"""Device meshes (PyTorch port of ``repro/launch/mesh.py``).
+
+A :class:`Mesh` is this process's view of a grid of ranks: the axis
+names, their sizes, this rank's coordinate on each axis and one
+``torch.distributed`` group per axis, holding the ranks that differ from
+this one only along it.  Ranks are laid out row-major over the axes (the
+last axis fastest), as ``jax.make_mesh`` lays out devices.  The kernels
+are ``ctypes`` calls on local tensors, so nothing propagates layouts
+between them: each layer holds its slice and calls the collective it
+needs on the axis group (``core.context.all_reduce`` and friends).
+
+Functions, not module-level constants: importing this module touches no
+process group.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``shape`` maps each axis name to its size, ``coord`` to this rank's
+    index along it, ``groups`` to the process group of that axis (None
+    for an axis of one rank, or without a process group)."""
+    axis_names: tuple[str, ...]
+    shape: dict
+    coord: dict
+    groups: dict
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def init_rank(rank: int, world: int, store_path: str, device,
+              timeout_s: float = 600.0) -> str:
+    """Join the process group of ``world`` ranks that meet through the
+    ``file://`` store at ``store_path`` (a path in a fresh temporary
+    directory).  The backend is NCCL where every rank has its own card,
+    gloo where the ranks run on the CPU or share one card (NCCL refuses
+    two ranks on one device).  Returns the backend."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = "gloo" if device.type != "cuda" \
+        or torch.cuda.device_count() < world else "nccl"
+    dist.init_process_group(backend, init_method=f"file://{store_path}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=timeout_s))
+    return backend
+
+
+def make_mesh(shape: dict) -> Mesh:
+    """The mesh of the initialised process group: ``shape`` (axis name ->
+    size, in major-to-minor order) must multiply to the world size.
+    Every rank calls this with the same shape: each axis group is made
+    with ``dist.new_group``, which every rank must call for every
+    group."""
+    names = tuple(shape)
+    sizes = dict(shape)
+    world = math.prod(sizes.values())
+    if dist.is_initialized():
+        have, rank = dist.get_world_size(), dist.get_rank()
+    else:
+        have, rank = 1, 0
+    if have != world:
+        raise ValueError(f"mesh {sizes} needs {world} ranks, the process "
+                         f"group has {have}")
+    coord, rest = {}, rank
+    for a in reversed(names):
+        coord[a] = rest % sizes[a]
+        rest //= sizes[a]
+    coord = {a: coord[a] for a in names}
+    strides, s = {}, 1
+    for a in reversed(names):
+        strides[a] = s
+        s *= sizes[a]
+    groups = {}
+    for a in names:
+        if sizes[a] == 1 or not dist.is_initialized():
+            groups[a] = None
+            continue
+        # every line of ranks along axis a, in the same order on every rank
+        others = [b for b in names if b != a]
+        mine = None
+        for idx in range(world // sizes[a]):
+            base, rest = 0, idx
+            for b in reversed(others):
+                base += (rest % sizes[b]) * strides[b]
+                rest //= sizes[b]
+            ranks = [base + i * strides[a] for i in range(sizes[a])]
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        groups[a] = mine
+    return Mesh(axis_names=names, shape=sizes, coord=coord, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(dict(zip(axes, shape)))
+
+
+def make_debug_mesh(data: int = 2, model: int = 4, pod: int = 0) -> Mesh:
+    """Small mesh for tests (same axis names as production)."""
+    if pod:
+        return make_mesh({"pod": pod, "data": data, "model": model})
+    return make_mesh({"data": data, "model": model})
+
+
+def parse_mesh(spec: str) -> dict:
+    """``"data=1,model=2"`` -> ``{"data": 1, "model": 2}``."""
+    out = {}
+    for kv in spec.split(","):
+        name, _, n = kv.partition("=")
+        if not name or not n.isdigit() or int(n) < 1:
+            raise ValueError(f"bad mesh axis {kv!r} in {spec!r} (expected "
+                             "name=size, e.g. data=1,model=2)")
+        out[name.strip()] = int(n)
+    return out
+
+
+def abstract_mesh(shape: dict, coord: dict | None = None) -> Mesh:
+    """A mesh without process groups (specs and slices only): ``coord``
+    defaults to the origin."""
+    names = tuple(shape)
+    return Mesh(axis_names=names, shape=dict(shape),
+                coord=dict(coord or {a: 0 for a in names}),
+                groups={a: None for a in names})

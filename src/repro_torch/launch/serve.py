@@ -2,10 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lm100m \
         --reduced [--requests 32] [--slots 4] [--prompt-len 32] [--gen 16] \
-        [--queue-capacity 64] [--no-features] [--seed 0] [--device cpu]
+        [--queue-capacity 64] [--no-features] [--seed 0] [--device cpu] \
+        [--mesh data=1,model=2]
 
 Thin CLI over :class:`repro_torch.serving.ServingEngine` (the port of
-``repro.launch.serve`` at world 1; there is no ``--mesh``): it draws
+``repro.launch.serve``): it draws
 random weights from a ``torch.Generator`` seeded with ``--seed``,
 generates a stream of requests (random prompts of heterogeneous lengths,
 each carrying drug/cell feature keys), submits them through the bounded
@@ -18,8 +19,26 @@ uniform decoder-only config serves: a dense one (``lm100m``,
 ``granite-3-2b``, ...), an MoE one (``granite-moe-3b-a800m``,
 ``qwen3-moe-235b-a22b``) or a Mamba one (``falcon-mamba-7b``, prefilled
 at each prompt's true length).
+
+``--mesh data=1,model=W`` serves with tensor and expert parallelism over
+W rank processes (:func:`spawn`), which meet through a ``file://`` store
+in a temporary directory: rank r runs on ``cuda:r`` when there are W
+cards (NCCL), on the one card for all ranks when there is one (gloo,
+the exchanges staged through host memory) and on the CPU under
+``--device cpu`` (gloo).  Each rank draws the same weights, keeps its
+slice (``make_policy(mesh, "fsdp_tp")``, as the reference) and runs the
+same engine over the same requests; MoE layers dispatch by
+``moe_shuffle`` in prefill and ``moe_decode`` in decode, and the feature
+stores run over all ranks.  Rank 0 prints the snapshot.  Dense and MoE
+configs serve this way; a data axis of more than one rank, Mamba stacks
+and encoder or vision configs are refused (ROADMAP Queue 1 item 4b).
+A mesh of one rank serves in this process, as without ``--mesh``.
 """
 import argparse
+import math
+import multiprocessing
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -30,7 +49,9 @@ from ..core.context import make_context
 from ..core.kernel_backend import resolve_device
 from ..data.unomt import gen_unomt_tables
 from ..models import model as M
+from ..models import sharding as Sh
 from ..serving import FeatureStore, Request, ServingEngine
+from . import mesh as Me
 
 N_DRUGS, N_CELLS = 256, 128
 CHUNK_ROWS = 64                # ingest morsel of the feature stores
@@ -88,7 +109,57 @@ def drive(engine: ServingEngine, reqs, slots: int):
     return done, rejected_ids, time.perf_counter() - t0
 
 
-def main():
+def rank_device(rank: int, world: int, device=None) -> torch.device:
+    """Rank ``rank``'s device: the CPU under ``device="cpu"``, else
+    ``cuda:rank`` when there are ``world`` cards and the cards in turn
+    when there are fewer (one card: every rank on ``cuda:0``)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return torch.device("cpu")
+    resolve_device(device)                 # raises without a card
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def spawn(world: int, target, args=(), timeout_s: float | None = None):
+    """Run ``target(rank, world, store_path, *args)`` in ``world`` fresh
+    processes (``spawn`` start method) that meet through a ``file://``
+    store in a new temporary directory.  Waits for all of them; when one
+    fails (or ``timeout_s`` passes) the others are killed and
+    ``RuntimeError`` is raised, so no rank is left behind."""
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=target,
+                             args=(r, world, store, *args), daemon=False)
+                 for r in range(world)]
+        for pr in procs:
+            pr.start()
+        t0 = time.monotonic()
+        failed = None
+        try:
+            while any(pr.is_alive() for pr in procs):
+                bad = [i for i, pr in enumerate(procs)
+                       if pr.exitcode not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited with " \
+                        f"{procs[bad[0]].exitcode}"
+                    break
+                if timeout_s is not None \
+                        and time.monotonic() - t0 > timeout_s:
+                    failed = f"ranks still running after {timeout_s} s"
+                    break
+                procs[0].join(0.2)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                pr.join()
+        bad = [i for i, pr in enumerate(procs) if pr.exitcode != 0]
+        if failed or bad:
+            raise RuntimeError(failed or f"ranks {bad} failed (exit codes "
+                               f"{[procs[i].exitcode for i in bad]})")
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="lm100m")
     ap.add_argument("--reduced", action="store_true")
@@ -104,17 +175,32 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    args = ap.parse_args()
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. data=1,model=2: rank processes over a mesh")
+    return ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+
+def sharded_params(cfg, device, seed: int, policy):
+    """The weights of ``torch.Generator(device).manual_seed(seed)``, as
+    world 1 draws them, then this rank's slice of each leaf (the whole
+    tree is freed)."""
     params = M.init_params(
-        torch.Generator(device=device).manual_seed(args.seed), cfg)
+        torch.Generator(device=device).manual_seed(seed), cfg)
+    if policy is None or not policy.sharded:
+        return params
+    return Sh.shard_params(params, policy, cfg=cfg)
+
+
+def serve(args, device, policy=None, rank: int = 0) -> None:
+    """Build the engine (and its stores) on ``device`` under ``policy``,
+    drive the requests and check them; rank 0 prints the snapshot."""
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    params = sharded_params(cfg, device, args.seed, policy)
     stores = {}
     if not args.no_features:
         stores, _ = feature_stores(make_context(device), args.seed,
                                    max(args.slots, 8))
-    engine = ServingEngine(cfg, params, slots=args.slots,
+    engine = ServingEngine(cfg, params, policy=policy, slots=args.slots,
                            prompt_capacity=args.prompt_len,
                            gen_capacity=args.gen,
                            queue_capacity=args.queue_capacity,
@@ -125,17 +211,21 @@ def main():
 
     m = engine.metrics
     snap = m.snapshot()
-    print(f"[serve] {len(done)} completed / {len(rejected_ids)} rejected "
-          f"of {args.requests} in {dt:.2f}s on {device} "
-          f"({m.count('tokens_generated') / dt:.0f} tok/s)")
-    for k in sorted(snap["counters"]):
-        print(f"  counter {k:>18} = {snap['counters'][k]}")
-    for k, g in snap["gauges"].items():
-        print(f"  gauge   {k:>18} = last {g['last']:.0f} max {g['max']:.0f}")
-    for k, s in snap["latency"].items():
-        if s["count"]:
-            print(f"  series  {k:>18} = p50 {s['p50'] * 1e3:.1f}ms "
-                  f"p99 {s['p99'] * 1e3:.1f}ms n={s['count']}")
+    if rank == 0:
+        world = "" if policy is None else \
+            f" x {policy.mesh.size} ranks {dict(policy.mesh.shape)}"
+        print(f"[serve] {len(done)} completed / {len(rejected_ids)} "
+              f"rejected of {args.requests} in {dt:.2f}s on {device}"
+              f"{world} ({m.count('tokens_generated') / dt:.0f} tok/s)")
+        for k in sorted(snap["counters"]):
+            print(f"  counter {k:>18} = {snap['counters'][k]}")
+        for k, g in snap["gauges"].items():
+            print(f"  gauge   {k:>18} = last {g['last']:.0f} "
+                  f"max {g['max']:.0f}")
+        for k, s in snap["latency"].items():
+            if s["count"]:
+                print(f"  series  {k:>18} = p50 {s['p50'] * 1e3:.1f}ms "
+                      f"p99 {s['p99'] * 1e3:.1f}ms n={s['count']}")
     if m.count("submitted") != m.count("completed") + \
             m.count("rejected") + m.count("feature_misses"):
         raise SystemExit("accounting identity violated")
@@ -145,7 +235,33 @@ def main():
                              f"tokens, wanted {r.gen_len}")
         if stores and r.status == "done" and not r.features:
             raise SystemExit(f"request {r.req_id} served without features")
-    print("serve OK")
+    if rank == 0:
+        print("serve OK", flush=True)
+
+
+def _serve_rank(rank: int, world: int, store: str, args) -> None:
+    """One rank of ``--mesh``: join the group, build the mesh and the
+    reference's serving policy, serve."""
+    device = rank_device(rank, world, args.device)
+    if device.type == "cpu":           # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    Me.init_rank(rank, world, store, device)
+    try:
+        policy = Sh.make_policy(Me.make_mesh(Me.parse_mesh(args.mesh)),
+                                "fsdp_tp")
+        serve(args, device, policy, rank)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    world = math.prod(Me.parse_mesh(args.mesh).values()) if args.mesh else 1
+    if world == 1:
+        serve(args, resolve_device(args.device))
+        return
+    rank_device(0, world, args.device)     # raises before any rank starts
+    spawn(world, _serve_rank, (args,))
 
 
 if __name__ == "__main__":

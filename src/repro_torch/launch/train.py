@@ -14,8 +14,11 @@ checkpoints every ``--ckpt-every`` steps and at the end, and a restart
 from the latest one after a failure, which ends bit-identical to the run
 without it.  A run without ``--resume`` first removes the checkpoints
 in ``--ckpt-dir`` (``checkpoint.clear``; nothing else there).
-Runs on the CUDA card unless ``--device cpu``.  ``--mesh`` and
-``--coordinator`` (sharded training) are not ported yet.
+Runs on the CUDA card unless ``--device cpu``.  Sharded training
+(``--mesh``, ``--coordinator``: the data axis, batch sharding, FSDP
+gathers and the ZeRO-1 optimizer layout) is the next slice, ROADMAP
+Queue 1 item 4b; both flags raise.  Serving at the model axis is
+``launch/serve.py --mesh``.
 """
 import argparse
 import os
@@ -49,7 +52,15 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="'cpu', or the CUDA card when not given")
+    ap.add_argument("--mesh", default=None, help="not ported yet")
+    ap.add_argument("--coordinator", default=None, help="not ported yet")
     args = ap.parse_args(argv)
+    if args.mesh or args.coordinator:
+        raise SystemExit("launch.train: --mesh and --coordinator (sharded "
+                         "training: the data axis, batch sharding, FSDP "
+                         "gathers, ZeRO-1) wait for ROADMAP Queue 1 item 4b; "
+                         "serving at the model axis runs with "
+                         "launch.serve --mesh")
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)

@@ -8,8 +8,19 @@ bf16 once, at load (``model.params_from_jax`` / ``model.init_params``):
 the numbers that reach each product are the same.  Training holds
 float32 masters (the init functions' ``dtype``) and casts them at use, as
 the reference does.  Norm scales stay float32.  Dense weights are
-``(d_in, d_out)`` as in the reference.  There are no sharding policies:
-the port runs at world 1.
+``(d_in, d_out)`` as in the reference.
+
+Tensor parallelism (``policy`` with a model axis of more than one rank;
+``models/sharding.py``): each rank holds the slices ``shard_params``
+gives it.  ``wq``/``wk``/``wv``/``w_gate``/``w_up``/``w_in`` are split on
+the output dim (column-parallel), so a rank computes its own heads or
+its own part of the MLP's hidden dim; ``wo``/``w_down``/``w_out`` are
+split on the input dim (row-parallel) and their partial products are
+summed over the model group in float32 (:func:`dense_rows`).  Head
+counts are read from the local weights' widths, so one code path serves
+world 1 and the sharded layout.  The embedding is vocab-parallel: a rank
+looks up the tokens in its rows, zeros elsewhere, and the ranks sum;
+``logits_out`` gives the rank's vocab columns, which the model gathers.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.context import all_reduce
 from . import attention as A
 
 INIT_STD = 0.02
@@ -102,6 +114,24 @@ def dense(p, x):
     return y
 
 
+def _model_sum(y, policy):
+    """``y`` summed over the model group in float32, back in its dtype
+    (``y`` itself without a sharded model axis)."""
+    if policy is None or not policy.sharded:
+        return y
+    return all_reduce(y.float(), policy.model_group).to(y.dtype)
+
+
+def dense_rows(p, x, policy=None):
+    """A row-parallel ``dense``: this rank's rows of ``w`` against its
+    slice of ``x``'s last dim, the partial products summed over the model
+    group, then the (replicated) bias."""
+    y = _model_sum(x.to(BF16) @ p["w"].to(BF16), policy)
+    if "b" in p:
+        y = y + p["b"].to(BF16)
+    return y
+
+
 def rms_norm(p, x, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -130,17 +160,26 @@ def _split_heads(y, n_heads: int, d_head: int):
     return y.reshape(B, S, n_heads, d_head).transpose(1, 2)
 
 
+def _heads(p, cfg) -> tuple[int, int]:
+    """(q heads, KV heads) of the attention weights held here: the
+    config's at world 1, this rank's under tensor parallelism."""
+    return (p["wq"]["w"].shape[-1] // cfg.d_head,
+            p["wk"]["w"].shape[-1] // cfg.d_head)
+
+
 def attn_apply(p, cfg, x, positions, *, causal: bool = True, kv_x=None,
                attn_impl: str = "xla", q_chunk: int = 1024,
-               k_chunk: int = 1024):
+               k_chunk: int = 1024, policy=None):
     """Full-sequence attention (train / prefill); ``kv_x`` (B, Skv, d)
     makes it cross-attention: q from ``x``, k and v from ``kv_x`` and no
     RoPE on either side (``positions`` unused).  Returns (y, (k, v)) with
-    k, v in the (B, Hkv, Skv, D) cache layout."""
+    k, v in the (B, Hkv, Skv, D) cache layout (this rank's heads under
+    tensor parallelism)."""
     kv_src = x if kv_x is None else kv_x
-    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
-    k = _split_heads(dense(p["wk"], kv_src), cfg.n_kv_heads, cfg.d_head)
-    v = _split_heads(dense(p["wv"], kv_src), cfg.n_kv_heads, cfg.d_head)
+    hq, hkv = _heads(p, cfg)
+    q = _split_heads(dense(p["wq"], x), hq, cfg.d_head)
+    k = _split_heads(dense(p["wk"], kv_src), hkv, cfg.d_head)
+    v = _split_heads(dense(p["wv"], kv_src), hkv, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
@@ -150,11 +189,12 @@ def attn_apply(p, cfg, x, positions, *, causal: bool = True, kv_x=None,
     o = A.attention(q, k, v, causal=causal, impl=attn_impl,
                     q_chunk=q_chunk, k_chunk=k_chunk)
     B, S = x.shape[:2]
-    y = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
-    return dense(p["wo"], y), (k, v)
+    y = o.transpose(1, 2).reshape(B, S, hq * cfg.d_head)
+    return dense_rows(p["wo"], y, policy), (k, v)
 
 
-def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False):
+def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False,
+                policy=None):
     """One-token decode.  ``cache = {"k", "v"}`` (B, Hkv, S, D); the new
     token's k and v are written at ``cache_len`` IN PLACE (the reference
     returns a new cache and donates the old buffer; here the caller's
@@ -162,7 +202,8 @@ def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False):
     per-slot positions, each ``< S``.  With ``cross`` the cache is the
     (static) encoder memory: only q is projected, without RoPE, nothing
     is written and every one of its S positions is attended to."""
-    q = _split_heads(dense(p["wq"], x), cfg.n_heads, cfg.d_head)
+    hq, hkv = _heads(p, cfg)
+    q = _split_heads(dense(p["wq"], x), hq, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
     kc, vc = cache["k"], cache["v"]
@@ -171,8 +212,8 @@ def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False):
     else:
         cl = torch.as_tensor(cache_len, device=x.device).long()
         pos = cl if cl.dim() == 0 else cl[:, None]       # rope: (B,1)
-        k_new = _split_heads(dense(p["wk"], x), cfg.n_kv_heads, cfg.d_head)
-        v_new = _split_heads(dense(p["wv"], x), cfg.n_kv_heads, cfg.d_head)
+        k_new = _split_heads(dense(p["wk"], x), hkv, cfg.d_head)
+        v_new = _split_heads(dense(p["wv"], x), hkv, cfg.d_head)
         if cfg.qk_norm:
             k_new = rms_norm(p["k_norm"], k_new, cfg.norm_eps)
         q = rope(q, pos, cfg.rope_theta)
@@ -187,19 +228,19 @@ def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False):
         live_len = cache_len
     o = A.decode_attention(q, kc, vc, live_len)
     B = x.shape[0]
-    y = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return dense(p["wo"], y), cache
+    y = o.transpose(1, 2).reshape(B, 1, hq * cfg.d_head)
+    return dense_rows(p["wo"], y, policy), cache
 
 
-def swiglu(p, x):
+def swiglu(p, x, policy=None):
     g = F.silu(dense(p["w_gate"], x))
     u = dense(p["w_up"], x)
-    return dense(p["w_down"], g * u)
+    return dense_rows(p["w_down"], g * u, policy)
 
 
-def gelu_mlp(p, x):
+def gelu_mlp(p, x, policy=None):
     h = F.gelu(dense(p["w_in"], x), approximate="tanh")  # jax.nn.gelu
-    return dense(p["w_out"], h)
+    return dense_rows(p["w_out"], h, policy)
 
 
 # --------------------------------------------------------------------------
@@ -207,13 +248,26 @@ def gelu_mlp(p, x):
 # --------------------------------------------------------------------------
 
 
-def embed_lookup(p, tokens):
-    return p["embed"].to(BF16)[tokens.long()]
+def embed_lookup(p, tokens, policy=None):
+    """bf16 embeddings of ``tokens``; vocab-parallel under a sharded
+    model axis: the rank's rows (its even block of the padded vocab) are
+    looked up, other tokens give zeros, and the ranks' results are
+    summed (exact: one term is not zero)."""
+    emb = p["embed"].to(BF16)
+    if policy is None or not policy.sharded:
+        return emb[tokens.long()]
+    lo = policy.model_rank * emb.shape[0]
+    t = tokens.long() - lo
+    mine = (t >= 0) & (t < emb.shape[0])
+    x = torch.where(mine[..., None], emb[t.clamp(0, emb.shape[0] - 1)], 0)
+    return _model_sum(x, policy)
 
 
 def logits_out(p_head, x, tied_embed=None):
     """x (B,S,d) -> float32 logits (B,S,V): bf16 operands, float32
-    products and sums, as the reference's ``preferred_element_type``."""
+    products and sums, as the reference's ``preferred_element_type``.
+    Under tensor parallelism the head (or the tied embedding) holds the
+    rank's vocab block, and so do the logits."""
     if tied_embed is not None:
         w = tied_embed["embed"].to(BF16).T
     else:

@@ -18,6 +18,14 @@ attention on the CPU; ``mamba_impl=None`` likewise the scan
 (``kernel_backend.mamba_impl``): the selective-scan kernel on the card,
 the plain scan on the CPU.  A stack with Mamba layers is always
 prefilled at the prompt's true length (see :func:`make_slot_prefill`).
+
+Serving takes the reference's ``policy`` (``models/sharding.py``;
+``None`` is world 1).  Under a policy whose model axis spans several
+ranks each rank holds its slice of the parameters
+(:func:`params_from_jax` with ``policy``, or ``sharding.shard_params``
+of :func:`init_params`' tree), its heads' caches (:func:`cache_struct`)
+and computes its part of every layer; the logits' vocab blocks are
+gathered once, so every rank holds the same full logits, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,7 +37,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import kernel_backend as KB
 from ..optim import adamw
+from ..core.context import all_gather
 from . import layers as Ly
+from . import sharding
 from . import transformer as Tf
 from .transformer import StackOpts
 
@@ -46,7 +56,8 @@ def opts_from_cfg(cfg, tokens, *, decode_len: int = 0,
     return StackOpts(attn_impl=attn_impl or KB.attention_impl(tokens.device),
                      mamba_impl=mamba_impl or KB.mamba_impl(tokens.device),
                      q_chunk=t.attn_q_chunk, k_chunk=t.attn_k_chunk,
-                     decode_len=decode_len)
+                     decode_len=decode_len,
+                     moe_capacity=t.moe_capacity_factor)
 
 
 def has_mamba(cfg) -> bool:
@@ -103,14 +114,17 @@ def _is_matmul_weight(parent: str, name: str, ndim: int) -> bool:
 
 
 def params_from_jax(tree: Mapping, cfg, device, *,
-                    master: bool = False) -> dict:
+                    master: bool = False, policy=None) -> dict:
     """The port's parameters from the reference's ``init_params`` tree
     given as numpy arrays (layer leaves stacked over the layers, as the
     reference's ``vmap`` makes them): matmul weights and the embedding to
     bf16 (round to nearest even, as ``astype(bfloat16)``), the rest
     float32, all on ``device``; with ``master`` every leaf float32 (the
-    reference's training masters)."""
-    Tf.check_supported(cfg)
+    reference's training masters).  Under a sharded ``policy`` each leaf
+    is this rank's slice (``sharding.shard_params``), cut on the host."""
+    Tf.check_supported(cfg, policy)
+    if policy is not None and policy.sharded:
+        tree = sharding.shard_params(_to_numpy(tree), policy, cfg=cfg)
 
     def conv(node, parent=""):
         out = {}
@@ -126,6 +140,11 @@ def params_from_jax(tree: Mapping, cfg, device, *,
         return out
 
     return conv(tree)
+
+
+def _to_numpy(node):
+    return {k: _to_numpy(v) if isinstance(v, Mapping) else np.asarray(v)
+            for k, v in node.items()}
 
 
 # --------------------------------------------------------------------------
@@ -149,7 +168,8 @@ def _encode(params, cfg, frames, opts: StackOpts):
     return Ly.rms_norm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
-def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False):
+def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False,
+             policy=None):
     """Embed -> stack -> final norm.  Returns (x, aux, caches, n_prefix):
     ``aux`` is the MoE layers' auxiliary loss summed over the stack.  A
     vision config's ``batch["patch_embeds"]`` (B, P, d) go in front of
@@ -157,7 +177,7 @@ def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False):
     decoder attends to the encoder's output over ``batch["frames"]``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = Ly.embed_lookup(params["embed"], tokens)
+    x = Ly.embed_lookup(params["embed"], tokens, policy)
     n_prefix = 0
     if cfg.frontend == "vision":
         patches = batch["patch_embeds"].to(x.dtype)
@@ -167,33 +187,42 @@ def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False):
         if cfg.is_encdec else None
     x, aux, caches = Tf.stack_apply(
         params["layers"], cfg, x, _positions(B, x.shape[1], tokens.device),
-        opts, causal=True, enc_out=enc_out, want_cache=want_cache)
+        opts, causal=True, enc_out=enc_out, want_cache=want_cache,
+        policy=policy)
     x = Ly.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return x, aux, caches, n_prefix
 
 
-def _logits(params, cfg, x):
-    return Ly.logits_out(
+def _logits(params, cfg, x, policy=None):
+    """Float32 logits over the whole vocabulary: under a sharded model
+    axis the ranks' vocab blocks, gathered in rank order."""
+    logits = Ly.logits_out(
         params.get("lm_head"), x,
         tied_embed=params["embed"] if cfg.tie_embeddings else None)
+    if policy is None or not policy.sharded:
+        return logits
+    return torch.cat(all_gather(logits, policy.model_group), dim=-1)
 
 
-def make_prefill(cfg, *, decode_len: int, attn_impl: str | None = None,
+def make_prefill(cfg, policy=None, *, decode_len: int,
+                 attn_impl: str | None = None,
                  mamba_impl: str | None = None):
     """``(params, batch) -> (logits (B,V) at the last position, caches)``
     with attention caches padded to ``decode_len`` (a vision config's
     count its P patch positions: the first decode step is at P + S);
     cross-attention caches stay at the encoder's length."""
+    Tf.check_supported(cfg, policy)
+
     def prefill(params, batch):
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
         x, _, caches, _ = backbone(params, cfg, batch, opts,
-                                   want_cache=True)
-        return _logits(params, cfg, x[:, -1:])[:, 0], caches
+                                   want_cache=True, policy=policy)
+        return _logits(params, cfg, x[:, -1:], policy)[:, 0], caches
     return prefill
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, policy=None):
     """One decode step: ``(params, caches, tokens (B,1), cache_len) ->
     (logits (B,V), caches)``; ``caches`` are updated in place (the
     reference donates them).
@@ -206,6 +235,8 @@ def make_serve_step(cfg):
     decode step's attention and Mamba step are plain PyTorch on every
     device (the reference has no kernel there either), so it takes no
     ``*_impl``."""
+    Tf.check_supported(cfg, policy)
+
     def serve_step(params, caches, tokens, cache_len):
         cl = cache_len if isinstance(cache_len, torch.Tensor) \
             else torch.as_tensor(np.array(cache_len))
@@ -215,14 +246,15 @@ def make_serve_step(cfg):
                 raise ValueError(f"cache_len {cl.tolist()} outside "
                                  f"[0, {S})")
         cl = cl.to(tokens.device)
-        x = Ly.embed_lookup(params["embed"], tokens)      # (B,1,d)
-        x, caches = Tf.stack_decode(params["layers"], cfg, x, caches, cl)
+        x = Ly.embed_lookup(params["embed"], tokens, policy)  # (B,1,d)
+        x, caches = Tf.stack_decode(params["layers"], cfg, x, caches, cl,
+                                    policy)
         x = Ly.rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return _logits(params, cfg, x)[:, 0], caches
+        return _logits(params, cfg, x, policy)[:, 0], caches
     return serve_step
 
 
-def make_slot_prefill(cfg, *, decode_len: int,
+def make_slot_prefill(cfg, policy=None, *, decode_len: int,
                       attn_impl: str | None = None,
                       mamba_impl: str | None = None):
     """Prefill for one continuous-batching slot refill.
@@ -238,6 +270,7 @@ def make_slot_prefill(cfg, *, decode_len: int,
     positions to mask, and one that ran on through the padding would not
     be the prompt's (the JAX engine pads there, so its Mamba states
     differ from its own ``make_prefill`` at the true length)."""
+    Tf.check_supported(cfg, policy)
     mamba = has_mamba(cfg)
 
     def slot_prefill(params, batch, length):
@@ -246,9 +279,10 @@ def make_slot_prefill(cfg, *, decode_len: int,
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
         x, _, caches, n_prefix = backbone(params, cfg, batch, opts,
-                                          want_cache=True)
+                                          want_cache=True, policy=policy)
         idx = n_prefix + int(length) - 1
-        return _logits(params, cfg, x[:, idx:idx + 1])[:, 0], caches
+        return _logits(params, cfg, x[:, idx:idx + 1], policy)[:, 0], \
+            caches
     return slot_prefill
 
 
@@ -399,19 +433,21 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
 
 
 def cache_struct(cfg, batch_size: int, decode_len: int,
-                 enc_len: int = 0) -> dict:
+                 enc_len: int = 0, policy=None) -> dict:
     """name -> (shape, dtype) of the stacked cache that ``stack_apply``
     emits: ``{"k", "v"}`` (n_layers, B, Hkv, decode_len, D) bf16 for an
     attention stack, and for an enc-dec decoder also ``{"ck", "cv"}``
     (n_layers, B, Hkv, enc_len, D) bf16; ``{"conv" (n_layers, B, K-1, E),
-    "ssm" (n_layers, B, E, N)}`` float32 for a Mamba stack."""
-    Tf.check_supported(cfg)
+    "ssm" (n_layers, B, E, N)}`` float32 for a Mamba stack.  Under a
+    sharded ``policy`` Hkv is the KV heads this rank holds."""
+    Tf.check_supported(cfg, policy)
     L, B = cfg.n_layers, batch_size
     if has_mamba(cfg):
         return {"conv": ((L, B, cfg.ssm_conv - 1, cfg.d_inner),
                          torch.float32),
                 "ssm": ((L, B, cfg.d_inner, cfg.ssm_state), torch.float32)}
-    kv = (L, B, cfg.n_kv_heads, decode_len, cfg.d_head)
+    kv = (L, B, sharding.local_kv_heads(cfg, policy), decode_len,
+          cfg.d_head)
     out = {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
     if cfg.is_encdec:
         ckv = (L, B, cfg.n_kv_heads, enc_len, cfg.d_head)
@@ -420,8 +456,9 @@ def cache_struct(cfg, batch_size: int, decode_len: int,
 
 
 def init_caches(cfg, batch_size: int, decode_len: int, device,
-                enc_len: int = 0) -> dict:
+                enc_len: int = 0, policy=None) -> dict:
     """Zero caches of :func:`cache_struct`'s layout on ``device``."""
     return {k: torch.zeros(shape, dtype=dtype, device=device)
             for k, (shape, dtype) in
-            cache_struct(cfg, batch_size, decode_len, enc_len).items()}
+            cache_struct(cfg, batch_size, decode_len, enc_len,
+                         policy).items()}

@@ -1,22 +1,35 @@
 """Mixture-of-Experts layers (PyTorch port of ``repro/models/moe.py``).
 
-The reference has three paths: ``moe_dense`` (every expert on every
-token, gates zero outside each token's top-k), ``moe_shuffle`` (expert
-parallelism through the table Shuffle: hash partition of the routed rows
-by expert, ``all_to_all`` over the model axis) and ``moe_decode``
-(replicated tokens, local experts, ``psum``).  Without a mesh, which is
-world 1, it runs ``moe_dense`` for both; the port runs at world 1, so
-:func:`moe_apply` is ``moe_dense`` and the two dispatch paths come with
-the sharded slice.  :func:`_expert_ffn` is their per-expert FFN, and
-``moe_dense`` computes its experts through it on the tokens broadcast to
-every expert (the reference's ``td,edf->tef`` products, as batched
-products that read each expert's weights once).
+The paper's central operator, the table Shuffle (hash partition +
+``all_to_all``), *is* MoE token dispatch: rows are tokens, the partition
+key is the routed expert, the destination shard is the expert's owner.
+Three paths, chosen by :func:`moe_apply` as the reference chooses them:
 
-Uneven expert counts are parameter-padded to a multiple of 16
-(:func:`n_experts_padded`; ``cfg.n_experts`` stays the routing width and
-the pads are never computed).  The router is float32 in serving and in
-training and its product runs in float32; the expert products run in
-bf16 and round to bf16 before the float32 combine, as the reference's.
+* ``moe_dense``   — every expert on every token, gates zero outside each
+  token's top-k: without a policy (world 1), and where the experts or the
+  sequence do not split over the model axis.  :func:`_expert_ffn` is the
+  per-expert FFN of all three paths; ``moe_dense`` runs it on the tokens
+  broadcast to every expert (the reference's ``td,edf->tef`` products, as
+  batched products that read each expert's weights once);
+* ``moe_shuffle`` — expert parallelism for prefill: each model rank takes
+  its ``S / world`` slice of the sequence, ranks the routed rows within
+  their expert on the ``hash_partition`` kernel, scatters them into
+  ``(owner, local expert, capacity)`` slots (a trash slot past the
+  capacity), exchanges them with one ``all_to_all`` over the model group,
+  runs its local experts, sends the rows back and combines them with the
+  gates; the ranks then all-gather their slices;
+* ``moe_decode``  — the decode step's few tokens stay replicated: each
+  rank serves its local experts (the same kernel ranks its rows) and an
+  all-reduce over the model group combines them.
+
+A call of either dispatch path appends its rows dropped past the
+capacity (a device scalar, this rank's count) to :data:`drop_log` when
+that is a list; the reference discards the count.  Uneven expert counts
+are parameter-padded to a multiple of 16 (:func:`n_experts_padded`;
+``cfg.n_experts`` stays the routing width and the pads receive no
+rows).  The router is float32 in serving and in training and its product
+runs in float32; the expert products run in bf16 and round to bf16
+before the float32 combine, as the reference's.
 """
 from __future__ import annotations
 
@@ -25,9 +38,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.context import all_gather, all_reduce, all_to_all
+from ..kernels.hash_partition.ops import radix_histogram_ranks
 from . import layers as Ly
+from . import sharding
 
 F32 = torch.float32
+
+# None, or a list each dispatch call appends its dropped-row count to
+drop_log: list | None = None
 
 
 def n_experts_padded(cfg) -> int:
@@ -93,7 +112,147 @@ def moe_dense(p, cfg, x):
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
-def moe_apply(p, cfg, x):
-    """The MoE FFN at world 1: ``moe_dense`` (the reference's
-    ``moe_apply`` without a mesh, in train, prefill and decode)."""
-    return moe_dense(p, cfg, x)
+# --------------------------------------------------------------------------
+# shuffle-dispatch expert parallelism (prefill) — the paper's operator
+# --------------------------------------------------------------------------
+
+
+def _log_drops(n: torch.Tensor) -> None:
+    if drop_log is not None:
+        drop_log.append(n)
+
+
+def _dense_fallback(p, cfg, x, policy):
+    """``moe_dense`` where a dispatch path falls back: under a sharded
+    model axis on this rank's block of the experts (its slice from
+    ``shard_params``), summed over the model group."""
+    if not policy.sharded:
+        return moe_dense(p, cfg, x)
+    B, S, d = x.shape
+    E = cfg.n_experts
+    lo = sharding.block(n_experts_padded(cfg), policy.world_m,
+                        policy.model_rank).start
+    hi = min(lo + p["e_gate"].shape[0], E)
+    x2 = x.reshape(B * S, d)
+    w, ids, aux = _route(p["router"], x2, cfg.top_k)
+    gates = torch.zeros((B * S, E), dtype=F32, device=x.device) \
+        .scatter(1, ids.long(), w)[:, lo:hi]
+    n = hi - lo
+    o = _expert_ffn(p["e_gate"][:n], p["e_up"][:n], p["e_down"][:n],
+                    x2.to(Ly.BF16).expand(n, B * S, d))
+    y = torch.einsum("etd,te->td", o.float(), gates)
+    y = all_reduce(y, policy.model_group)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_shuffle(p, cfg, x, policy, capacity_factor: float = 1.25):
+    """x (B, S, d), replicated over the model axis -> (y (B, S, d), aux).
+    ``p`` holds this rank's ``E_pad / world`` experts (``shard_params``).
+    Falls back to ``moe_dense`` where the reference does."""
+    world_m = policy.world_m
+    E = cfg.n_experts
+    E_pad = n_experts_padded(cfg)
+    B, S, d = x.shape
+    if world_m == 1 or E_pad % world_m != 0 or S % world_m != 0:
+        return _dense_fallback(p, cfg, x, policy)
+    group = policy.model_group
+    r = policy.model_rank
+    E_loc = E_pad // world_m
+    s = S // world_m
+    x_loc = x[:, r * s:(r + 1) * s]
+    T = B * s
+    k = cfg.top_k
+    C_send = max(1, math.ceil(T * k / E * capacity_factor))
+    slots = E_loc * C_send
+    x2 = x_loc.reshape(T, d)
+    w, ids, aux = _route(p["router"], x2, k)
+
+    # the shuffle plan: the stable rank of each routed row in its expert
+    eid = ids.reshape(-1)                                     # (T*k,)
+    src = torch.arange(T, device=x.device).repeat_interleave(k)
+    wf = w.reshape(-1).float()
+    _, ranks = radix_histogram_ranks(eid, E)
+    eid, ranks = eid.long(), ranks.long()
+    owner, le = eid // E_loc, eid % E_loc
+    ok = ranks < C_send
+    flat = torch.where(ok, owner * slots + le * C_send + ranks,
+                       world_m * slots)
+    payload = torch.zeros((world_m * slots + 1, d), dtype=Ly.BF16,
+                          device=x.device)
+    payload[flat] = x2.to(Ly.BF16)[src]
+    payload = payload[:-1].reshape(world_m, slots, d)
+
+    recv = all_to_all(payload, group)                # (world, slots, d)
+    xb = recv.reshape(world_m, E_loc, C_send, d).transpose(0, 1) \
+        .reshape(E_loc, world_m * C_send, d)
+    h = _expert_ffn(p["e_gate"], p["e_up"], p["e_down"], xb)
+    h = h.reshape(E_loc, world_m, C_send, d).transpose(0, 1) \
+        .reshape(world_m, slots, d)
+    y_rows = all_to_all(h, group).reshape(world_m * slots, d)
+
+    g = y_rows[flat.clamp(max=world_m * slots - 1)].float()
+    contrib = g * (wf * ok)[:, None]
+    y = torch.zeros((T, d), dtype=F32, device=x.device) \
+        .index_add_(0, src, contrib)
+    _log_drops((~ok).sum())
+    y = torch.cat(all_gather(y.reshape(B, s, d).to(x.dtype), group), dim=1)
+    return y, all_reduce(aux, group) / world_m
+
+
+# --------------------------------------------------------------------------
+# decode: replicated tokens, local experts, all-reduce combine
+# --------------------------------------------------------------------------
+
+
+def moe_decode(p, cfg, x, policy, capacity_factor: float = 4.0):
+    """x (B, S, d) replicated -> (y, aux): each rank's experts on the rows
+    routed to them, summed over the model group."""
+    world_m = policy.world_m
+    E = cfg.n_experts
+    E_pad = n_experts_padded(cfg)
+    if world_m == 1 or E_pad % world_m != 0:
+        return _dense_fallback(p, cfg, x, policy)
+    group = policy.model_group
+    r = policy.model_rank
+    B, S, d = x.shape
+    T = B * S
+    k = cfg.top_k
+    E_loc = E_pad // world_m
+    C = max(8, math.ceil(T * k / E * capacity_factor))
+    x2 = x.reshape(T, d)
+    w, ids, aux = _route(p["router"], x2, k)
+    eid = ids.reshape(-1).long()
+    src = torch.arange(T, device=x.device).repeat_interleave(k)
+    wf = w.reshape(-1).float()
+    le = eid - r * E_loc
+    mine = (le >= 0) & (le < E_loc)
+    le_or_trash = torch.where(mine, le, E_loc)
+    _, ranks = radix_histogram_ranks(le_or_trash.to(torch.int32), E_loc + 1)
+    ranks = ranks.long()
+    ok = mine & (ranks < C)
+    flat = torch.where(ok, le_or_trash * C + ranks, E_loc * C)
+    xb = torch.zeros((E_loc * C + 1, d), dtype=Ly.BF16, device=x.device)
+    xb[flat] = x2.to(Ly.BF16)[src]
+    xb = xb[:-1].reshape(E_loc, C, d)
+    h = _expert_ffn(p["e_gate"], p["e_up"], p["e_down"], xb)
+    g = h.reshape(E_loc * C, d).float()[flat.clamp(max=E_loc * C - 1)]
+    contrib = g * (wf * ok)[:, None]
+    part = torch.zeros((T, d), dtype=F32, device=x.device) \
+        .index_add_(0, src, contrib)
+    _log_drops((mine & ~ok).sum())
+    y = all_reduce(part, group)
+    # every rank routed the same rows, so its aux is already the mean
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_apply(p, cfg, x, policy=None, *, decode: bool = False,
+              capacity_factor: float = 1.25):
+    """The MoE FFN: ``moe_dense`` without a sharded model axis (world 1,
+    in train, prefill and decode), else ``moe_decode`` for a decode step
+    or a sequence shorter than the axis and ``moe_shuffle`` for the
+    rest, as the reference's ``moe_apply``."""
+    if policy is None or not policy.sharded:
+        return moe_dense(p, cfg, x)
+    if decode or x.shape[1] < policy.world_m:
+        return moe_decode(p, cfg, x, policy)
+    return moe_shuffle(p, cfg, x, policy, capacity_factor)

@@ -23,6 +23,13 @@ MLP, not causal) and its decoder (self-attention, then cross-attention
 on the encoder's output, then the MLP); period stacks (Jamba's attention
 every ``attn_period`` and MoE every ``moe_period`` layers) raise
 ``NotImplementedError``.
+
+Every function takes the reference's ``policy`` (default ``None``, world
+1).  Under a policy whose model axis spans several ranks the layers
+compute on this rank's slices (``models/layers.py``), a MoE FFN runs
+``moe_shuffle`` in train and prefill and ``moe_decode`` in a decode step,
+with ``StackOpts.moe_capacity`` as the shuffle's capacity factor.
+:func:`check_supported` refuses what the sharded path does not run yet.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import layers as Ly
 from . import mamba as Mb
 from . import moe as Moe
+from .sharding import kv_head_block
 
 F32 = torch.float32
 
@@ -52,6 +60,7 @@ class StackOpts:
     remat: str = "full"          # none | full | dots
     mamba_chunk: int = 128
     decode_len: int = 0          # static cache length for decode/prefill
+    moe_capacity: float = 1.25   # moe_shuffle's capacity factor
 
 
 def layer_kind(cfg, i: int) -> tuple[str, str, bool]:
@@ -66,18 +75,42 @@ def layer_kind(cfg, i: int) -> tuple[str, str, bool]:
     return mixer, ffn, cfg.is_encdec
 
 
-def check_supported(cfg) -> None:
+def check_supported(cfg, policy=None) -> None:
     """Raise for a config whose layers the port does not run: period
     stacks.  A stack is a whole number of periods, and one period of the
     only such config (Jamba-1.5-Large, 8 layers) holds 88.3 GB of bf16
     weights, more than one card's memory, so these wait for a path over
-    several cards."""
+    several cards.  Under a sharded ``policy`` also: a data axis of more
+    than one rank, Mamba layers, encoder and vision configs (ROADMAP
+    Queue 1 item 4, its second part), heads that do not split over the
+    model axis and a padded vocabulary that does not."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
                                   f"{cfg.moe_period} layers) wait for a "
                                   "path over several cards: one period "
                                   "of the full config does not fit one")
+    if policy is None or policy.mesh is None:
+        return
+    later = "waits for ROADMAP Queue 1 item 4b (world > 1 beyond serving " \
+        "at the model axis)"
+    for a in policy.batch_axes:
+        if policy.size(a) > 1:
+            raise NotImplementedError(f"a {a} axis of {policy.size(a)} "
+                                      f"ranks {later}")
+    if not policy.sharded:
+        return
+    if any(layer_kind(cfg, i)[0] == "mamba" for i in range(cfg.n_layers)):
+        raise NotImplementedError(f"{cfg.name}: Mamba layers at world > 1 "
+                                  f"{later}")
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.name}: encoder and vision configs "
+                                  f"at world > 1 {later}")
+    kv_head_block(cfg.n_heads, cfg.n_kv_heads, policy.world_m, 0)
+    if cfg.padded_vocab() % policy.world_m:
+        raise ValueError(f"{cfg.name}: a padded vocabulary of "
+                         f"{cfg.padded_vocab()} does not split over a "
+                         f"model axis of {policy.world_m}")
 
 
 def layer_at(stack: dict, i: int) -> dict:
@@ -125,19 +158,22 @@ def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16, *,
     return p
 
 
-def _apply_ffn(p, cfg, x):
+def _apply_ffn(p, cfg, x, policy, *, decode: bool,
+               capacity_factor: float = 1.25):
     """(x after the layer's ffn, its MoE auxiliary loss or None)."""
     aux = None
     if "ffn_moe" in p:
         y, aux = Moe.moe_apply(p["ffn_moe"], cfg,
-                               Ly.rms_norm(p["ln2"], x, cfg.norm_eps))
+                               Ly.rms_norm(p["ln2"], x, cfg.norm_eps),
+                               policy, decode=decode,
+                               capacity_factor=capacity_factor)
         x = x + y
     elif "ffn_gelu" in p:
         x = x + Ly.gelu_mlp(p["ffn_gelu"],
-                            Ly.rms_norm(p["ln2"], x, cfg.norm_eps))
+                            Ly.rms_norm(p["ln2"], x, cfg.norm_eps), policy)
     elif "ffn_mlp" in p:
         x = x + Ly.swiglu(p["ffn_mlp"],
-                          Ly.rms_norm(p["ln2"], x, cfg.norm_eps))
+                          Ly.rms_norm(p["ln2"], x, cfg.norm_eps), policy)
     return x, aux
 
 
@@ -159,7 +195,7 @@ def _cross_block(p, cfg, x, enc_out, opts: StackOpts):
 
 def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, enc_out=None,
-                want_cache: bool = False):
+                want_cache: bool = False, policy=None):
     """Full-sequence layer (train / prefill / encoder); a layer with
     cross-attention reads ``enc_out`` (B, Senc, d).  Returns (x, aux,
     cache) — aux is None without an MoE FFN, cache is {} unless
@@ -170,7 +206,7 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
         y, (k, v) = Ly.attn_apply(p["attn"], cfg, h, positions,
                                   causal=causal, attn_impl=opts.attn_impl,
                                   q_chunk=opts.q_chunk,
-                                  k_chunk=opts.k_chunk)
+                                  k_chunk=opts.k_chunk, policy=policy)
         if want_cache:
             cache["k"] = _cache_pad(k, opts.decode_len)
             cache["v"] = _cache_pad(v, opts.decode_len)
@@ -188,17 +224,19 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
         x = x + y
         if want_cache:
             cache["ck"], cache["cv"] = ck, cv
-    x, aux = _apply_ffn(p, cfg, x)
+    x, aux = _apply_ffn(p, cfg, x, policy, decode=False,
+                        capacity_factor=opts.moe_capacity)
     return x, aux, cache
 
 
-def layer_decode(p, cfg, x, cache, cache_len):
+def layer_decode(p, cfg, x, cache, cache_len, policy=None):
     """One-token decode through one layer; ``cache`` is updated in place
     (but for its cross-attention's ``ck``/``cv``, which are only read).
     Returns (x, cache); a MoE layer's auxiliary loss is dropped."""
     h = Ly.rms_norm(p["ln1"], x, cfg.norm_eps)
     if "attn" in p:
-        y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len)
+        y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len,
+                                  policy=policy)
     else:
         y, cache = Mb.mamba_step(p["mamba"], cfg, h, cache)
     x = x + y
@@ -208,7 +246,7 @@ def layer_decode(p, cfg, x, cache, cache_len):
                               {"k": cache["ck"], "v": cache["cv"]},
                               cache_len, cross=True)
         x = x + y
-    x, _aux = _apply_ffn(p, cfg, x)
+    x, _aux = _apply_ffn(p, cfg, x, policy, decode=True)
     return x, cache
 
 
@@ -270,14 +308,15 @@ def _wrap_remat(fn, remat: str, grads: bool):
 
 def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, enc_out=None,
-                want_cache: bool = False):
+                want_cache: bool = False, policy=None):
     """Run the stack (an encoder stack with ``causal=False``; a decoder
     with cross-attention on ``enc_out``).  Returns (x, the MoE auxiliary
     loss summed over the layers, stacked caches | None): each layer's
     cache leaves stacked over the layers (see the module docstring)."""
     def body(p, x, enc_out):
         return layer_apply(p, cfg, x, positions, opts, causal=causal,
-                           enc_out=enc_out, want_cache=want_cache)
+                           enc_out=enc_out, want_cache=want_cache,
+                           policy=policy)
 
     grads = torch.is_grad_enabled() and (x.requires_grad
                                          or _requires_grad(stack_params))
@@ -295,11 +334,11 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
                     for k in caches[0]}
 
 
-def stack_decode(stack_params, cfg, x, caches, cache_len):
+def stack_decode(stack_params, cfg, x, caches, cache_len, policy=None):
     """Decode one token through the whole stack; ``caches`` are stacked
     as ``stack_apply(want_cache=True)`` makes them and are updated in
     place.  Returns (x, caches)."""
     for i in range(cfg.n_layers):
         x, _ = layer_decode(layer_at(stack_params, i), cfg, x,
-                            layer_at(caches, i), cache_len)
+                            layer_at(caches, i), cache_len, policy)
     return x, caches

@@ -28,6 +28,15 @@ admission -> feature fetch -> slot prefill -> continuous-batching decode
   lengths): one step drives the whole fixed-shape batch; finished slots
   are refilled from the queue at once.
 
+Under a ``policy`` whose model axis spans several ranks (the reference's
+``ServingEngine(..., policy=)``) every rank runs its own engine on the
+same requests: it holds its slice of the weights and its heads' caches,
+and every choice that steers the loop (admission, refill, the greedy
+tokens) comes from the logits gathered over the ranks, which are the
+same bits on each, so the ranks take the same steps.  The feature stores
+are given a context over all ranks and run their shuffles at that world
+size.
+
 The reference donates the cache buffers to its jitted steps; here the
 cache is one set of tensors updated in place by every prefill write and
 decode step.  Every stage reports into
@@ -234,12 +243,13 @@ class ServingEngine:
     ``feature_stores`` maps a request attribute name (``"drug_id"`` /
     ``"cell_id"``) to the :class:`FeatureStore` resolving it; every store's
     ``probe_capacity`` must admit a full refill micro-batch (``slots``).
-    ``params`` live on ``device`` (``None`` = the CUDA card);
-    ``attn_impl=None`` and ``mamba_impl=None`` take the attention and
-    scan paths that device implies (``kernel_backend.attention_impl``,
+    ``params`` live on ``device`` (``None`` = the CUDA card), this
+    rank's slice of them under a sharded ``policy``; ``attn_impl=None``
+    and ``mamba_impl=None`` take the attention and scan paths that device
+    implies (``kernel_backend.attention_impl``,
     ``kernel_backend.mamba_impl``)."""
 
-    def __init__(self, cfg, params, *, slots: int = 4,
+    def __init__(self, cfg, params, *, policy=None, slots: int = 4,
                  prompt_capacity: int = 32, gen_capacity: int = 32,
                  queue_capacity: int = 64,
                  feature_stores: Mapping[str, FeatureStore] | None = None,
@@ -273,11 +283,11 @@ class ServingEngine:
 
         # one static-shape cache for the whole engine lifetime
         self.caches = M.init_caches(cfg, self.n_slots, self.decode_len,
-                                    self.device)
+                                    self.device, policy=policy)
         self._slot_prefill = M.make_slot_prefill(
-            cfg, decode_len=self.decode_len, attn_impl=self.attn_impl,
-            mamba_impl=self.mamba_impl)
-        self._serve_step = M.make_serve_step(cfg)
+            cfg, policy, decode_len=self.decode_len,
+            attn_impl=self.attn_impl, mamba_impl=self.mamba_impl)
+        self._serve_step = M.make_serve_step(cfg, policy)
 
     # ------------------------------------------------------------ admission
     def submit(self, req: Request) -> bool:

@@ -1,0 +1,260 @@
+"""The port's sharding policy against the JAX package's, on the CPU
+without process groups (the sharded path at world 2 is
+``tests/test_torch_tp.py``).
+
+* ``param_specs``: the port's spec of every leaf of every reduced arch
+  (shapes from ``jax.eval_shape`` of the reference's ``init_params``)
+  equals the reference's, under both flavors and ``for_opt``, with each
+  policy from ``make_policy``'s axis discovery on the same axis names.
+* ``make_policy``'s axis discovery on four meshes.
+* ``shard_params`` at model = 2 (and at data = 2 x model = 2 under
+  ``fsdp_tp``): the ranks' slices, put back along the dims their specs
+  name, give back every leaf bit for bit; reduced granite-3-2b with one
+  KV head: each rank's ``wk``/``wv`` are the columns of the KV head its
+  q heads read.
+* Rank memory: at model = 2 each rank's bytes are the sum of its shards
+  and a sharded leaf's shards sum to the whole.
+* What the slice refuses at world > 1, with the ROADMAP item it waits
+  for; ``launch.train --mesh`` and ``--coordinator``.
+* ``launch.serve --mesh data=1,model=2 --device cpu``: two rank
+  processes serve reduced granite-moe, and ``--mesh data=1,model=1``
+  serves in-process.
+* ``make_debug_mesh`` / ``make_production_mesh``: the reference's axis
+  names, and the sizes they refuse outside a process group.
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax.sharding import AxisType
+
+from repro import configs as JC
+from repro.models import model as JM
+from repro.models.sharding import make_policy as jax_make_policy
+from repro_torch import configs as TC
+from repro_torch.launch import mesh as Me
+from repro_torch.launch import train as Tr
+from repro_torch.models import model as TM
+from repro_torch.models import sharding as Sh
+from repro_torch.models import transformer as Tf
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESHES = {"data,model": {"data": 1, "model": 1},
+          "pod,data,model": {"pod": 1, "data": 1, "model": 1},
+          "rows": {"rows": 1},
+          "rows,cols": {"rows": 1, "cols": 1}}
+
+
+@functools.cache
+def shapes(arch):
+    """The reference's parameter shapes of a reduced arch."""
+    cfg = JC.get_reduced(arch)
+    return jax.eval_shape(lambda k: JM.init_params(k, cfg),
+                          jax.random.PRNGKey(0))
+
+
+def jax_mesh(axes):
+    shape = MESHES[axes]
+    return jax.make_mesh(tuple(shape.values()), tuple(shape),
+                         axis_types=(AxisType.Auto,) * len(shape))
+
+
+def to_tuples(tree):
+    """The reference's PartitionSpecs as tuples."""
+    return {k: to_tuples(v) if isinstance(v, dict) else tuple(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("for_opt", [False, True])
+@pytest.mark.parametrize("flavor", ["tp", "fsdp_tp"])
+@pytest.mark.parametrize("arch", JC.ARCH_IDS)
+def test_param_specs_match_reference(arch, flavor, for_opt):
+    for axes in ("data,model", "pod,data,model"):
+        want = jax_make_policy(jax_mesh(axes), flavor).param_specs(
+            shapes(arch), for_opt=for_opt)
+        got = Sh.make_policy(Me.abstract_mesh(MESHES[axes]),
+                             flavor).param_specs(shapes(arch),
+                                                 for_opt=for_opt)
+        assert got == to_tuples(want)
+
+
+@pytest.mark.parametrize("axes", list(MESHES))
+def test_make_policy_axis_discovery(axes):
+    want = jax_make_policy(jax_mesh(axes), "fsdp_tp")
+    got = Sh.make_policy(Me.abstract_mesh(MESHES[axes]), "fsdp_tp")
+    assert got.model_axis == want.model_axis
+    assert got.batch_axes == want.batch_axes
+    assert Sh.make_policy(None).mesh is None
+
+
+def numpy_tree(tree, seed=0):
+    rng = np.random.default_rng(seed)
+    return {k: numpy_tree(v, seed) if isinstance(v, dict)
+            else rng.normal(size=v.shape).astype(np.float32)
+            for k, v in tree.items()}
+
+
+def reassemble(parts, shape, spec, sizes, coords):
+    """Put the ranks' slices of one leaf back together (NaN where no
+    rank's slice lands)."""
+    out = np.full(shape, np.nan, np.float32)
+    for part, coord in zip(parts, coords):
+        idx = Sh.shard_slices(shape, spec, sizes, coord)
+        out[idx] = part
+    return out
+
+
+def coords_of(sizes):
+    out = [{}]
+    for a, n in sizes.items():
+        out = [dict(c, **{a: i}) for c in out for i in range(n)]
+    return out
+
+
+@pytest.mark.parametrize("sizes,flavor", [({"data": 1, "model": 2}, "tp"),
+                                          ({"data": 2, "model": 2},
+                                           "fsdp_tp")])
+@pytest.mark.parametrize("arch", JC.ARCH_IDS)
+def test_shard_params_concat_gives_back_the_tree(arch, sizes, flavor):
+    tree = numpy_tree(shapes(arch))
+    policy = Sh.make_policy(Me.abstract_mesh(sizes), flavor)
+    specs = policy.param_specs(tree)
+    coords = coords_of(sizes)
+    parts = [Sh.shard_params(tree, policy, c) for c in coords]
+
+    def walk(node, spec, ps):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, spec[k], [p[k] for p in ps])
+                continue
+            back = reassemble([p[k] for p in ps], v.shape, spec[k], sizes,
+                              coords)
+            np.testing.assert_array_equal(back, v, err_msg=k)
+            if any(a is not None for a in spec[k]):
+                assert ps[0][k].size < v.size, k
+
+    walk(tree, specs, parts)
+
+
+def test_grouped_kv_heads_hold_what_their_q_heads_read():
+    cfg = dataclasses.replace(TC.get_reduced("granite-3-2b"), n_kv_heads=1)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    policy = Sh.make_policy(Me.abstract_mesh({"data": 1, "model": 2}),
+                            "fsdp_tp")
+    wk = params["layers"]["attn"]["wk"]["w"]
+    wq = params["layers"]["attn"]["wq"]["w"]
+    for r in range(2):
+        part = Sh.shard_params(params, policy, {"data": 0, "model": r},
+                               cfg=cfg)
+        assert Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads, 2, r) == (0, 1)
+        assert torch.equal(part["layers"]["attn"]["wk"]["w"], wk)
+        half = wq.shape[-1] // 2
+        assert torch.equal(part["layers"]["attn"]["wq"]["w"],
+                           wq[..., r * half:(r + 1) * half])
+    with pytest.raises(ValueError, match="unevenly"):
+        Sh.kv_head_block(6, 3, 2, 0)     # 3 q heads across groups of 2
+    with pytest.raises(ValueError, match="split"):
+        Sh.kv_head_block(5, 1, 2, 0)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "granite-3-2b"])
+def test_rank_memory_is_its_shards(arch):
+    cfg = TC.get_reduced(arch)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    sizes = {"data": 1, "model": 2}
+    policy = Sh.make_policy(Me.abstract_mesh(sizes), "fsdp_tp")
+    specs = policy.param_specs(params)
+
+    def leaves(tree, spec):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, spec[k])
+            else:
+                yield v, spec[k]
+
+    ranks = [Sh.shard_params(params, policy, c) for c in coords_of(sizes)]
+    whole = list(leaves(params, specs))
+    per = [[t for t, _ in leaves(r, specs)] for r in ranks]
+    rank_bytes = [sum(t.numel() * t.element_size() for t in p) for p in per]
+    for i, (t, spec) in enumerate(whole):
+        nbytes = [p[i].numel() * p[i].element_size() for p in per]
+        for r, c in enumerate(coords_of(sizes)):
+            idx = Sh.shard_slices(t.shape, spec, sizes, c)
+            assert nbytes[r] == t[idx].numel() * t.element_size()
+        if "model" in spec:
+            assert sum(nbytes) == t.numel() * t.element_size()
+        else:
+            assert nbytes == [t.numel() * t.element_size()] * 2
+    total = sum(t.numel() * t.element_size() for t, _ in whole)
+    assert max(rank_bytes) < total <= sum(rank_bytes)
+
+
+@pytest.mark.parametrize("arch,sizes,what", [
+    ("falcon-mamba-7b", {"data": 1, "model": 2}, "Mamba"),
+    ("seamless-m4t-large-v2", {"data": 1, "model": 2}, "encoder"),
+    ("internvl2-2b", {"data": 1, "model": 2}, "vision"),
+    ("granite-3-2b", {"data": 2, "model": 1}, "data axis")])
+def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
+    cfg = TC.get_reduced(arch)
+    policy = Sh.make_policy(Me.abstract_mesh(sizes), "fsdp_tp")
+    with pytest.raises(NotImplementedError, match="item 4b") as e:
+        Tf.check_supported(cfg, policy)
+    assert what.lower() in str(e.value).lower()
+    Tf.check_supported(cfg, Sh.make_policy(
+        Me.abstract_mesh({"data": 1, "model": 1})))
+
+
+@pytest.mark.parametrize("flag", ["--mesh", "--coordinator"])
+def test_train_refuses_mesh_and_coordinator(flag):
+    with pytest.raises(SystemExit, match="item 4b"):
+        Tr.main(["--arch", "lm100m", "--reduced", "--device", "cpu",
+                 flag, "data=1,model=2"])
+
+
+@pytest.mark.parametrize("mesh", ["data=1,model=2", "data=1,model=1"])
+def test_serve_cli_mesh_on_the_cpu(mesh):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "granite-moe-3b-a800m", "--reduced", "--device", "cpu",
+         "--requests", "6", "--slots", "2", "--prompt-len", "8", "--gen",
+         "4", "--mesh", mesh], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "serve OK" in proc.stdout
+    assert proc.stdout.count("serve OK") == 1      # rank 0 prints
+    if mesh.endswith("2"):
+        assert "x 2 ranks" in proc.stdout
+
+
+def test_mesh_factories_match_reference_axes():
+    """The port's mesh factories carry the reference's axis names in its
+    order; outside a process group they form a mesh of one rank and
+    refuse any other size."""
+    from repro.launch import mesh as JMe
+    for kw in ({}, {"pod": 1}):
+        got = Me.make_debug_mesh(data=1, model=1, **kw)
+        want = JMe.make_debug_mesh(data=1, model=1, **kw)
+        assert got.axis_names == tuple(want.axis_names)
+        assert got.shape == dict(want.shape) and got.size == 1
+        assert got.coord == {a: 0 for a in got.axis_names}
+        assert all(g is None for g in got.groups.values())
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        Me.make_debug_mesh()
+    for multi_pod, n in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"needs {n} ranks"):
+            Me.make_production_mesh(multi_pod=multi_pod)
+
+
+def test_parse_mesh():
+    assert Me.parse_mesh("data=1,model=2") == {"data": 1, "model": 2}
+    with pytest.raises(ValueError, match="name=size"):
+        Me.parse_mesh("data=1,model")
