@@ -69,7 +69,7 @@ Phases, each fatal on failure:
    1.66 GB state, timed;
 10e. the LM restart drill (``lm_drill``): ``launch.train.main`` on the
    same config, 40 steps of ``lm_batch_at`` batches in order, a
-   checkpoint every 10, once plainly and once with ``--fail-at 23``; the
+   checkpoint every 20, once plainly and once with ``--fail-at 23``; the
    restarted run's last checkpoint (every parameter and AdamW moment)
    must equal the plain run's bit for bit, and its records the plain
    run's;
@@ -85,8 +85,8 @@ Phases, each fatal on failure:
    scan's forward and backward (the last chunk 104 steps);
    the loss must fall, the first step's held to the port on the CPU
    within 2e-3; step ms, peak memory.  No kernel runs in these four;
-11. the LM serving path: Granite-3.0-2B at its published widths and
-   depth, random weights from ``torch.Generator`` seed 0, served by
+11. the LM serving path: Granite-3.0-2B at its published widths, 20 of
+   its 40 layers (``SERVE_LAYERS``), random weights from ``torch.Generator`` seed 0, served by
    ``ServingEngine`` (8 slots, prompts up to 1024 tokens, up to 64
    generated) with both UNOMT feature stores; 32 requests; the flash
    kernel runs in every layer of every prefill.  Checked: the accounting
@@ -97,13 +97,13 @@ Phases, each fatal on failure:
    ``flash_attention`` against ``attention_ref`` on the q, k, v one
    prefill gave it and on six more shapes; tokens/s, TTFT, prefill and
    decode-step times and a profile of one prefill and 8 decode steps;
-11b. the Mamba serving path: Falcon-Mamba-7B at its published widths and
-   depth (64 layers), random weights from ``torch.Generator`` seed 0,
+11b. the Mamba serving path: Falcon-Mamba-7B at its published widths, 32
+   of its 64 layers, random weights from ``torch.Generator`` seed 0,
    the same engine settings and request stream as phase 11 (the Granite
    weights freed first); every prefill runs at the prompt's true length
    and the selective-scan kernel in every layer.  Checked: the
    accounting identity, tokens and features of every request, nothing
-   dropped, exact launch counts (``mamba_scan`` 64 per prefill, no
+   dropped, exact launch counts (``mamba_scan`` one a layer a prefill, no
    ``flash_attention``), two requests against the one-shot loop (fed the
    engine's tokens) within ``SERVE_LOGIT_TOL``, and the same two
    requests on the plain scan: prefill logits, conv and ssm states and 8
@@ -112,8 +112,8 @@ Phases, each fatal on failure:
    longest prefill's first layer and on six more shapes; tokens/s, TTFT,
    prefill and decode-step times and a profile;
 11c. the MoE serving path (``serving_moe``): Granite-3.0-MoE-3B-A800M at
-   its published widths and depth (32 layers, d_model 1536, 24 q / 8 KV
-   heads, 40 experts of 512 padded to 48, top-8; 7.8 GB of bf16
+   its published widths, 16 of its 32 layers (d_model 1536, 24 q / 8 KV
+   heads, 40 experts of 512 padded to 48, top-8; 3.9 GB of bf16
    weights), random weights from ``torch.Generator`` seed 0, the same
    engine settings, request stream and checks as phase 11 (the Mamba
    weights freed first); every MoE layer runs all 40 experts on every
@@ -125,7 +125,8 @@ Phases, each fatal on failure:
    near-tie may pick another expert); then ``flash_attention`` against ``attention_ref``
    on the q, k, v its first prefill gave it, case (h) (Hq 24, Hkv 8);
 11c'. the MoE serving path at world 2 (``serving_moe_tp2``): the same
-   model and engine settings, requests and feature stores, served by two
+   model at TP_LAYERS (8) of its 32 layers, the same engine settings,
+   requests and feature stores, served by two
    rank processes on the one card through ``launch/serve.py``'s ``--mesh``
    set-up (``spawn``, ``init_rank``, ``make_mesh``, ``make_policy(mesh,
    "fsdp_tp")``; gloo, as NCCL refuses two ranks on one device, so every
@@ -135,14 +136,15 @@ Phases, each fatal on failure:
    on ``hash_partition``, n = 4096 ids at P = 40, ``C_send`` 128) and
    ``moe_decode`` in decode (n = 64 at P = 25).  Checked on each rank:
    the accounting identity, tokens and features, exact launch counts
-   (``flash_attention`` 32 a prefill, ``hash_partition`` 32 a prefill and
-   a decode step beside the stores' shuffles), the first request at
-   ``capacity_factor = E / top_k`` (no row can drop) within
-   ``SERVE_LOGIT_TOL`` of ``serving_moe``'s world-1 logits, and the twin
+   (``flash_attention`` and ``hash_partition`` one a layer a prefill,
+   ``hash_partition`` one a layer a decode step beside the stores'
+   shuffles), the first request at ``capacity_factor = E / top_k`` (no
+   row can drop) within ``SERVE_LOGIT_TOL`` of the same prefill at world
+   1 (this process, before the ranks start), and the twin
    ``serving_moe_tp2_xla`` (the same engine on plain attention and plain
    ranks, the first 4 requests: prefill logits within
    ``SERVE_LOGIT_TOL``, greedy tokens by ``greedy_agree``); both ranks'
-   tokens equal.  Then the first prefill's 32 dispatch plans and the
+   tokens equal.  Then the first prefill's dispatch plans and the
    first decode plan held to the plain ranks bit for bit, and case (l),
    q (1, 12, 1024, 64) against KV (1, 4, 1024, 64), within ``FLASH_TOL``;
    tokens/s, TTFT, prefill and decode-step ms by CUDA events, each rank's
@@ -154,6 +156,32 @@ Phases, each fatal on failure:
    step of ``MOE_CHECK_LAYERS`` layers on 1 x 128 tokens held to the port
    on the CPU (loss and ``moe_aux`` within 2e-3); step ms, tokens/s,
    peak memory and a profile.  No kernel runs here;
+11d'. MoE training at data=2 x model=2 (``moe_train_mesh``): four rank
+   processes on the one card (gloo: every exchange staged through pinned
+   host memory), each with ``launch/train.py``'s ``--mesh`` set-up and
+   the config's ``tp`` policy.  First, at 2 layers, full width, 1 x 1024
+   rows a data rank and capacity factor E / top_k (no row drops): one
+   step under ``tp`` and one under ``fsdp_tp``, gathered whole on rank 0,
+   held by the leaf rule of ``tests/test_torch_lm_train.py`` (loss,
+   moe_aux and grad norm beside it) to the port's world-1 step on the
+   same weights and batch, in one microbatch per data rank and with its
+   MoE layers pinned to the sharded step's routes, and ``fsdp_tp`` to
+   ``tp``.  Then MESH_TRAIN_LAYERS (8) layers, capacity 1.25, 5 steps on
+   one 4 x 1024 batch repeated: the loss must fall on every rank alike;
+   ``hash_partition`` launched exactly twice per MoE layer and step on
+   each rank (the plan and its recompute, n 8192 at P 40); the first
+   step's 16 plans of rank 0 held to the plain ranks and its dropped
+   rows to theirs; step ms, tokens/s, each rank's bytes and peak, one
+   profiled step.  Times at world 4 on one card measure gloo's host
+   staging, not parallelism across cards;
+11d''. the restart drill at data=2 x model=2 (``lm_drill_mesh``):
+   ``launch.train.main --mesh data=2,model=2`` on lm100m at full size,
+   DRILL_MESH_STEPS (4) steps of 2 x 512 tokens in order, a checkpoint
+   every 2, plainly and with a failure at step 3 (the restart resumes
+   from step 2's trained state, each rank its slices of it);
+   bit-identical, no kernel launched in any rank, and the last
+   checkpoint (whole leaves) restores at world 1 in this process to the
+   same bits;
 11e. the enc-dec and vision stacks (``serving_seamless``,
    ``serving_internvl``): SeamlessM4T-Large-v2 (24 encoder and 24
    decoder layers, d_model 1024, 16 heads, gelu MLP 8192, vocab 256206
@@ -229,8 +257,8 @@ UNOMT_DRUGS = 65_536
 UNOMT_CELLS = 1_024
 SETOP_ROWS = (10_000_000, 5_000_000)   # set-ops leg: a and b
 SETOP_KEYS = 1_000_000         # a.k over [0, 1 M), b.k over [500 k, 1.5 M)
-SERVE_ARCH = "granite-3-2b"    # the serving leg's model, full width and depth
-MAMBA_ARCH = "falcon-mamba-7b"  # the Mamba serving leg's, full width and depth
+SERVE_ARCH = "granite-3-2b"    # the serving leg's model, full width
+MAMBA_ARCH = "falcon-mamba-7b"  # the Mamba serving leg's, full width
 MOE_ARCH = "granite-moe-3b-a800m"  # the MoE serving leg's (full width and
                                    # depth) and training leg's
 SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
@@ -247,6 +275,7 @@ OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 # special-function (exp2) results: 16 per SM per clock, 132 SMs, 1.98 GHz
 EXP_PER_S = 16 * 132 * 1.98e9
+_START = time.perf_counter()
 KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
            "hash_groupby", "hash_semi", "flash_attention", "mamba_scan")
 JOIN_KERNELS = KERNELS[:3]
@@ -323,6 +352,10 @@ def card() -> str:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's record also gets ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1751,7 +1784,9 @@ LM_CHECK_BATCH = 2              # rows of the card-vs-CPU step
 # against the reference (tests/test_torch_lm_train.py), bf16 products
 # with float32 sums in other orders on the two devices
 LM_LOSS_RTOL, LM_GNORM_RTOL = 2e-3, 2e-2
-DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 40, 10, 23
+# a checkpoint every 20 (every 10 took 43-64 s, most of it the 1.66 GB
+# writes; the script must end within 1 200 s)
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 40, 20, 23
 UNOMT_DRILL_STEPS, UNOMT_DRILL_EVERY, UNOMT_DRILL_FAIL = 100, 25, 50
 # Falcon-Mamba-7B at full width, 2 of its 64 layers (all 64 need about
 # 116 GB of float32 masters, gradients and moments); one row of 1000
@@ -1835,7 +1870,7 @@ def lm_step_on_cpu(m, cfg, params, batch, opt_cfg) -> dict:
             ("cpu", Ck.tree_map(lambda t: t.to(cpu), params),
              {k: v.to(cpu) for k, v in batch.items()})):
         t0 = time.perf_counter()
-        _, _, met = M.make_train_step(cfg, opt_cfg)(
+        _, _, met = M.make_train_step(cfg, None, opt_cfg)(
             p, A.init(A.flatten_params(p), opt_cfg), b)
         out[where] = {"loss": float(met["loss"]),
                       "grad_norm": float(met["grad_norm"]),
@@ -1871,7 +1906,7 @@ def run_lm_train(m, device, name, tmpdir: Path):
     opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=LM_STEPS)
     check = lm_step_on_cpu(m, cfg, params, lm_batch(
         m, cfg, 0, LM_CHECK_BATCH, LM_SEQ, device), opt_cfg)
-    step = M.make_train_step(cfg, opt_cfg)
+    step = M.make_train_step(cfg, None, opt_cfg)
     opt = A.init(A.flatten_params(params), opt_cfg)
     batches = [lm_batch(m, cfg, s, LM_BATCH, LM_SEQ, device)
                for s in range(LM_STEPS)]
@@ -2063,7 +2098,7 @@ def mamba_loss_on_cpu(m, cfg, params, batch) -> float:
     p = Ck.tree_map(lambda t: t.to(cpu), params)
     n = max(1, cfg.train.microbatches)
     rows = MAMBA_TRAIN_BATCH // n
-    loss_fn = M.make_loss_fn(cfg, M.StackOpts(attn_impl="xla",
+    loss_fn = M.make_loss_fn(cfg, None, M.StackOpts(attn_impl="xla",
                                               mamba_impl="xla"))
     with torch.no_grad():
         return float(np.mean([float(loss_fn(p, {
@@ -2087,7 +2122,7 @@ def run_mamba_train(m, device, name):
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            master=True)
     opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=MAMBA_TRAIN_STEPS)
-    step = M.make_train_step(cfg, opt_cfg)
+    step = M.make_train_step(cfg, None, opt_cfg)
     opt = A.init(A.flatten_params(params), opt_cfg)
     batches = [lm_batch(m, cfg, 0, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
                         device)] * MAMBA_TRAIN_STEPS
@@ -2149,13 +2184,13 @@ def moe_step_on_cpu(m, full, device, opt_cfg) -> dict:
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            master=True)
     batch = lm_batch(m, cfg, 0, 1, MOE_CHECK_SEQ, device)
-    _, _, met = M.make_train_step(cfg, opt_cfg)(
+    _, _, met = M.make_train_step(cfg, None, opt_cfg)(
         params, A.init(A.flatten_params(params), opt_cfg), batch)
     out = {"layers": MOE_CHECK_LAYERS, "tokens": MOE_CHECK_SEQ,
            "card": {"loss": float(met["loss"]),
                     "moe_aux": float(met["moe_aux"])}}
     cpu = torch.device("cpu")
-    loss_fn = M.make_loss_fn(cfg, M.StackOpts(attn_impl="xla",
+    loss_fn = M.make_loss_fn(cfg, None, M.StackOpts(attn_impl="xla",
                                               mamba_impl="xla"))
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2192,7 +2227,7 @@ def run_moe_train(m, device, name):
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            master=True)
-    step = M.make_train_step(cfg, opt_cfg)
+    step = M.make_train_step(cfg, None, opt_cfg)
     opt = A.init(A.flatten_params(params), opt_cfg)
     batches = [lm_batch(m, cfg, 0, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
                         device)] * MOE_TRAIN_STEPS
@@ -2229,6 +2264,561 @@ def run_moe_train(m, device, name):
     _free(device)
     return {"moe_train": dict(launches=launches,
                               rows=MOE_TRAIN_STEPS * MOE_TRAIN_BATCH)}
+
+
+# --------------------------------------------------------------------------
+# sharded training: data=2 x model=2 ranks on the one card
+# --------------------------------------------------------------------------
+
+# Granite-3.0-MoE at full width over a (data=2, model=2) mesh: four rank
+# processes on the one card (gloo, every exchange staged through pinned
+# host memory: NCCL refuses two ranks on one device), the config's own
+# ``tp`` flavor, remat full, MESH_TRAIN_STEPS steps on one 4 x 1024 batch
+# repeated (2 x 1024 rows a data rank, 1024 tokens x top-8 = n 8192 ids a
+# model rank's dispatch plan, P 40), MESH_TRAIN_LAYERS of the 32 layers:
+# at moe_train's 12 a rank held 6.12 GB of masters and moments and
+# peaked 10.28 GB above them (the step's old and new state side by side),
+# and four such ranks beside this process's kernel cases ran out of the
+# card's 79.18 GiB.  First the checks, on MESH_CHECK_LAYERS layers and
+# MESH_CHECK_ROWS x 1024 rows a data rank at capacity factor E / top_k,
+# where no row drops
+MESH_TRAIN = {"data": 2, "model": 2}
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 1024, 5
+MESH_CHECK_LAYERS, MESH_CHECK_ROWS = 2, 1
+# the leaf rule of tests/test_torch_lm_train.py for one AdamW step, with
+# its floor on the gradients counted (SIGN_G, 200 AdamW eps)
+M_RTOL, V_RTOL = 1e-2, 2e-2
+SURE_FRAC, STEP_TOL, LOOSE_SHARE, SIGN_G = 0.05, 1e-3, 0.02, 2e-6
+# lm100m through launch.train.main --mesh data=2,model=2, one row of 512
+# tokens a data rank, 4 steps, a checkpoint every 2, so that the restart
+# resumes from a trained state: 20 steps of 8 rows took 298 s for the
+# two runs, 20 of 2 rows 200 s, 10 of 2 rows 123-165 s, 6 of 2 rows 135 s
+# and 4 of 2 rows 160-177 s: every exchange and checkpoint gather goes
+# through the host, and the script must end within 1 200 s
+DRILL_MESH_STEPS, DRILL_MESH_EVERY, DRILL_MESH_FAIL = 4, 2, 3
+DRILL_MESH_BATCH = 2
+
+
+def _share(got, want) -> float:
+    """The largest difference as a share of ``want``'s largest
+    magnitude."""
+    return float((got - want).abs().max()) \
+        / max(float(want.abs().max()), 1e-30)
+
+
+def leaf_rule(got: dict, want: dict, lr: float, device,
+              noise=None) -> dict:
+    """tests/test_torch_lm_train.py's rule for one step, on {leaf: tensor}
+    dicts of the new parameters and the moments (``new``, ``m``, ``v``),
+    each leaf compared on ``device``: moments within M_RTOL / V_RTOL of
+    the leaf's largest, parameters within 2 lr + 1e-6; of the elements
+    whose gradient is at least SIGN_G (the rule's branch for gradients
+    near AdamW's eps, where a first step is lr g / (|g| + eps) and lr
+    sign(g) only for |g| >> eps), those at least SURE_FRAC of the leaf's
+    largest within STEP_TOL lr and at most LOOSE_SHARE beyond it.  At
+    full width most elements' clipped gradients lie within a few eps
+    (the loose share over all elements is reported beside).  With
+    ``noise`` ({(moment, leaf): share}) a moment may also lie within
+    twice that share of the leaf's largest (see :func:`order_noise`).
+    Returns the worst shares and what failed."""
+    loose = total = loose_all = total_all = 0
+    worst = {"m": 0.0, "v": 0.0, "param_over_lr": 0.0, "sure_over_lr": 0.0}
+    failed = []
+    for k, w in want["new"].items():
+        for moment, tol in (("m", M_RTOL), ("v", V_RTOL)):
+            if noise is not None:
+                tol = max(tol, 2 * noise[(moment, k)])
+            share = _share(got[moment][k].to(device),
+                           want[moment][k].to(device))
+            worst[moment] = max(worst[moment], share)
+            if share > tol:
+                failed.append(f"leaf {k}: {moment} {share} > {tol}")
+        err = (got["new"][k].to(device) - w.to(device)).abs()
+        gm = want["m"][k].to(device).abs()
+        sign_like = gm >= 0.1 * SIGN_G          # m = 0.1 g at step 1
+        sure = sign_like & (gm >= SURE_FRAC * gm.max())
+        err_max = float(err.max())
+        sure_max = float(torch.where(sure, err, 0).max())
+        worst["param_over_lr"] = max(worst["param_over_lr"], err_max / lr)
+        worst["sure_over_lr"] = max(worst["sure_over_lr"], sure_max / lr)
+        if err_max > 2 * lr + 1e-6 or sure_max > STEP_TOL * lr:
+            failed.append(f"leaf {k}: parameter off by {err_max}")
+        over = err > STEP_TOL * lr
+        loose += int((over & sign_like).sum())
+        total += int(sign_like.sum())
+        loose_all += int(over.sum())
+        total_all += err.numel()
+    worst["loose_share"] = loose / max(total, 1)
+    worst["sign_like_share"] = total / total_all
+    worst["loose_share_all_elements"] = loose_all / total_all
+    if loose > LOOSE_SHARE * total:
+        failed.append(f"{loose} of {total} elements loose")
+    worst["failed"] = failed
+    return worst
+
+
+def order_noise(a: dict, b: dict, device) -> dict:
+    """{(moment, leaf): the largest difference of two steps' moments as a
+    share of the leaf's largest}: of two world-1 steps that compute the
+    same function with their rows' gradients grouped otherwise (in one
+    microbatch and in one per data rank), how far the order of the bf16
+    sums alone moves a moment."""
+    return {(moment, k): _share(a[moment][k].to(device), w.to(device))
+            for moment in ("m", "v") for k, w in b[moment].items()}
+
+
+def state_arrays(m, params, opt) -> dict:
+    """{new, m, v} -> {leaf: float32 tensor, where the state is} of a
+    world-1 state."""
+    A = m["Aw"]
+    return {"new": {k: v.float() for k, v in
+                    A.flatten_params(params).items()},
+            "m": {k: v.float() for k, v in opt["m"].items()},
+            "v": {k: v.float() for k, v in opt["v"].items()}}
+
+
+def whole_arrays(m, params, opt, whole) -> dict:
+    """``StateLayout.whole``'s list of a (params, opt) state as
+    :func:`state_arrays` gives a world-1 one (on the host)."""
+    keys = [("new", k) for k in m["Aw"].flatten_params(params)]
+    keys += [("m", k) for k in sorted(opt["m"])] + [("step", "")]
+    keys += [("v", k) for k in sorted(opt["v"])]
+    out = {"new": {}, "m": {}, "v": {}}
+    for (what, k), a in zip(keys, whole):
+        if what != "step":
+            out[what][k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def pinned_routes(Moe, ids, rows: int, model: int, row_block: int):
+    """A world-1 ``moe._route`` for microbatches of ``rows`` rows that
+    picks, for MoE layer ``L`` (counted by its router, in the forward's
+    order) of microbatch ``i`` (counted by its forward calls; a recompute
+    picks as its forward did), the experts ``ids[L]`` (B, S, k) the
+    sharded step chose for those rows, and returns the sharded step's
+    auxiliary loss: the mean over its shards (``row_block`` rows, a
+    ``model``-th of the sequence) of each shard's ``E * sum(frac *
+    pmean)`` (the reference's at a mesh)."""
+    layers, calls, current = {}, {}, {}
+
+    def route(router, x2, top_k):
+        L = layers.setdefault(router.data_ptr(), len(layers))
+        if not Moe._recomputing:
+            current[L] = calls.get(L, 0)
+            calls[L] = current[L] + 1
+        i = current[L]
+        pick = torch.from_numpy(ids[L][i * rows:(i + 1) * rows]).to(
+            x2.device)
+        Bn, Sn, _ = pick.shape
+        probs = torch.softmax(x2.float() @ router.float(), dim=-1)
+        flat = pick.reshape(-1, top_k).long()
+        vals = torch.gather(probs, 1, flat)
+        w = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+        E = router.shape[1]
+        p3 = probs.reshape(Bn, Sn, E)
+        s, b = Sn // model, row_block
+        auxes = []
+        for d in range(Bn // b):
+            for j in range(model):
+                sl = (slice(d * b, (d + 1) * b), slice(j * s, (j + 1) * s))
+                first = pick[sl][..., 0].reshape(-1).long()
+                frac = torch.nn.functional.one_hot(first, E).float() \
+                    .mean(dim=0)
+                auxes.append(E * torch.sum(
+                    frac * p3[sl].reshape(-1, E).mean(dim=0)))
+        return w, flat.to(torch.int32), torch.stack(auxes).mean()
+    return route
+
+
+def gather_objects(obj) -> list:
+    got = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(got, obj)
+    return got
+
+
+def mesh_state(m, cfg, device, policy, opt_cfg):
+    """This rank's slices of the world-1 float32 masters (seed 0, drawn
+    whole, then cut; the whole draws are freed) and the ZeRO-1 moments
+    of its 2D slices."""
+    M, A, Sh = m["M"], m["Aw"], m["Sh"]
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    params = Sh.shard_params(params, policy, cfg=cfg)
+    _free(device)
+    flat = A.flatten_params(params)
+    zero = Sh.Zero1(policy, flat)
+    opt = A.init({k: zero.local(k, p) for k, p in flat.items()}, opt_cfg)
+    return params, opt
+
+
+def mesh_checks(m, device, mesh, full, opt_cfg, rank) -> dict | None:
+    """At MESH_CHECK_LAYERS layers and capacity E / top_k (no row drops):
+    one step under ``tp`` and one under ``fsdp_tp`` at the mesh, then on
+    rank 0 the port's world-1 step of the same weights and batch, in one
+    microbatch per data rank and with the MoE layers pinned to the
+    ``tp`` step's routes (:func:`pinned_routes`; a near tie of the
+    router's top-k may break otherwise under the other sums), held to
+    the ``tp`` step by the leaf rule, loss, moe_aux and grad norm; and
+    ``fsdp_tp`` to ``tp``.  Rank 0's record (None elsewhere)."""
+    M, A, Sh, Moe, Ck = m["M"], m["Aw"], m["Sh"], m["Moe"], m["Ck"]
+    D, Mm = mesh.shape["data"], mesh.shape["model"]
+    cfg = dataclasses.replace(
+        full, n_layers=MESH_CHECK_LAYERS, train=dataclasses.replace(
+            full.train, moe_capacity_factor=full.n_experts / full.top_k))
+    whole_batch = lm_batch(m, cfg, 0, MESH_CHECK_ROWS * D, MESH_TRAIN_SEQ,
+                           device)
+    steps = {}
+    for flavor in ("tp", "fsdp_tp"):
+        policy = Sh.make_policy(mesh, flavor)
+        params, opt = mesh_state(m, cfg, device, policy, opt_cfg)
+        plans, plain = [], Moe.radix_histogram_ranks
+
+        def plan(eid, P, plans=plans, plain=plain):
+            if not Moe._recomputing:
+                plans.append(eid.cpu().numpy())
+            return plain(eid, P)
+
+        Moe.radix_histogram_ranks, Moe.drop_log = plan, []
+        try:
+            t0 = time.perf_counter()
+            new, opt, met = M.make_train_step(cfg, policy, opt_cfg)(
+                params, opt, Sh.shard_batch(whole_batch, policy))
+            _sync(device)
+            seconds = time.perf_counter() - t0
+        finally:
+            drops = [int(d) for d in Moe.drop_log
+                     if not isinstance(d, Moe.Recomputed)]
+            Moe.radix_histogram_ranks, Moe.drop_log = plain, None
+        layout = Sh.train_state_layout(policy, new, opt)
+        whole = layout.whole(Ck.tree_leaves((new, opt)))
+        ids = gather_objects(plans)
+        if whole is not None:
+            steps[flavor] = dict(
+                arrays=whole_arrays(m, new, opt, whole), ids=ids,
+                seconds=seconds, dropped=sum(gather_objects(drops), []),
+                met={k: float(v) for k, v in met.items()})
+        else:
+            gather_objects(drops)
+        del params, new, opt, whole
+        _free(device)
+    out = None
+    if rank == 0:
+        tp, fsdp = steps["tp"], steps["fsdp_tp"]
+        if any(tp["dropped"]) or any(fsdp["dropped"]):
+            raise AssertionError(f"moe_train_mesh: rows dropped at capacity "
+                                 f"factor {cfg.train.moe_capacity_factor}")
+        b, s = MESH_CHECK_ROWS, MESH_TRAIN_SEQ // Mm
+        routes = []
+        for layer in range(cfg.n_layers):
+            lay = np.zeros((b * D, MESH_TRAIN_SEQ, cfg.top_k), np.int32)
+            for r, got in enumerate(tp["ids"]):
+                d, j = divmod(r, Mm)
+                lay[d * b:(d + 1) * b, j * s:(j + 1) * s] = \
+                    got[layer].reshape(b, s, -1)
+            routes.append(lay)
+        w1s = {}
+        for micro in (D, 1):
+            w1cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, microbatches=micro))
+            params = M.init_params(torch.Generator(device).manual_seed(0),
+                                   w1cfg, master=True)
+            route = Moe._route
+            Moe._route = pinned_routes(Moe, routes, b * D // micro, Mm, b)
+            try:
+                t0 = time.perf_counter()
+                new, opt, met = M.make_train_step(w1cfg, None, opt_cfg)(
+                    params, A.init(A.flatten_params(params), opt_cfg),
+                    whole_batch)
+                _sync(device)
+                w1s[micro] = (state_arrays(m, new, opt),
+                              {k: float(v) for k, v in met.items()},
+                              time.perf_counter() - t0)
+            finally:
+                Moe._route = route
+            del params, new, opt
+            _free(device)
+        w1, w1met, w1_seconds = w1s[D]
+        noise = order_noise(w1s[1][0], w1, device)
+        lr = w1met["lr"]
+        out = {"layers": cfg.n_layers, "rows_per_data_rank": b,
+               "capacity_factor": cfg.train.moe_capacity_factor,
+               "world1": w1met, "tp": tp["met"], "fsdp_tp": fsdp["met"],
+               "seconds": {"world1": w1_seconds, "tp": tp["seconds"],
+                           "fsdp_tp": fsdp["seconds"]},
+               "world1_one_microbatch": w1s[1][1],
+               "order_noise_max": {mo: max(v for (x, _), v in noise.items()
+                                           if x == mo) for mo in ("m", "v")},
+               "tp_vs_world1": leaf_rule(tp["arrays"], w1, lr, device,
+                                         noise),
+               "fsdp_vs_tp": leaf_rule(fsdp["arrays"], tp["arrays"], lr,
+                                       device, noise)}
+        for k, tol in (("loss", LM_LOSS_RTOL), ("moe_aux", LM_LOSS_RTOL),
+                       ("grad_norm", LM_GNORM_RTOL)):
+            for what, got, want in (("tp_vs_world1", tp["met"], w1met),
+                                    ("fsdp_vs_tp", fsdp["met"],
+                                     tp["met"])):
+                e = rel_err(got[k], want[k])
+                out[what][f"{k}_rel_err"] = e
+                if e > tol:
+                    out[what]["failed"].append(f"{k} {got[k]} vs {want[k]}")
+        print(json.dumps({"moe_train_mesh_checks": out}), flush=True)
+        if out["tp_vs_world1"]["failed"] or out["fsdp_vs_tp"]["failed"]:
+            raise AssertionError(f"moe_train_mesh: {out}")
+    torch.distributed.barrier()
+    return out
+
+
+def mesh_train(m, device, rank, tmp: Path) -> dict:
+    """One rank of ``moe_train_mesh``: the checks, then MESH_TRAIN_STEPS
+    timed steps at MESH_TRAIN_LAYERS layers, capacity factor 1.25, with
+    every dispatch plan of the first step recorded (rank 0 writes them
+    to ``tmp/mesh_plans.pt``), then one profiled step."""
+    M, A, Sh, Moe, ops = m["M"], m["Aw"], m["Sh"], m["Moe"], m["ops"]
+    no_tf32("moe_train_mesh")
+    full = m["get_config"](MOE_ARCH)
+    if full.train.remat != "full" or full.train.sharding != "tp":
+        raise AssertionError(f"moe_train_mesh: {full.train}")
+    mesh = m["Me"].make_mesh(MESH_TRAIN)
+    opt_cfg = A.AdamWConfig(lr=3e-4, warmup_steps=1,
+                            total_steps=MESH_TRAIN_STEPS)
+    check = mesh_checks(m, device, mesh, full, opt_cfg, rank)
+    _free(device)
+    cfg = dataclasses.replace(full, n_layers=MESH_TRAIN_LAYERS)
+    policy = Sh.make_policy(mesh, cfg.train.sharding)
+    params, opt = mesh_state(m, cfg, device, policy, opt_cfg)
+    step = M.make_train_step(cfg, policy, opt_cfg)
+    batch = Sh.shard_batch(lm_batch(m, cfg, 0, MESH_TRAIN_BATCH,
+                                    MESH_TRAIN_SEQ, device), policy)
+    batches = [batch] * MESH_TRAIN_STEPS
+    held = lambda tree: sum(t.numel() * t.element_size()     # noqa: E731
+                            for t in A.flatten_params(tree).values())
+    master_bytes = held(params)
+    moment_bytes = held(opt["m"]) + held(opt["v"])
+    E_loc = Moe.n_experts_padded(cfg) // policy.world_m
+    plans = DispatchLog(Moe, cfg.n_experts, E_loc, 2 * cfg.n_layers)
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    for op in ops.values():
+        op.launches = 0
+    Moe.drop_log = []
+    mets, events = [], []
+    try:
+        # the loop of timed_steps, here so that no caller's frame keeps
+        # the state of an earlier step: a step holds the old and the new
+        # state, and a third copy does not fit four ranks on the card
+        with plans:
+            for b in batches:
+                ev = event_pair()
+                ev[0].record()
+                params, opt, met = step(params, opt, b)
+                ev[1].record()
+                mets.append(met)
+                events.append(ev)
+            torch.cuda.synchronize()
+        launches = {k: op.launches for k, op in ops.items()}
+        drops = [int(d) for d in Moe.drop_log
+                 if not isinstance(d, Moe.Recomputed)][:cfg.n_layers]
+    finally:
+        Moe.drop_log = None
+    peak = _peak(device) - resident
+    losses = [float(met["loss"]) for met in mets]
+    aux = [float(met["moe_aux"]) for met in mets]
+    ms = [a.elapsed_time(b) for a, b in events]
+    # a forward and a recompute plan of every MoE layer in every step
+    expect_launches("moe_train_mesh", launches, {
+        "hash_partition": 2 * cfg.n_layers * MESH_TRAIN_STEPS})
+    if rank == 0:
+        torch.save(plans.prefill, tmp / "mesh_plans.pt")
+    prof = profile_tp2({"train_step": lambda: step(params, opt,
+                                                   batches[0])},
+                       device, rank, warm=False)
+    step_ms = float(np.median(ms[1:]))
+    T = MESH_TRAIN_BATCH // policy.world_d * MESH_TRAIN_SEQ \
+        // policy.world_m
+    return {"rank": torch.distributed.get_rank(), "coord": mesh.coord,
+            "device": str(device), "backend": torch.distributed.get_backend(),
+            "arch": cfg.name, "layers": cfg.n_layers,
+            "of_layers": full.n_layers, "flavor": policy.flavor,
+            "capacity_factor": cfg.train.moe_capacity_factor,
+            "capacity_send": math.ceil(T * cfg.top_k / cfg.n_experts
+                                       * cfg.train.moe_capacity_factor),
+            "tokens_per_dispatch": T, "steps": MESH_TRAIN_STEPS,
+            "step_ms": ms, "step_ms_median_after_first": step_ms,
+            "tokens_per_s": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ / step_ms
+            * 1e3,
+            "master_bytes": master_bytes,
+            "grad_bytes_2d": moment_bytes // 2,
+            "moment_bytes": moment_bytes, "resident_bytes": resident,
+            "peak_bytes_above_resident": peak,
+            "first_step_dropped_by_layer": drops, "launches": launches,
+            "losses": losses, "moe_aux": aux,
+            "profile": prof.get("train_step"), "check": check}
+
+
+def mesh_train_rank(rank, world, store, tmp):
+    """One rank of ``moe_train_mesh``: ``launch/train.py``'s ``--mesh``
+    rank set-up (its device, the process group), then
+    :func:`mesh_train`; writes its record to ``tmp/mesh_rank<r>.json``."""
+    m = _modules()
+    device = m["serve"].rank_device(rank, world)
+    m["Me"].init_rank(rank, world, store, device, timeout_s=900)
+    try:
+        record = mesh_train(m, device, rank, Path(tmp))
+        Path(tmp, f"mesh_rank{rank}.json").write_text(json.dumps(record))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_moe_train_mesh(m, device, name, tmpdir: Path):
+    """``moe_train_mesh``: four rank processes on the one card
+    (:func:`mesh_train_rank`), started by ``launch/serve.py``'s
+    :func:`spawn`.  The loss must fall on every rank alike; rank 0's
+    first-step dispatch plans are held to the plain ranks by the caller
+    (they are the returned kernel cases) and their forward plans' drops
+    to the counts the ranks logged.  Times at world 4 on one card measure
+    gloo's host staging, not data or tensor parallelism across cards.
+    Returns (legs, kernel cases)."""
+    t0 = time.perf_counter()
+    world = math.prod(MESH_TRAIN.values())
+    m["serve"].spawn(world, mesh_train_rank, (str(tmpdir),), timeout_s=900)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(Path(tmpdir, f"mesh_rank{r}.json").read_text())
+            for r in range(world)]
+    losses = recs[0]["losses"]
+    if any(r["losses"] != losses for r in recs):
+        raise AssertionError("moe_train_mesh: the ranks' losses differ")
+    plans = torch.load(tmpdir / "mesh_plans.pt")
+    rec0 = recs[0]
+    layers, C = rec0["layers"], rec0["capacity_send"]
+    want_drops = [int((m["hp_ref"].radix_histogram_ranks_ref(
+        pid, P)[1] >= C).sum()) for pid, P in plans[:layers]]
+    emit({"phase": "moe_train_mesh", "card": name, "wall_s": wall,
+          "mesh": MESH_TRAIN, "batch": MESH_TRAIN_BATCH,
+          "seq": MESH_TRAIN_SEQ, "plans_recorded": len(plans),
+          "rank0_drops_from_plain_plans": want_drops, "ranks": recs})
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe_train_mesh: loss {losses[0]} -> "
+                             f"{losses[-1]} did not fall")
+    if want_drops != rec0["first_step_dropped_by_layer"]:
+        raise AssertionError(f"moe_train_mesh: dropped rows "
+                             f"{rec0['first_step_dropped_by_layer']}, the "
+                             f"plain plans give {want_drops}")
+    cases = []
+    for i, (pid, P) in enumerate(plans):
+        pid = pid.to(device)
+        what = "forward" if i < layers else "recompute"
+        cases.append(dict(
+            shape=f"(mesh) train step {what} plan n={pid.numel()} P={P}",
+            args=(pid, P),
+            library=lambda pid=pid: torch.argsort(pid, stable=True)))
+    legs = {"moe_train_mesh": dict(
+        rows=MESH_TRAIN_BATCH * MESH_TRAIN_STEPS,
+        launches={k: sum(r["launches"][k] for r in recs)
+                  for k in rec0["launches"]})}
+    return legs, {"hash_partition": cases}
+
+
+def run_lm_drill_mesh(m, device, name, tmpdir: Path):
+    """``launch.train.main --mesh data=2,model=2`` on lm100m at full size:
+    DRILL_MESH_STEPS steps of ``lm_batch_at`` in order, a checkpoint every
+    DRILL_MESH_EVERY, once plainly and once with ``--fail-at
+    DRILL_MESH_FAIL``; the restarted run must end bit-identical (every
+    leaf of the last checkpoint, gathered whole, and the records), and
+    that checkpoint must restore at world 1 in this process to the same
+    bits.  The four ranks run in their own processes, each
+    ``launch/train.py``'s rank wrapped by :func:`counted_train_rank`,
+    which reads its launch counters; lm100m trains through plain
+    attention, so no rank may launch a kernel."""
+    wall = time.perf_counter()
+    M, A, Ck, Tr = m["M"], m["Aw"], m["Ck"], m["Tr"]
+    argv = ["--arch", LM_ARCH, "--steps", str(DRILL_MESH_STEPS),
+            "--batch", str(DRILL_MESH_BATCH), "--seq", str(LM_SEQ),
+            "--ckpt-every", str(DRILL_MESH_EVERY), "--log-every", "0",
+            "--device", torch.device(device).type, "--mesh",
+            ",".join(f"{k}={v}" for k, v in MESH_TRAIN.items())]
+    runs = {}
+    spawn = Tr.spawn
+    counts = tmpdir / "lm_drill_mesh_counts"
+
+    def counted_spawn(world, target, args):
+        assert target is Tr._train_rank, target
+        spawn(world, counted_train_rank, (*args, str(counts)))
+
+    for what, extra in (("plain", []),
+                        ("failed", ["--fail-at", str(DRILL_MESH_FAIL)])):
+        d = tmpdir / f"lm_drill_mesh_{what}"
+        counts.mkdir()
+        t0 = time.perf_counter()
+        Tr.spawn = counted_spawn
+        try:
+            hist = Tr.main(argv + ["--ckpt-dir", str(d)] + extra)
+        finally:
+            Tr.spawn = spawn
+        ranks = [json.loads(p.read_text())
+                 for p in sorted(counts.glob("rank*.json"))]
+        shutil.rmtree(counts)
+        if len(ranks) != math.prod(MESH_TRAIN.values()):
+            raise AssertionError(f"lm_drill_mesh: {len(ranks)} ranks' "
+                                 "launch counts")
+        runs[what] = dict(history=hist, dir=d,
+                          seconds=time.perf_counter() - t0,
+                          launches={k: sum(r[k] for r in ranks)
+                                    for k in KERNELS})
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in KERNELS}
+    last = f"step_{DRILL_MESH_STEPS}"
+    final = [_final_arrays(runs[w]["dir"] / last)
+             for w in ("plain", "failed")]
+    identical = same_bits(*final)
+    same = same_history(runs["plain"]["history"], runs["failed"]["history"])
+    cfg = m["get_config"](LM_ARCH)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    t0 = time.perf_counter()
+    step, state = Ck.restore(str(runs["plain"]["dir"]), (
+        params, A.init(A.flatten_params(params), A.AdamWConfig())))
+    restore_s = time.perf_counter() - t0
+    world1 = step == DRILL_MESH_STEPS and same_bits(
+        [t.cpu().numpy() for t in Ck.tree_leaves(state)], final[0])
+    del params, state
+    _free(device)
+    emit({"phase": "lm_drill_mesh", "card": name,
+          "wall_s": time.perf_counter() - wall, "arch": LM_ARCH,
+          "mesh": MESH_TRAIN, "steps": DRILL_MESH_STEPS,
+          "ckpt_every": DRILL_MESH_EVERY, "fail_at": DRILL_MESH_FAIL,
+          "batch": DRILL_MESH_BATCH, "seq": LM_SEQ,
+          "leaves": len(final[0]),
+          "checkpoint_bytes": (runs["plain"]["dir"] / last
+                               / "arrays.npz").stat().st_size,
+          "seconds": {w: r["seconds"] for w, r in runs.items()},
+          "restarted_records": len(runs["failed"]["history"]),
+          "bit_identical": identical, "same_records": same,
+          "world1_restore_bit_identical": world1,
+          "world1_restore_s": restore_s, "launches": launches,
+          "losses": [h["loss"] for h in runs["plain"]["history"]]})
+    if not (identical and same and world1):
+        raise AssertionError("lm_drill_mesh: the restarted run differs "
+                             "from the plain one, or its checkpoint does "
+                             "not restore at world 1")
+    expect_launches("lm_drill_mesh", launches, {})
+    for r in runs.values():
+        shutil.rmtree(r["dir"])
+    return {"lm_drill_mesh": dict(launches=launches,
+                                  rows=2 * DRILL_MESH_STEPS
+                                  * DRILL_MESH_BATCH)}
+
+
+def counted_train_rank(rank, world, store, args, out, counts):
+    """``launch/train.py``'s ``--mesh`` rank, then this rank's kernel
+    launches in the run written to ``counts/rank<r>.json``."""
+    m = _modules()
+    for op in m["ops"].values():
+        op.launches = 0
+    m["Tr"]._train_rank(rank, world, store, args, out)
+    Path(counts, f"rank{rank}.json").write_text(json.dumps(
+        {k: op.launches for k, op in m["ops"].items()}))
 
 
 # --------------------------------------------------------------------------
@@ -2602,8 +3192,7 @@ def experts_bf16(leg, params) -> int:
 
 def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
                 gen_cap=SERVE_GEN, n_req=SERVE_REQUESTS, slots=SERVE_SLOTS,
-                queue=SERVE_QUEUE, attn_impl=None, leg="serving",
-                first_logits=None):
+                queue=SERVE_QUEUE, attn_impl=None, leg="serving"):
     """Drive the serving path once with the flash kernel, counted and
     checked, then against the one-shot loop and the ``xla`` attention
     path; time and profile it.  ``attn_impl`` is the first engine's
@@ -2613,10 +3202,8 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     config with MoE layers also checks that its experts are resident as
     bf16 and TF32 is off, logs the routing of the two requests held to
     the one-shot loop in both engines (:func:`routing_flips`) and labels
-    the experts and the router in the profile.  ``first_logits``, a dict,
-    receives the first request's prefill logits (float32, host) under
-    ``"logits"``.  Returns (legs, the q, k, v and causal flag of the
-    first flash call)."""
+    the experts and the router in the profile.  Returns (legs, the q, k,
+    v and causal flag of the first flash call)."""
     M, serve = m["M"], m["serve"]
     ops = m["ops"]
     moe = cfg.n_experts > 0
@@ -2655,8 +3242,6 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
 
     mt = engine.metrics
     check_engine_run(leg, engine, done, rejected, reqs, tables, stores)
-    if first_logits is not None:
-        first_logits["logits"] = rec.logits[reqs[0].req_id]
     # one shuffle per ingest chunk and per lookup; the lookups' sortmerge
     # join and the ingest append run no radix pass
     expect_launches(leg, launches, {
@@ -2788,6 +3373,14 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
 # --------------------------------------------------------------------------
 
 TP_WORLD = 2
+# layers of the world-2 phase: 8 of Granite-3.0-MoE's 32 (at 32 the phase
+# took 141-180 s, at 16 101-145 s, most of it gloo's loopback, and the
+# mesh training phases pushed the script past 1 000 s)
+TP_LAYERS = 8
+# depth of the three engine serving legs, half of each model's (40, 64,
+# 32): with the mesh phases the script took 1 066-1 288 s of command, and
+# it must end within 1 200 s
+SERVE_LAYERS = {SERVE_ARCH: 20, MAMBA_ARCH: 32, MOE_ARCH: 16}
 # requests of the plain-path twin: the first 4 of the leg's 32 (8 made
 # the phase take 151 s; the twin is cut, never the main leg)
 TP_TWIN_REQUESTS = 4
@@ -2820,18 +3413,20 @@ class DispatchLog:
         self.moe.radix_histogram_ranks = self.plain
 
 
-def profile_tp2(fns, device, rank):
-    """Each of ``fns`` once warmed, then once more, under
-    ``torch.profiler`` on rank 0 (the other ranks run the same calls
-    unprofiled, so the collectives pair up): wall ms, device busy ms and
-    share, the host ms of the collectives (gloo's ranges) and of the
-    staging copies, and the top host and device events."""
+def profile_tp2(fns, device, rank, warm=True):
+    """Each of ``fns`` once warmed (unless ``warm`` is false: the caller
+    ran it already), then once more, under ``torch.profiler`` on rank 0
+    (the other ranks run the same calls unprofiled, so the collectives
+    pair up): wall ms, device busy ms and share, the host ms of the
+    collectives (gloo's ranges) and of the staging copies, and the top
+    host and device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for key, fn in fns.items():
-        fn()
-        _sync(device)
+        if warm:
+            fn()
+            _sync(device)
         if rank:
             fn()
             _sync(device)
@@ -2895,7 +3490,7 @@ def serve_tp2(m, device, policy, w1_path):
     the kernel inputs it recorded)."""
     M, serve, ops, Moe = m["M"], m["serve"], m["ops"], m["Moe"]
     leg = "serving_moe_tp2"
-    cfg = m["get_config"](MOE_ARCH)
+    cfg = tp2_config(m)
     slots, prompt_cap, gen_cap = SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN
     n_req = SERVE_REQUESTS
     no_tf32(leg)
@@ -3070,16 +3665,48 @@ def serve_tp2(m, device, policy, w1_path):
     return record, cases
 
 
-def run_serving_tp2(m, device, w1_logits, tmpdir: Path):
+def serve_config(m, arch):
+    """``arch`` at full width and SERVE_LAYERS[arch] layers."""
+    return dataclasses.replace(m["get_config"](arch),
+                               n_layers=SERVE_LAYERS[arch])
+
+
+def tp2_config(m):
+    return dataclasses.replace(m["get_config"](MOE_ARCH), n_layers=TP_LAYERS)
+
+
+def tp2_world1_logits(m, device):
+    """The first request's prefill logits at world 1 (the engine's slot
+    prefill, flash attention, every expert on every token) of the
+    TP_LAYERS-layer model with the seed-0 weights the ranks draw."""
+    M, serve = m["M"], m["serve"]
+    cfg = tp2_config(m)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg)
+    r0 = serve.make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN,
+                             seed=0)[0]
+    padded = np.zeros((1, SERVE_PROMPT), np.int32)
+    padded[0, :len(r0.prompt)] = r0.prompt
+    logits, _ = M.make_slot_prefill(
+        cfg, None, decode_len=SERVE_PROMPT + SERVE_GEN)(
+        params, {"tokens": torch.from_numpy(padded).to(device)},
+        len(r0.prompt))
+    out = logits[0].float().cpu()
+    del params
+    _free(device)
+    return out
+
+
+def run_serving_tp2(m, device, tmpdir: Path):
     """``serving_moe_tp2`` and its twin ``serving_moe_tp2_xla``: two rank
     processes on the one card, started by ``launch/serve.py``'s
     :func:`spawn` (gloo: NCCL refuses two ranks on one device), serving
-    Granite-3.0-MoE-3B-A800M at full width and depth with the
+    Granite-3.0-MoE-3B-A800M at full width, TP_LAYERS layers, with the
     ``serving_moe`` settings and requests (:func:`serve_tp2`).  A rank
-    that fails fails the phase.  Then the first prefill's 32 dispatch
-    plans and one decode plan against the plain ranks, and the first
-    flash call's q, k, v as case (l).  Returns (legs, kernel cases)."""
-    torch.save(w1_logits, tmpdir / "w1_logits.pt")
+    that fails fails the phase.  Then the first prefill's dispatch plans
+    (one a layer) and one decode plan against the plain ranks, and the
+    first flash call's q, k, v as case (l).  Returns (legs, kernel
+    cases)."""
+    torch.save(tp2_world1_logits(m, device), tmpdir / "w1_logits.pt")
     t0 = time.perf_counter()
     m["serve"].spawn(TP_WORLD, tp2_rank, (str(tmpdir),), timeout_s=900)
     wall = time.perf_counter() - t0
@@ -3428,7 +4055,7 @@ def run_frontend_train(m, device, name, arch, leg):
     opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=FRONTEND_TRAIN_STEPS)
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            master=True)
-    step = M.make_train_step(cfg, opt_cfg)
+    step = M.make_train_step(cfg, None, opt_cfg)
     opt = A.init(A.flatten_params(params), opt_cfg)
     batch = lm_batch(m, cfg, 0, FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ,
                      device)
@@ -4017,20 +4644,19 @@ def run_all(tmpdir: Path) -> int:
     cases["hash_semi"] = semi_cases(slabs + setop_slabs, device)
     errs.update(compare_kernels(m, {"hash_semi": cases["hash_semi"]},
                                 device))
-    serving_legs, qkv = run_serving(m, device, m["get_config"](SERVE_ARCH))
+    serving_legs, qkv = run_serving(m, device, serve_config(m, SERVE_ARCH))
     legs.update(serving_legs)
     cases["flash_attention"] = flash_cases(qkv, device)
     errs.update(compare_kernels(
         m, {"flash_attention": cases["flash_attention"]}, device))
     mamba_legs, scan_args = run_serving_mamba(
-        m, device, m["get_config"](MAMBA_ARCH))
+        m, device, serve_config(m, MAMBA_ARCH))
     legs.update(mamba_legs)
     cases["mamba_scan"] = scan_cases(scan_args, device)
     errs.update(compare_kernels(
         m, {"mamba_scan": cases["mamba_scan"]}, device))
-    moe_first = {}
-    moe_legs, moe_qkv = run_serving(m, device, m["get_config"](MOE_ARCH),
-                                    leg="serving_moe", first_logits=moe_first)
+    moe_legs, moe_qkv = run_serving(m, device, serve_config(m, MOE_ARCH),
+                                    leg="serving_moe")
     legs.update(moe_legs)
     case_h = recorded_flash_case("(h) serving_moe", moe_qkv)
     errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
@@ -4039,16 +4665,26 @@ def run_all(tmpdir: Path) -> int:
     # the same model at world 2: two ranks on the card; every dispatch
     # plan recorded is held to the plain ranks, the first prefill's first
     # and the decode plan are timed with case (l)
-    tp_legs, tp_cases = run_serving_tp2(m, device, moe_first["logits"],
-                                        tmpdir)
+    tp_legs, tp_cases = run_serving_tp2(m, device, tmpdir)
     legs.update(tp_legs)
     for kname, err in compare_kernels(m, tp_cases, device).items():
         errs[kname] = max(errs[kname], err)
     cases["hash_partition"] += [tp_cases["hash_partition"][0],
                                 tp_cases["hash_partition"][-1]]
     cases["flash_attention"] += tp_cases["flash_attention"]
-    del moe_first, tp_cases
+    del tp_cases
     legs.update(run_moe_train(m, device, name))
+    # training at data=2 x model=2: four ranks on the card; every dispatch
+    # plan of the first step is held to the plain ranks, the first timed
+    mesh_legs, mesh_cases = run_moe_train_mesh(m, device, name, tmpdir)
+    legs.update(mesh_legs)
+    for kname, err in compare_kernels(m, mesh_cases, device).items():
+        errs[kname] = max(errs[kname], err)
+    cases["hash_partition"].append(mesh_cases["hash_partition"][0])
+    del mesh_cases
+    _free(device)
+    legs.update(run_lm_drill_mesh(m, device, name, tmpdir))
+    _free(device)
     # the enc-dec and vision stacks: the encoder's self-attention and the
     # decoder's cross-attention are the first prefill's flash calls 0 and
     # 25 (24 encoder layers, then the decoder's layer 0: self, cross)

@@ -10,6 +10,13 @@ flattens the same tree (dict keys sorted, tuples and lists in order, a
 ``None`` no leaf), so a checkpoint the JAX package writes from the same
 tree restores here and the port's restores there.  ``restore`` puts each
 array on its template leaf's device and dtype.
+
+Over a mesh of ranks (``layout``, a ``models.sharding.StateLayout``) a
+checkpoint still holds whole leaves, as the reference's ``np.asarray``
+of a global array: ``save`` gathers each leaf's slices to the rank at
+the mesh's origin, which writes, and every rank then meets at a
+barrier; ``restore`` reads whole leaves and gives each rank its slice.
+So a checkpoint of one world restores at another, and in the reference.
 """
 from __future__ import annotations
 
@@ -54,9 +61,28 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save(ckpt_dir: str, step: int, state: Any, *, keep_last: int = 3):
-    """Synchronous checkpoint write (atomic)."""
-    leaves = tree_leaves(state)
+def save(ckpt_dir: str, step: int, state: Any, *, keep_last: int = 3,
+         layout=None):
+    """Synchronous checkpoint write (atomic); with ``layout`` every rank
+    calls it and one writes."""
+    if layout is not None:
+        leaves = layout.whole(tree_leaves(state))
+        final = None
+        if leaves is not None:
+            final = _write(ckpt_dir, step, leaves, _treedef(state),
+                           keep_last)
+        layout.barrier()
+        return final
+    return _write(ckpt_dir, step, tree_leaves(state), _treedef(state),
+                  keep_last)
+
+
+def _treedef(state: Any) -> str:
+    return repr(tree_map(lambda _: "*", state))
+
+
+def _write(ckpt_dir: str, step: int, leaves: list, treedef: str,
+           keep_last: int):
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
     os.makedirs(tmp, exist_ok=True)
@@ -64,7 +90,7 @@ def save(ckpt_dir: str, step: int, state: Any, *, keep_last: int = 3):
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     meta = {
         "step": step,
-        "treedef": repr(tree_map(lambda _: "*", state)),
+        "treedef": treedef,
         "n_leaves": len(leaves),
         "dtypes": [str(a.dtype) for a in arrays.values()],
         "shapes": [list(a.shape) for a in arrays.values()],
@@ -113,10 +139,12 @@ def latest_step(ckpt_dir: str):
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, template: Any, step: int | None = None):
+def restore(ckpt_dir: str, template: Any, step: int | None = None, *,
+            layout=None):
     """Restore into the template's tree, each array on its template
-    leaf's device and dtype (a numpy leaf gives a numpy array).  Returns
-    (step, state)."""
+    leaf's device and dtype (a numpy leaf gives a numpy array); with
+    ``layout`` each leaf is this rank's slice of the whole array.
+    Returns (step, state)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -130,7 +158,10 @@ def restore(ckpt_dir: str, template: Any, step: int | None = None):
         index = iter(range(n))
 
         def load(tpl):
-            arr = data[f"a{next(index)}"]
+            i = next(index)
+            arr = data[f"a{i}"]
+            if layout is not None:
+                arr = np.array(layout.local(arr, i))    # contiguous
             if isinstance(tpl, torch.Tensor):
                 return torch.from_numpy(arr).to(device=tpl.device,
                                                 dtype=tpl.dtype)
@@ -152,23 +183,32 @@ class AsyncCheckpointer:
 
     ``save`` copies the state to the host synchronously (cheap beside a
     train step); serialisation and IO run on a worker thread; ``wait()``
-    joins it and raises what the write raised."""
+    joins it and raises what the write raised.  With ``layout`` every
+    rank calls both: ``save`` gathers the whole leaves to the writing
+    rank, whose thread alone writes, and ``wait`` ends at a barrier, so
+    no rank passes a checkpoint still being written."""
 
-    def __init__(self, ckpt_dir: str, keep_last: int = 3):
+    def __init__(self, ckpt_dir: str, keep_last: int = 3, layout=None):
         self.ckpt_dir = ckpt_dir
         self.keep_last = keep_last
+        self.layout = layout
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
         self.last_saved: int | None = None
 
     def save(self, step: int, state: Any):
-        host_state = tree_map(_host_copy, state)
+        if self.layout is None:
+            leaves = [_host_copy(x) for x in tree_leaves(state)]
+        else:
+            leaves = self.layout.whole(tree_leaves(state))
         self.wait()
+        if leaves is None:             # another rank writes
+            return
+        treedef = _treedef(state)
 
         def work():
             try:
-                save(self.ckpt_dir, step, host_state,
-                     keep_last=self.keep_last)
+                _write(self.ckpt_dir, step, leaves, treedef, self.keep_last)
                 self.last_saved = step
             except Exception as e:      # raised again by wait()
                 self._error = e
@@ -180,6 +220,8 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.layout is not None:
+            self.layout.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -13,10 +13,24 @@ collective (``all_to_all_single`` refuses them), so :func:`all_to_all`,
 :func:`all_reduce` and :func:`all_gather` stage a CUDA tensor of a gloo
 group through pinned host buffers: the exchange runs on the host, the
 compute around it stays on the card.  With NCCL nothing is staged.
+
+Those three run with no gradient (serving, the table operators).
+Training's collectives carry one: :func:`grad_all_to_all` (its backward
+is the same exchange of the gradient), the model axis's pair
+:func:`copy_to_group` (forward identity, backward sum over the group:
+the input of column-parallel layers) and :func:`sum_over_group` (forward
+sum, backward identity: the output of row-parallel layers),
+:func:`gather_dim` (forward all-gather along a dim, backward the rank's
+own block) and :func:`gather_params` (forward all-gather along a dim,
+backward :func:`reduce_scatter`: an FSDP weight gather).  Where the
+backend has no reduce-scatter (gloo before it had one), or the split is
+uneven, :func:`reduce_scatter` is an all-reduce of which the rank keeps
+its block.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -80,6 +94,139 @@ def all_gather(x: torch.Tensor, group=None) -> list[torch.Tensor]:
     out = [torch.empty_like(x) for _ in range(world)]
     dist.all_gather(out, x, group=group)
     return out
+
+
+# backends found to lack a reduce-scatter (gloo before it had one)
+_NO_REDUCE_SCATTER: set = set()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, of which this rank keeps block
+    ``rank`` of ``dim`` (``ceil(n / world)`` rows each, the last ones
+    shorter).  An even split is reduce-scattered where the backend can;
+    else (an uneven split, or a gloo without it) it is an all-reduce of
+    which the rank keeps its block.  A CUDA tensor of a gloo group goes
+    through pinned host buffers, and only its block comes back."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    backend = dist.get_backend(group)
+    n = x.shape[dim]
+    per = math.ceil(n / world)
+    lo = min(rank * per, n)
+    size = min(n, lo + per) - lo
+    send = x.movedim(dim, 0).contiguous()
+    staged = _staged(x, group)
+    if staged:
+        send = _host(send)
+    out = None
+    if n % world == 0 and backend not in _NO_REDUCE_SCATTER:
+        out = torch.empty((per,) + send.shape[1:], dtype=send.dtype,
+                          device=send.device, pin_memory=staged)
+        try:
+            dist.reduce_scatter_tensor(out, send, group=group)
+        except RuntimeError as e:
+            if "support" not in str(e):
+                raise
+            _NO_REDUCE_SCATTER.add(backend)
+            out = None
+    if out is None:
+        if staged:
+            dist.all_reduce(send, group=group)     # the host copy
+        else:
+            send = all_reduce(send, group)
+        out = send[lo:lo + size]
+        if not staged:
+            out = out.clone()
+    if staged:
+        out = out.to(x.device, non_blocking=True)
+    return out.movedim(0, dim)
+
+
+def _own_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of an even split over ``group``."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    per = x.shape[dim] // world
+    return x.narrow(dim, rank * per, per)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.float(), ctx.group).to(g.dtype), None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, grad_sum):
+        ctx.group, ctx.dim, ctx.grad_sum = group, dim, grad_sum
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = reduce_scatter(g.float(), ctx.group, ctx.dim).to(g.dtype)
+        else:
+            g = _own_block(g, ctx.group, ctx.dim)
+        return g, None, None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; in the backward its gradient is summed over
+    ``group`` (in float32): a tensor replicated over the group that each
+    rank uses for its own part of a product."""
+    return _CopyToGroup.apply(x, group)
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (every rank the same bits); the
+    gradient passes through to each rank's ``x`` as it is."""
+    return _SumOverGroup.apply(x, group)
+
+
+def grad_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` whose backward is the same exchange of the
+    gradient (block ``s`` goes back to rank ``s``)."""
+    return _AllToAll.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in rank
+    order; the gradient of the result replicated over the group, each
+    rank's ``x`` gets its own block of it."""
+    return _GatherDim.apply(x, group, dim, False)
+
+
+def gather_params(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """An FSDP gather: the ranks' blocks of a weight (equal shapes)
+    concatenated along ``dim``; in the backward each rank's gradient of
+    the whole weight (from its own rows) is summed over the group and the
+    rank keeps its block (:func:`reduce_scatter`, in float32)."""
+    return _GatherDim.apply(x, group, dim, True)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from datetime import timedelta
 
 import torch
@@ -38,21 +39,53 @@ class Mesh:
 
 
 def init_rank(rank: int, world: int, store_path: str, device,
-              timeout_s: float = 600.0) -> str:
+              timeout_s: float = 600.0, *, local_world: int | None = None,
+              init_method: str | None = None) -> str:
     """Join the process group of ``world`` ranks that meet through the
     ``file://`` store at ``store_path`` (a path in a fresh temporary
-    directory).  The backend is NCCL where every rank has its own card,
-    gloo where the ranks run on the CPU or share one card (NCCL refuses
-    two ranks on one device).  Returns the backend."""
+    directory), or through ``init_method`` (``tcp://host:port``) when
+    given.  The backend is NCCL where every rank has its own card, gloo
+    where the ranks run on the CPU or share one card (NCCL refuses two
+    ranks on one device): the ranks on this host (``local_world``,
+    default ``world``) are counted against its cards.  Returns the
+    backend."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = "gloo" if device.type != "cuda" \
-        or torch.cuda.device_count() < world else "nccl"
-    dist.init_process_group(backend, init_method=f"file://{store_path}",
+        or torch.cuda.device_count() < (local_world or world) else "nccl"
+    dist.init_process_group(backend,
+                            init_method=init_method
+                            or f"file://{store_path}",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=timeout_s))
     return backend
+
+
+def init_from_env(coordinator: str, device=None,
+                  timeout_s: float = 600.0) -> tuple[int, int, torch.device]:
+    """Join a process group through ``tcp://coordinator`` (``host:port``)
+    as one rank: the rank and world size from ``RANK`` and
+    ``WORLD_SIZE``, the card from ``LOCAL_RANK`` (the CPU under
+    ``device="cpu"``), the ranks on this host from ``LOCAL_WORLD_SIZE``,
+    as ``torchrun`` sets them.  Returns (rank, world, device)."""
+    try:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    except KeyError as e:
+        raise SystemExit(f"--coordinator needs {e.args[0]} in the "
+                         "environment (RANK, WORLD_SIZE and LOCAL_RANK, as "
+                         "torchrun sets them)") from None
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    if device is not None and torch.device(device).type == "cpu":
+        device = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device (pass device='cpu')")
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    init_rank(rank, world, "", device, timeout_s,
+              local_world=int(os.environ.get("LOCAL_WORLD_SIZE", world)),
+              init_method=f"tcp://{coordinator}")
+    return rank, world, device
 
 
 def make_mesh(shape: dict) -> Mesh:

@@ -21,6 +21,14 @@ counts are read from the local weights' widths, so one code path serves
 world 1 and the sharded layout.  The embedding is vocab-parallel: a rank
 looks up the tokens in its rows, zeros elsewhere, and the ranks sum;
 ``logits_out`` gives the rank's vocab columns, which the model gathers.
+
+The model axis's collectives carry gradients (``core.context``): the
+input of the column-parallel products passes through ``copy_to_group``
+(its gradient, a partial sum on each rank, is summed over the model
+group) and the row-parallel sums through ``sum_over_group`` (forward
+sum, backward identity), so the same code trains under tensor
+parallelism.  Without a gradient they compute what the forward-only
+collectives do.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..core.context import all_reduce
+from ..core.context import copy_to_group, sum_over_group
 from . import attention as A
 
 INIT_STD = 0.02
@@ -116,10 +124,19 @@ def dense(p, x):
 
 def _model_sum(y, policy):
     """``y`` summed over the model group in float32, back in its dtype
-    (``y`` itself without a sharded model axis)."""
+    (``y`` itself without a sharded model axis); the gradient passes to
+    each rank's partial ``y``."""
     if policy is None or not policy.sharded:
         return y
-    return all_reduce(y.float(), policy.model_group).to(y.dtype)
+    return sum_over_group(y.float(), policy.model_group).to(y.dtype)
+
+
+def model_copy(x, policy):
+    """``x``, replicated over the model axis, as the input of this rank's
+    part of a product: its gradient is summed over the model group."""
+    if policy is None or not policy.sharded:
+        return x
+    return copy_to_group(x, policy.model_group)
 
 
 def dense_rows(p, x, policy=None):
@@ -175,7 +192,8 @@ def attn_apply(p, cfg, x, positions, *, causal: bool = True, kv_x=None,
     RoPE on either side (``positions`` unused).  Returns (y, (k, v)) with
     k, v in the (B, Hkv, Skv, D) cache layout (this rank's heads under
     tensor parallelism)."""
-    kv_src = x if kv_x is None else kv_x
+    x = model_copy(x, policy)
+    kv_src = x if kv_x is None else model_copy(kv_x, policy)
     hq, hkv = _heads(p, cfg)
     q = _split_heads(dense(p["wq"], x), hq, cfg.d_head)
     k = _split_heads(dense(p["wk"], kv_src), hkv, cfg.d_head)
@@ -233,12 +251,14 @@ def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False,
 
 
 def swiglu(p, x, policy=None):
+    x = model_copy(x, policy)
     g = F.silu(dense(p["w_gate"], x))
     u = dense(p["w_up"], x)
     return dense_rows(p["w_down"], g * u, policy)
 
 
 def gelu_mlp(p, x, policy=None):
+    x = model_copy(x, policy)
     h = F.gelu(dense(p["w_in"], x), approximate="tanh")  # jax.nn.gelu
     return dense_rows(p["w_out"], h, policy)
 

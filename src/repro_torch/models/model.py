@@ -26,6 +26,13 @@ ranks each rank holds its slice of the parameters
 of :func:`init_params`' tree), its heads' caches (:func:`cache_struct`)
 and computes its part of every layer; the logits' vocab blocks are
 gathered once, so every rank holds the same full logits, bit for bit.
+
+Training takes it too (:func:`make_train_step`, the reference's
+signature): each data rank computes the loss over its rows (its block
+of the batch, ``sharding.shard_batch``), the model axis as in serving
+with every collective carrying its gradient, and the gradients, averaged
+over the data group, land in the 2D layout of ``param_specs(for_opt=
+True)``, where AdamW keeps its moments (ZeRO-1, ``sharding.Zero1``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import kernel_backend as KB
 from ..optim import adamw
-from ..core.context import all_gather
+from ..core.context import all_reduce, gather_dim
 from . import layers as Ly
 from . import sharding
 from . import transformer as Tf
@@ -120,10 +127,12 @@ def params_from_jax(tree: Mapping, cfg, device, *,
     reference's ``vmap`` makes them): matmul weights and the embedding to
     bf16 (round to nearest even, as ``astype(bfloat16)``), the rest
     float32, all on ``device``; with ``master`` every leaf float32 (the
-    reference's training masters).  Under a sharded ``policy`` each leaf
-    is this rank's slice (``sharding.shard_params``), cut on the host."""
-    Tf.check_supported(cfg, policy)
-    if policy is not None and policy.sharded:
+    reference's training masters).  Under a ``policy`` over several ranks
+    each leaf is this rank's slice (``sharding.shard_params``), cut on the
+    host; masters are for training, which takes a data axis."""
+    Tf.check_supported(cfg, policy, train=master)
+    if policy is not None and policy.mesh is not None \
+            and policy.mesh.size > 1:
         tree = sharding.shard_params(_to_numpy(tree), policy, cfg=cfg)
 
     def conv(node, parent=""):
@@ -201,7 +210,7 @@ def _logits(params, cfg, x, policy=None):
         tied_embed=params["embed"] if cfg.tie_embeddings else None)
     if policy is None or not policy.sharded:
         return logits
-    return torch.cat(all_gather(logits, policy.model_group), dim=-1)
+    return gather_dim(logits, policy.model_group, -1)
 
 
 def make_prefill(cfg, policy=None, *, decode_len: int,
@@ -306,10 +315,15 @@ def _head_weight(params, cfg):
     return params["lm_head"]["w"]
 
 
-def _chunk_loss(xc, yc, w):
+def _chunk_loss(xc, yc, w, policy=None):
     """(sum of the unmasked tokens' cross entropy, their count): bf16
-    operands, float32 logits (B,c,V)."""
-    logits = xc.to(Ly.BF16).float() @ w.float()
+    operands, float32 logits (B,c,V); under a sharded model axis ``w``
+    holds the rank's vocab columns and the logits are gathered."""
+    if policy is not None and policy.sharded:
+        logits = gather_dim(Ly.model_copy(xc, policy).to(Ly.BF16).float()
+                            @ w.float(), policy.model_group, -1)
+    else:
+        logits = xc.to(Ly.BF16).float() @ w.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp(yc, min=0).long()[..., None])[..., 0]
@@ -317,11 +331,13 @@ def _chunk_loss(xc, yc, w):
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
-def ce_loss(params, cfg, x, labels, chunks: int = 1):
+def ce_loss(params, cfg, x, labels, chunks: int = 1, policy=None):
     """x (B,S,d) float or bf16, labels (B,S) int (-1 = masked).  The
     sequence is cut into the largest divisor of S not above ``chunks``;
     each chunk's logits are recomputed in the backward
-    (``torch.utils.checkpoint``), so at most one chunk's live."""
+    (``torch.utils.checkpoint``), so at most one chunk's live.  Under a
+    sharded model axis the head holds the rank's vocab block and each
+    chunk's logits are gathered (with their gradient)."""
     B, S, d = x.shape
     w = _head_weight(params, cfg).to(Ly.BF16)
     chunks = max(1, min(chunks, S))
@@ -332,7 +348,7 @@ def ce_loss(params, cfg, x, labels, chunks: int = 1):
     for i in range(chunks):
         t = slice(i * c, (i + 1) * c)
         loss, n = checkpoint(_chunk_loss, x[:, t], labels[:, t], w,
-                             use_reentrant=False)
+                             policy, use_reentrant=False)
         total, count = total + loss, count + n
     return total / torch.clamp(count, min=1.0)
 
@@ -352,18 +368,27 @@ def _cast_weights_bf16(params):
     return cast(params)
 
 
-def make_loss_fn(cfg, opts: StackOpts, aux_coeff: float = 0.01):
+def make_loss_fn(cfg, policy, opts: StackOpts, aux_coeff: float = 0.01):
     """``loss_fn(params, batch) -> (loss + aux_coeff * moe_aux, {"loss",
     "moe_aux"})``: ``moe_aux`` is the MoE layers' auxiliary loss summed
-    over the stack (0 without MoE layers)."""
+    over the stack (0 without MoE layers).  Under ``policy`` both are this
+    rank's: over its rows, ``moe_aux`` averaged over the model ranks; the
+    matmul weights are cast to bf16 before any gather over data, and the
+    leaves outside the layer stack are gathered here (the layers gather
+    their own)."""
     def loss_fn(params, batch):
         if cfg.train.bf16_weight_cast:
             params = _cast_weights_bf16(params)
-        x, aux, _, n_prefix = backbone(params, cfg, batch, opts)
+        params = dict(sharding.gather_data(
+            {k: v for k, v in params.items() if k != "layers"}, policy),
+            layers=params["layers"])
+        x, aux, _, n_prefix = backbone(params, cfg, batch, opts,
+                                       policy=policy)
         labels = batch["labels"]
         if n_prefix:
             x = x[:, n_prefix:]
-        loss = ce_loss(params, cfg, x, labels, cfg.train.loss_seq_chunks)
+        loss = ce_loss(params, cfg, x, labels, cfg.train.loss_seq_chunks,
+                       policy)
         return loss + aux_coeff * aux, {"loss": loss, "moe_aux": aux}
     return loss_fn
 
@@ -373,7 +398,7 @@ def make_loss_fn(cfg, opts: StackOpts, aux_coeff: float = 0.01):
 # --------------------------------------------------------------------------
 
 
-def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
+def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on float32 masters (``init_params(..., master=True)``)
     and ``opt_state = adamw.init(adamw.flatten_params(params), opt_cfg)``.
@@ -382,13 +407,26 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
     Attention and the scan run their plain paths on every device (the
     kernels are forward only; the reference trains with
     ``attn_impl="xla"`` too); layers are rematerialised as
-    ``cfg.train.remat`` says."""
+    ``cfg.train.remat`` says.
+
+    Under ``policy`` (a mesh of several ranks) ``params`` are this
+    rank's slices in the flavor's layout (``sharding.shard_params``),
+    ``batch`` its rows (``sharding.shard_batch``) and ``opt_state`` the
+    moments of its 2D slices (``adamw.init`` of ``Zero1.local`` of each
+    parameter: ZeRO-1).  The gradients are averaged over the data group
+    into that 2D layout, AdamW updates the 2D slices (the global norm
+    over the whole mesh) and, under ``tp``, the new parameters are
+    gathered back over data.  The reported ``loss`` and ``moe_aux`` are
+    means over the data group."""
+    Tf.check_supported(cfg, policy, train=True)
     t = cfg.train
     opts = StackOpts(attn_impl="xla", mamba_impl="xla",
                      q_chunk=t.attn_q_chunk, k_chunk=t.attn_k_chunk,
-                     remat=t.remat)
-    loss_fn = make_loss_fn(cfg, opts)
+                     remat=t.remat, moe_capacity=t.moe_capacity_factor)
+    loss_fn = make_loss_fn(cfg, policy, opts)
     n_micro = max(1, t.microbatches)
+    meshed = policy is not None and policy.mesh is not None \
+        and policy.mesh.size > 1
 
     def train_step(params, opt_state, batch):
         flat = adamw.flatten_params(params)
@@ -420,8 +458,16 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
             grads = {k: g / n_micro for k, g in grads.items()}
             metrics = {"loss": loss_sum / n_micro,
                        "moe_aux": aux_sum / n_micro}
-        flat, opt_state, om = adamw.update(flat, grads, opt_state, opt_cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        zero = None
+        if meshed:
+            zero = sharding.Zero1(policy, flat)
+            grads = {k: zero.grad(k, g) for k, g in grads.items()}
+            if policy.world_d > 1:
+                metrics = {k: all_reduce(v, policy.data_group)
+                           / policy.world_d for k, v in metrics.items()}
+        flat, opt_state, om = adamw.update(flat, grads, opt_state, opt_cfg,
+                                           zero=zero)
         return adamw.unflatten_params(flat), opt_state, dict(metrics, **om)
 
     return train_step

@@ -24,7 +24,21 @@ Three paths, chosen by :func:`moe_apply` as the reference chooses them:
 
 A call of either dispatch path appends its rows dropped past the
 capacity (a device scalar, this rank's count) to :data:`drop_log` when
-that is a list; the reference discards the count.  Uneven expert counts
+that is a list, and a call made again by a remat recompute appends it as
+:class:`Recomputed`, so the log keeps one plain entry per forward call;
+the reference discards the count.
+
+Both dispatch paths train: their exchanges are ``core.context``'s
+collectives with gradients (``grad_all_to_all``, the all-gather of the
+sequence slices by ``gather_dim``), the replicated input and router
+enter through ``copy_to_group`` (each rank's gradient covers its own
+tokens or experts and is summed over the model group), and the payload
+scatter and the gated combine are autograd ops (``moe_shuffle`` sums a
+token's k rows over a dim: the same bits on every run, so a step
+repeats exactly on the card, where ``index_add_`` adds by atomics).
+``aux`` is the
+mean over the model ranks (with its gradient); the data ranks' mean is
+the train step's.  Uneven expert counts
 are parameter-padded to a multiple of 16 (:func:`n_experts_padded`;
 ``cfg.n_experts`` stays the routing width and the pads receive no
 rows).  The router is float32 in serving and in training and its product
@@ -33,12 +47,15 @@ before the float32 combine, as the reference's.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..core.context import all_gather, all_reduce, all_to_all
+from ..core.context import copy_to_group, gather_dim, grad_all_to_all, \
+    sum_over_group
 from ..kernels.hash_partition.ops import radix_histogram_ranks
 from . import layers as Ly
 from . import sharding
@@ -47,6 +64,23 @@ F32 = torch.float32
 
 # None, or a list each dispatch call appends its dropped-row count to
 drop_log: list | None = None
+_recomputing = False
+
+
+class Recomputed(NamedTuple):
+    """A :data:`drop_log` entry of a call made by a remat recompute."""
+    dropped: torch.Tensor
+
+
+@contextlib.contextmanager
+def recompute():
+    """Mark the dispatch calls made inside as a recompute's."""
+    global _recomputing
+    before, _recomputing = _recomputing, True
+    try:
+        yield
+    finally:
+        _recomputing = before
 
 
 def n_experts_padded(cfg) -> int:
@@ -119,7 +153,7 @@ def moe_dense(p, cfg, x):
 
 def _log_drops(n: torch.Tensor) -> None:
     if drop_log is not None:
-        drop_log.append(n)
+        drop_log.append(Recomputed(n) if _recomputing else n)
 
 
 def _dense_fallback(p, cfg, x, policy):
@@ -130,18 +164,23 @@ def _dense_fallback(p, cfg, x, policy):
         return moe_dense(p, cfg, x)
     B, S, d = x.shape
     E = cfg.n_experts
+    group = policy.model_group
     lo = sharding.block(n_experts_padded(cfg), policy.world_m,
                         policy.model_rank).start
     hi = min(lo + p["e_gate"].shape[0], E)
     x2 = x.reshape(B * S, d)
     w, ids, aux = _route(p["router"], x2, cfg.top_k)
-    gates = torch.zeros((B * S, E), dtype=F32, device=x.device) \
-        .scatter(1, ids.long(), w)[:, lo:hi]
+    # every rank routes every token alike; the gates' and the tokens'
+    # gradients from its own experts are summed over the group
+    gates = copy_to_group(torch.zeros((B * S, E), dtype=F32,
+                                      device=x.device)
+                          .scatter(1, ids.long(), w), group)[:, lo:hi]
     n = hi - lo
     o = _expert_ffn(p["e_gate"][:n], p["e_up"][:n], p["e_down"][:n],
-                    x2.to(Ly.BF16).expand(n, B * S, d))
+                    copy_to_group(x2, group).to(Ly.BF16)
+                    .expand(n, B * S, d))
     y = torch.einsum("etd,te->td", o.float(), gates)
-    y = all_reduce(y, policy.model_group)
+    y = sum_over_group(y, group)
     return y.reshape(B, S, d).to(x.dtype), aux
 
 
@@ -159,13 +198,14 @@ def moe_shuffle(p, cfg, x, policy, capacity_factor: float = 1.25):
     r = policy.model_rank
     E_loc = E_pad // world_m
     s = S // world_m
-    x_loc = x[:, r * s:(r + 1) * s]
+    # each rank's gradient of x and of the router covers its own tokens
+    x_loc = copy_to_group(x, group)[:, r * s:(r + 1) * s]
     T = B * s
     k = cfg.top_k
     C_send = max(1, math.ceil(T * k / E * capacity_factor))
     slots = E_loc * C_send
     x2 = x_loc.reshape(T, d)
-    w, ids, aux = _route(p["router"], x2, k)
+    w, ids, aux = _route(copy_to_group(p["router"], group), x2, k)
 
     # the shuffle plan: the stable rank of each routed row in its expert
     eid = ids.reshape(-1)                                     # (T*k,)
@@ -175,6 +215,7 @@ def moe_shuffle(p, cfg, x, policy, capacity_factor: float = 1.25):
     eid, ranks = eid.long(), ranks.long()
     owner, le = eid // E_loc, eid % E_loc
     ok = ranks < C_send
+    _log_drops((~ok).sum())
     flat = torch.where(ok, owner * slots + le * C_send + ranks,
                        world_m * slots)
     payload = torch.zeros((world_m * slots + 1, d), dtype=Ly.BF16,
@@ -182,21 +223,22 @@ def moe_shuffle(p, cfg, x, policy, capacity_factor: float = 1.25):
     payload[flat] = x2.to(Ly.BF16)[src]
     payload = payload[:-1].reshape(world_m, slots, d)
 
-    recv = all_to_all(payload, group)                # (world, slots, d)
+    recv = grad_all_to_all(payload, group)           # (world, slots, d)
     xb = recv.reshape(world_m, E_loc, C_send, d).transpose(0, 1) \
         .reshape(E_loc, world_m * C_send, d)
     h = _expert_ffn(p["e_gate"], p["e_up"], p["e_down"], xb)
     h = h.reshape(E_loc, world_m, C_send, d).transpose(0, 1) \
         .reshape(world_m, slots, d)
-    y_rows = all_to_all(h, group).reshape(world_m * slots, d)
+    y_rows = grad_all_to_all(h, group).reshape(world_m * slots, d)
 
     g = y_rows[flat.clamp(max=world_m * slots - 1)].float()
     contrib = g * (wf * ok)[:, None]
-    y = torch.zeros((T, d), dtype=F32, device=x.device) \
-        .index_add_(0, src, contrib)
-    _log_drops((~ok).sum())
-    y = torch.cat(all_gather(y.reshape(B, s, d).to(x.dtype), group), dim=1)
-    return y, all_reduce(aux, group) / world_m
+    # the gated sum of each token's k rows (the reference's scatter-add
+    # over src, whose k rows a token are adjacent): a sum over a dim, in
+    # the same order on every run, where index_add_'s atomics are not
+    y = contrib.reshape(T, k, d).sum(dim=1)
+    y = gather_dim(y.reshape(B, s, d).to(x.dtype), group, 1)
+    return y, sum_over_group(aux, group) / world_m
 
 
 # --------------------------------------------------------------------------
@@ -223,13 +265,17 @@ def moe_decode(p, cfg, x, policy, capacity_factor: float = 4.0):
     w, ids, aux = _route(p["router"], x2, k)
     eid = ids.reshape(-1).long()
     src = torch.arange(T, device=x.device).repeat_interleave(k)
-    wf = w.reshape(-1).float()
+    # every rank routes every token alike; the gates' and the tokens'
+    # gradients from its own experts are summed over the group
+    wf = copy_to_group(w.reshape(-1).float(), group)
+    x2 = copy_to_group(x2, group)
     le = eid - r * E_loc
     mine = (le >= 0) & (le < E_loc)
     le_or_trash = torch.where(mine, le, E_loc)
     _, ranks = radix_histogram_ranks(le_or_trash.to(torch.int32), E_loc + 1)
     ranks = ranks.long()
     ok = mine & (ranks < C)
+    _log_drops((mine & ~ok).sum())
     flat = torch.where(ok, le_or_trash * C + ranks, E_loc * C)
     xb = torch.zeros((E_loc * C + 1, d), dtype=Ly.BF16, device=x.device)
     xb[flat] = x2.to(Ly.BF16)[src]
@@ -239,8 +285,7 @@ def moe_decode(p, cfg, x, policy, capacity_factor: float = 4.0):
     contrib = g * (wf * ok)[:, None]
     part = torch.zeros((T, d), dtype=F32, device=x.device) \
         .index_add_(0, src, contrib)
-    _log_drops((mine & ~ok).sum())
-    y = all_reduce(part, group)
+    y = sum_over_group(part, group)
     # every rank routed the same rows, so its aux is already the mean
     return y.reshape(B, S, d).to(x.dtype), aux
 

@@ -19,6 +19,14 @@ The reference also carries GSPMD layout constraints (``sc``,
 port has no compiler to place tensors: each rank holds the slice
 :func:`shard_params` gives it and the layers compute on those slices
 (``models/layers.py``), with the collectives written out.
+
+Training adds the data axis: each data rank holds its block of the
+batch's rows (:func:`shard_batch`, the layout of ``P(batch_axes,
+None)``); under ``fsdp_tp`` a layer gathers its 2D leaves over the data
+group before use (:func:`gather_data`); the AdamW moments and the
+averaged gradients are held in the 2D layout of ``param_specs(for_opt=
+True)`` (ZeRO-1, :class:`Zero1`); a checkpoint holds whole leaves, which
+:class:`StateLayout` gathers and slices.
 """
 from __future__ import annotations
 
@@ -27,6 +35,11 @@ import math
 from typing import Any
 
 import torch
+
+from ..core.context import all_gather, all_reduce, gather_params, \
+    reduce_scatter
+
+DATA = "data"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +74,33 @@ class Policy:
     def sharded(self) -> bool:
         """Whether the model axis spans more than one rank."""
         return self.world_m > 1
+
+    @property
+    def world_d(self) -> int:
+        """Ranks along the batch axes (the product of their sizes)."""
+        return math.prod(self.size(a) for a in self.batch_axes)
+
+    @property
+    def data_axis(self) -> str | None:
+        """The batch axis of more than one rank (``None`` if there is
+        none; ``transformer.check_supported`` refuses two)."""
+        return next((a for a in self.batch_axes if self.size(a) > 1), None)
+
+    @property
+    def data_rank(self) -> int:
+        a = self.data_axis
+        return 0 if a is None else self.mesh.coord[a]
+
+    @property
+    def data_group(self):
+        """The process group of the data axis (None for one rank)."""
+        a = self.data_axis
+        return None if a is None else self.mesh.groups[a]
+
+    @property
+    def fsdp(self) -> bool:
+        """Whether the layers hold 2D leaves and gather them over data."""
+        return self.flavor == "fsdp_tp" and self.world_d > 1
 
     # ------------------------------------------------------- parameter rules
     def _dd(self, use2d: bool):
@@ -123,6 +163,13 @@ class Policy:
             return tuple([None] * pad + list(base))
 
         return walk(params_shape, ())
+
+    def leaf_spec(self, path: str, ndim: int, use2d: bool) -> tuple:
+        """The spec of the leaf at dotted ``path`` (``flatten_params``'
+        keys) with ``ndim`` dims, as :meth:`param_specs` gives it."""
+        base = self.base_spec(tuple(path.split(".")), ndim, use2d)
+        pad = ndim - len(base)
+        return () if pad < 0 else tuple([None] * pad + list(base))
 
 
 def make_policy(mesh, flavor: str = "tp") -> Policy:
@@ -200,7 +247,8 @@ def shard_params(params, policy: Policy, coord: dict | None = None,
     each mesh axis to this rank's index (default: the mesh's own).  With
     ``cfg``, attention's ``wk``/``wv`` columns (and biases) follow
     :func:`kv_head_block` where the KV heads do not split over the model
-    axis."""
+    axis.  Under ``fsdp_tp`` a dim cut over a data axis of several ranks
+    must split evenly (the layers gather equal blocks)."""
     if policy.mesh is None:
         return params
     coord = dict(policy.mesh.coord if coord is None else coord)
@@ -222,10 +270,239 @@ def shard_params(params, policy: Policy, coord: dict | None = None,
                                coord) + (cols,)
         else:
             idx = shard_slices(node.shape, spec, sizes, coord)
+        dim = data_dim(spec)
+        if policy.fsdp and dim is not None \
+                and node.shape[dim] % sizes[DATA]:
+            raise ValueError(f"{'.'.join(names)}: dim {dim} of "
+                             f"{tuple(node.shape)} does not split over a "
+                             f"data axis of {sizes[DATA]}")
         return node[idx].contiguous().clone() \
             if isinstance(node, torch.Tensor) else node[idx].copy()
 
     return walk(params, specs, ())
+
+
+def data_dim(spec) -> int | None:
+    """The dim of ``spec`` cut over the data axis (None if none)."""
+    return next((i for i, e in enumerate(spec) if DATA in _axes(e)), None)
+
+
+# --------------------------------------------------------------------------
+# the data axis (training)
+# --------------------------------------------------------------------------
+
+
+def _batch_axes_for(policy: Policy, B: int) -> tuple[str, ...]:
+    """The reference's rule: the batch axes that a batch of ``B`` rows is
+    cut over (none where ``B`` does not split over them, and then every
+    data rank holds the whole batch)."""
+    return policy.batch_axes if B % policy.world_d == 0 else ()
+
+
+def shard_batch(batch: dict, policy: Policy | None) -> dict:
+    """This data rank's rows of every array of ``batch`` (leading dim
+    ``B``): rank d holds ``[d B / D, (d + 1) B / D)``, the block layout of
+    ``P(batch_axes, None)``; the whole batch where ``B`` does not split."""
+    if policy is None or policy.world_d == 1:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    if not _batch_axes_for(policy, B):
+        return batch
+    per = B // policy.world_d
+    d = policy.data_rank
+    return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+
+
+def gather_data(tree: dict, policy: Policy | None) -> dict:
+    """Under ``fsdp_tp`` at a data axis of more than one rank, ``tree``
+    (a part of the parameters, names as in the whole tree) with every 2D
+    leaf gathered over the data group along its data dim
+    (``core.context.gather_params``: the backward reduce-scatters the
+    gradient); else ``tree`` itself."""
+    if policy is None or not policy.fsdp:
+        return tree
+    specs = policy.param_specs(tree, use2d=True)
+    group = policy.data_group
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        dim = data_dim(spec)
+        return node if dim is None else gather_params(node, group, dim)
+
+    return walk(tree, specs)
+
+
+def _gather_blocks(x: torch.Tensor, group, dim: int,
+                   n: int | None = None) -> torch.Tensor:
+    """The ranks' blocks of ``dim`` (of any sizes: the last ones of an
+    uneven split are shorter) concatenated in rank order; ``n``, the
+    whole size, if known, spares an exchange of the block sizes.  A CUDA
+    tensor of a gloo group is gathered into one pinned host buffer and
+    copied back once."""
+    if n is not None:
+        world = torch.distributed.get_world_size(group)
+        sizes = [len(range(n)[block(n, world, r)]) for r in range(world)]
+    else:
+        sizes = [int(s) for s in all_gather(
+            torch.tensor([x.shape[dim]], device=x.device), group)]
+    per = max(sizes)
+    send = x.movedim(dim, 0)
+    if send.shape[0] < per:
+        send = torch.cat([send, send.new_zeros(
+            (per - send.shape[0],) + send.shape[1:])])
+    send = send.contiguous()
+    world = len(sizes)
+    if x.is_cuda and torch.distributed.get_backend(group) == "gloo":
+        host = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+        host.copy_(send)
+        out = torch.empty((world * per,) + send.shape[1:], dtype=send.dtype,
+                          pin_memory=True)
+        torch.distributed.all_gather(list(out.split(per)), host,
+                                     group=group)
+    else:
+        out = torch.cat(all_gather(send, group))
+    if any(n < per for n in sizes):
+        out = torch.cat([out[r * per:r * per + n]
+                         for r, n in enumerate(sizes)])
+    return out.to(x.device, non_blocking=True).movedim(0, dim).contiguous()
+
+
+class Zero1:
+    """One rank's ZeRO-1 layout for AdamW over the flat parameters
+    ``flat`` (``flatten_params`` keys) as the rank holds them: the
+    moments and the averaged gradients in the 2D layout of
+    ``param_specs(for_opt=True)``.  Under ``tp`` a rank holds its model
+    slice of each parameter whole over data, and its 2D slice is a view
+    of it; under ``fsdp_tp`` it holds the 2D slice.  Used by
+    ``optim.adamw.update``."""
+
+    def __init__(self, policy: Policy, flat: dict):
+        self.policy = policy
+        self.spec = {k: policy.leaf_spec(k, p.dim(), True)
+                     for k, p in flat.items()}
+        self.ddim = {k: data_dim(s) for k, s in self.spec.items()}
+        self.D, self.d = policy.world_d, policy.data_rank
+        self.group = policy.data_group
+        sizes, coord = policy.mesh.shape, policy.mesh.coord
+        # a leaf replicated over an axis is counted on one rank of it
+        self._counted = {
+            k: all(coord[a] == 0 for a in policy.mesh.axis_names
+                   if sizes[a] > 1 and not any(a in _axes(e) for e in s))
+            for k, s in self.spec.items()}
+
+    def local(self, k: str, p: torch.Tensor) -> torch.Tensor:
+        """This rank's 2D slice of parameter ``k`` as held (a view)."""
+        dim = self.ddim[k]
+        if self.policy.fsdp or dim is None or self.D == 1:
+            return p
+        sl = block(p.shape[dim], self.D, self.d)
+        return p.narrow(dim, sl.start, sl.stop - sl.start)
+
+    def grad(self, k: str, g: torch.Tensor) -> torch.Tensor:
+        """The gradient of ``k`` from this rank's rows -> the mean over
+        the data ranks, in the 2D layout.  Under ``fsdp_tp`` a 2D leaf's
+        gradient is already summed over data by its gather's backward."""
+        if self.D == 1:
+            return g
+        dim = self.ddim[k]
+        if dim is None:
+            g = all_reduce(g, self.group)
+        elif not self.policy.fsdp:
+            g = reduce_scatter(g, self.group, dim)
+        return g / self.D
+
+    def whole(self, k: str, new: torch.Tensor,
+              held: torch.Tensor) -> torch.Tensor:
+        """The updated 2D slice ``new`` of ``k`` back in the layout the
+        rank holds (as ``held``): under ``tp`` gathered over data."""
+        dim = self.ddim[k]
+        if self.policy.fsdp or dim is None or self.D == 1:
+            return new
+        return _gather_blocks(new, self.group, dim, held.shape[dim])
+
+    def counted(self, k: str) -> bool:
+        """Whether this rank adds leaf ``k`` to the global norm."""
+        return self._counted[k]
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the whole mesh."""
+        for a in self.policy.mesh.axis_names:
+            if self.policy.size(a) > 1:
+                x = all_reduce(x, self.policy.mesh.groups[a])
+        return x
+
+
+class _Spec:
+    """A spec as a tree leaf (a tree walk recurses into tuples)."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def _specs_tree(specs):
+    if isinstance(specs, dict):
+        return {k: _specs_tree(v) for k, v in specs.items()}
+    return _Spec(specs)
+
+
+class StateLayout:
+    """How one rank holds the leaves of a training state ``(params,
+    opt_state)``: each leaf's spec over ``policy``'s mesh, in the order
+    of ``checkpoint.tree_leaves``.  A checkpoint holds whole leaves
+    (:meth:`whole`, written by the rank at the mesh's origin) and every
+    rank restores its slice of them (:meth:`local`), so a checkpoint of
+    one world restores at another, and in the reference."""
+
+    def __init__(self, policy: Policy, specs: list):
+        self.policy, self.specs = policy, specs
+        self.sizes, self.coord = policy.mesh.shape, policy.mesh.coord
+
+    @property
+    def writer(self) -> bool:
+        return all(c == 0 for c in self.coord.values())
+
+    def whole(self, leaves: list):
+        """Every leaf gathered whole as a numpy array, on the writer (the
+        other ranks get None); every rank must call it."""
+        out = []
+        on_host = torch.distributed.get_backend() == "gloo"
+        for leaf, spec in zip(leaves, self.specs):
+            x = leaf.detach()
+            if on_host:                 # gloo gathers host tensors as they are
+                x = x.cpu()
+            for dim, entry in enumerate(spec):
+                axes = [a for a in _axes(entry) if self.sizes[a] > 1]
+                if len(axes) > 1:
+                    raise NotImplementedError(f"a dim cut over {axes}")
+                if axes:
+                    x = _gather_blocks(x, self.policy.mesh.groups[axes[0]],
+                                       dim)
+            out.append(x.cpu().numpy() if self.writer else None)
+        return out if self.writer else None
+
+    def local(self, arr, i: int):
+        """This rank's slice of leaf ``i`` from its whole array."""
+        return arr[shard_slices(arr.shape, self.specs[i], self.sizes,
+                                self.coord)]
+
+    def barrier(self) -> None:
+        torch.distributed.barrier()
+
+
+def train_state_layout(policy: Policy, params: dict, opt: dict):
+    """The :class:`StateLayout` of ``(params, opt_state)`` as the train
+    step holds them: parameters in the flavor's layout, the moments
+    ``m`` and ``v`` (flat dicts) in the 2D one, the step replicated.
+    None without a mesh of more than one rank."""
+    from ..checkpoint import tree_leaves
+    if policy is None or policy.mesh is None or policy.mesh.size == 1:
+        return None
+    moments = {k: _Spec(policy.leaf_spec(k, v.dim(), True))
+               for k, v in opt["m"].items()}
+    tree = (_specs_tree(policy.param_specs(params)),
+            {"m": moments, "v": moments, "step": _Spec(())})
+    return StateLayout(policy, [s.spec for s in tree_leaves(tree)])
 
 
 def local_kv_heads(cfg, policy: Policy | None) -> int:

@@ -29,7 +29,13 @@ Every function takes the reference's ``policy`` (default ``None``, world
 compute on this rank's slices (``models/layers.py``), a MoE FFN runs
 ``moe_shuffle`` in train and prefill and ``moe_decode`` in a decode step,
 with ``StackOpts.moe_capacity`` as the shuffle's capacity factor.
-:func:`check_supported` refuses what the sharded path does not run yet.
+In training the data axis adds nothing inside a layer but, under
+``fsdp_tp``, the gather of the layer's 2D leaves over the data group
+(``sharding.gather_data``), made inside the layer's remat body so that
+the recompute gathers again.  Every collective carries its gradient, so
+a rematerialised layer re-issues its collectives in the backward, in
+the same order on every rank.  :func:`check_supported` refuses what the
+sharded path does not run yet.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from . import layers as Ly
 from . import mamba as Mb
 from . import moe as Moe
-from .sharding import kv_head_block
+from .sharding import gather_data, kv_head_block
 
 F32 = torch.float32
 
@@ -75,38 +81,48 @@ def layer_kind(cfg, i: int) -> tuple[str, str, bool]:
     return mixer, ffn, cfg.is_encdec
 
 
-def check_supported(cfg, policy=None) -> None:
+def check_supported(cfg, policy=None, *, train: bool = False) -> None:
     """Raise for a config whose layers the port does not run: period
     stacks.  A stack is a whole number of periods, and one period of the
     only such config (Jamba-1.5-Large, 8 layers) holds 88.3 GB of bf16
     weights, more than one card's memory, so these wait for a path over
-    several cards.  Under a sharded ``policy`` also: a data axis of more
-    than one rank, Mamba layers, encoder and vision configs (ROADMAP
-    Queue 1 item 4, its second part), heads that do not split over the
-    model axis and a padded vocabulary that does not."""
+    several cards.  Under a ``policy`` over several ranks also: Mamba
+    layers, encoder and vision configs (ROADMAP Queue 1 item 4b, its
+    rest), serving at a data axis of more than one rank (``train``
+    False; the next part of item 4b), two batch axes of several ranks,
+    heads that do not split over the model axis (in training: KV heads
+    too) and a padded vocabulary that does not."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
                                   f"{cfg.moe_period} layers) wait for a "
                                   "path over several cards: one period "
                                   "of the full config does not fit one")
-    if policy is None or policy.mesh is None:
+    if policy is None or policy.mesh is None or policy.mesh.size == 1:
         return
-    later = "waits for ROADMAP Queue 1 item 4b (world > 1 beyond serving " \
-        "at the model axis)"
-    for a in policy.batch_axes:
-        if policy.size(a) > 1:
-            raise NotImplementedError(f"a {a} axis of {policy.size(a)} "
-                                      f"ranks {later}")
-    if not policy.sharded:
-        return
+    if not train and policy.world_d > 1:
+        raise NotImplementedError(
+            f"serving at a {policy.data_axis} axis of {policy.world_d} "
+            "ranks waits for ROADMAP Queue 1 item 4b (serving at data > 1)")
+    if sum(policy.size(a) > 1 for a in policy.batch_axes) > 1:
+        raise NotImplementedError(f"batch axes {policy.batch_axes} of "
+                                  "several ranks each")
+    later = "wait for ROADMAP Queue 1 item 4b (Mamba, encoder and vision " \
+        "configs at world > 1)"
     if any(layer_kind(cfg, i)[0] == "mamba" for i in range(cfg.n_layers)):
         raise NotImplementedError(f"{cfg.name}: Mamba layers at world > 1 "
                                   f"{later}")
     if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: encoder and vision configs "
                                   f"at world > 1 {later}")
+    if not policy.sharded:
+        return
     kv_head_block(cfg.n_heads, cfg.n_kv_heads, policy.world_m, 0)
+    if train and cfg.n_kv_heads % policy.world_m:
+        raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} KV heads do not "
+                         f"split over a model axis of {policy.world_m} "
+                         "(in training a KV head held by several ranks "
+                         "would need its gradient summed over them)")
     if cfg.padded_vocab() % policy.world_m:
         raise ValueError(f"{cfg.name}: a padded vocabulary of "
                          f"{cfg.padded_vocab()} does not split over a "
@@ -289,6 +305,20 @@ def _requires_grad(tree: dict) -> bool:
                for v in tree.values())
 
 
+def _marking_recompute(fn):
+    """``fn``, whose calls after the first (a remat recompute) run under
+    ``moe.recompute()``."""
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        with Moe.recompute():
+            return fn(*args)
+    return run
+
+
 def _wrap_remat(fn, remat: str, grads: bool):
     """``fn`` under ``torch.utils.checkpoint`` as ``remat`` says: ``none``
     saves every activation, ``full`` only ``fn``'s inputs, ``dots`` the
@@ -299,6 +329,7 @@ def _wrap_remat(fn, remat: str, grads: bool):
                          "'full' or 'dots')")
     if remat == "none" or not grads:
         return fn
+    fn = _marking_recompute(fn)
     kw = {}
     if remat == "dots":
         kw["context_fn"] = functools.partial(
@@ -314,17 +345,16 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
     loss summed over the layers, stacked caches | None): each layer's
     cache leaves stacked over the layers (see the module docstring)."""
     def body(p, x, enc_out):
-        return layer_apply(p, cfg, x, positions, opts, causal=causal,
-                           enc_out=enc_out, want_cache=want_cache,
-                           policy=policy)
+        return layer_apply(gather_data(p, policy), cfg, x, positions, opts,
+                           causal=causal, enc_out=enc_out,
+                           want_cache=want_cache, policy=policy)
 
     grads = torch.is_grad_enabled() and (x.requires_grad
                                          or _requires_grad(stack_params))
-    body = _wrap_remat(body, opts.remat, grads)
     aux = torch.zeros((), dtype=F32, device=x.device)
     caches = []
     for p in unstack(stack_params):
-        x, a, cache = body(p, x, enc_out)
+        x, a, cache = _wrap_remat(body, opts.remat, grads)(p, x, enc_out)
         if a is not None:
             aux = aux + a
         caches.append(cache)

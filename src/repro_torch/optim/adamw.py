@@ -12,6 +12,13 @@ float32 tensors, never Python doubles): gradients clipped by
 applied as ``p - lr · delta``, no decay on leaves named ``scale``,
 ``b``, ``conv_b``, ``D`` or ``A_log``.  ``torch.optim.AdamW`` applies
 its decoupled decay differently and would not match.
+
+Over a mesh of ranks (``zero``, a ``models.sharding.Zero1``) the state
+is ZeRO-1: each rank's moments and gradients are its 2D slices of the
+leaves, :func:`update` steps its 2D slice of each parameter and puts the
+result back in the layout the rank holds, and the global norm sums
+every element's square once over the whole mesh (a leaf replicated
+over an axis counts on one rank of it).
 """
 from __future__ import annotations
 
@@ -87,12 +94,17 @@ def init(params: dict, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def global_norm(tree: dict, zero=None) -> torch.Tensor:
     """sqrt of the sum over leaves, in order, of each leaf's sum of
-    squares (float32)."""
+    squares (float32); with ``zero`` the leaves this rank counts, summed
+    over the mesh."""
     total = 0
-    for leaf in tree.values():
-        total = total + torch.sum(torch.square(leaf.to(F32)))
+    for k, leaf in tree.items():
+        if zero is None or zero.counted(k):
+            total = total + torch.sum(torch.square(leaf.to(F32)))
+    if zero is not None:
+        device = next(iter(tree.values())).device
+        total = zero.total(torch.as_tensor(total, dtype=F32, device=device))
     return torch.sqrt(total)
 
 
@@ -107,11 +119,14 @@ def _decay_mask(path: str) -> bool:
 
 
 @torch.no_grad()
-def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics)."""
+def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+           zero=None):
+    """Returns (new_params, new_state, metrics).  With ``zero`` the
+    gradients and moments are the rank's 2D slices and ``params`` as the
+    rank holds them."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, zero)
     scale_clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2
@@ -120,7 +135,8 @@ def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
     bc2 = 1 - torch.pow(b2, stepf)
 
     new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
+    for k, held in params.items():
+        p = held if zero is None else zero.local(k, held)
         g = grads[k].to(F32) * scale_clip
         m = b1 * state["m"][k].to(F32) + (1 - b1) * g
         v = b2 * state["v"][k].to(F32) + (1 - b2) * g * g
@@ -128,6 +144,8 @@ def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
         if _decay_mask(k):
             delta = delta + cfg.weight_decay * p.to(F32)
         new_p[k] = (p.to(F32) - lr * delta).to(p.dtype)
+        if zero is not None:
+            new_p[k] = zero.whole(k, new_p[k], held)
         new_m[k] = m.to(state["m"][k].dtype)
         new_v[k] = v.to(state["v"][k].dtype)
     metrics = {"grad_norm": gnorm, "lr": lr}

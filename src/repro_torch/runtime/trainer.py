@@ -14,6 +14,13 @@ A state is any tree the checkpoint store takes (dicts, tuples and lists
 of tensors).  A step's time ends with a ``torch.cuda.synchronize()`` of
 its metrics' device when that is a CUDA device, so ``dt`` is the step's
 device time and not its launches'.
+
+Over a mesh of ranks every rank runs the same loop with the same
+``Trainer`` settings and a ``layout`` (``models.sharding.StateLayout``):
+a :class:`FailureInjector` raises on every rank at the same step, the
+checkpoints hold whole leaves written by one rank (the others wait for
+it at a barrier before the next checkpoint, a restart or the end) and
+every rank restores its slices of the latest one.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from ..checkpoint import AsyncCheckpointer, latest_step, restore, save
 
 
 class FailureInjector:
-    """Raises RuntimeError once when the step counter hits `fail_at`."""
+    """Raises RuntimeError once when the step counter hits `fail_at`
+    (a function of the step alone, so ranks given the same `fail_at`
+    raise at the same step)."""
 
     def __init__(self, fail_at: int | None = None):
         self.fail_at = fail_at
@@ -72,7 +81,9 @@ class Trainer:
     """Checkpointed training loop over a step function.
 
     ``step_fn(state, batch) -> (state, metrics)``; ``state`` is any tree
-    (params, optimizer state, residuals), ``metrics`` a dict of scalars.
+    (params, optimizer state, residuals), ``metrics`` a dict of scalars;
+    ``layout`` describes a state held in slices over ranks (None: whole
+    in this process).
     """
 
     step_fn: Callable
@@ -82,17 +93,20 @@ class Trainer:
     failure: Optional[FailureInjector] = None
     monitor: StepTimeMonitor = dataclasses.field(
         default_factory=StepTimeMonitor)
+    layout: Any = None
 
     def restore_or_init(self, init_state):
         if latest_step(self.ckpt_dir) is not None:
-            step, state = restore(self.ckpt_dir, init_state)
+            step, state = restore(self.ckpt_dir, init_state,
+                                  layout=self.layout)
             return step, state
         return 0, init_state
 
     def run(self, state, batches: Iterator, n_steps: int,
             start_step: int = 0, log_every: int = 10,
             log_fn=print) -> tuple[Any, list[dict]]:
-        ckpt = AsyncCheckpointer(self.ckpt_dir, keep_last=self.keep_last)
+        ckpt = AsyncCheckpointer(self.ckpt_dir, keep_last=self.keep_last,
+                                 layout=self.layout)
         history = []
         step = start_step
         try:
@@ -138,7 +152,7 @@ def run_with_restarts(make_batches: Callable[[int], Iterator],
     was, whatever the steps did to ``init_state``'s tensors since."""
     if latest_step(trainer.ckpt_dir) is None:
         save(trainer.ckpt_dir, 0, init_state,
-             keep_last=trainer.keep_last)
+             keep_last=trainer.keep_last, layout=trainer.layout)
     attempts = 0
     while True:
         start, state = trainer.restore_or_init(init_state)

@@ -1,0 +1,395 @@
+"""Subprocess worker for tests/test_torch_train_mesh.py: one train step at
+``data=2, model=2``, run by the JAX package over four forced host devices
+or by four PyTorch ranks, on the same weights and batch, written to one
+``.npz``.
+
+Usage:
+  XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+      python torch_train_conformance.py jax OUT.npz WEIGHTS.npz ROUTES.npz
+  python torch_train_conformance.py torch OUT.npz WEIGHTS.npz ROUTES.npz \\
+      RANK STORE [CKPT_DIR]
+
+``WEIGHTS.npz`` holds the reference's ``init_params(PRNGKey(0))`` of each
+reduced arch of ``CASES``, flattened with ``/``, written by the test.
+Each case (``arch/flavor/capacity``) is one ``make_train_step`` under
+``make_policy(mesh, flavor)`` on ``lm_batch_at(0)`` of ``B`` x ``S``
+tokens with ``OPT`` (the reference: the ``REFERENCE_CASES``): its
+metrics, every new parameter and AdamW moment
+whole (the reference's ``np.asarray`` of the global array, the port's
+gathered by ``sharding.StateLayout``), and for each MoE layer and rank
+the routed expert ids and the dropped rows of the forward (the
+reference's from a ``jax.debug.callback`` in its dispatch plan, as its
+``~ok`` counts them).  The reference also takes the same step at world 1
+and writes its moments (the cases without MoE layers).
+
+The reference runs its MoE cases first and then writes their routed ids
+to ``ROUTES.npz``; the port's ranks run their other cases, wait for that
+file, and take the reference's routes in the MoE cases it ran
+(:func:`pin_routes`), so that a near tie of the router's top-k, which
+the two packages' float32 products in other orders may break
+differently, moves no row and every leaf is compared.  They write how
+their own top-k differed: the rows of each layer and rank that picked
+other experts, and the largest gap between the router's probabilities
+of the two picks.  The port's ranks also write their own moments
+(``OUT.rank<r>.npz``: the ZeRO-1 slices) and, with ``CKPT_DIR``, restore
+the world-1 checkpoint the test wrote there at this world, bit for bit
+against their slices, and save and restore their state after the step.
+
+In ``torch`` mode the ranks meet through a gloo process group on a
+``file://`` store with a timeout on the group, and rank 0 writes.
+"""
+import dataclasses
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+
+WORLD, MESH = 4, {"data": 2, "model": 2}
+B, S = 2, 32
+OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
+# name -> (arch, flavor, capacity factor or None); at 5 >= E / top_k no
+# row can drop, at 1.25 rows drop
+CASES = {
+    "granite-moe-3b-a800m/tp/5": ("granite-moe-3b-a800m", "tp", 5.0),
+    "granite-moe-3b-a800m/tp/1.25": ("granite-moe-3b-a800m", "tp", 1.25),
+    "granite-moe-3b-a800m/fsdp_tp/5": ("granite-moe-3b-a800m", "fsdp_tp",
+                                       5.0),
+    "lm100m/tp": ("lm100m", "tp", None),
+    "qwen1.5-110b/fsdp_tp": ("qwen1.5-110b", "fsdp_tp", None),
+}
+ARCHS = sorted({a for a, _, _ in CASES.values()})
+# the cases the reference runs too: granite-moe under fsdp_tp is held to
+# the port's own tp step (the reference's fsdp_tp arithmetic is qwen's)
+REFERENCE_CASES = [n for n in CASES if n != "granite-moe-3b-a800m/fsdp_tp/5"]
+# the port takes the reference's routes in these (its MoE cases run first)
+PINNED_CASES = [n for n in REFERENCE_CASES if CASES[n][2] is not None]
+ROUTES_WAIT_S = 500
+
+
+def config(getter, name):
+    arch, _, cf = CASES[name]
+    cfg = getter(arch)
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, moe_capacity_factor=cf))
+    return cfg
+
+
+def unflatten(flat, prefix):
+    tree = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node = tree
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(v)
+    return tree
+
+
+def flatten(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def record_routes(out, key, calls, n_layers, capacity):
+    """Each rank's routed ids and dropped rows of the forward's MoE
+    layers: ``calls`` maps (data, model) to that shard's dispatch plans,
+    (flat ids, ranks) in call order, the first ``n_layers`` the
+    forward's."""
+    for (d, m), plans in sorted(calls.items()):
+        for layer, (eid, ranks) in enumerate(plans[:n_layers]):
+            eid, ranks = np.asarray(eid), np.asarray(ranks)
+            T = eid.size // capacity[1]
+            C = max(1, int(np.ceil(T * capacity[1] / capacity[2]
+                                   * capacity[0])))
+            out[f"{key}/ids/{layer}/{d}/{m}"] = eid.astype(np.int32)
+            out[f"{key}/dropped/{layer}/{d}/{m}"] = np.array(
+                int((ranks >= C).sum()), np.int64)
+
+
+# --------------------------------------------------------------------------
+# the JAX reference
+# --------------------------------------------------------------------------
+
+
+def run_jax(out_path, weights_path, routes_path):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType
+    from repro.configs import get_reduced
+    from repro.data.synthetic import lm_batch_at
+    from repro.models import model as JM
+    from repro.models import moe as JMoe
+    from repro.models.sharding import make_policy
+    from repro.optim import adamw as JA
+
+    assert len(jax.devices()) == WORLD
+    # Auto axes: the reference's GSPMD constraints need them
+    mesh = jax.make_mesh(tuple(MESH.values()), tuple(MESH),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    flat = dict(np.load(weights_path))
+    opt_cfg = JA.AdamWConfig(**OPT)
+    calls, lock = {}, threading.Lock()
+    plain = JMoe.radix_histogram_ranks
+
+    def plan(eid, P):
+        counts, ranks = plain(eid, P)
+
+        def keep(e, r, d, m):
+            with lock:
+                calls.setdefault((int(d), int(m)), []).append((e, r))
+
+        jax.debug.callback(keep, eid, ranks, jax.lax.axis_index("data"),
+                           jax.lax.axis_index("model"))
+        return counts, ranks
+
+    JMoe.radix_histogram_ranks = plan
+    out = {}
+    assert REFERENCE_CASES[:len(PINNED_CASES)] == PINNED_CASES
+    for name in REFERENCE_CASES:
+        if name == REFERENCE_CASES[len(PINNED_CASES)]:
+            write_routes(routes_path, out)
+        arch, flavor, cf = CASES[name]
+        cfg = config(get_reduced, name)
+        params = jax.tree_util.tree_map(jnp.asarray,
+                                        unflatten(flat, arch))
+        batch = {k: jnp.asarray(v) for k, v in
+                 lm_batch_at(0, vocab=cfg.vocab, batch=B, seq=S).items()}
+        step = jax.jit(JM.make_train_step(cfg, make_policy(mesh, flavor),
+                                          opt_cfg))
+        calls.clear()
+        new, opt, met = step(params, JA.init(params, opt_cfg), batch)
+        jax.block_until_ready(new)
+        jax.effects_barrier()
+        for k, v in met.items():
+            out[f"{name}/met/{k}"] = np.asarray(v, np.float32)
+        for what, tree in (("new", new), ("m", opt["m"]), ("v", opt["v"])):
+            for k, v in flatten(tree).items():
+                out[f"{name}/{what}/{k}"] = np.asarray(v, np.float32)
+        if cf is not None:
+            record_routes(out, name, calls, cfg.n_layers,
+                          (cf, cfg.top_k, cfg.n_experts))
+            continue
+        # the same step at world 1: how far the layout alone moves the
+        # reference's moments (a MoE layer's auxiliary loss is a mean over
+        # the shards, another function at world 1)
+        _, opt, _ = jax.jit(JM.make_train_step(cfg, None, opt_cfg))(
+            params, JA.init(params, opt_cfg), batch)
+        for what in ("m", "v"):
+            for k, v in flatten(opt[what]).items():
+                out[f"{name}/world1/{what}/{k}"] = np.asarray(v, np.float32)
+    np.savez(out_path, **out)
+
+
+def write_routes(routes_path, out):
+    """The routed ids of the MoE cases, written whole before the file
+    appears under its name."""
+    part = f"{routes_path}.part"
+    with open(part, "wb") as f:
+        np.savez(f, **{k: v for k, v in out.items() if "/ids/" in k})
+    os.replace(part, routes_path)
+
+
+def read_routes(routes_path):
+    deadline = time.monotonic() + ROUTES_WAIT_S
+    while not os.path.exists(routes_path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {routes_path} in {ROUTES_WAIT_S} s")
+        time.sleep(0.1)
+    return dict(np.load(routes_path))
+
+
+def pin_routes(picks, differ):
+    """A ``moe._route`` that picks, for the ``n``-th MoE layer of the
+    forward (counted by its router; a recompute picks as its forward
+    did), the experts ``picks[n]`` (T, k), largest first, with the gates
+    and the auxiliary loss that ``moe._route`` gives for those picks;
+    for each forward call it sets ``differ[n]`` to (the rows whose own
+    top-k picks other experts or another order, the largest gap between
+    the router's probabilities of the two picks on those rows)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as Moe
+
+    plain, layers = Moe._route, {}
+
+    def route(router, x2, top_k):
+        n = layers.setdefault(router.data_ptr(), len(layers))
+        pick = torch.from_numpy(picks[n]).long()
+        _, own, _ = plain(router, x2, top_k)
+        probs = torch.softmax(x2.float() @ router.float(), dim=-1)
+        vals = torch.gather(probs, 1, pick)
+        if not Moe._recomputing:
+            with torch.no_grad():     # the recompute saves what this did
+                rows = (own.long() != pick).any(dim=1)
+                gap = (torch.gather(probs, 1, own.long()) - vals).abs()
+                differ[n] = (int(rows.sum()),
+                             float(gap[rows].max()) if rows.any() else 0.0)
+        w = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
+        E = router.shape[1]
+        frac = F.one_hot(pick[:, 0], E).float().mean(dim=0)
+        aux = E * torch.sum(frac * probs.mean(dim=0))
+        return w, pick.to(torch.int32), aux
+    return route
+
+
+# --------------------------------------------------------------------------
+# the port, one rank per process
+# --------------------------------------------------------------------------
+
+
+def run_torch(out_path, weights_path, routes_path, rank, store_path,
+              ckpt_dir=None):
+    import torch
+    import torch.distributed as dist
+    from repro_torch import checkpoint as Ck
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import lm_batch_at
+    from repro_torch.launch import mesh as Me
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import sharding as Sh
+    from repro_torch.optim import adamw as A
+
+    torch.set_num_threads(1)
+    Me.init_rank(rank, WORLD, store_path, "cpu", timeout_s=120)
+    mesh = Me.make_mesh(MESH)
+    flat = dict(np.load(weights_path))
+    opt_cfg = A.AdamWConfig(**OPT)
+    plain = Moe.radix_histogram_ranks
+    plans = []
+
+    def plan(eid, P):
+        counts, ranks = plain(eid, P)
+        if not Moe._recomputing:
+            plans.append((eid.clone(), ranks.clone()))
+        return counts, ranks
+
+    Moe.radix_histogram_ranks = plan
+    out, mine = {}, {}
+    d, m = divmod(rank, MESH["model"])
+    route, routes = Moe._route, None
+    for name in sorted(CASES, key=lambda n: n in PINNED_CASES):
+        arch, flavor, cf = CASES[name]
+        cfg = config(get_reduced, name)
+        differ = {}
+        if name in PINNED_CASES:
+            routes = routes or read_routes(routes_path)
+            Moe._route = pin_routes(
+                [routes[f"{name}/ids/{L}/{d}/{m}"].reshape(-1, cfg.top_k)
+                 for L in range(cfg.n_layers)], differ)
+        policy = Sh.make_policy(mesh, flavor)
+        params = M.params_from_jax(unflatten(flat, arch), cfg, "cpu",
+                                   master=True, policy=policy)
+        zero = Sh.Zero1(policy, A.flatten_params(params))
+        opt = A.init({k: zero.local(k, p) for k, p in
+                      A.flatten_params(params).items()}, opt_cfg)
+        batch = {k: torch.from_numpy(v) for k, v in Sh.shard_batch(
+            lm_batch_at(0, vocab=cfg.vocab, batch=B, seq=S),
+            policy).items()}
+        plans.clear()
+        Moe.drop_log = []
+        try:
+            new, opt, met = M.make_train_step(cfg, policy, opt_cfg)(
+                params, opt, batch)
+        finally:
+            log, Moe.drop_log = Moe.drop_log, None
+            Moe._route = route
+        for k, v in met.items():
+            out[f"{name}/met/{k}"] = v.numpy()
+        layout = Sh.train_state_layout(policy, new, opt)
+        whole = layout.whole(Ck.tree_leaves((new, opt)))
+        if whole is not None:
+            keys = [f"new/{k}" for k in A.flatten_params(new)]
+            keys += [f"m/{k}" for k in sorted(opt["m"])] + ["step"]
+            keys += [f"v/{k}" for k in sorted(opt["v"])]
+            for k, a in zip(keys, whole):
+                out[f"{name}/{k}"] = a
+        for what in ("m", "v"):
+            for k, v in opt[what].items():
+                mine[f"{name}/{what}/{k}"] = v.numpy()
+        if cf is not None:
+            fwd = [e for e in log if not isinstance(e, Moe.Recomputed)]
+            assert len(fwd) == cfg.n_layers, log
+            # every rank's plans and drops, gathered in rank order
+            calls = {divmod(r, MESH["model"]): got
+                     for r, got in enumerate(gather_objects(
+                         [(e.numpy(), rk.numpy()) for e, rk in plans]))}
+            record_routes(out, name, calls, cfg.n_layers,
+                          (cf, cfg.top_k, cfg.n_experts))
+            drops = gather_objects([int(x) for x in fwd])
+            for r, ds in enumerate(drops):
+                rd, rm = divmod(r, MESH["model"])
+                for layer, n in enumerate(ds):
+                    out[f"{name}/log_dropped/{layer}/{rd}/{rm}"] = \
+                        np.array(n, np.int64)
+        if name in PINNED_CASES:
+            assert sorted(differ) == list(range(cfg.n_layers)), differ
+            for r, got in enumerate(gather_objects(differ)):
+                rd, rm = divmod(r, MESH["model"])
+                for layer, (rows, gap) in got.items():
+                    out[f"{name}/own_differ/{layer}/{rd}/{rm}"] = \
+                        np.array(rows, np.int64)
+                    out[f"{name}/own_gap/{layer}/{rd}/{rm}"] = \
+                        np.array(gap, np.float64)
+        if ckpt_dir is not None and name == "lm100m/tp":
+            checkpoint_cases(ckpt_dir, cfg, policy, params, new, opt,
+                             layout, out)
+    np.savez(f"{out_path}.rank{rank}.npz", **mine)
+    dist.barrier()
+    if rank == 0:
+        np.savez(out_path, **out)
+    dist.destroy_process_group()
+
+
+def gather_objects(obj):
+    import torch.distributed as dist
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, obj)
+    return got
+
+
+def checkpoint_cases(ckpt_dir, cfg, policy, params, new, opt, layout, out):
+    """The world-1 checkpoint of the initial state (written by the test
+    at step 0) restored at this world equals this rank's slices of the
+    initial state bit for bit; the state after the step, saved at this
+    world and restored, equals this rank's state bit for bit."""
+    import torch
+    from repro_torch import checkpoint as Ck
+    from repro_torch.optim import adamw as A
+
+    zero_opt = A.init({k: torch.zeros_like(v) for k, v in
+                       opt["m"].items()}, A.AdamWConfig(**OPT))
+    step, (p0, o0) = Ck.restore(ckpt_dir, (params, zero_opt), step=0,
+                                layout=layout)
+    same = step == 0 and all(
+        torch.equal(a, b) for a, b in zip(Ck.tree_leaves((p0, o0)),
+                                          Ck.tree_leaves((params,
+                                                          zero_opt))))
+    Ck.save(ckpt_dir, 1, (new, opt), layout=layout)
+    step, back = Ck.restore(ckpt_dir, (new, opt), step=1, layout=layout)
+    same_after = step == 1 and all(
+        torch.equal(a, b) for a, b in zip(Ck.tree_leaves(back),
+                                          Ck.tree_leaves((new, opt))))
+    ok = gather_objects((same, same_after))
+    out["ckpt/world1_restored"] = np.array([a for a, _ in ok])
+    out["ckpt/roundtrip"] = np.array([b for _, b in ok])
+
+
+if __name__ == "__main__":
+    mode, out_path, weights_path, routes_path = sys.argv[1:5]
+    if mode == "jax":
+        run_jax(out_path, weights_path, routes_path)
+    else:
+        run_torch(out_path, weights_path, routes_path, int(sys.argv[5]),
+                  sys.argv[6], sys.argv[7] if len(sys.argv) > 7 else None)

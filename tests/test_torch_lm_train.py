@@ -212,7 +212,7 @@ def test_train_step_matches_reference(case):
     opt_cfg = TA.AdamWConfig(**OPT)
     params = case["params"]
     opt = TA.init(TA.flatten_params(params), opt_cfg)
-    new, opt, met = TM.make_train_step(cfg, opt_cfg)(params, opt,
+    new, opt, met = TM.make_train_step(cfg, None, opt_cfg)(params, opt,
                                                      tbatch(cfg))
     jmet = case["jmet"]
     reported = as_reference_reports(cfg, met)
@@ -264,7 +264,7 @@ def test_train_steps_in_order_follow_reference(case):
     params, jparams = case["params"], case["jparams"]
     opt = TA.init(TA.flatten_params(params), opt_cfg)
     jopt = JA.init(jparams, case["jopt_cfg"])
-    step = TM.make_train_step(cfg, opt_cfg)
+    step = TM.make_train_step(cfg, None, opt_cfg)
     for s in range(IN_ORDER_STEPS):
         params, opt, met = step(params, opt, tbatch(cfg, s))
         jparams, jopt, jmet = case["jstep_fn"](jparams, jopt, jbatch(cfg, s))
@@ -358,7 +358,7 @@ def test_remat_modes_give_equal_gradients(arch):
     for remat in ("none", "full", "dots"):
         flat = {k: p.detach().requires_grad_(True)
                 for k, p in TA.flatten_params(params).items()}
-        loss_fn = TM.make_loss_fn(cfg, StackOpts(remat=remat,
+        loss_fn = TM.make_loss_fn(cfg, None, StackOpts(remat=remat,
                                                  mamba_chunk=8))
         total, _ = loss_fn(TA.unflatten_params(flat), batch)
         grads[remat] = torch.autograd.grad(total, list(flat.values()))

@@ -15,7 +15,7 @@ without process groups (the sharded path at world 2 is
 * Rank memory: at model = 2 each rank's bytes are the sum of its shards
   and a sharded leaf's shards sum to the whole.
 * What the slice refuses at world > 1, with the ROADMAP item it waits
-  for; ``launch.train --mesh`` and ``--coordinator``.
+  for; what ``launch.train --mesh`` and ``--coordinator`` refuse.
 * ``launch.serve --mesh data=1,model=2 --device cpu``: two rank
   processes serve reduced granite-moe, and ``--mesh data=1,model=1``
   serves in-process.
@@ -212,10 +212,21 @@ def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--coordinator"])
-def test_train_refuses_mesh_and_coordinator(flag):
-    with pytest.raises(SystemExit, match="item 4b"):
-        Tr.main(["--arch", "lm100m", "--reduced", "--device", "cpu",
-                 flag, "data=1,model=2"])
+def test_train_refuses_mesh_and_coordinator(flag, monkeypatch):
+    """Both flags train (tests/test_torch_train_mesh.py); they refuse what
+    the sharded path does not run, before any rank starts: a Mamba stack
+    over a mesh, and ``--coordinator`` without the rank's environment
+    (``RANK``, ``WORLD_SIZE``, as torchrun sets them)."""
+    if flag == "--mesh":
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            Tr.main(["--arch", "falcon-mamba-7b", "--reduced", "--device",
+                     "cpu", flag, "data=1,model=2"])
+        return
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="RANK"):
+        Tr.main(["--arch", "lm100m", "--reduced", "--device", "cpu", flag,
+                 "localhost:1"])
 
 
 @pytest.mark.parametrize("mesh", ["data=1,model=2", "data=1,model=1"])

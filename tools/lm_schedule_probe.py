@@ -74,7 +74,7 @@ def main(argv=None) -> int:
         b = lm_batch_at(s, vocab=cfg.vocab, batch=args.batch, seq=args.seq)
         return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
-    loss_fn = M.make_loss_fn(cfg, StackOpts(remat="none"))
+    loss_fn = M.make_loss_fn(cfg, None, StackOpts(remat="none"))
 
     def held_out(params):
         with torch.no_grad():
@@ -86,7 +86,7 @@ def main(argv=None) -> int:
         params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                                master=True)
         opt = adamw.init(adamw.flatten_params(params), opt_cfg)
-        step = M.make_train_step(cfg, opt_cfg)
+        step = M.make_train_step(cfg, None, opt_cfg)
         before = held_out(params)
         losses = []
         t0 = time.perf_counter()
