@@ -85,7 +85,7 @@ Phases, each fatal on failure:
    scan's forward and backward (the last chunk 104 steps);
    the loss must fall, the first step's held to the port on the CPU
    within 2e-3; step ms, peak memory.  No kernel runs in these four;
-11. the LM serving path: Granite-3.0-2B at its published widths, 20 of
+11. the LM serving path: Granite-3.0-2B at its published widths, 10 of
    its 40 layers (``SERVE_LAYERS``), random weights from ``torch.Generator`` seed 0, served by
    ``ServingEngine`` (8 slots, prompts up to 1024 tokens, up to 64
    generated) with both UNOMT feature stores; 32 requests; the flash
@@ -97,7 +97,7 @@ Phases, each fatal on failure:
    ``flash_attention`` against ``attention_ref`` on the q, k, v one
    prefill gave it and on six more shapes; tokens/s, TTFT, prefill and
    decode-step times and a profile of one prefill and 8 decode steps;
-11b. the Mamba serving path: Falcon-Mamba-7B at its published widths, 32
+11b. the Mamba serving path: Falcon-Mamba-7B at its published widths, 16
    of its 64 layers, random weights from ``torch.Generator`` seed 0,
    the same engine settings and request stream as phase 11 (the Granite
    weights freed first); every prefill runs at the prompt's true length
@@ -112,7 +112,7 @@ Phases, each fatal on failure:
    longest prefill's first layer and on six more shapes; tokens/s, TTFT,
    prefill and decode-step times and a profile;
 11c. the MoE serving path (``serving_moe``): Granite-3.0-MoE-3B-A800M at
-   its published widths, 16 of its 32 layers (d_model 1536, 24 q / 8 KV
+   its published widths, 8 of its 32 layers (d_model 1536, 24 q / 8 KV
    heads, 40 experts of 512 padded to 48, top-8; 3.9 GB of bf16
    weights), random weights from ``torch.Generator`` seed 0, the same
    engine settings, request stream and checks as phase 11 (the Mamba
@@ -125,7 +125,7 @@ Phases, each fatal on failure:
    near-tie may pick another expert); then ``flash_attention`` against ``attention_ref``
    on the q, k, v its first prefill gave it, case (h) (Hq 24, Hkv 8);
 11c'. the MoE serving path at world 2 (``serving_moe_tp2``): the same
-   model at TP_LAYERS (8) of its 32 layers, the same engine settings,
+   model at TP_LAYERS (2) of its 32 layers, the same engine settings,
    requests and feature stores, served by two
    rank processes on the one card through ``launch/serve.py``'s ``--mesh``
    set-up (``spawn``, ``init_rank``, ``make_mesh``, ``make_policy(mesh,
@@ -138,9 +138,11 @@ Phases, each fatal on failure:
    the accounting identity, tokens and features, exact launch counts
    (``flash_attention`` and ``hash_partition`` one a layer a prefill,
    ``hash_partition`` one a layer a decode step beside the stores'
-   shuffles), the first request at ``capacity_factor = E / top_k`` (no
-   row can drop) within ``SERVE_LOGIT_TOL`` of the same prefill at world
-   1 (this process, before the ranks start), and the twin
+   shuffles), each rank's leaves its slices of the whole ones, the
+   first request at ``capacity_factor = E / top_k`` (no row can drop)
+   within ``SERVE_LOGIT_TOL`` of a world-1 engine's prefill (this
+   process, before the ranks start, on the first 4 requests; its greedy
+   tokens compared wherever no rank dropped a row), and the twin
    ``serving_moe_tp2_xla`` (the same engine on plain attention and plain
    ranks, the first 4 requests: prefill logits within
    ``SERVE_LOGIT_TOL``, greedy tokens by ``greedy_agree``); both ranks'
@@ -149,13 +151,37 @@ Phases, each fatal on failure:
    q (1, 12, 1024, 64) against KV (1, 4, 1024, 64), within ``FLASH_TOL``;
    tokens/s, TTFT, prefill and decode-step ms by CUDA events, each rank's
    weight bytes, peak memory and dropped rows by layer;
+11c''. the MoE serving path at data=2 x model=2 (``serving_moe_dp2``):
+   the same model at DP_LAYERS of its 32 layers, the same engine
+   settings, requests and feature stores (over all four ranks), served
+   by four rank processes on the one card through the same ``--mesh``
+   set-up under ``make_policy(mesh, "fsdp_tp")``: each rank holds the
+   2D slice of every matrix (a quarter of the attention and expert
+   weights, half the experts' rows of its model half) and gathers each
+   layer's over the data ranks just before the layer runs; the 8 slots
+   split into blocks of 4, one a data rank (a slot's prefill runs on
+   every rank, its cache kept by the slot's owner; a decode step runs
+   each rank's block, its logits gathered over both axes).  Checked as
+   ``serving_moe_tp2``, and: the four ranks' tokens equal, each rank
+   holding 4 slots in its caches; the engine's tokens against a world-1
+   engine on the first TP_TWIN_REQUESTS requests wherever no rank's
+   prefill or step dropped a row (the drop counts by layer printed);
+   the twin ``serving_moe_dp2_xla`` on plain attention and plain ranks
+   at ``capacity_factor = E / top_k`` (no row drops) against that
+   world-1 engine: prefill logits within ``SERVE_LOGIT_TOL`` and greedy
+   tokens by ``greedy_agree``.  Then its dispatch plans against the
+   plain ranks and case (m) within ``FLASH_TOL``; its decode plan (n 32
+   at P 25) timed.  Recorded: the bytes a rank gathers a forward;
 11d. MoE training (``moe_train``): Granite-3.0-MoE at full width,
-   12 of its 32 layers (16 do not fit in 80 GB: float32 masters,
-   gradients and AdamW moments take 1.91 GB a layer), remat full, 5
+   16 of its 32 layers (float32 masters, gradients and AdamW moments
+   take 1.91 GB a layer; AdamW writes its new state in place), remat
+   full, 5
    steps on one 4 x 1024 batch repeated, whose loss must fall; the first
    step of ``MOE_CHECK_LAYERS`` layers on 1 x 128 tokens held to the port
    on the CPU (loss and ``moe_aux`` within 2e-3); step ms, tokens/s,
-   peak memory and a profile.  No kernel runs here;
+   peak memory beside that of one step that keeps the old state (as
+   every step did before AdamW could write in place) and a profile.  No
+   kernel runs here;
 11d'. MoE training at data=2 x model=2 (``moe_train_mesh``): four rank
    processes on the one card (gloo: every exchange staged through pinned
    host memory), each with ``launch/train.py``'s ``--mesh`` set-up and
@@ -166,7 +192,7 @@ Phases, each fatal on failure:
    moe_aux and grad norm beside it) to the port's world-1 step on the
    same weights and batch, in one microbatch per data rank and with its
    MoE layers pinned to the sharded step's routes, and ``fsdp_tp`` to
-   ``tp``.  Then MESH_TRAIN_LAYERS (8) layers, capacity 1.25, 5 steps on
+   ``tp``.  Then MESH_TRAIN_LAYERS (4) layers, capacity 1.25, MESH_TRAIN_STEPS (3) steps on
    one 4 x 1024 batch repeated: the loss must fall on every rank alike;
    ``hash_partition`` launched exactly twice per MoE layer and step on
    each rank (the plan and its recompute, n 8192 at P 40); the first
@@ -1796,15 +1822,17 @@ MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 2, 1, 1000
 MAMBA_TRAIN_STEPS = 5
 # Granite-3.0-MoE-3B-A800M at full width (40 experts of 512 padded to 48,
 # top-8), MOE_TRAIN_LAYERS of its 32 layers: a layer's float32 master,
-# gradient and two AdamW moments take 1.91 GB, AdamW holds its new
-# parameters and moments beside the old until the step ends, and a
-# layer's recompute and backward hold (T, E, d) float32 products of 1 GB
-# at 4 x 1024 tokens.  On an 80 GB H100, 8 layers peaked at 33.7 GB above
-# 12.5 GB resident and 16 did not fit; 12 leave room for the ~6 GB the
-# earlier phases keep resident.  The first step's loss and moe_aux are
+# gradient and two AdamW moments take 1.91 GB, and a layer's recompute
+# and backward hold (T, E, d) float32 products of 1 GB at 4 x 1024
+# tokens.  While AdamW held its new parameters and moments beside the
+# old, 16 layers did not fit in 80 GB; at 12 a step that keeps the old
+# state peaked 36.9 GB above 18.2 GB resident, one that writes in place
+# 18.7 GB (H100 80GB HBM3, 700 W), about 3.05 GB a layer in all, so 16
+# take ~49 GB beside the ~6 GB the earlier phases keep resident.  The
+# first step's loss and moe_aux are
 # held to the CPU on MOE_CHECK_LAYERS layers and 1 x MOE_CHECK_SEQ
 # tokens, which the CPU runs in seconds
-MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 12, 4, 1024
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 16, 4, 1024
 MOE_TRAIN_STEPS = 5
 MOE_CHECK_LAYERS, MOE_CHECK_SEQ = 2, 128
 
@@ -2227,7 +2255,8 @@ def run_moe_train(m, device, name):
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
                            master=True)
-    step = M.make_train_step(cfg, None, opt_cfg)
+    # AdamW writes the new state into the old (as launch/train.py)
+    step = M.make_train_step(cfg, None, opt_cfg, donate=True)
     opt = A.init(A.flatten_params(params), opt_cfg)
     batches = [lm_batch(m, cfg, 0, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
                         device)] * MOE_TRAIN_STEPS
@@ -2239,6 +2268,15 @@ def run_moe_train(m, device, name):
         m, lambda: timed_steps(step, params, opt, batches, aux), device)
     expect_launches("moe_train", launches, {})
     peak = _peak(device) - resident
+    # one step that leaves the old state as it was: the old and the new
+    # state side by side, as every step held them before AdamW could
+    # write in place
+    _sync(device)
+    _reset_peak(device)
+    M.make_train_step(cfg, None, opt_cfg)(params, opt, batches[0])
+    _sync(device)
+    peak_copying = _peak(device) - resident
+    _free(device)
     prof = profile_step(lambda: step(params, opt, batches[0]))
     step_ms = float(np.median(ms[1:]))
     emit({"phase": "moe_train", "card": name,
@@ -2253,6 +2291,7 @@ def run_moe_train(m, device, name):
           "step_ms": ms, "step_ms_median_after_first": step_ms,
           "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / step_ms * 1e3,
           "peak_bytes_above_resident": peak, "resident_bytes": resident,
+          "peak_bytes_above_resident_copying_step": peak_copying,
           "losses": losses, "moe_aux": aux, "profile": prof,
           "gemm_share": prof["gemm_ms"]
           / max(prof["gemm_ms"] + prof["other_ms"], 1e-9),
@@ -2276,15 +2315,17 @@ def run_moe_train(m, device, name):
 # ``tp`` flavor, remat full, MESH_TRAIN_STEPS steps on one 4 x 1024 batch
 # repeated (2 x 1024 rows a data rank, 1024 tokens x top-8 = n 8192 ids a
 # model rank's dispatch plan, P 40), MESH_TRAIN_LAYERS of the 32 layers:
-# at moe_train's 12 a rank held 6.12 GB of masters and moments and
-# peaked 10.28 GB above them (the step's old and new state side by side),
-# and four such ranks beside this process's kernel cases ran out of the
-# card's 79.18 GiB.  First the checks, on MESH_CHECK_LAYERS layers and
+# at 12, while a step held the old and the new state side by side, four
+# ranks beside this process's kernel cases ran out of the card's 79.18
+# GiB; 8 took 146 s of the script, and with the data=2 serving phase the
+# script must still end within 1 200 s, so 4.  First the checks, on
+# MESH_CHECK_LAYERS layers and
 # MESH_CHECK_ROWS x 1024 rows a data rank at capacity factor E / top_k,
 # where no row drops
 MESH_TRAIN = {"data": 2, "model": 2}
-MESH_TRAIN_LAYERS = 8
-MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 1024, 5
+MESH_TRAIN_LAYERS = 4
+# 3 steps, not 5: the script must end within 1 200 s
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 1024, 3
 MESH_CHECK_LAYERS, MESH_CHECK_ROWS = 2, 1
 # the leaf rule of tests/test_torch_lm_train.py for one AdamW step, with
 # its floor on the gradients counted (SIGN_G, 200 AdamW eps)
@@ -2587,7 +2628,7 @@ def mesh_train(m, device, rank, tmp: Path) -> dict:
     cfg = dataclasses.replace(full, n_layers=MESH_TRAIN_LAYERS)
     policy = Sh.make_policy(mesh, cfg.train.sharding)
     params, opt = mesh_state(m, cfg, device, policy, opt_cfg)
-    step = M.make_train_step(cfg, policy, opt_cfg)
+    step = M.make_train_step(cfg, policy, opt_cfg, donate=True)
     batch = Sh.shard_batch(lm_batch(m, cfg, 0, MESH_TRAIN_BATCH,
                                     MESH_TRAIN_SEQ, device), policy)
     batches = [batch] * MESH_TRAIN_STEPS
@@ -2606,8 +2647,8 @@ def mesh_train(m, device, rank, tmp: Path) -> dict:
     mets, events = [], []
     try:
         # the loop of timed_steps, here so that no caller's frame keeps
-        # the state of an earlier step: a step holds the old and the new
-        # state, and a third copy does not fit four ranks on the card
+        # the state of an earlier step (AdamW writes the new state into
+        # the old)
         with plans:
             for b in batches:
                 ev = event_pair()
@@ -3368,21 +3409,38 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
 
 
 # --------------------------------------------------------------------------
-# the MoE serving path at world 2: tensor and expert parallelism, as two
-# rank processes on the one card
+# the MoE serving path over a mesh: tensor and expert parallelism at world
+# 2, and data=2 x model=2 with the slots split over the data ranks and
+# the weights' 2D slices gathered over them in every forward; the ranks
+# are processes on the one card
 # --------------------------------------------------------------------------
 
-TP_WORLD = 2
-# layers of the world-2 phase: 8 of Granite-3.0-MoE's 32 (at 32 the phase
-# took 141-180 s, at 16 101-145 s, most of it gloo's loopback, and the
-# mesh training phases pushed the script past 1 000 s)
-TP_LAYERS = 8
-# depth of the three engine serving legs, half of each model's (40, 64,
-# 32): with the mesh phases the script took 1 066-1 288 s of command, and
-# it must end within 1 200 s
-SERVE_LAYERS = {SERVE_ARCH: 20, MAMBA_ARCH: 32, MOE_ARCH: 16}
-# requests of the plain-path twin: the first 4 of the leg's 32 (8 made
-# the phase take 151 s; the twin is cut, never the main leg)
+# layers of the world-2 phase: 2 of Granite-3.0-MoE's 32 (at 32 the phase
+# took 141-180 s, at 16 101-145 s, at 8 53.8 s, at 4 38.7-53.2 s, most
+# of it gloo's loopback; the mesh training phases and then the data=2 x
+# model=2 phase pushed the script toward its 1 200 s)
+TP_LAYERS = 2
+# layers of the data=2 x model=2 phase: 2 of the 32.  Every forward
+# gathers each layer's 2D slices over the data ranks through host memory
+# (516 MB a rank a forward at 8 layers): at 8 the phase took 452-470 s, a
+# prefill 2.24 s and a decode step 1.77 s, at 2 125-157 s (H100 80GB
+# HBM3, 700 W), and the script must end within 1 200 s.  At 1 the no-drop
+# prefill of the first request differed from world 1's by 0.64: with one
+# layer e_down's scale (std / sqrt(2 layers)) makes the experts' output
+# large, and a near tie of the router, computed on other row counts at
+# world 1, flips one of a token's experts
+DP_LAYERS = 2
+# leg -> (mesh, layers)
+MESH_SERVE = {"serving_moe_tp2": ({"data": 1, "model": 2}, TP_LAYERS),
+              "serving_moe_dp2": ({"data": 2, "model": 2}, DP_LAYERS)}
+# depth of the three engine serving legs, a quarter of each model's (40,
+# 64, 32): with the mesh phases the script took 1 066-1 288 s of command
+# at half depth, and with the data=2 serving phase 999-1 225 s, and it
+# must end within 1 200 s
+SERVE_LAYERS = {SERVE_ARCH: 10, MAMBA_ARCH: 16, MOE_ARCH: 8}
+# requests of the plain-path twin and of the world-1 engine the mesh legs
+# are held to: the first 4 of the leg's 32 (8 made the world-2 phase take
+# 151 s; the twin is cut, never the main leg)
 TP_TWIN_REQUESTS = 4
 
 
@@ -3461,38 +3519,72 @@ def profile_tp2(fns, device, rank, warm=True):
     return out
 
 
-def tp2_rank(rank, world, store, tmp):
-    """One rank of ``serving_moe_tp2``: the normal ``--mesh`` rank set-up
-    of ``launch/serve.py`` (its device, the process group, the mesh and
-    ``make_policy(mesh, "fsdp_tp")``), then :func:`serve_tp2`; writes its
-    record to ``tmp/tp2_rank<r>.json`` (and rank 0 the kernel inputs to
-    ``tmp/tp2_cases.pt``)."""
+def mesh_rank(rank, world, store, tmp, leg):
+    """One rank of a mesh serving leg (``MESH_SERVE``): the normal
+    ``--mesh`` rank set-up of ``launch/serve.py`` (its device, the process
+    group, the mesh and ``make_policy(mesh, "fsdp_tp")``), then
+    :func:`serve_mesh`; writes its record to ``tmp/<leg>_rank<r>.json``
+    (and rank 0 the kernel inputs to ``tmp/<leg>_cases.pt``)."""
     m = _modules()
     device = m["serve"].rank_device(rank, world)
     m["Me"].init_rank(rank, world, store, device, timeout_s=600)
     try:
         policy = m["Sh"].make_policy(
-            m["Me"].make_mesh({"data": 1, "model": world}), "fsdp_tp")
-        record, cases = serve_tp2(m, device, policy,
-                                  Path(tmp, "w1_logits.pt"))
-        Path(tmp, f"tp2_rank{rank}.json").write_text(json.dumps(record))
+            m["Me"].make_mesh(MESH_SERVE[leg][0]), "fsdp_tp")
+        record, cases = serve_mesh(m, device, policy, leg,
+                                   Path(tmp, f"{leg}_world1.pt"))
+        Path(tmp, f"{leg}_rank{rank}.json").write_text(json.dumps(record))
         if rank == 0:
-            torch.save(cases, Path(tmp, "tp2_cases.pt"))
+            torch.save(cases, Path(tmp, f"{leg}_cases.pt"))
     finally:
         torch.distributed.destroy_process_group()
 
 
-def serve_tp2(m, device, policy, w1_path):
+def _drops_logged(Moe, fn, into):
+    """``fn`` with the rows each of its calls dropped, by layer, appended
+    to ``into`` (``Moe.drop_log``)."""
+
+    def run(*args):
+        Moe.drop_log = []
+        try:
+            return fn(*args)
+        finally:
+            into.append([int(d) for d in Moe.drop_log])
+            Moe.drop_log = None
+    return run
+
+
+def gathered_bytes(Sh, policy, params) -> int:
+    """The bytes a rank receives a forward in the data axis's weight
+    gathers (each 2D leaf from the other data ranks)."""
+    if not policy.fsdp:
+        return 0
+    specs = policy.param_specs(params, use2d=True)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return sum(walk(v, spec[k]) for k, v in node.items())
+        if Sh.data_dim(spec) is None:
+            return 0
+        return node.numel() * node.element_size() * (policy.world_d - 1)
+    return walk(params, specs)
+
+
+def serve_mesh(m, device, policy, leg, w1_path):
     """Serve the MoE leg's requests under ``policy`` with the feature
-    stores over both ranks; check and time them; then the first request
-    at a capacity where no row drops against the world-1 logits in
-    ``w1_path``, and the plain-path twin.  Returns (this rank's record,
-    the kernel inputs it recorded)."""
-    M, serve, ops, Moe = m["M"], m["serve"], m["ops"], m["Moe"]
-    leg = "serving_moe_tp2"
-    cfg = tp2_config(m)
+    stores over every rank; check and time them; hold them to the world-1
+    engine of ``w1_path`` (:func:`mesh_world1`): the first request at a
+    capacity where no row drops (its prefill logits), and every one of
+    its requests whose prefill dropped no row (greedy tokens); then the
+    plain-path twin: at world 2 at the leg's capacity against this
+    engine, on a data axis of several ranks at the no-drop capacity
+    against world 1.  Returns (this rank's record, the kernel inputs it
+    recorded)."""
+    M, serve, ops, Moe, Sh = m["M"], m["serve"], m["ops"], m["Moe"], m["Sh"]
+    cfg = mesh_serve_config(m, leg)
     slots, prompt_cap, gen_cap = SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN
     n_req = SERVE_REQUESTS
+    rank = torch.distributed.get_rank()
     no_tf32(leg)
     params = serve.sharded_params(cfg, device, 0, policy)
     gc.collect()
@@ -3514,20 +3606,9 @@ def serve_tp2(m, device, policy, w1_path):
         feature_stores=stores, device=device)
     reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
     rec = Recorder(engine)
-    drops = []
-    prefill_hooked = engine._slot_prefill
-
-    def first_prefill(*args):
-        if drops:
-            return prefill_hooked(*args)
-        Moe.drop_log = []
-        try:
-            return prefill_hooked(*args)
-        finally:
-            drops.extend(int(d) for d in Moe.drop_log)
-            Moe.drop_log = None
-
-    engine._slot_prefill = first_prefill
+    drops, step_drops = [], []
+    engine._slot_prefill = _drops_logged(Moe, engine._slot_prefill, drops)
+    engine._serve_step = _drops_logged(Moe, engine._serve_step, step_drops)
     E_loc = Moe.n_experts_padded(cfg) // policy.world_m
     plans = DispatchLog(Moe, cfg.n_experts, E_loc, cfg.n_layers)
     flash = []
@@ -3547,11 +3628,18 @@ def serve_tp2(m, device, policy, w1_path):
                                           + mt.count("decode_steps"))
         + store_chunks(serve, stores) + lookups[0],
         "radix_sort": 0})
-    if len(drops) != cfg.n_layers or len(plans.prefill) != cfg.n_layers \
-            or len(plans.decode) != 1:
-        raise AssertionError(f"{leg}: {len(drops)} drop counts, "
+    if any(len(d) != cfg.n_layers for d in drops + step_drops) \
+            or len(plans.prefill) != cfg.n_layers or len(plans.decode) != 1:
+        raise AssertionError(f"{leg}: drop counts of {len(drops)} prefills "
+                             f"and {len(step_drops)} steps, "
                              f"{len(plans.prefill)} prefill and "
                              f"{len(plans.decode)} decode plans recorded")
+    # rows dropped by any rank, for each prefill (in the order of the
+    # requests' prefills) and in all decode steps
+    dropped = torch.tensor([sum(d) for d in drops]
+                           + [sum(map(sum, step_drops))])
+    torch.distributed.all_reduce(dropped)
+    prefill_drops = dict(zip(rec.logits, dropped[:-1].tolist()))
 
     # the first request where no row can drop (C_send = the rank's rows)
     # against world 1, whose MoE layers run every expert
@@ -3562,21 +3650,43 @@ def serve_tp2(m, device, policy, w1_path):
     cf = cfg.n_experts / cfg.top_k
     cfg_nodrop = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, moe_capacity_factor=cf))
-    Moe.drop_log = []
-    logits, _ = M.make_slot_prefill(
-        cfg_nodrop, policy, decode_len=prompt_cap + gen_cap)(
+    nodrop = []
+    logits, _ = _drops_logged(Moe, M.make_slot_prefill(
+        cfg_nodrop, policy, decode_len=prompt_cap + gen_cap), nodrop)(
         params, batch, len(r0.prompt))
-    nodrop_drops = sum(int(d) for d in Moe.drop_log)
-    Moe.drop_log = None
     w1 = torch.load(w1_path)
-    vs_world1 = float((logits[0].float().cpu() - w1).abs().max())
-    engine_vs_world1 = float((rec.logits[r0.req_id] - w1).abs().max())
-    if nodrop_drops or vs_world1 > SERVE_LOGIT_TOL:
+    # each rank holds its slice of every leaf under the spec table
+    sizes, coord = policy.mesh.shape, policy.mesh.coord
+    for k, t in m["Aw"].flatten_params(params).items():
+        shape = w1["shapes"][k]
+        idx = Sh.shard_slices(shape, policy.leaf_spec(
+            k, len(shape), policy.flavor == "fsdp_tp"), sizes, coord)
+        if tuple(t.shape) != tuple(len(range(n)[i])
+                                   for n, i in zip(shape, idx)):
+            raise AssertionError(f"{leg}: rank {rank} holds {k} as "
+                                 f"{tuple(t.shape)} of {shape} at {coord}")
+    rows = Sh.batch_block(policy, slots)
+    if engine.caches["k"].shape[1] != rows.stop - rows.start:
+        raise AssertionError(f"{leg}: caches of "
+                             f"{engine.caches['k'].shape[1]} slots for "
+                             f"the rank's {rows}")
+    vs_world1 = float((logits[0].float().cpu()
+                       - w1["logits"][r0.req_id]).abs().max())
+    engine_vs_world1 = float((rec.logits[r0.req_id]
+                              - w1["logits"][r0.req_id]).abs().max())
+    if any(nodrop[0]) or vs_world1 > SERVE_LOGIT_TOL:
         raise AssertionError(f"{leg}: at capacity factor {cf} "
-                             f"{nodrop_drops} rows dropped and the logits "
-                             f"differ from world 1 by {vs_world1}")
+                             f"{sum(nodrop[0])} rows dropped and the "
+                             f"logits differ from world 1 by {vs_world1}")
+    # the engine's tokens against world 1 where its routes dropped nothing
+    by_id = {r.req_id: r for r in done}
+    clean = [rid for rid in w1["tokens"]
+             if prefill_drops[rid] == 0 and int(dropped[-1]) == 0]
+    w1_compared = sum(greedy_agree(by_id[rid].out_tokens, w1["tokens"][rid],
+                                   w1["margins"][rid], SERVE_LOGIT_TOL)
+                      for rid in clean)
 
-    # a full-length prefill and a decode step of all slots, timed on both
+    # a full-length prefill and a decode step of all slots, timed on all
     # ranks at once (their collectives pair up)
     prefill = M.make_slot_prefill(cfg, policy,
                                   decode_len=prompt_cap + gen_cap)
@@ -3587,22 +3697,27 @@ def serve_tp2(m, device, policy, w1_path):
     lens = np.full(slots, prompt_cap - 1, np.int32)
     prefill_ms = event_ms(lambda: prefill(params, full, prompt_cap), reps=3)
     step_ms = event_ms(lambda: step(params, engine.caches, toks, lens),
-                       reps=10)
+                       reps=4)
     prof = profile_tp2({
         "prefill": lambda: prefill(params, full, prompt_cap),
         "decode_4_steps": lambda: [step(params, engine.caches, toks, lens)
                                    for _ in range(4)]},
-        device, policy.model_rank)
+        device, rank, warm=False)
 
-    # the twin: the same world-2 engine on plain attention and plain ranks
+    # the twin: the same engine on plain attention and plain ranks; on a
+    # data axis of several ranks at the no-drop capacity, held to world 1
+    nodrop_twin = policy.world_d > 1
     for op in ops.values():
         op.launches = 0
     n_lookups = lookups[0]
     xla = m["ServingEngine"](
-        cfg, params, policy=policy, slots=slots, prompt_capacity=prompt_cap,
-        gen_capacity=gen_cap, queue_capacity=SERVE_QUEUE,
-        feature_stores=stores, attn_impl="xla", device=device)
+        cfg_nodrop if nodrop_twin else cfg, params, policy=policy,
+        slots=slots, prompt_capacity=prompt_cap, gen_capacity=gen_cap,
+        queue_capacity=SERVE_QUEUE, feature_stores=stores, attn_impl="xla",
+        device=device)
     xrec = Recorder(xla)
+    xdrops = []
+    xla._slot_prefill = _drops_logged(Moe, xla._slot_prefill, xdrops)
     xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap,
                                 seed=0)[:TP_TWIN_REQUESTS]
     Moe.radix_histogram_ranks = m["hp_ref"].radix_histogram_ranks_ref
@@ -3616,24 +3731,32 @@ def serve_tp2(m, device, policy, w1_path):
         "flash_attention": 0, "hash_partition": lookups[0] - n_lookups,
         "radix_sort": 0})
     check_served(xdone, xreqs, tables, len(xreqs))
-    by_id = {r.req_id: r for r in done}
-    diffs = {rid: float((rec.logits[rid] - lg).abs().max())
-             for rid, lg in xrec.logits.items()}
-    worst = max(diffs.values())
+    if nodrop_twin and any(map(any, xdrops)):
+        raise AssertionError(f"{leg}_xla: rows dropped at capacity {cf}")
+    if nodrop_twin:
+        against, want_logits, want_tokens, margins = \
+            "world1", w1["logits"], w1["tokens"], w1["margins"]
+    else:
+        against, want_logits, margins = "engine", rec.logits, xrec.margins
+        want_tokens = {rid: r.out_tokens for rid, r in by_id.items()}
+    worst = max(float((want_logits[rid] - lg).abs().max())
+                for rid, lg in xrec.logits.items())
     if worst > SERVE_LOGIT_TOL:
-        raise AssertionError(f"{leg}: prefill logits differ from the "
-                             f"plain twin's by {worst} > {SERVE_LOGIT_TOL}")
-    compared = sum(greedy_agree(by_id[r.req_id].out_tokens, r.out_tokens,
-                                xrec.margins[r.req_id], SERVE_LOGIT_TOL)
+        raise AssertionError(f"{leg}: the plain twin's prefill logits "
+                             f"differ from the {against} run's by {worst} "
+                             f"> {SERVE_LOGIT_TOL}")
+    compared = sum(greedy_agree(r.out_tokens, want_tokens[r.req_id],
+                                margins[r.req_id], SERVE_LOGIT_TOL)
                    for r in xdone)
     if compared == 0:
-        raise AssertionError(f"{leg}: no token compared with the twin")
+        raise AssertionError(f"{leg}: no token of the twin compared")
 
     tokens = mt.count("tokens_generated")
     record = {
-        "phase": leg, "rank": policy.model_rank, "world": policy.world_m,
-        "arch": cfg.name, "layers": cfg.n_layers, "requests": n_req,
-        "device": str(device), "backend": torch.distributed.get_backend(),
+        "phase": leg, "rank": rank, "coord": policy.mesh.coord,
+        "mesh": policy.mesh.shape, "arch": cfg.name,
+        "layers": cfg.n_layers, "requests": n_req, "device": str(device),
+        "backend": torch.distributed.get_backend(),
         "completed": mt.count("completed"), "prefills": mt.count("prefills"),
         "decode_steps": mt.count("decode_steps"), "tokens": tokens,
         "seconds": seconds, "tokens_per_s": tokens / seconds,
@@ -3641,8 +3764,13 @@ def serve_tp2(m, device, policy, w1_path):
         "ttft_p99_ms": mt.percentile("ttft", 99) * 1e3,
         "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
         "weight_bytes": weight_bytes, "resident_bytes": resident,
+        "gathered_bytes_per_forward": gathered_bytes(Sh, policy, params),
+        "cache_rows": int(engine.caches["k"].shape[1]),
         "peak_bytes_above_resident": peak,
-        "first_prefill_dropped_by_layer": drops,
+        "first_prefill_dropped_by_layer": drops[0],
+        "prefills_without_drops": sum(d == 0 for d in
+                                      prefill_drops.values()),
+        "decode_rows_dropped": int(dropped[-1]),
         "capacity_send": math.ceil(prompt_cap // policy.world_m * cfg.top_k
                                    / cfg.n_experts
                                    * cfg.train.moe_capacity_factor),
@@ -3650,11 +3778,16 @@ def serve_tp2(m, device, policy, w1_path):
         "nodrop_capacity_factor": cf,
         "nodrop_logit_diff_vs_world1": vs_world1,
         "engine_logit_diff_vs_world1": engine_vs_world1,
+        "world1_requests_without_drops": clean,
+        "world1_tokens_compared": w1_compared,
         "logit_tol": SERVE_LOGIT_TOL,
         "twin_requests": len(xreqs), "twin_seconds": xseconds,
+        "twin_against": against,
+        "twin_capacity_factor": cf if nodrop_twin
+        else cfg.train.moe_capacity_factor,
         "twin_prefill_logit_diff_max": worst,
         "twin_tokens_compared": compared,
-        "twin_tokens_equal": sum(r.out_tokens == by_id[r.req_id].out_tokens
+        "twin_tokens_equal": sum(r.out_tokens == want_tokens[r.req_id]
                                  for r in xdone),
         "profile": prof,
         "out_tokens": {r.req_id: r.out_tokens for r in done}}
@@ -3671,59 +3804,64 @@ def serve_config(m, arch):
                                n_layers=SERVE_LAYERS[arch])
 
 
-def tp2_config(m):
-    return dataclasses.replace(m["get_config"](MOE_ARCH), n_layers=TP_LAYERS)
+def mesh_serve_config(m, leg):
+    return dataclasses.replace(m["get_config"](MOE_ARCH),
+                               n_layers=MESH_SERVE[leg][1])
 
 
-def tp2_world1_logits(m, device):
-    """The first request's prefill logits at world 1 (the engine's slot
-    prefill, flash attention, every expert on every token) of the
-    TP_LAYERS-layer model with the seed-0 weights the ranks draw."""
+def mesh_world1(m, device, leg):
+    """The world-1 engine (flash attention, every expert on every token)
+    on the first TP_TWIN_REQUESTS requests of the leg's model, with the
+    seed-0 weights the ranks draw: each request's prefill logits, greedy
+    tokens and their top-2 margins, and every leaf's whole shape."""
     M, serve = m["M"], m["serve"]
-    cfg = tp2_config(m)
+    cfg = mesh_serve_config(m, leg)
     params = M.init_params(torch.Generator(device).manual_seed(0), cfg)
-    r0 = serve.make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_GEN,
-                             seed=0)[0]
-    padded = np.zeros((1, SERVE_PROMPT), np.int32)
-    padded[0, :len(r0.prompt)] = r0.prompt
-    logits, _ = M.make_slot_prefill(
-        cfg, None, decode_len=SERVE_PROMPT + SERVE_GEN)(
-        params, {"tokens": torch.from_numpy(padded).to(device)},
-        len(r0.prompt))
-    out = logits[0].float().cpu()
-    del params
+    engine = m["ServingEngine"](
+        cfg, params, slots=SERVE_SLOTS, prompt_capacity=SERVE_PROMPT,
+        gen_capacity=SERVE_GEN, queue_capacity=SERVE_QUEUE, device=device)
+    rec = Recorder(engine)
+    reqs = serve.make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
+                               SERVE_GEN, seed=0)[:TP_TWIN_REQUESTS]
+    done, _, _ = serve.drive(engine, reqs, SERVE_SLOTS)
+    out = {"logits": rec.logits, "margins": dict(rec.margins),
+           "tokens": {r.req_id: r.out_tokens for r in done},
+           "shapes": {k: tuple(v.shape) for k, v in
+                      m["Aw"].flatten_params(params).items()}}
+    del engine, params
     _free(device)
     return out
 
 
-def run_serving_tp2(m, device, tmpdir: Path):
-    """``serving_moe_tp2`` and its twin ``serving_moe_tp2_xla``: two rank
-    processes on the one card, started by ``launch/serve.py``'s
-    :func:`spawn` (gloo: NCCL refuses two ranks on one device), serving
-    Granite-3.0-MoE-3B-A800M at full width, TP_LAYERS layers, with the
-    ``serving_moe`` settings and requests (:func:`serve_tp2`).  A rank
-    that fails fails the phase.  Then the first prefill's dispatch plans
-    (one a layer) and one decode plan against the plain ranks, and the
-    first flash call's q, k, v as case (l).  Returns (legs, kernel
-    cases)."""
-    torch.save(tp2_world1_logits(m, device), tmpdir / "w1_logits.pt")
+def run_serving_mesh(m, device, tmpdir: Path, leg):
+    """A mesh serving leg and its twin ``<leg>_xla``: the ranks of
+    ``MESH_SERVE[leg]``, processes on the one card started by
+    ``launch/serve.py``'s :func:`spawn` (gloo: NCCL refuses two ranks on
+    one device), serving Granite-3.0-MoE-3B-A800M at full width with the
+    ``serving_moe`` settings and requests (:func:`serve_mesh`).  A rank
+    that fails fails the phase, and so do ranks whose tokens differ.
+    Then the first prefill's dispatch plans (one a layer) and one decode
+    plan against the plain ranks, and the first flash call's q, k, v.
+    Returns (legs, kernel cases)."""
+    mesh = MESH_SERVE[leg][0]
+    world = math.prod(mesh.values())
+    torch.save(mesh_world1(m, device, leg), tmpdir / f"{leg}_world1.pt")
     t0 = time.perf_counter()
-    m["serve"].spawn(TP_WORLD, tp2_rank, (str(tmpdir),), timeout_s=900)
+    m["serve"].spawn(world, mesh_rank, (str(tmpdir), leg), timeout_s=900)
     wall = time.perf_counter() - t0
-    recs = [json.loads(Path(tmpdir, f"tp2_rank{r}.json").read_text())
-            for r in range(TP_WORLD)]
+    recs = [json.loads(Path(tmpdir, f"{leg}_rank{r}.json").read_text())
+            for r in range(world)]
     if any(r["out_tokens"] != recs[0]["out_tokens"] for r in recs):
-        raise AssertionError("serving_moe_tp2: the ranks' tokens differ")
+        raise AssertionError(f"{leg}: the ranks' tokens differ")
     for r in recs:
         r.pop("out_tokens")
-    emit({"phase": "serving_moe_tp2", "wall_s": wall, "ranks": recs})
-    cases = torch.load(tmpdir / "tp2_cases.pt")
+    emit({"phase": leg, "wall_s": wall, "ranks": recs})
+    cases = torch.load(tmpdir / f"{leg}_cases.pt")
     legs = {}
-    for leg, key, rows in (("serving_moe_tp2", "launches",
-                            recs[0]["requests"]),
-                           ("serving_moe_tp2_xla", "xla_launches",
-                            recs[0]["twin_requests"])):
-        legs[leg] = dict(rows=rows, launches={
+    for name, key, rows in ((leg, "launches", recs[0]["requests"]),
+                            (f"{leg}_xla", "xla_launches",
+                             recs[0]["twin_requests"])):
+        legs[name] = dict(rows=rows, launches={
             k: sum(r[key][k] for r in recs) for k in recs[0][key]})
     plans = []
     for i, (pid, P) in enumerate(cases["plans"]):
@@ -3731,9 +3869,11 @@ def run_serving_tp2(m, device, tmpdir: Path):
         what = f"prefill layer {i}" if i < len(cases["plans"]) - 1 \
             else "decode"
         plans.append(dict(
-            shape=f"(tp2) {what} n={pid.numel()} P={P}", args=(pid, P),
+            shape=f"({leg[-3:]}) {what} n={pid.numel()} P={P}",
+            args=(pid, P),
             library=lambda pid=pid: torch.argsort(pid, stable=True)))
-    flash = recorded_flash_case("(l) serving_moe_tp2", tuple(
+    label = {"serving_moe_tp2": "(l)", "serving_moe_dp2": "(m)"}[leg]
+    flash = recorded_flash_case(f"{label} {leg}", tuple(
         a.to(device) if isinstance(a, torch.Tensor) else a
         for a in cases["flash"]))
     return legs, {"hash_partition": plans, "flash_attention": [flash]}
@@ -4665,7 +4805,8 @@ def run_all(tmpdir: Path) -> int:
     # the same model at world 2: two ranks on the card; every dispatch
     # plan recorded is held to the plain ranks, the first prefill's first
     # and the decode plan are timed with case (l)
-    tp_legs, tp_cases = run_serving_tp2(m, device, tmpdir)
+    tp_legs, tp_cases = run_serving_mesh(m, device, tmpdir,
+                                         "serving_moe_tp2")
     legs.update(tp_legs)
     for kname, err in compare_kernels(m, tp_cases, device).items():
         errs[kname] = max(errs[kname], err)
@@ -4673,6 +4814,16 @@ def run_all(tmpdir: Path) -> int:
                                 tp_cases["hash_partition"][-1]]
     cases["flash_attention"] += tp_cases["flash_attention"]
     del tp_cases
+    # and at data=2 x model=2: four ranks, the slots split over the data
+    # ranks, the weights gathered over them; its plans and flash inputs
+    # held to the plain versions, its decode plan (n 32) timed
+    dp_legs, dp_cases = run_serving_mesh(m, device, tmpdir,
+                                         "serving_moe_dp2")
+    legs.update(dp_legs)
+    for kname, err in compare_kernels(m, dp_cases, device).items():
+        errs[kname] = max(errs[kname], err)
+    cases["hash_partition"].append(dp_cases["hash_partition"][-1])
+    del dp_cases
     legs.update(run_moe_train(m, device, name))
     # training at data=2 x model=2: four ranks on the card; every dispatch
     # plan of the first step is held to the plain ranks, the first timed

@@ -10,11 +10,12 @@ exchange and the reduction are the identity.
 A gloo group may also hold CUDA tensors: ranks that share one card
 cannot form an NCCL group.  Gloo does not take CUDA tensors in every
 collective (``all_to_all_single`` refuses them), so :func:`all_to_all`,
-:func:`all_reduce` and :func:`all_gather` stage a CUDA tensor of a gloo
-group through pinned host buffers: the exchange runs on the host, the
-compute around it stays on the card.  With NCCL nothing is staged.
+:func:`all_reduce`, :func:`all_gather` and :func:`broadcast` stage a
+CUDA tensor of a gloo group through pinned host buffers: the exchange
+runs on the host, the compute around it stays on the card.  With NCCL
+nothing is staged.
 
-Those three run with no gradient (serving, the table operators).
+Those four run with no gradient (serving, the table operators).
 Training's collectives carry one: :func:`grad_all_to_all` (its backward
 is the same exchange of the gradient), the model axis's pair
 :func:`copy_to_group` (forward identity, backward sum over the group:
@@ -94,6 +95,19 @@ def all_gather(x: torch.Tensor, group=None) -> list[torch.Tensor]:
     out = [torch.empty_like(x) for _ in range(world)]
     dist.all_gather(out, x, group=group)
     return out
+
+
+def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Rank ``src`` of ``group``'s ``x`` on every rank of it, as a new
+    tensor (the same bits everywhere)."""
+    root = dist.get_global_rank(group, src)
+    if _staged(x, group):
+        h = _host(x)
+        dist.broadcast(h, root, group=group)
+        return h.to(x.device, non_blocking=True)
+    x = x.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(x, root, group=group)
+    return x
 
 
 # backends found to lack a reduce-scatter (gloo before it had one)

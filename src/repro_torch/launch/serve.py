@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lm100m \
         --reduced [--requests 32] [--slots 4] [--prompt-len 32] [--gen 16] \
         [--queue-capacity 64] [--no-features] [--seed 0] [--device cpu] \
-        [--mesh data=1,model=2]
+        [--mesh data=D,model=M]
 
 Thin CLI over :class:`repro_torch.serving.ServingEngine` (the port of
 ``repro.launch.serve``): it draws
@@ -20,19 +20,26 @@ uniform decoder-only config serves: a dense one (``lm100m``,
 ``qwen3-moe-235b-a22b``) or a Mamba one (``falcon-mamba-7b``, prefilled
 at each prompt's true length).
 
-``--mesh data=1,model=W`` serves with tensor and expert parallelism over
-W rank processes (:func:`spawn`), which meet through a ``file://`` store
-in a temporary directory: rank r runs on ``cuda:r`` when there are W
-cards (NCCL), on the one card for all ranks when there is one (gloo,
-the exchanges staged through host memory) and on the CPU under
-``--device cpu`` (gloo).  Each rank draws the same weights, keeps its
-slice (``make_policy(mesh, "fsdp_tp")``, as the reference) and runs the
-same engine over the same requests; MoE layers dispatch by
-``moe_shuffle`` in prefill and ``moe_decode`` in decode, and the feature
-stores run over all ranks.  Rank 0 prints the snapshot.  Dense and MoE
-configs serve this way; a data axis of more than one rank, Mamba stacks
-and encoder or vision configs are refused (ROADMAP Queue 1 item 4b).
-A mesh of one rank serves in this process, as without ``--mesh``.
+``--mesh data=D,model=M`` serves over D x M rank processes
+(:func:`spawn`), which meet through a ``file://`` store in a temporary
+directory: rank r runs on ``cuda:r`` when there are D x M cards (NCCL),
+on the one card for all ranks when there is one (gloo, the exchanges
+staged through host memory) and on the CPU under ``--device cpu``
+(gloo).  Each rank draws the same weights, keeps its slice under
+``make_policy(mesh, "fsdp_tp")``, as the reference's launcher (the
+model axis: tensor and expert parallelism; the data axis: the 2D slice
+of each matrix, gathered over the data ranks a layer at a time in every
+forward) and runs the same engine over the same requests.  The slots
+split over the data ranks where they divide (each rank decodes its
+block; a slot's prefill runs on every data rank, its cache kept by the
+slot's owner); MoE layers dispatch by ``moe_shuffle`` in prefill and
+``moe_decode`` in decode over the rank's model group, and the feature
+stores run over all D x M ranks.  Rank 0 prints the snapshot.  Dense
+and MoE configs serve this way.  Refused, before any rank starts: Mamba
+stacks and encoder or vision configs at more than one rank (ROADMAP
+Queue 1 item 2), a second batch axis of several ranks (item 3) and
+period stacks (item 4).  A mesh of one rank serves in this process, as
+without ``--mesh``.
 """
 import argparse
 import math
@@ -50,6 +57,7 @@ from ..core.kernel_backend import resolve_device
 from ..data.unomt import gen_unomt_tables
 from ..models import model as M
 from ..models import sharding as Sh
+from ..models import transformer as Tf
 from ..serving import FeatureStore, Request, ServingEngine
 from . import mesh as Me
 
@@ -186,7 +194,7 @@ def sharded_params(cfg, device, seed: int, policy):
     tree is freed)."""
     params = M.init_params(
         torch.Generator(device=device).manual_seed(seed), cfg)
-    if policy is None or not policy.sharded:
+    if policy is None or policy.mesh.size == 1:
         return params
     return Sh.shard_params(params, policy, cfg=cfg)
 
@@ -261,6 +269,9 @@ def main(argv=None):
         serve(args, resolve_device(args.device))
         return
     rank_device(0, world, args.device)     # raises before any rank starts
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    Tf.check_supported(cfg, Sh.make_policy(
+        Me.abstract_mesh(Me.parse_mesh(args.mesh)), "fsdp_tp"))
     spawn(world, _serve_rank, (args,))
 
 

@@ -101,7 +101,7 @@ def train(args, cfg, device, policy=None, rank: int = 0) -> list[dict]:
     flat = adamw.flatten_params(params)
     opt_state = adamw.init({k: zero.local(k, p) for k, p in flat.items()}
                            if zero else flat, opt_cfg)
-    train_step = M.make_train_step(cfg, policy, opt_cfg)
+    train_step = M.make_train_step(cfg, policy, opt_cfg, donate=True)
 
     def step_fn(state, batch):
         params, opt, metrics = train_step(*state, batch)

@@ -20,12 +20,21 @@ the plain scan on the CPU.  A stack with Mamba layers is always
 prefilled at the prompt's true length (see :func:`make_slot_prefill`).
 
 Serving takes the reference's ``policy`` (``models/sharding.py``;
-``None`` is world 1).  Under a policy whose model axis spans several
-ranks each rank holds its slice of the parameters
-(:func:`params_from_jax` with ``policy``, or ``sharding.shard_params``
-of :func:`init_params`' tree), its heads' caches (:func:`cache_struct`)
-and computes its part of every layer; the logits' vocab blocks are
-gathered once, so every rank holds the same full logits, bit for bit.
+``None`` is world 1).  Under a policy over several ranks each rank
+holds its slice of the parameters (:func:`params_from_jax` with
+``policy``, or ``sharding.shard_params`` of :func:`init_params`' tree;
+under ``fsdp_tp`` at a data axis of several ranks a 2D slice, gathered
+over the data group a layer at a time in every forward, and the
+top-level leaves once a forward), its heads' caches and, on a data
+axis of several ranks, its block of the batch's rows
+(``sharding.batch_block``; every row where they do not split, as a
+slot prefill's one row): :func:`cache_struct` holds that block, and the
+prefill and decode functions take the whole batch, run the rank's rows
+and return the logits of every row.  The logits' vocab blocks are
+gathered over the model group and the rows' blocks over the data
+group (where the rows do not split, data rank 0's logits are broadcast
+over it), so every rank holds the same full logits, bit for bit, and
+takes the same greedy tokens.
 
 Training takes it too (:func:`make_train_step`, the reference's
 signature): each data rank computes the loss over its rows (its block
@@ -44,7 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import kernel_backend as KB
 from ..optim import adamw
-from ..core.context import all_reduce, gather_dim
+from ..core.context import all_reduce, broadcast, gather_dim
 from . import layers as Ly
 from . import sharding
 from . import transformer as Tf
@@ -202,15 +211,44 @@ def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False,
     return x, aux, caches, n_prefix
 
 
-def _logits(params, cfg, x, policy=None):
+def _logits(params, cfg, x, policy=None, split: bool = False):
     """Float32 logits over the whole vocabulary: under a sharded model
-    axis the ranks' vocab blocks, gathered in rank order."""
+    axis the ranks' vocab blocks, gathered in rank order.  On a data
+    axis of several ranks ``x`` holds this rank's rows of the batch:
+    with ``split`` its block (``sharding.batch_block``), and the data
+    ranks' blocks are gathered in rank order; else the whole batch, and
+    data rank 0's logits are broadcast.  Either way every rank holds the
+    same bits."""
     logits = Ly.logits_out(
         params.get("lm_head"), x,
         tied_embed=params["embed"] if cfg.tie_embeddings else None)
-    if policy is None or not policy.sharded:
+    if policy is None:
         return logits
-    return gather_dim(logits, policy.model_group, -1)
+    if policy.sharded:
+        logits = gather_dim(logits, policy.model_group, -1)
+    if policy.world_d > 1:
+        logits = gather_dim(logits, policy.data_group, 0) if split \
+            else broadcast(logits, policy.data_group)
+    return logits
+
+
+def _top_gathered(params, policy):
+    """``params`` with the leaves outside the layer stack gathered over
+    the data group under ``fsdp_tp`` (``sharding.gather_data``; the
+    layers gather their own)."""
+    return dict(sharding.gather_data(
+        {k: v for k, v in params.items() if k != "layers"}, policy),
+        layers=params["layers"])
+
+
+def _rows_of(batch: dict, policy):
+    """(this data rank's rows of every array of ``batch``
+    (``sharding.batch_block``), whether they are a block of it, not the
+    whole batch)."""
+    B = next(iter(batch.values())).shape[0]
+    rows = sharding.batch_block(policy, B)
+    return {k: v[rows] for k, v in batch.items()}, \
+        rows.stop - rows.start < B
 
 
 def make_prefill(cfg, policy=None, *, decode_len: int,
@@ -219,15 +257,19 @@ def make_prefill(cfg, policy=None, *, decode_len: int,
     """``(params, batch) -> (logits (B,V) at the last position, caches)``
     with attention caches padded to ``decode_len`` (a vision config's
     count its P patch positions: the first decode step is at P + S);
-    cross-attention caches stay at the encoder's length."""
+    cross-attention caches stay at the encoder's length.  On a data axis
+    of several ranks the caches hold this rank's rows of the batch."""
     Tf.check_supported(cfg, policy)
 
     def prefill(params, batch):
+        params = _top_gathered(params, policy)
+        batch, split = _rows_of(batch, policy)
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
         x, _, caches, _ = backbone(params, cfg, batch, opts,
                                    want_cache=True, policy=policy)
-        return _logits(params, cfg, x[:, -1:], policy)[:, 0], caches
+        return _logits(params, cfg, x[:, -1:], policy, split)[:, 0], \
+            caches
     return prefill
 
 
@@ -243,7 +285,9 @@ def make_serve_step(cfg, policy=None):
     enc-dec decoder's cross-attention reads its whole ``ck``/``cv``).  A
     decode step's attention and Mamba step are plain PyTorch on every
     device (the reference has no kernel there either), so it takes no
-    ``*_impl``."""
+    ``*_impl``.  On a data axis of several ranks ``tokens`` and
+    ``cache_len`` are the whole batch's and ``caches`` this rank's rows
+    of it (:func:`cache_struct`); the logits are every row's."""
     Tf.check_supported(cfg, policy)
 
     def serve_step(params, caches, tokens, cache_len):
@@ -254,12 +298,20 @@ def make_serve_step(cfg, policy=None):
             if int(cl.min()) < 0 or int(cl.max()) >= S:
                 raise ValueError(f"cache_len {cl.tolist()} outside "
                                  f"[0, {S})")
-        cl = cl.to(tokens.device)
+        rows = sharding.batch_block(policy, tokens.shape[0])
+        split = rows.stop - rows.start < tokens.shape[0]
+        tokens = tokens[rows]
+        cl = (cl[rows] if cl.dim() else cl).to(tokens.device)
+        held = next(iter(caches.values())).shape[1]
+        if held != tokens.shape[0]:
+            raise ValueError(f"caches of {held} rows for this rank's "
+                             f"{tokens.shape[0]} rows of the batch")
+        params = _top_gathered(params, policy)
         x = Ly.embed_lookup(params["embed"], tokens, policy)  # (B,1,d)
         x, caches = Tf.stack_decode(params["layers"], cfg, x, caches, cl,
                                     policy)
         x = Ly.rms_norm(params["final_norm"], x, cfg.norm_eps)
-        return _logits(params, cfg, x, policy)[:, 0], caches
+        return _logits(params, cfg, x, policy, split)[:, 0], caches
     return serve_step
 
 
@@ -278,27 +330,38 @@ def make_slot_prefill(cfg, policy=None, *, decode_len: int,
     prefilled on ``tokens[:, :length]`` alone: a Mamba state has no
     positions to mask, and one that ran on through the padding would not
     be the prompt's (the JAX engine pads there, so its Mamba states
-    differ from its own ``make_prefill`` at the true length)."""
+    differ from its own ``make_prefill`` at the true length).  On a data
+    axis of several ranks the rows split as in :func:`make_prefill`: the
+    engine's one row does not, so every data rank prefills it whole."""
     Tf.check_supported(cfg, policy)
     mamba = has_mamba(cfg)
 
     def slot_prefill(params, batch, length):
         if mamba:
             batch = dict(batch, tokens=batch["tokens"][:, :int(length)])
+        params = _top_gathered(params, policy)
+        batch, split = _rows_of(batch, policy)
         opts = opts_from_cfg(cfg, batch["tokens"], decode_len=decode_len,
                              attn_impl=attn_impl, mamba_impl=mamba_impl)
         x, _, caches, n_prefix = backbone(params, cfg, batch, opts,
                                           want_cache=True, policy=policy)
         idx = n_prefix + int(length) - 1
-        return _logits(params, cfg, x[:, idx:idx + 1], policy)[:, 0], \
-            caches
+        return _logits(params, cfg, x[:, idx:idx + 1], policy,
+                       split)[:, 0], caches
     return slot_prefill
 
 
-def write_cache_slot(caches, one, slot: int):
+def write_cache_slot(caches, one, slot: int, rows: slice | None = None):
     """Write a batch-1 cache (as ``make_slot_prefill`` gives it) into the
     running batch cache at batch index ``slot``, in place: every cache
-    leaf is stacked ``(n_layers, B, ...)``, so the slot axis is 1."""
+    leaf is stacked ``(n_layers, B, ...)``, so the slot axis is 1.
+    ``rows``, the slots this rank's cache holds
+    (``sharding.batch_block``; default all): a slot outside them is not
+    written, one inside at its index among them."""
+    if rows is not None:
+        if not rows.start <= slot < rows.stop:
+            return caches
+        slot -= rows.start
     for name, buf in caches.items():
         buf[:, slot:slot + 1] = one[name].to(buf.dtype)
     return caches
@@ -379,9 +442,7 @@ def make_loss_fn(cfg, policy, opts: StackOpts, aux_coeff: float = 0.01):
     def loss_fn(params, batch):
         if cfg.train.bf16_weight_cast:
             params = _cast_weights_bf16(params)
-        params = dict(sharding.gather_data(
-            {k: v for k, v in params.items() if k != "layers"}, policy),
-            layers=params["layers"])
+        params = _top_gathered(params, policy)
         x, aux, _, n_prefix = backbone(params, cfg, batch, opts,
                                        policy=policy)
         labels = batch["labels"]
@@ -398,7 +459,8 @@ def make_loss_fn(cfg, policy, opts: StackOpts, aux_coeff: float = 0.01):
 # --------------------------------------------------------------------------
 
 
-def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig):
+def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig, *,
+                    donate: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on float32 masters (``init_params(..., master=True)``)
     and ``opt_state = adamw.init(adamw.flatten_params(params), opt_cfg)``.
@@ -417,7 +479,13 @@ def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig):
     into that 2D layout, AdamW updates the 2D slices (the global norm
     over the whole mesh) and, under ``tp``, the new parameters are
     gathered back over data.  The reported ``loss`` and ``moe_aux`` are
-    means over the data group."""
+    means over the data group.
+
+    With ``donate`` the step writes the new parameters and AdamW state
+    into the tensors it is given (``adamw.update``: the reference's
+    launcher donates them, ``donate_argnums=(0, 1)``), so the old and
+    the new state are never held whole side by side; without it the
+    caller's tensors are left as they were."""
     Tf.check_supported(cfg, policy, train=True)
     t = cfg.train
     opts = StackOpts(attn_impl="xla", mamba_impl="xla",
@@ -467,7 +535,7 @@ def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig):
                 metrics = {k: all_reduce(v, policy.data_group)
                            / policy.world_d for k, v in metrics.items()}
         flat, opt_state, om = adamw.update(flat, grads, opt_state, opt_cfg,
-                                           zero=zero)
+                                           zero=zero, donate=donate)
         return adamw.unflatten_params(flat), opt_state, dict(metrics, **om)
 
     return train_step
@@ -485,9 +553,12 @@ def cache_struct(cfg, batch_size: int, decode_len: int,
     attention stack, and for an enc-dec decoder also ``{"ck", "cv"}``
     (n_layers, B, Hkv, enc_len, D) bf16; ``{"conv" (n_layers, B, K-1, E),
     "ssm" (n_layers, B, E, N)}`` float32 for a Mamba stack.  Under a
-    sharded ``policy`` Hkv is the KV heads this rank holds."""
+    sharded ``policy`` Hkv is the KV heads this rank holds, and on a data
+    axis of several ranks B its rows of ``batch_size``
+    (``sharding.batch_block``)."""
     Tf.check_supported(cfg, policy)
-    L, B = cfg.n_layers, batch_size
+    rows = sharding.batch_block(policy, batch_size)
+    L, B = cfg.n_layers, rows.stop - rows.start
     if has_mamba(cfg):
         return {"conv": ((L, B, cfg.ssm_conv - 1, cfg.d_inner),
                          torch.float32),

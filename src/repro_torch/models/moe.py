@@ -22,6 +22,13 @@ Three paths, chosen by :func:`moe_apply` as the reference chooses them:
   rank serves its local experts (the same kernel ranks its rows) and an
   all-reduce over the model group combines them.
 
+On a data axis of several ranks each data rank runs either path on its
+own rows of the batch (every row where they do not split over the data
+ranks, as a slot prefill's one row: the reference's ``_batch_axes_for``),
+its exchanges over the model group of its data row; ``moe_decode``'s
+capacity comes from the rank's rows, so what drops depends on the split,
+as in the reference.
+
 A call of either dispatch path appends its rows dropped past the
 capacity (a device scalar, this rank's count) to :data:`drop_log` when
 that is a list, and a call made again by a remat recompute appends it as

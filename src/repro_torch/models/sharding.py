@@ -20,13 +20,16 @@ port has no compiler to place tensors: each rank holds the slice
 :func:`shard_params` gives it and the layers compute on those slices
 (``models/layers.py``), with the collectives written out.
 
-Training adds the data axis: each data rank holds its block of the
-batch's rows (:func:`shard_batch`, the layout of ``P(batch_axes,
-None)``); under ``fsdp_tp`` a layer gathers its 2D leaves over the data
-group before use (:func:`gather_data`); the AdamW moments and the
-averaged gradients are held in the 2D layout of ``param_specs(for_opt=
-True)`` (ZeRO-1, :class:`Zero1`); a checkpoint holds whole leaves, which
-:class:`StateLayout` gathers and slices.
+The data axis: each data rank holds its block of a batch's rows
+(:func:`batch_block`, the layout of ``P(batch_axes, None)``; every data
+rank holds the whole batch where its rows do not split, as the
+reference's ``_batch_axes_for``): training's batch
+(:func:`shard_batch`) and serving's slots alike.  Under ``fsdp_tp`` a
+layer gathers its 2D leaves over the data group before use, and the
+forward its top-level leaves (:func:`gather_data`).  In training the AdamW moments
+and the averaged gradients are held in the 2D layout of
+``param_specs(for_opt=True)`` (ZeRO-1, :class:`Zero1`); a checkpoint
+holds whole leaves, which :class:`StateLayout` gathers and slices.
 """
 from __future__ import annotations
 
@@ -288,7 +291,7 @@ def data_dim(spec) -> int | None:
 
 
 # --------------------------------------------------------------------------
-# the data axis (training)
+# the data axis
 # --------------------------------------------------------------------------
 
 
@@ -299,26 +302,33 @@ def _batch_axes_for(policy: Policy, B: int) -> tuple[str, ...]:
     return policy.batch_axes if B % policy.world_d == 0 else ()
 
 
+def batch_block(policy: Policy | None, B: int) -> slice:
+    """The rows of a batch of ``B`` that this data rank holds: rank d
+    ``[d B / D, (d + 1) B / D)``, the block layout of ``P(batch_axes,
+    None)``; all ``B`` where they do not split over the batch axes (or
+    there is one data rank)."""
+    if policy is None or policy.world_d == 1 \
+            or not _batch_axes_for(policy, B):
+        return slice(0, B)
+    return block(B, policy.world_d, policy.data_rank)
+
+
 def shard_batch(batch: dict, policy: Policy | None) -> dict:
-    """This data rank's rows of every array of ``batch`` (leading dim
-    ``B``): rank d holds ``[d B / D, (d + 1) B / D)``, the block layout of
-    ``P(batch_axes, None)``; the whole batch where ``B`` does not split."""
+    """This data rank's rows (:func:`batch_block`) of every array of
+    ``batch`` (leading dim ``B``)."""
     if policy is None or policy.world_d == 1:
         return batch
-    B = next(iter(batch.values())).shape[0]
-    if not _batch_axes_for(policy, B):
-        return batch
-    per = B // policy.world_d
-    d = policy.data_rank
-    return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+    rows = batch_block(policy, next(iter(batch.values())).shape[0])
+    return {k: v[rows] for k, v in batch.items()}
 
 
 def gather_data(tree: dict, policy: Policy | None) -> dict:
     """Under ``fsdp_tp`` at a data axis of more than one rank, ``tree``
     (a part of the parameters, names as in the whole tree) with every 2D
     leaf gathered over the data group along its data dim
-    (``core.context.gather_params``: the backward reduce-scatters the
-    gradient); else ``tree`` itself."""
+    (``core.context.gather_params``: in training the backward
+    reduce-scatters the gradient; serving's leaves take none); else
+    ``tree`` itself."""
     if policy is None or not policy.fsdp:
         return tree
     specs = policy.param_specs(tree, use2d=True)
@@ -414,12 +424,13 @@ class Zero1:
 
     def whole(self, k: str, new: torch.Tensor,
               held: torch.Tensor) -> torch.Tensor:
-        """The updated 2D slice ``new`` of ``k`` back in the layout the
-        rank holds (as ``held``): under ``tp`` gathered over data."""
+        """Write the updated 2D slice ``new`` of ``k`` into ``held``, the
+        parameter as the rank holds it (under ``tp`` gathered over data
+        first); returns ``held``."""
         dim = self.ddim[k]
-        if self.policy.fsdp or dim is None or self.D == 1:
-            return new
-        return _gather_blocks(new, self.group, dim, held.shape[dim])
+        if not (self.policy.fsdp or dim is None or self.D == 1):
+            new = _gather_blocks(new, self.group, dim, held.shape[dim])
+        return held.copy_(new)
 
     def counted(self, k: str) -> bool:
         """Whether this rank adds leaf ``k`` to the global norm."""

@@ -29,10 +29,13 @@ Every function takes the reference's ``policy`` (default ``None``, world
 compute on this rank's slices (``models/layers.py``), a MoE FFN runs
 ``moe_shuffle`` in train and prefill and ``moe_decode`` in a decode step,
 with ``StackOpts.moe_capacity`` as the shuffle's capacity factor.
-In training the data axis adds nothing inside a layer but, under
-``fsdp_tp``, the gather of the layer's 2D leaves over the data group
-(``sharding.gather_data``), made inside the layer's remat body so that
-the recompute gathers again.  Every collective carries its gradient, so
+The data axis adds nothing inside a layer but, under ``fsdp_tp``, the
+gather of the layer's 2D leaves over the data group
+(``sharding.gather_data``) just before the layer runs, one layer at a
+time (serving never holds two layers' gathered weights); in training
+it is made inside the layer's remat body, so that the recompute gathers
+again.  Each data rank runs its block of the batch's rows (all of them
+where they do not split: a slot prefill's one row).  Every collective carries its gradient, so
 a rematerialised layer re-issues its collectives in the backward, in
 the same order on every rank.  :func:`check_supported` refuses what the
 sharded path does not run yet.
@@ -83,31 +86,27 @@ def layer_kind(cfg, i: int) -> tuple[str, str, bool]:
 
 def check_supported(cfg, policy=None, *, train: bool = False) -> None:
     """Raise for a config whose layers the port does not run: period
-    stacks.  A stack is a whole number of periods, and one period of the
-    only such config (Jamba-1.5-Large, 8 layers) holds 88.3 GB of bf16
-    weights, more than one card's memory, so these wait for a path over
-    several cards.  Under a ``policy`` over several ranks also: Mamba
-    layers, encoder and vision configs (ROADMAP Queue 1 item 4b, its
-    rest), serving at a data axis of more than one rank (``train``
-    False; the next part of item 4b), two batch axes of several ranks,
-    heads that do not split over the model axis (in training: KV heads
-    too) and a padded vocabulary that does not."""
+    stacks (ROADMAP Queue 1 item 4).  A stack is a whole number of
+    periods, and one period of the only such config (Jamba-1.5-Large, 8
+    layers) holds 88.3 GB of bf16 weights, more than one card's memory,
+    so these wait for a path over several cards.  Under a ``policy``
+    over several ranks also: Mamba layers, encoder and vision configs
+    (item 2), two batch axes of several ranks (item 3), heads that do not
+    split over the model axis (in training: KV heads too, item 3) and a
+    padded vocabulary that does not."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
-                                  f"{cfg.moe_period} layers) wait for a "
-                                  "path over several cards: one period "
-                                  "of the full config does not fit one")
+                                  f"{cfg.moe_period} layers) wait for "
+                                  "ROADMAP Queue 1 item 4: one period of "
+                                  "the full config does not fit one card")
     if policy is None or policy.mesh is None or policy.mesh.size == 1:
         return
-    if not train and policy.world_d > 1:
-        raise NotImplementedError(
-            f"serving at a {policy.data_axis} axis of {policy.world_d} "
-            "ranks waits for ROADMAP Queue 1 item 4b (serving at data > 1)")
     if sum(policy.size(a) > 1 for a in policy.batch_axes) > 1:
         raise NotImplementedError(f"batch axes {policy.batch_axes} of "
-                                  "several ranks each")
-    later = "wait for ROADMAP Queue 1 item 4b (Mamba, encoder and vision " \
+                                  "several ranks each (a second data axis) "
+                                  "wait for ROADMAP Queue 1 item 3")
+    later = "wait for ROADMAP Queue 1 item 2 (Mamba, encoder and vision " \
         "configs at world > 1)"
     if any(layer_kind(cfg, i)[0] == "mamba" for i in range(cfg.n_layers)):
         raise NotImplementedError(f"{cfg.name}: Mamba layers at world > 1 "
@@ -122,7 +121,8 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
         raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} KV heads do not "
                          f"split over a model axis of {policy.world_m} "
                          "(in training a KV head held by several ranks "
-                         "would need its gradient summed over them)")
+                         "would need its gradient summed over them: "
+                         "ROADMAP Queue 1 item 3)")
     if cfg.padded_vocab() % policy.world_m:
         raise ValueError(f"{cfg.name}: a padded vocabulary of "
                          f"{cfg.padded_vocab()} does not split over a "
@@ -367,8 +367,9 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
 def stack_decode(stack_params, cfg, x, caches, cache_len, policy=None):
     """Decode one token through the whole stack; ``caches`` are stacked
     as ``stack_apply(want_cache=True)`` makes them and are updated in
-    place.  Returns (x, caches)."""
+    place.  Under ``fsdp_tp`` each layer's 2D leaves are gathered over
+    the data group just before the layer runs.  Returns (x, caches)."""
     for i in range(cfg.n_layers):
-        x, _ = layer_decode(layer_at(stack_params, i), cfg, x,
-                            layer_at(caches, i), cache_len, policy)
+        x, _ = layer_decode(gather_data(layer_at(stack_params, i), policy),
+                            cfg, x, layer_at(caches, i), cache_len, policy)
     return x, caches

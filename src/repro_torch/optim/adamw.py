@@ -11,12 +11,17 @@ float32 tensors, never Python doubles): gradients clipped by
 ``min(1, clip / (norm + 1e-9))``, ``delta = m̂ / (√v̂ + eps) + wd · p``
 applied as ``p - lr · delta``, no decay on leaves named ``scale``,
 ``b``, ``conv_b``, ``D`` or ``A_log``.  ``torch.optim.AdamW`` applies
-its decoupled decay differently and would not match.
+its decoupled decay differently and would not match.  With
+``donate=True`` :func:`update` writes the new parameters, moments and
+step into the tensors it is given, a leaf at a time, as the reference's
+launcher donates its train step's state: the old and the new state are
+never held whole side by side.  Without it the given tensors are left as
+they were and new ones returned (the same bits).
 
 Over a mesh of ranks (``zero``, a ``models.sharding.Zero1``) the state
 is ZeRO-1: each rank's moments and gradients are its 2D slices of the
-leaves, :func:`update` steps its 2D slice of each parameter and puts the
-result back in the layout the rank holds, and the global norm sums
+leaves, :func:`update` steps its 2D slice of each parameter and writes
+the result back in the layout the rank holds, and the global norm sums
 every element's square once over the whole mesh (a leaf replicated
 over an axis counts on one rank of it).
 """
@@ -120,10 +125,16 @@ def _decay_mask(path: str) -> bool:
 
 @torch.no_grad()
 def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
-           zero=None):
-    """Returns (new_params, new_state, metrics).  With ``zero`` the
-    gradients and moments are the rank's 2D slices and ``params`` as the
-    rank holds them."""
+           zero=None, *, donate: bool = False):
+    """One step -> (new params, new state, metrics).  With ``donate``
+    every tensor of ``params`` and ``state`` receives its new value in
+    place (each leaf's float32 arithmetic as the reference's, the result
+    copied into the held tensor) and the same tensors are returned;
+    without it they are copied first (:func:`copy_state`).  With
+    ``zero`` the gradients and moments are the rank's 2D slices and
+    ``params`` as the rank holds them."""
+    if not donate:
+        params, state = copy_state(params, state)
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads, zero)
@@ -134,7 +145,6 @@ def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
 
-    new_p, new_m, new_v = {}, {}, {}
     for k, held in params.items():
         p = held if zero is None else zero.local(k, held)
         g = grads[k].to(F32) * scale_clip
@@ -143,10 +153,23 @@ def update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if _decay_mask(k):
             delta = delta + cfg.weight_decay * p.to(F32)
-        new_p[k] = (p.to(F32) - lr * delta).to(p.dtype)
-        if zero is not None:
-            new_p[k] = zero.whole(k, new_p[k], held)
-        new_m[k] = m.to(state["m"][k].dtype)
-        new_v[k] = v.to(state["v"][k].dtype)
+        new = (p.to(F32) - lr * delta).to(p.dtype)
+        del g, delta
+        state["m"][k].copy_(m)
+        state["v"][k].copy_(v)
+        del m, v
+        if zero is None:
+            held.copy_(new)
+        else:
+            zero.whole(k, new, held)
+    state["step"].copy_(step)
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
+    return params, state, metrics
+
+
+def copy_state(params: dict, state: dict) -> tuple[dict, dict]:
+    """Copies of ``params`` and of an AdamW ``state`` (new tensors)."""
+    return ({k: p.clone() for k, p in params.items()},
+            {"m": {k: t.clone() for k, t in state["m"].items()},
+             "v": {k: t.clone() for k, t in state["v"].items()},
+             "step": state["step"].clone()})

@@ -28,14 +28,21 @@ admission -> feature fetch -> slot prefill -> continuous-batching decode
   lengths): one step drives the whole fixed-shape batch; finished slots
   are refilled from the queue at once.
 
-Under a ``policy`` whose model axis spans several ranks (the reference's
+Under a ``policy`` over several ranks (the reference's
 ``ServingEngine(..., policy=)``) every rank runs its own engine on the
-same requests: it holds its slice of the weights and its heads' caches,
-and every choice that steers the loop (admission, refill, the greedy
-tokens) comes from the logits gathered over the ranks, which are the
-same bits on each, so the ranks take the same steps.  The feature stores
-are given a context over all ranks and run their shuffles at that world
-size.
+same requests: it holds its slice of the weights (under ``fsdp_tp`` at
+a data axis of several ranks a 2D slice, gathered over the data group a
+layer at a time in every forward) and its heads' caches.  The slots
+split over the data ranks in contiguous blocks where they divide
+(``sharding.batch_block``; else every data rank holds them all, as the
+reference keeps an indivisible batch whole): a rank's cache holds its
+block.  Admission, refill and the choice of slot stay global, so every
+rank makes the same choices; a slot prefill (one row) runs whole on
+every data rank and its cache is written only by the slot's owner; a
+decode step runs each rank's block and its greedy tokens come from the
+logits gathered over the data and model groups, the same bits on every
+rank, so the ranks take the same steps.  The feature stores are given a
+context over all ranks and run their shuffles at that world size.
 
 The reference donates the cache buffers to its jitted steps; here the
 cache is one set of tensors updated in place by every prefill write and
@@ -59,6 +66,7 @@ from ..core.context import HptmtContext
 from ..core import kernel_backend as KB
 from ..core.table import narrow_column
 from ..models import model as M
+from ..models import sharding as Sh
 from .batcher import SlotBatch
 from .metrics import ServingMetrics
 from .queue import AdmissionQueue
@@ -244,7 +252,7 @@ class ServingEngine:
     ``"cell_id"``) to the :class:`FeatureStore` resolving it; every store's
     ``probe_capacity`` must admit a full refill micro-batch (``slots``).
     ``params`` live on ``device`` (``None`` = the CUDA card), this
-    rank's slice of them under a sharded ``policy``; ``attn_impl=None``
+    rank's slice of them under a ``policy`` over several ranks; ``attn_impl=None``
     and ``mamba_impl=None`` take the attention and scan paths that device
     implies (``kernel_backend.attention_impl``,
     ``kernel_backend.mamba_impl``)."""
@@ -281,7 +289,9 @@ class ServingEngine:
         self.batch = SlotBatch(self.n_slots)
         self._finished: list[Request] = []
 
-        # one static-shape cache for the whole engine lifetime
+        # one static-shape cache for the whole engine lifetime: this
+        # rank's block of the slots
+        self._rows = Sh.batch_block(policy, self.n_slots)
         self.caches = M.init_caches(cfg, self.n_slots, self.decode_len,
                                     self.device, policy=policy)
         self._slot_prefill = M.make_slot_prefill(
@@ -353,7 +363,7 @@ class ServingEngine:
             logits, one = self._slot_prefill(
                 self.params, {"tokens": torch.from_numpy(padded)
                               .to(self.device)}, prompt_len)
-            M.write_cache_slot(self.caches, one, slot)
+            M.write_cache_slot(self.caches, one, slot, self._rows)
             first_tok = int(torch.argmax(logits, -1)[0])
             now = self.clock()
             r.t_admit = now

@@ -1,0 +1,75 @@
+"""Run some of ``chip_smoke.py``'s MoE phases alone on one CUDA card, at
+depths other than the script's.
+
+    python3 tools/chip_phases.py serving_moe_dp2 moe_train \\
+        [--dp-layers 8] [--tp-layers 4] [--moe-train-layers 12]
+
+Each phase is ``chip_smoke.py``'s own function with every check of it:
+``serving_moe_dp2`` and ``serving_moe_tp2`` (``run_serving_mesh``: the
+rank processes on the card, then their dispatch plans and first flash
+inputs held to the plain versions) and ``moe_train`` (``run_moe_train``:
+the step that writes AdamW's state in place, and one that keeps the old
+state, with their peaks).  The kernels are built from this checkout's
+sources first.  Prints the card's name and power limit, then the phases'
+records as ``chip_smoke.py`` prints them, and the seconds each phase
+took.  Exits non-zero without a CUDA device or when a phase fails.
+
+The depths are set when this module is imported: a mesh phase's rank
+processes import it again (the ``spawn`` start method) with the same
+arguments.
+"""
+import argparse
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke as C  # noqa: E402
+
+PHASES = ("serving_moe_dp2", "serving_moe_tp2", "moe_train")
+
+
+def parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("phases", nargs="+", choices=PHASES)
+    ap.add_argument("--dp-layers", type=int, default=C.DP_LAYERS)
+    ap.add_argument("--tp-layers", type=int, default=C.TP_LAYERS)
+    ap.add_argument("--moe-train-layers", type=int,
+                    default=C.MOE_TRAIN_LAYERS)
+    return ap.parse_args(argv)
+
+
+ARGS = parse_args(sys.argv[1:])
+C.MESH_SERVE = {
+    "serving_moe_tp2": (C.MESH_SERVE["serving_moe_tp2"][0], ARGS.tp_layers),
+    "serving_moe_dp2": (C.MESH_SERVE["serving_moe_dp2"][0], ARGS.dp_layers)}
+C.MOE_TRAIN_LAYERS = ARGS.moe_train_layers
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_phases: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    m = C._modules()
+    device = torch.device("cuda")
+    name = C.card()
+    print(name, flush=True)
+    m["build"].build()
+    with tempfile.TemporaryDirectory(prefix="chip_phases_") as tmp:
+        for phase in ARGS.phases:
+            t0 = time.perf_counter()
+            if phase == "moe_train":
+                C.run_moe_train(m, device, name)
+            else:
+                _, cases = C.run_serving_mesh(m, device, Path(tmp), phase)
+                C.compare_kernels(m, cases, device)
+            C.emit({"phase": "chip_phases", "of": phase, "card": name,
+                    "seconds": time.perf_counter() - t0})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
