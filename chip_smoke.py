@@ -172,6 +172,36 @@ Phases, each fatal on failure:
    tokens by ``greedy_agree``.  Then its dispatch plans against the
    plain ranks and case (m) within ``FLASH_TOL``; its decode plan (n 32
    at P 25) timed.  Recorded: the bytes a rank gathers a forward;
+11c'''. the Mamba path at world 2, in the two rank processes of
+   ``serving_moe_tp2``, after it: ``serving_mamba_tp2`` serves
+   Falcon-Mamba-7B at full width and SERVE_LAYERS' depth (16), the
+   ``serving_mamba`` weights (seed 0), engine settings, requests and
+   feature stores (over both ranks) under ``make_policy(mesh,
+   "fsdp_tp")`` at data=1 x model=2: each rank holds the 4096 channels of
+   its half of E (``in_proj``'s x and z columns of them, the conv, the
+   scan's parameters, ``x_proj`` and ``out_proj``'s rows) and their
+   conv and ssm states; every prefill layer runs ``mamba_scan`` on the
+   rank's channels.  Checked on each rank: the accounting identity,
+   tokens and features, exact launch counts (``mamba_scan`` one a layer
+   a prefill, ``hash_partition`` the stores' shuffles, nothing else),
+   each rank's leaves its slices of the whole ones (``in_proj`` by its
+   per-part rule), caches ssm (16, 8, 4096, 16) and conv (16, 8, 3,
+   4096); against ``serving_mamba``'s own record of its first
+   TP_TWIN_REQUESTS requests (world 1, the same process's earlier leg):
+   the first request's prefill logits within ``SERVE_LOGIT_TOL``, its
+   prefill's ssm states, gathered over the two ranks, within
+   ``MAMBA_STATE_TOL`` of their largest, greedy tokens by
+   ``greedy_agree``; the twin ``serving_mamba_tp2_xla`` (the plain scan,
+   the first TP_TWIN_REQUESTS requests) against the engine run; both
+   ranks' tokens equal.  Then rank 0's first prefill's first scan call
+   (x and delta (1, S, 4096), N 16, with hT) becomes ``mamba_scan`` case
+   (j), held to the plain scan within ``SCAN_TOL`` and timed.
+   ``mamba_train_tp2``: ``mamba_train``'s config and seed-0 masters at
+   data=1 x model=2 under ``tp``, MAMBA_TP_TRAIN_STEPS (2) steps on its
+   first 1 x 1000 batch; the first step's loss and grad norm within
+   2e-3 and 2e-2 of ``mamba_train``'s first step (the mesh tests'
+   tolerances against world 1).  Prefill and decode-step ms, tokens/s,
+   TTFT, step ms, each rank's weight bytes and peak, a profile;
 11d. MoE training (``moe_train``): Granite-3.0-MoE at full width,
    16 of its 32 layers (float32 masters, gradients and AdamW moments
    take 1.91 GB a layer; AdamW writes its new state in place), remat
@@ -322,7 +352,7 @@ def _modules():
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
     from repro_torch.core import morsel
-    from repro_torch.core.context import make_context
+    from repro_torch.core.context import all_gather, make_context
     from repro_torch.data import synthetic, unomt
     from repro_torch.kernels import bucketing, build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -355,6 +385,7 @@ def _modules():
     from repro_torch.kernels.radix_sort import ref as rs_ref
     return dict(D=dist_ops, L=local_ops, U=unomt, Mo=morsel, Un=unomt_net,
                 Aw=adamw, Cp=compression, Rd=ddp, make_context=make_context,
+                all_gather=all_gather,
                 build=build, bucketing=bucketing,
                 ops={"hash_partition": hp_ops, "fused_bucketing": fb_ops,
                      "hash_join": hj_ops, "radix_sort": rs_ops,
@@ -1820,6 +1851,8 @@ UNOMT_DRILL_STEPS, UNOMT_DRILL_EVERY, UNOMT_DRILL_FAIL = 100, 25, 50
 # TrainSettings' 2 need two rows)
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 2, 1, 1000
 MAMBA_TRAIN_STEPS = 5
+# its first step's loss and grad norm, which mamba_train_tp2 is held to
+MAMBA_TRAIN_WORLD1 = "mamba_train_world1.json"
 # Granite-3.0-MoE-3B-A800M at full width (40 experts of 512 padded to 48,
 # top-8), MOE_TRAIN_LAYERS of its 32 layers: a layer's float32 master,
 # gradient and two AdamW moments take 1.91 GB, and a layer's recompute
@@ -1863,10 +1896,10 @@ def event_pair():
             torch.cuda.Event(enable_timing=True))
 
 
-def timed_steps(step, params, opt, batches, aux=None):
+def timed_steps(step, params, opt, batches, aux=None, norms=None):
     """``step`` over ``batches`` in order, each between two CUDA events.
-    Returns (params, opt, losses, ms per step); ``aux``, when given, gets
-    each step's ``moe_aux``."""
+    Returns (params, opt, losses, ms per step); ``aux`` and ``norms``,
+    when given, get each step's ``moe_aux`` and ``grad_norm``."""
     mets, events = [], []
     for b in batches:
         ev = event_pair()
@@ -1878,6 +1911,8 @@ def timed_steps(step, params, opt, batches, aux=None):
     torch.cuda.synchronize()
     if aux is not None:
         aux.extend(float(met["moe_aux"]) for met in mets)
+    if norms is not None:
+        norms.extend(float(met["grad_norm"]) for met in mets)
     return (params, opt, [float(met["loss"]) for met in mets],
             [a.elapsed_time(b) for a, b in events])
 
@@ -2134,13 +2169,14 @@ def mamba_loss_on_cpu(m, cfg, params, batch) -> float:
             for k, v in batch.items()})[1]["loss"]) for i in range(n)]))
 
 
-def run_mamba_train(m, device, name):
+def run_mamba_train(m, device, name, tmpdir: Path | None = None):
     """Falcon-Mamba-7B at full width, MAMBA_TRAIN_LAYERS layers:
     MAMBA_TRAIN_STEPS steps on one batch of MAMBA_TRAIN_BATCH x
     MAMBA_TRAIN_SEQ tokens through the chunked scan's forward and
     backward; its loss must fall (five warm-up steps learn less than one
     batch differs from the next), and the first step's is held to the
-    CPU within LM_LOSS_RTOL."""
+    CPU within LM_LOSS_RTOL.  With ``tmpdir`` the first step's loss and
+    grad norm are written there for ``mamba_train_tp2``."""
     wall = time.perf_counter()
     M, A = m["M"], m["Aw"]
     full = m["get_config"](MAMBA_ARCH)
@@ -2160,9 +2196,14 @@ def run_mamba_train(m, device, name):
     _sync(device)
     _reset_peak(device)
     resident = _allocated(device)
+    norms = []
     (params, opt, losses, ms), launches = counted_run(
-        m, lambda: timed_steps(step, params, opt, batches), device)
+        m, lambda: timed_steps(step, params, opt, batches, norms=norms),
+        device)
     expect_launches("mamba_train", launches, {})
+    if tmpdir is not None:
+        (tmpdir / MAMBA_TRAIN_WORLD1).write_text(json.dumps(
+            {"loss": losses[0], "grad_norm": norms[0]}))
     peak = _peak(device) - resident
     err = rel_err(losses[0], cpu_loss)
     emit({"phase": "mamba_train", "card": name,
@@ -2179,7 +2220,8 @@ def run_mamba_train(m, device, name):
           "tokens_per_s": MAMBA_TRAIN_BATCH * MAMBA_TRAIN_SEQ
           / float(np.median(ms[1:])) * 1e3,
           "peak_bytes_above_resident": peak, "resident_bytes": resident,
-          "losses": losses, "cpu_loss_first": cpu_loss,
+          "losses": losses, "grad_norms": norms,
+          "cpu_loss_first": cpu_loss,
           "cpu_seconds": cpu_s, "loss_rel_err": err,
           "tolerance": LM_LOSS_RTOL})
     if not losses[-1] < losses[0]:
@@ -3442,6 +3484,14 @@ SERVE_LAYERS = {SERVE_ARCH: 10, MAMBA_ARCH: 16, MOE_ARCH: 8}
 # are held to: the first 4 of the leg's 32 (8 made the world-2 phase take
 # 151 s; the twin is cut, never the main leg)
 TP_TWIN_REQUESTS = 4
+# the Mamba legs at world 2, run by serving_moe_tp2's rank processes after
+# it: Falcon-Mamba-7B served at serving_mamba's depth and held to its
+# record, and trained at mamba_train's config for MAMBA_TP_TRAIN_STEPS
+# steps, its first held to mamba_train's first
+MAMBA_TP_MESH = {"data": 1, "model": 2}
+MAMBA_TP_LEGS = ("serving_mamba_tp2", "mamba_train_tp2")
+MAMBA_TP_TRAIN_STEPS = 2
+MAMBA_WORLD1 = "serving_mamba_world1.pt"
 
 
 class DispatchLog:
@@ -3519,23 +3569,40 @@ def profile_tp2(fns, device, rank, warm=True):
     return out
 
 
-def mesh_rank(rank, world, store, tmp, leg):
-    """One rank of a mesh serving leg (``MESH_SERVE``): the normal
-    ``--mesh`` rank set-up of ``launch/serve.py`` (its device, the process
-    group, the mesh and ``make_policy(mesh, "fsdp_tp")``), then
-    :func:`serve_mesh`; writes its record to ``tmp/<leg>_rank<r>.json``
-    (and rank 0 the kernel inputs to ``tmp/<leg>_cases.pt``)."""
+def mesh_rank(rank, world, store, tmp, legs):
+    """One rank of mesh legs on one mesh, in turn: the normal ``--mesh``
+    rank set-up of ``launch/serve.py`` (its device, the process group,
+    the mesh and ``make_policy(mesh, "fsdp_tp")``), then for each leg of
+    ``legs`` :func:`serve_mesh` (a leg of ``MESH_SERVE``),
+    :func:`serve_mamba_mesh` or :func:`mamba_train_mesh`; writes each
+    leg's record to ``tmp/<leg>_rank<r>.json`` (and rank 0 the kernel
+    inputs to ``tmp/<leg>_cases.pt``)."""
     m = _modules()
     device = m["serve"].rank_device(rank, world)
     m["Me"].init_rank(rank, world, store, device, timeout_s=600)
+    tmp = Path(tmp)
     try:
-        policy = m["Sh"].make_policy(
-            m["Me"].make_mesh(MESH_SERVE[leg][0]), "fsdp_tp")
-        record, cases = serve_mesh(m, device, policy, leg,
-                                   Path(tmp, f"{leg}_world1.pt"))
-        Path(tmp, f"{leg}_rank{rank}.json").write_text(json.dumps(record))
-        if rank == 0:
-            torch.save(cases, Path(tmp, f"{leg}_cases.pt"))
+        shape = MESH_SERVE[legs[0]][0] if legs[0] in MESH_SERVE \
+            else MAMBA_TP_MESH
+        mesh = m["Me"].make_mesh(shape)
+        for leg in legs:
+            t0 = time.perf_counter()
+            cases = None
+            if leg in MESH_SERVE:
+                record, cases = serve_mesh(
+                    m, device, m["Sh"].make_policy(mesh, "fsdp_tp"), leg,
+                    tmp / f"{leg}_world1.pt")
+            elif leg == "serving_mamba_tp2":
+                record, cases = serve_mamba_mesh(
+                    m, device, m["Sh"].make_policy(mesh, "fsdp_tp"), tmp)
+            else:
+                record = mamba_train_mesh(
+                    m, device, m["Sh"].make_policy(mesh, "tp"), tmp)
+            _free(device)
+            record["leg_s"] = time.perf_counter() - t0
+            (tmp / f"{leg}_rank{rank}.json").write_text(json.dumps(record))
+            if rank == 0 and cases is not None:
+                torch.save(cases, tmp / f"{leg}_cases.pt")
     finally:
         torch.distributed.destroy_process_group()
 
@@ -3656,15 +3723,7 @@ def serve_mesh(m, device, policy, leg, w1_path):
         params, batch, len(r0.prompt))
     w1 = torch.load(w1_path)
     # each rank holds its slice of every leaf under the spec table
-    sizes, coord = policy.mesh.shape, policy.mesh.coord
-    for k, t in m["Aw"].flatten_params(params).items():
-        shape = w1["shapes"][k]
-        idx = Sh.shard_slices(shape, policy.leaf_spec(
-            k, len(shape), policy.flavor == "fsdp_tp"), sizes, coord)
-        if tuple(t.shape) != tuple(len(range(n)[i])
-                                   for n, i in zip(shape, idx)):
-            raise AssertionError(f"{leg}: rank {rank} holds {k} as "
-                                 f"{tuple(t.shape)} of {shape} at {coord}")
+    check_held(m, leg, params, policy, w1["shapes"])
     rows = Sh.batch_block(policy, slots)
     if engine.caches["k"].shape[1] != rows.stop - rows.start:
         raise AssertionError(f"{leg}: caches of "
@@ -3833,7 +3892,7 @@ def mesh_world1(m, device, leg):
     return out
 
 
-def run_serving_mesh(m, device, tmpdir: Path, leg):
+def run_serving_mesh(m, device, tmpdir: Path, leg, then=()):
     """A mesh serving leg and its twin ``<leg>_xla``: the ranks of
     ``MESH_SERVE[leg]``, processes on the one card started by
     ``launch/serve.py``'s :func:`spawn` (gloo: NCCL refuses two ranks on
@@ -3842,12 +3901,15 @@ def run_serving_mesh(m, device, tmpdir: Path, leg):
     that fails fails the phase, and so do ranks whose tokens differ.
     Then the first prefill's dispatch plans (one a layer) and one decode
     plan against the plain ranks, and the first flash call's q, k, v.
-    Returns (legs, kernel cases)."""
+    ``then``: the legs of ``MAMBA_TP_LEGS`` the same rank processes run
+    after it (:func:`mamba_tp2_results`).  Returns (legs, kernel
+    cases)."""
     mesh = MESH_SERVE[leg][0]
     world = math.prod(mesh.values())
     torch.save(mesh_world1(m, device, leg), tmpdir / f"{leg}_world1.pt")
     t0 = time.perf_counter()
-    m["serve"].spawn(world, mesh_rank, (str(tmpdir), leg), timeout_s=900)
+    m["serve"].spawn(world, mesh_rank, (str(tmpdir), (leg,) + tuple(then)),
+                     timeout_s=1000)
     wall = time.perf_counter() - t0
     recs = [json.loads(Path(tmpdir, f"{leg}_rank{r}.json").read_text())
             for r in range(world)]
@@ -3876,7 +3938,283 @@ def run_serving_mesh(m, device, tmpdir: Path, leg):
     flash = recorded_flash_case(f"{label} {leg}", tuple(
         a.to(device) if isinstance(a, torch.Tensor) else a
         for a in cases["flash"]))
-    return legs, {"hash_partition": plans, "flash_attention": [flash]}
+    out = {"hash_partition": plans, "flash_attention": [flash]}
+    if then:
+        mamba_legs, mamba_cases = mamba_tp2_results(m, device, tmpdir)
+        legs.update(mamba_legs)
+        out.update(mamba_cases)
+    return legs, out
+
+
+def check_held(m, leg, params, policy, shapes) -> None:
+    """Each leaf of ``params`` is this rank's slice under the spec table
+    (``sharding.shard_slices``, ``in_proj`` by its per-part rule) of the
+    whole leaf of ``shapes``."""
+    Sh = m["Sh"]
+    sizes, coord = policy.mesh.shape, policy.mesh.coord
+    for k, t in m["Aw"].flatten_params(params).items():
+        shape = shapes[k]
+        idx = Sh.shard_slices(shape, policy.leaf_spec(
+            k, len(shape), policy.flavor == "fsdp_tp"), sizes, coord)
+        held = tuple(len(i) if isinstance(i, np.ndarray)
+                     else len(range(n)[i]) for n, i in zip(shape, idx))
+        if tuple(t.shape) != held:
+            raise AssertionError(f"{leg}: rank {coord} holds {k} as "
+                                 f"{tuple(t.shape)}, not {held} of {shape}")
+
+
+def serve_mamba_mesh(m, device, policy, tmp: Path):
+    """``serving_mamba_tp2`` on this rank: the ``serving_mamba`` leg's
+    model (Falcon-Mamba-7B, full width, SERVE_LAYERS' depth, seed 0),
+    engine settings, requests and feature stores under ``policy``,
+    checked and timed; held to ``serving_mamba``'s world-1 record
+    (``tmp / MAMBA_WORLD1``); then the twin on the plain scan held to
+    this engine.  Returns (this rank's record, the arguments of its first
+    prefill's first scan call)."""
+    M, serve, ops = m["M"], m["serve"], m["ops"]
+    leg = "serving_mamba_tp2"
+    cfg = serve_config(m, MAMBA_ARCH)
+    slots, prompt_cap, gen_cap = SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN
+    n_req = SERVE_REQUESTS
+    rank = torch.distributed.get_rank()
+    w1 = torch.load(tmp / MAMBA_WORLD1)
+    params = serve.sharded_params(cfg, device, 0, policy)
+    _free(device)
+    _sync(device)
+    resident = _allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    check_held(m, leg, params, policy, w1["shapes"])
+
+    for op in ops.values():
+        op.launches = 0
+    stores, tables = serve.feature_stores(m["make_context"](device), 0,
+                                          max(slots, 8))
+    lookups = count_lookups(stores)
+    engine = m["ServingEngine"](
+        cfg, params, policy=policy, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=SERVE_QUEUE,
+        feature_stores=stores, device=device)
+    reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
+    first_ssm = first_prefill_ssm(engine)
+    rec = Recorder(engine)
+    scan = []
+    with recording(ops["mamba_scan"], "selective_scan", scan, picks={0}):
+        done, rejected, seconds = serve.drive(engine, reqs, slots)
+    _sync(device)
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = torch.cuda.max_memory_allocated(device) - resident
+    mt = engine.metrics
+    check_engine_run(leg, engine, done, rejected, reqs, tables, stores)
+    expect_launches(leg, launches, {
+        "mamba_scan": cfg.n_layers * mt.count("prefills"),
+        "hash_partition": store_chunks(serve, stores) + lookups[0]})
+    E = cfg.d_inner // policy.world_m
+    rows = m["Sh"].batch_block(policy, slots)
+    B = rows.stop - rows.start
+    shapes = {k: tuple(v.shape) for k, v in engine.caches.items()}
+    want = {"conv": (cfg.n_layers, B, cfg.ssm_conv - 1, E),
+            "ssm": (cfg.n_layers, B, E, cfg.ssm_state)}
+    if shapes != want:
+        raise AssertionError(f"{leg}: caches {shapes}, expected {want}")
+
+    # the first request against world 1: prefill logits and ssm states
+    # (the ranks' channel blocks put together in rank order)
+    first = next(iter(rec.logits))
+    if first != w1["first"]:
+        raise AssertionError(f"{leg}: first prefill of request {first}, "
+                             f"world 1's of {w1['first']}")
+    vs_world1 = float((rec.logits[first] - w1["logits"][first]).abs().max())
+    ssm = torch.cat(m["all_gather"](first_ssm[0].to(device),
+                                    policy.model_group), dim=2).cpu()
+    ssm_vs_world1 = float((ssm - w1["ssm"]).abs().max()) \
+        / float(w1["ssm"].abs().max())
+    if vs_world1 > SERVE_LOGIT_TOL or ssm_vs_world1 > MAMBA_STATE_TOL:
+        raise AssertionError(f"{leg}: first prefill {vs_world1} from world "
+                             f"1's logits, ssm states {ssm_vs_world1} of "
+                             "their largest")
+    by_id = {r.req_id: r for r in done}
+    w1_compared = sum(greedy_agree(by_id[rid].out_tokens, w1["tokens"][rid],
+                                   w1["margins"][rid], SERVE_LOGIT_TOL)
+                      for rid in w1["tokens"])
+
+    # a full-length prefill and a decode step of all slots, timed on both
+    # ranks at once (their collectives pair up)
+    prefill = M.make_slot_prefill(cfg, policy,
+                                  decode_len=prompt_cap + gen_cap)
+    full = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt_cap)).astype(np.int32)).to(device)}
+    step = M.make_serve_step(cfg, policy)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    lens = np.full(slots, prompt_cap - 1, np.int32)
+    prefill_ms = event_ms(lambda: prefill(params, full, prompt_cap), reps=3)
+    step_ms = event_ms(lambda: step(params, engine.caches, toks, lens),
+                       reps=4)
+    prof = profile_tp2({
+        "prefill": lambda: prefill(params, full, prompt_cap),
+        "decode_4_steps": lambda: [step(params, engine.caches, toks, lens)
+                                   for _ in range(4)]},
+        device, rank, warm=False)
+
+    # the twin: the same engine on the plain scan, held to this engine
+    for op in ops.values():
+        op.launches = 0
+    n_lookups = lookups[0]
+    xla = m["ServingEngine"](
+        cfg, params, policy=policy, slots=slots, prompt_capacity=prompt_cap,
+        gen_capacity=gen_cap, queue_capacity=SERVE_QUEUE,
+        feature_stores=stores, mamba_impl="xla", device=device)
+    xrec = Recorder(xla)
+    xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap,
+                                seed=0)[:TP_TWIN_REQUESTS]
+    xdone, _, xseconds = serve.drive(xla, xreqs, slots)
+    _sync(device)
+    xlaunches = {k: op.launches for k, op in ops.items()}
+    expect_launches(f"{leg}_xla", xlaunches,
+                    {"hash_partition": lookups[0] - n_lookups})
+    check_served(xdone, xreqs, tables, len(xreqs))
+    worst = max(float((rec.logits[rid] - lg).abs().max())
+                for rid, lg in xrec.logits.items())
+    if worst > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: the plain twin's prefill logits "
+                             f"differ from the engine run's by {worst} "
+                             f"> {SERVE_LOGIT_TOL}")
+    compared = sum(greedy_agree(r.out_tokens, by_id[r.req_id].out_tokens,
+                                xrec.margins[r.req_id], SERVE_LOGIT_TOL)
+                   for r in xdone)
+    if compared == 0:
+        raise AssertionError(f"{leg}: no token of the twin compared")
+
+    tokens = mt.count("tokens_generated")
+    record = {
+        "phase": leg, "rank": rank, "coord": policy.mesh.coord,
+        "mesh": policy.mesh.shape, "arch": cfg.name,
+        "layers": cfg.n_layers, "channels": E, "requests": n_req,
+        "device": str(device), "backend": torch.distributed.get_backend(),
+        "completed": mt.count("completed"), "prefills": mt.count("prefills"),
+        "decode_steps": mt.count("decode_steps"), "tokens": tokens,
+        "seconds": seconds, "tokens_per_s": tokens / seconds,
+        "ttft_p50_ms": mt.percentile("ttft", 50) * 1e3,
+        "ttft_p99_ms": mt.percentile("ttft", 99) * 1e3,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "weight_bytes": weight_bytes, "resident_bytes": resident,
+        "peak_bytes_above_resident": peak, "cache_shapes": shapes,
+        "launches": launches, "xla_launches": xlaunches,
+        "logit_diff_vs_world1": vs_world1,
+        "ssm_diff_over_max_vs_world1": ssm_vs_world1,
+        "world1_tokens_compared": w1_compared,
+        "logit_tol": SERVE_LOGIT_TOL, "state_tol": MAMBA_STATE_TOL,
+        "twin_requests": len(xreqs), "twin_seconds": xseconds,
+        "twin_prefill_logit_diff_max": worst,
+        "twin_tokens_compared": compared,
+        "twin_tokens_equal": sum(r.out_tokens == by_id[r.req_id].out_tokens
+                                 for r in xdone),
+        "profile": prof,
+        "out_tokens": {r.req_id: r.out_tokens for r in done}}
+    case = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in scan[0])
+    del engine, xla, params, prefill, step
+    return record, case
+
+
+def mamba_train_mesh(m, device, policy, tmp: Path) -> dict:
+    """``mamba_train_tp2`` on this rank: ``mamba_train``'s config
+    (Falcon-Mamba-7B at full width, MAMBA_TRAIN_LAYERS layers, one
+    microbatch) and seed-0 masters, this rank's slices of them under
+    ``policy`` (ZeRO-1 moments, AdamW in place), MAMBA_TP_TRAIN_STEPS
+    steps on its first batch; the first step's loss and grad norm
+    within LM_LOSS_RTOL and LM_GNORM_RTOL of ``mamba_train``'s (``tmp /
+    MAMBA_TRAIN_WORLD1``).  Returns this rank's record."""
+    M, A, Sh = m["M"], m["Aw"], m["Sh"]
+    leg = "mamba_train_tp2"
+    w1 = json.loads((tmp / MAMBA_TRAIN_WORLD1).read_text())
+    full = m["get_config"](MAMBA_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=MAMBA_TRAIN_LAYERS,
+        train=dataclasses.replace(full.train, microbatches=1))
+    params = Sh.shard_params(M.init_params(
+        torch.Generator(device).manual_seed(0), cfg, master=True), policy,
+        cfg=cfg)
+    _free(device)
+    flat = A.flatten_params(params)
+    opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=MAMBA_TRAIN_STEPS)
+    zero = Sh.Zero1(policy, flat)
+    opt = A.init({k: zero.local(k, p) for k, p in flat.items()}, opt_cfg)
+    step = M.make_train_step(cfg, policy, opt_cfg, donate=True)
+    batch = lm_batch(m, cfg, 0, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, device)
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    norms = []
+    (params, opt, losses, ms), launches = counted_run(
+        m, lambda: timed_steps(step, params, opt,
+                               [batch] * MAMBA_TP_TRAIN_STEPS, norms=norms),
+        device)
+    expect_launches(leg, launches, {})
+    peak = _peak(device) - resident
+    errs = {"loss": rel_err(losses[0], w1["loss"]),
+            "grad_norm": rel_err(norms[0], w1["grad_norm"])}
+    if errs["loss"] > LM_LOSS_RTOL or errs["grad_norm"] > LM_GNORM_RTOL:
+        raise AssertionError(f"{leg}: first step {losses[0]} / {norms[0]} "
+                             f"against world 1's {w1}: {errs}")
+    record = {"phase": leg, "rank": torch.distributed.get_rank(),
+              "coord": policy.mesh.coord, "mesh": policy.mesh.shape,
+              "flavor": policy.flavor, "arch": cfg.name,
+              "layers": cfg.n_layers, "batch": MAMBA_TRAIN_BATCH,
+              "seq": MAMBA_TRAIN_SEQ, "steps": MAMBA_TP_TRAIN_STEPS,
+              "step_ms": ms, "losses": losses, "grad_norms": norms,
+              "world1": w1, "rel_err": errs, "loss_tol": LM_LOSS_RTOL,
+              "grad_norm_tol": LM_GNORM_RTOL, "launches": launches,
+              "master_bytes": sum(t.numel() * t.element_size()
+                                  for t in A.flatten_params(params).values()),
+              "resident_bytes": resident, "peak_bytes_above_resident": peak}
+    del params, opt, batch, step
+    return record
+
+
+def mamba_tp2_results(m, device, tmpdir: Path):
+    """The Mamba legs' records of both ranks (``MAMBA_TP_LEGS``): the
+    ranks' tokens and losses equal; emitted as phases.  Returns (legs,
+    {"mamba_scan": [case (j)]})."""
+    recs = {leg: [json.loads((tmpdir / f"{leg}_rank{r}.json").read_text())
+                  for r in range(2)] for leg in MAMBA_TP_LEGS}
+    serving, train = recs["serving_mamba_tp2"], recs["mamba_train_tp2"]
+    if any(r["out_tokens"] != serving[0]["out_tokens"] for r in serving):
+        raise AssertionError("serving_mamba_tp2: the ranks' tokens differ")
+    if any(r["losses"] != train[0]["losses"] for r in train):
+        raise AssertionError("mamba_train_tp2: the ranks' losses differ")
+    for r in serving:
+        r.pop("out_tokens")
+    for leg, ranks in recs.items():
+        emit({"phase": leg, "leg_s": max(r["leg_s"] for r in ranks),
+              "ranks": ranks})
+
+    def summed(key, ranks):
+        return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+
+    legs = {"serving_mamba_tp2": dict(rows=serving[0]["requests"],
+                                      launches=summed("launches", serving)),
+            "serving_mamba_tp2_xla": dict(
+                rows=serving[0]["twin_requests"],
+                launches=summed("xla_launches", serving)),
+            "mamba_train_tp2": dict(rows=MAMBA_TP_TRAIN_STEPS
+                                    * MAMBA_TRAIN_BATCH,
+                                    launches=summed("launches", train))}
+    args = tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                 for a in torch.load(tmpdir / "serving_mamba_tp2_cases.pt"))
+    x, A = args[0], args[2]
+    case = dict(shape=f"(j) serving_mamba_tp2 prefill x {tuple(x.shape)} "
+                      f"N {A.shape[1]} with hT", args=args)
+    return legs, {"mamba_scan": [case]}
+
+
+def run_mamba_tp2(m, device, tmpdir: Path):
+    """The Mamba legs at world 2 alone (``tools/chip_phases.py``): two
+    rank processes for ``MAMBA_TP_LEGS``; the world-1 records must be in
+    ``tmpdir``.  Returns (legs, kernel cases)."""
+    m["serve"].spawn(2, mesh_rank, (str(tmpdir), MAMBA_TP_LEGS),
+                     timeout_s=900)
+    return mamba_tp2_results(m, device, tmpdir)
 
 
 def with_sdpa(case):
@@ -4335,15 +4673,35 @@ def against_plain_scan(m, cfg, params, req, prompt_cap, gen_cap, device,
     return out
 
 
+def first_prefill_ssm(engine) -> list:
+    """Wrap ``engine``'s slot prefill; the returned list gets the ssm
+    states (host, float32) its first call gives (install before a
+    :class:`Recorder`, whose logits then name that call's request
+    first)."""
+    plain, kept = engine._slot_prefill, []
+
+    def prefill(params, batch, length):
+        logits, caches = plain(params, batch, length)
+        if not kept:
+            kept.append(caches["ssm"].float().cpu())
+        return logits, caches
+
+    engine._slot_prefill = prefill
+    return kept
+
+
 def run_serving_mamba(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
                       gen_cap=SERVE_GEN, n_req=SERVE_REQUESTS,
-                      slots=SERVE_SLOTS, queue=SERVE_QUEUE, mamba_impl=None):
+                      slots=SERVE_SLOTS, queue=SERVE_QUEUE, mamba_impl=None,
+                      record: Path | None = None):
     """Drive the serving path once with a Mamba stack and the scan kernel,
     counted and checked, then against the one-shot loop and, for two
     requests, the plain scan; time and profile it.  ``mamba_impl`` is the
     engine's scan path (``None``: what the device implies; a rehearsal on
     the CPU passes ``"cuda"`` to reach the scan wrapper's plain version).
-    Returns (legs, the arguments of the longest prefill's first scan)."""
+    With ``record``, the world-1 record ``serving_mamba_tp2`` is held to
+    is saved there (:func:`mamba_world1_record`).  Returns (legs, the
+    arguments of the longest prefill's first scan)."""
     M, serve, ops = m["M"], m["serve"], m["ops"]
     params = M.init_params(torch.Generator(device=device).manual_seed(0),
                            cfg)
@@ -4364,10 +4722,14 @@ def run_serving_mamba(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         mamba_impl=mamba_impl, device=device)
     reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
     pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
+    first_ssm = first_prefill_ssm(engine)
     rec = Recorder(engine, keep=set(pick))
     with recording_longest(ops["mamba_scan"], "selective_scan", recorded):
         done, rejected, seconds = serve.drive(engine, reqs, slots)
     _sync(device)
+    if record is not None:
+        torch.save(mamba_world1_record(m, params, rec, done, first_ssm),
+                   record)
     launches = {k: op.launches for k, op in ops.items()}
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0) - resident
@@ -4436,6 +4798,22 @@ def run_serving_mamba(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     del params, engine, stores, prefill, step, full
     _free(device)
     return legs, recorded[0]
+
+
+def mamba_world1_record(m, params, rec, done, first_ssm) -> dict:
+    """What ``serving_mamba_tp2`` is held to: of the first
+    TP_TWIN_REQUESTS requests, each one's prefill logits, greedy tokens
+    and their top-2 margins; the first prefill's ssm states (its request
+    first in ``rec.logits``); every leaf's whole shape."""
+    first = next(iter(rec.logits))
+    by_id = {r.req_id: r for r in done}
+    ids = sorted(by_id)[:TP_TWIN_REQUESTS]
+    return {"logits": {rid: rec.logits[rid] for rid in ids},
+            "margins": {rid: list(rec.margins[rid]) for rid in ids},
+            "tokens": {rid: list(by_id[rid].out_tokens) for rid in ids},
+            "first": first, "ssm": first_ssm[0],
+            "shapes": {k: tuple(v.shape) for k, v in
+                       m["Aw"].flatten_params(params).items()}}
 
 
 def scan_cases(recorded, device, seed=4):
@@ -4780,7 +5158,7 @@ def run_all(tmpdir: Path) -> int:
     _free(device)
     legs.update(run_unomt_drill(m, ctx, device, *features, name, tmpdir))
     del features
-    legs.update(run_mamba_train(m, device, name))
+    legs.update(run_mamba_train(m, device, name, tmpdir))
     cases["hash_semi"] = semi_cases(slabs + setop_slabs, device)
     errs.update(compare_kernels(m, {"hash_semi": cases["hash_semi"]},
                                 device))
@@ -4790,7 +5168,8 @@ def run_all(tmpdir: Path) -> int:
     errs.update(compare_kernels(
         m, {"flash_attention": cases["flash_attention"]}, device))
     mamba_legs, scan_args = run_serving_mamba(
-        m, device, serve_config(m, MAMBA_ARCH))
+        m, device, serve_config(m, MAMBA_ARCH),
+        record=tmpdir / MAMBA_WORLD1)
     legs.update(mamba_legs)
     cases["mamba_scan"] = scan_cases(scan_args, device)
     errs.update(compare_kernels(
@@ -4804,15 +5183,19 @@ def run_all(tmpdir: Path) -> int:
     cases["flash_attention"].append(case_h)
     # the same model at world 2: two ranks on the card; every dispatch
     # plan recorded is held to the plain ranks, the first prefill's first
-    # and the decode plan are timed with case (l)
+    # and the decode plan are timed with case (l); then, in the same
+    # ranks, Falcon-Mamba served and trained at world 2, whose first
+    # prefill's first scan is case (j)
     tp_legs, tp_cases = run_serving_mesh(m, device, tmpdir,
-                                         "serving_moe_tp2")
+                                         "serving_moe_tp2",
+                                         then=MAMBA_TP_LEGS)
     legs.update(tp_legs)
     for kname, err in compare_kernels(m, tp_cases, device).items():
         errs[kname] = max(errs[kname], err)
     cases["hash_partition"] += [tp_cases["hash_partition"][0],
                                 tp_cases["hash_partition"][-1]]
     cases["flash_attention"] += tp_cases["flash_attention"]
+    cases["mamba_scan"] += tp_cases["mamba_scan"]
     del tp_cases
     # and at data=2 x model=2: four ranks, the slots split over the data
     # ranks, the weights gathered over them; its plans and flash inputs

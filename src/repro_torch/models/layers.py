@@ -122,7 +122,7 @@ def dense(p, x):
     return y
 
 
-def _model_sum(y, policy):
+def model_sum(y, policy):
     """``y`` summed over the model group in float32, back in its dtype
     (``y`` itself without a sharded model axis); the gradient passes to
     each rank's partial ``y``."""
@@ -143,7 +143,7 @@ def dense_rows(p, x, policy=None):
     """A row-parallel ``dense``: this rank's rows of ``w`` against its
     slice of ``x``'s last dim, the partial products summed over the model
     group, then the (replicated) bias."""
-    y = _model_sum(x.to(BF16) @ p["w"].to(BF16), policy)
+    y = model_sum(x.to(BF16) @ p["w"].to(BF16), policy)
     if "b" in p:
         y = y + p["b"].to(BF16)
     return y
@@ -280,7 +280,7 @@ def embed_lookup(p, tokens, policy=None):
     t = tokens.long() - lo
     mine = (t >= 0) & (t < emb.shape[0])
     x = torch.where(mine[..., None], emb[t.clamp(0, emb.shape[0] - 1)], 0)
-    return _model_sum(x, policy)
+    return model_sum(x, policy)
 
 
 def logits_out(p_head, x, tied_embed=None):

@@ -19,6 +19,21 @@ are; the in, x and out projections are bf16 and everything else float32,
 ``dt_proj.w`` included (the reference never casts it, and
 ``dt_low @ dt_proj.w`` runs in float32 — with TF32 off, PyTorch's
 default for matrix products).
+
+Under a ``policy`` whose model axis spans several ranks (the
+reference's channel dim E sharded over the model axis) a rank holds the
+parameters of its block of E/M channels (``sharding.shard_params``:
+``in_proj``'s x and z columns of those channels, ``x_proj`` and
+``out_proj``'s rows, ``dt_proj``'s columns, the conv, ``A_log`` and
+``D`` of each channel) and its block of the states: the conv, the scan
+and the gate run on its channels alone.  Two products cross the
+channels: ``x_proj``, whose partial products are summed over the model
+group in float32 and rounded to bf16 once, as the whole product is, so
+that every rank holds the whole ``dt_low``, B and C (:func:`_ssm_inputs`),
+and ``out_proj``, whose partial products are summed as the other
+row-parallel products are (``layers.dense_rows``).  The block's input
+passes through ``layers.model_copy``, so that its gradient sums the
+ranks' channels.
 """
 from __future__ import annotations
 
@@ -75,12 +90,29 @@ def _causal_conv(x, w, b):
     return y + b.float()
 
 
-def _ssm_inputs(p, cfg, xc):
+def _channels(p) -> int:
+    """The channels of the block's parameters as held here: E at world
+    1, this rank's E/M under a sharded model axis."""
+    return p["in_proj"]["w"].shape[-1] // 2
+
+
+def _ssm_inputs(p, cfg, xc, policy=None):
     """xc (B,S,E) float32 -> (delta (B,S,E), A (E,N), Bm, Cm (B,S,N)),
-    all float32."""
+    all float32; E is the channels held here.  Under a sharded model
+    axis ``x_proj``'s partial products (bf16 operands, float32 products
+    and sums) are summed over the model group in float32 and rounded to
+    bf16 once; its gradient, which each rank's channels give in part, is
+    summed over the group in float32 and then rounded to bf16 once, as
+    world 1's backward rounds its one product."""
     N = cfg.ssm_state
     R = dt_rank(cfg)
-    proj = (xc.to(Ly.BF16) @ p["x_proj"]["w"].to(Ly.BF16)).float()
+    w = p["x_proj"]["w"].to(Ly.BF16)
+    if policy is None or not policy.sharded:
+        proj = (xc.to(Ly.BF16) @ w).float()
+    else:
+        part = xc.to(Ly.BF16).float() @ w.float()
+        proj = Ly.model_copy(Ly.model_sum(part, policy).to(Ly.BF16).float(),
+                             policy)
     dt_low, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
     delta = F.softplus(dt_low @ p["dt_proj"]["w"].float()
                        + p["dt_proj"]["b"].float())
@@ -132,17 +164,17 @@ def scan_chunked(x, delta, A, Bm, Cm, D, h0=None, chunk: int = 128):
 
 
 def mamba_apply(p, cfg, x, *, impl: str = "xla", scan_chunk: int = 128,
-                return_state: bool = False):
+                return_state: bool = False, policy=None):
     """Full-sequence Mamba block.  x (B,S,d) -> (y (B,S,d), state | None)
-    with state ``{"conv" (B,K-1,E), "ssm" (B,E,N)}`` float32.  ``impl``:
-    ``cuda`` (the scan kernel; on CPU tensors its wrapper's plain version)
-    or ``xla`` (:func:`scan_chunked` in chunks of ``scan_chunk``
-    steps)."""
-    E, K = cfg.d_inner, cfg.ssm_conv
-    xz = Ly.dense(p["in_proj"], x)                        # (B,S,2E)
+    with state ``{"conv" (B,K-1,E), "ssm" (B,E,N)}`` float32 (E: the
+    channels held here).  ``impl``: ``cuda`` (the scan kernel; on CPU
+    tensors its wrapper's plain version) or ``xla`` (:func:`scan_chunked`
+    in chunks of ``scan_chunk`` steps)."""
+    E, K = _channels(p), cfg.ssm_conv
+    xz = Ly.dense(p["in_proj"], Ly.model_copy(x, policy))     # (B,S,2E)
     x_in, z = xz[..., :E], xz[..., E:]
     xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
-    delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
+    delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc, policy)
     D = p["D"].float()
     grads = torch.is_grad_enabled() and (xc.requires_grad
                                          or delta.requires_grad)
@@ -159,31 +191,32 @@ def mamba_apply(p, cfg, x, *, impl: str = "xla", scan_chunk: int = 128,
         raise ValueError(f"unknown mamba impl {impl!r} (expected 'cuda' or "
                          "'xla')")
     y = y * F.silu(z.float())
-    out = Ly.dense(p["out_proj"], y.to(x.dtype))
+    out = Ly.dense_rows(p["out_proj"], y.to(x.dtype), policy)
     if return_state:
         return out, {"conv": _conv_state(x_in, K), "ssm": hT}
     return out, None
 
 
-def mamba_step(p, cfg, x, state):
+def mamba_step(p, cfg, x, state, policy=None):
     """Single-token decode.  x (B,1,d); ``state = {"conv" (B,K-1,E),
-    "ssm" (B,E,N)}`` float32, updated IN PLACE (the reference returns a
-    new state and donates the old buffers).  Returns (y (B,1,d), state)."""
-    E = cfg.d_inner
-    xz = Ly.dense(p["in_proj"], x)                        # (B,1,2E)
+    "ssm" (B,E,N)}`` float32 (this rank's channels under a sharded model
+    axis), updated IN PLACE (the reference returns a new state and
+    donates the old buffers).  Returns (y (B,1,d), state)."""
+    E = _channels(p)
+    xz = Ly.dense(p["in_proj"], Ly.model_copy(x, policy))     # (B,1,2E)
     x_in, z = xz[..., :E], xz[..., E:]
     window = torch.cat([state["conv"], x_in.float()], dim=1)   # (B,K,E)
     xc = torch.einsum("bke,ke->be", window, p["conv_w"].float()) \
         + p["conv_b"].float()
     xc = F.silu(xc)[:, None, :]                           # (B,1,E)
-    delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
+    delta, A, Bm, Cm = _ssm_inputs(p, cfg, xc, policy)
     dA = torch.exp(delta[:, 0, :, None] * A[None])        # (B,E,N)
     h = dA * state["ssm"] + (delta[:, 0] * xc[:, 0])[..., None] \
         * Bm[:, 0][:, None, :]
     y = torch.einsum("ben,bn->be", h, Cm[:, 0]) \
         + xc[:, 0] * p["D"].float()[None]
     y = (y * F.silu(z[:, 0].float()))[:, None, :]
-    out = Ly.dense(p["out_proj"], y.to(x.dtype))
+    out = Ly.dense_rows(p["out_proj"], y.to(x.dtype), policy)
     state["conv"].copy_(window[:, 1:])
     state["ssm"].copy_(h)
     return out, state

@@ -383,7 +383,10 @@ def _chunk_loss(xc, yc, w, policy=None):
     operands, float32 logits (B,c,V); under a sharded model axis ``w``
     holds the rank's vocab columns and the logits are gathered."""
     if policy is not None and policy.sharded:
-        logits = gather_dim(Ly.model_copy(xc, policy).to(Ly.BF16).float()
+        # the copy after the cast: the ranks' float32 gradients of xc are
+        # summed, then rounded to bf16 once, as world 1 rounds its one
+        # product (before it, each rank's part would be rounded first)
+        logits = gather_dim(Ly.model_copy(xc.to(Ly.BF16).float(), policy)
                             @ w.float(), policy.model_group, -1)
     else:
         logits = xc.to(Ly.BF16).float() @ w.float()
@@ -553,16 +556,16 @@ def cache_struct(cfg, batch_size: int, decode_len: int,
     attention stack, and for an enc-dec decoder also ``{"ck", "cv"}``
     (n_layers, B, Hkv, enc_len, D) bf16; ``{"conv" (n_layers, B, K-1, E),
     "ssm" (n_layers, B, E, N)}`` float32 for a Mamba stack.  Under a
-    sharded ``policy`` Hkv is the KV heads this rank holds, and on a data
-    axis of several ranks B its rows of ``batch_size``
-    (``sharding.batch_block``)."""
+    sharded ``policy`` Hkv is the KV heads this rank holds and E its
+    E/M channels, and on a data axis of several ranks B its rows of
+    ``batch_size`` (``sharding.batch_block``)."""
     Tf.check_supported(cfg, policy)
     rows = sharding.batch_block(policy, batch_size)
     L, B = cfg.n_layers, rows.stop - rows.start
     if has_mamba(cfg):
-        return {"conv": ((L, B, cfg.ssm_conv - 1, cfg.d_inner),
-                         torch.float32),
-                "ssm": ((L, B, cfg.d_inner, cfg.ssm_state), torch.float32)}
+        E = cfg.d_inner // (1 if policy is None else policy.world_m)
+        return {"conv": ((L, B, cfg.ssm_conv - 1, E), torch.float32),
+                "ssm": ((L, B, E, cfg.ssm_state), torch.float32)}
     kv = (L, B, sharding.local_kv_heads(cfg, policy), decode_len,
           cfg.d_head)
     out = {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}

@@ -20,6 +20,14 @@ port has no compiler to place tensors: each rank holds the slice
 :func:`shard_params` gives it and the layers compute on those slices
 (``models/layers.py``), with the collectives written out.
 
+A Mamba block's ``in_proj`` is the one leaf whose model cut is not one
+contiguous block: its columns are ``[x | z]``, two parts of ``E``
+channels, and a model rank holds the x and the z columns of its own
+block of channels (:class:`PerPart`), so that its conv, scan, gate and
+caches are its own.  The spec entry that says so is the rule every
+slicer and gatherer follows (:func:`shard_slices`, :func:`shard_params`,
+:class:`StateLayout`).
+
 The data axis: each data rank holds its block of a batch's rows
 (:func:`batch_block`, the layout of ``P(batch_axes, None)``; every data
 rank holds the whole batch where its rows do not split, as the
@@ -37,12 +45,38 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..core.context import all_gather, all_reduce, gather_params, \
     reduce_scatter
 
 DATA = "data"
+
+
+class PerPart(str):
+    """A spec entry: the axis ``axis``, cutting its dim viewed as
+    ``(parts, n / parts)`` along the second factor, so that each rank
+    holds its block of every part, the parts side by side.  It is the
+    axis name (it compares equal to it, so a spec equals the
+    reference's, whose compiler lays the columns out itself); only the
+    port's slicers and gatherers read ``parts``."""
+
+    def __new__(cls, axis: str, parts: int):
+        obj = super().__new__(cls, axis)
+        obj.parts = parts
+        return obj
+
+    def __getnewargs__(self):
+        return str(self), self.parts
+
+    def __repr__(self):
+        return f"PerPart({str(self)!r}, {self.parts})"
+
+
+def _parts(entry) -> int:
+    """How many parts a spec entry cuts its dim in (1: one block)."""
+    return entry.parts if isinstance(entry, PerPart) else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,12 +155,16 @@ class Policy:
             return ()
         if parent == "lm_head" and name == "w":
             return (dd, m)
+        if parent == "in_proj" and name in ("w", "b"):
+            # [x | z]: each model rank holds both of its channels' columns
+            cols = PerPart(m, 2)
+            return (dd, cols) if name == "w" else (cols,)
         if name == "b":
-            if parent in ("wq", "wk", "wv", "in_proj", "dt_proj"):
+            if parent in ("wq", "wk", "wv", "dt_proj"):
                 return (m,)
             return (None,)
-        if parent in ("wq", "wk", "wv", "w_gate", "w_up", "w_in",
-                      "in_proj") and name == "w":
+        if parent in ("wq", "wk", "wv", "w_gate", "w_up", "w_in") \
+                and name == "w":
             return (dd, m)
         if parent in ("wo", "w_down", "w_out", "out_proj") and name == "w":
             return (m, dd)
@@ -208,17 +246,35 @@ def block(n: int, parts: int, index: int) -> slice:
     return slice(min(index * per, n), min((index + 1) * per, n))
 
 
+def _part_blocks(n: int, k: int, parts: int, index: int) -> np.ndarray:
+    """The indices of block ``index`` of ``parts`` of each of the ``k``
+    equal parts of a dim of ``n``, part after part (a :class:`PerPart`
+    cut)."""
+    if n % k:
+        raise ValueError(f"a dim of {n} is not {k} equal parts")
+    per = n // k
+    b = block(per, parts, index)
+    return np.concatenate([np.arange(j * per + b.start, j * per + b.stop)
+                           for j in range(k)])
+
+
 def shard_slices(shape, spec, sizes: dict, coord: dict) -> tuple:
-    """The slice of each dim that the rank at ``coord`` holds: a dim
+    """The index of each dim that the rank at ``coord`` holds: a dim
     whose spec names axes is cut into the product of their sizes, in the
-    order named (the first axis major)."""
+    order named (the first axis major), as one block (a slice) or, for a
+    :class:`PerPart` entry, a block of each part (an index array)."""
     out = []
     for n, entry in zip(shape, spec):
         parts, index = 1, 0
         for a in _axes(entry):
             parts *= sizes[a]
             index = index * sizes[a] + coord[a]
-        out.append(block(n, parts, index) if parts > 1 else slice(None))
+        if parts == 1:
+            out.append(slice(None))
+        elif _parts(entry) > 1:
+            out.append(_part_blocks(n, _parts(entry), parts, index))
+        else:
+            out.append(block(n, parts, index))
     return tuple(out)
 
 
@@ -344,12 +400,14 @@ def gather_data(tree: dict, policy: Policy | None) -> dict:
 
 
 def _gather_blocks(x: torch.Tensor, group, dim: int,
-                   n: int | None = None) -> torch.Tensor:
+                   n: int | None = None, parts: int = 1) -> torch.Tensor:
     """The ranks' blocks of ``dim`` (of any sizes: the last ones of an
     uneven split are shorter) concatenated in rank order; ``n``, the
-    whole size, if known, spares an exchange of the block sizes.  A CUDA
-    tensor of a gloo group is gathered into one pinned host buffer and
-    copied back once."""
+    whole size of a one-block cut, if known, spares an exchange of the
+    block sizes.  With ``parts`` (a :class:`PerPart` cut) each rank's
+    block holds its block of every part, and the whole is put together
+    part after part.  A CUDA tensor of a gloo group is gathered into one
+    pinned host buffer and copied back once."""
     if n is not None:
         world = torch.distributed.get_world_size(group)
         sizes = [len(range(n)[block(n, world, r)]) for r in range(world)]
@@ -372,9 +430,11 @@ def _gather_blocks(x: torch.Tensor, group, dim: int,
                                      group=group)
     else:
         out = torch.cat(all_gather(send, group))
-    if any(n < per for n in sizes):
-        out = torch.cat([out[r * per:r * per + n]
-                         for r, n in enumerate(sizes)])
+    if any(n < per for n in sizes) or parts > 1:
+        held = [out[r * per:r * per + n] for r, n in enumerate(sizes)]
+        out = torch.cat([b for j in range(parts) for b in (
+            h.narrow(0, j * (len(h) // parts), len(h) // parts)
+            for h in held)])
     return out.to(x.device, non_blocking=True).movedim(0, dim).contiguous()
 
 
@@ -488,7 +548,7 @@ class StateLayout:
                     raise NotImplementedError(f"a dim cut over {axes}")
                 if axes:
                     x = _gather_blocks(x, self.policy.mesh.groups[axes[0]],
-                                       dim)
+                                       dim, parts=_parts(entry))
             out.append(x.cpu().numpy() if self.writer else None)
         return out if self.writer else None
 

@@ -26,7 +26,8 @@ every ``attn_period`` and MoE every ``moe_period`` layers) raise
 
 Every function takes the reference's ``policy`` (default ``None``, world
 1).  Under a policy whose model axis spans several ranks the layers
-compute on this rank's slices (``models/layers.py``), a MoE FFN runs
+compute on this rank's slices (``models/layers.py``), a Mamba block on
+this rank's channels (``models/mamba.py``), a MoE FFN runs
 ``moe_shuffle`` in train and prefill and ``moe_decode`` in a decode step,
 with ``StackOpts.moe_capacity`` as the shuffle's capacity factor.
 The data axis adds nothing inside a layer but, under ``fsdp_tp``, the
@@ -90,10 +91,10 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
     periods, and one period of the only such config (Jamba-1.5-Large, 8
     layers) holds 88.3 GB of bf16 weights, more than one card's memory,
     so these wait for a path over several cards.  Under a ``policy``
-    over several ranks also: Mamba layers, encoder and vision configs
-    (item 2), two batch axes of several ranks (item 3), heads that do not
-    split over the model axis (in training: KV heads too, item 3) and a
-    padded vocabulary that does not."""
+    over several ranks also: encoder and vision configs (item 2b), two
+    batch axes of several ranks (item 3), heads that do not split over
+    the model axis (in training: KV heads too, item 3), Mamba channels
+    that do not and a padded vocabulary that does not."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
@@ -106,14 +107,10 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
         raise NotImplementedError(f"batch axes {policy.batch_axes} of "
                                   "several ranks each (a second data axis) "
                                   "wait for ROADMAP Queue 1 item 3")
-    later = "wait for ROADMAP Queue 1 item 2 (Mamba, encoder and vision " \
-        "configs at world > 1)"
-    if any(layer_kind(cfg, i)[0] == "mamba" for i in range(cfg.n_layers)):
-        raise NotImplementedError(f"{cfg.name}: Mamba layers at world > 1 "
-                                  f"{later}")
     if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: encoder and vision configs "
-                                  f"at world > 1 {later}")
+                                  "at world > 1 wait for ROADMAP Queue 1 "
+                                  "item 2b")
     if not policy.sharded:
         return
     kv_head_block(cfg.n_heads, cfg.n_kv_heads, policy.world_m, 0)
@@ -123,6 +120,10 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
                          "(in training a KV head held by several ranks "
                          "would need its gradient summed over them: "
                          "ROADMAP Queue 1 item 3)")
+    if any(layer_kind(cfg, i)[0] == "mamba" for i in range(cfg.n_layers)) \
+            and cfg.d_inner % policy.world_m:
+        raise ValueError(f"{cfg.name}: {cfg.d_inner} Mamba channels do not "
+                         f"split over a model axis of {policy.world_m}")
     if cfg.padded_vocab() % policy.world_m:
         raise ValueError(f"{cfg.name}: a padded vocabulary of "
                          f"{cfg.padded_vocab()} does not split over a "
@@ -229,7 +230,7 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
     else:
         y, state = Mb.mamba_apply(p["mamba"], cfg, h, impl=opts.mamba_impl,
                                   scan_chunk=opts.mamba_chunk,
-                                  return_state=want_cache)
+                                  return_state=want_cache, policy=policy)
         if want_cache:
             cache.update(state)
     x = x + y
@@ -254,7 +255,7 @@ def layer_decode(p, cfg, x, cache, cache_len, policy=None):
         y, cache = Ly.attn_decode(p["attn"], cfg, h, cache, cache_len,
                                   policy=policy)
     else:
-        y, cache = Mb.mamba_step(p["mamba"], cfg, h, cache)
+        y, cache = Mb.mamba_step(p["mamba"], cfg, h, cache, policy)
     x = x + y
     if "cross" in p:
         hc = Ly.rms_norm(p["ln_cross"], x, cfg.norm_eps)

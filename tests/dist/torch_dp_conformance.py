@@ -19,6 +19,11 @@ mesh runs:
   ``G - 1`` greedy ``make_serve_step``s over all slots: each prefill's
   logits, each step's, and the caches after the prefills (the port's:
   each rank's block of the slots and its KV heads);
+* ``mamba/<combo>``: reduced ``falcon-mamba-7b`` through ``make_prefill``
+  on ``SLOTS`` prompts of ``PCAP`` tokens (two a data rank), then
+  ``G - 1`` greedy ``make_serve_step``s: each step's logits and the
+  prefill's conv and ssm states (the port's: each rank's rows and
+  channels);
 * ``engine/<combo>``: the MoE engine (``ENGINE_KW``, 4 slots: 2 a data
   rank) with a feature store over all ranks on the requests of
   ``tests/dist/torch_tp_conformance.py``: each request's status, tokens
@@ -28,6 +33,9 @@ and at ``2x2`` under ``fsdp_tp`` only:
 
 * ``engine3``: the same engine with 3 slots, which do not split over the
   data ranks (every rank holds them all);
+* ``mamba_engine``: (torch only) the port's engine on reduced
+  ``falcon-mamba-7b`` (``ENGINE_KW``), which the test holds to the
+  port's world-1 engine;
 * ``moe``: ``moe_decode`` of one MoE layer on 8 x 8 rows (4 x 8 a data
   rank) at capacity factor 0.5, where rows drop: the output, each rank's
   routed ids and dropped rows (the reference's per shard, from its own
@@ -48,6 +56,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_tp_conformance as TPW  # noqa: E402
 
 MODELS = ("granite-3-2b", "granite-moe-3b-a800m")
+MAMBA = "falcon-mamba-7b"
 ENGINE = "granite-moe-3b-a800m"
 MOE_ARCH = "granite-moe-3b-a800m"
 COMBOS = {"2x1": (2, 1, "fsdp_tp"), "2x2": (2, 2, "fsdp_tp"),
@@ -67,6 +76,11 @@ def prompts(cfg, seed):
     for i, n in enumerate(LENS):
         out[i, :n] = rng.integers(0, cfg.vocab, n)
     return out
+
+
+def mamba_prompts(cfg, seed=6):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SLOTS, PCAP)).astype(np.int32)
 
 
 def update_before(params, grads, state, cfg, zero=None):
@@ -214,6 +228,24 @@ def run_jax(out_path, weights_path, combos):
                 out[f"{key}/logits/{j}"] = lg
                 tok = lg.argmax(-1).astype(np.int32)
 
+        cfg = get_reduced(MAMBA)
+        params = jax.tree_util.tree_map(
+            jnp.asarray, TPW.unflatten(flat, f"lm/{MAMBA}"))
+        prefill = jax.jit(JM.make_prefill(cfg, policy, decode_len=PCAP + G))
+        step = jax.jit(JM.make_serve_step(cfg, policy))
+        logits, caches = prefill(params, {"tokens": jnp.asarray(
+            mamba_prompts(cfg))})
+        key = f"mamba/{combo}"
+        for c, v in caches.items():
+            out[f"{key}/{c}"] = np.asarray(v)
+        for j in range(G):
+            lg = np.asarray(logits)
+            out[f"{key}/logits/{j}"] = lg
+            if j < G - 1:
+                logits, caches = step(params, caches, jnp.asarray(
+                    lg.argmax(-1)[:, None].astype(np.int32)),
+                    jnp.int32(PCAP + j))
+
         cfg = get_reduced(ENGINE)
         params = jax.tree_util.tree_map(
             jnp.asarray, TPW.unflatten(flat, f"lm/{ENGINE}"))
@@ -313,20 +345,41 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
                 out[f"{key}/logits/{j}"] = logits.numpy()
                 tok = logits.argmax(-1).to(torch.int32)
 
-        cfg = get_reduced(ENGINE)
-        params = M.params_from_jax(TPW.unflatten(flat, f"lm/{ENGINE}"), cfg,
+        cfg = get_reduced(MAMBA)
+        params = M.params_from_jax(TPW.unflatten(flat, f"lm/{MAMBA}"), cfg,
                                    "cpu", policy=policy)
-        runs = [("engine/" + combo, ENGINE_KW)]
+        prefill = M.make_prefill(cfg, policy, decode_len=PCAP + G)
+        step = M.make_serve_step(cfg, policy)
+        logits, caches = prefill(params, {"tokens": torch.from_numpy(
+            mamba_prompts(cfg))})
+        key = f"mamba/{combo}"
+        for c, v in caches.items():   # a copy: decode writes in place
+            out[f"{key}/{c}"] = v.numpy().copy()
+        for j in range(G):
+            out[f"{key}/logits/{j}"] = logits.numpy()
+            if j < G - 1:
+                logits, caches = step(params, caches, logits.argmax(-1)[
+                    :, None].to(torch.int32), PCAP + j)
+
+        held = {arch: (get_reduced(arch), M.params_from_jax(
+            TPW.unflatten(flat, f"lm/{arch}"), get_reduced(arch), "cpu",
+            policy=policy)) for arch in (ENGINE, MAMBA)}
+        cfg, params = held[ENGINE]
+        runs = [("engine/" + combo, ENGINE, ENGINE_KW)]
         if combo == "2x2":
-            runs.append(("engine3", dict(ENGINE_KW, slots=3)))
-        for prefix, kw in runs:
-            feats, spec = TPW.request_data(cfg.vocab)
+            runs += [("engine3", ENGINE, dict(ENGINE_KW, slots=3)),
+                     ("mamba_engine", MAMBA, ENGINE_KW)]
+        for prefix, arch, kw in runs:
+            feats, spec = TPW.request_data(held[arch][0].vocab)
             store = FeatureStore(make_context("cpu"), "drug_id", feats,
                                  probe_capacity=8, chunk_rows=8)
-            eng = ServingEngine(cfg, params, policy=policy,
+            eng = ServingEngine(*held[arch], policy=policy,
                                 feature_stores={"drug_id": store},
                                 device="cpu", **kw)
-            out[f"{prefix}/cache_rows"] = np.array(eng.caches["k"].shape[1])
+            out[f"{prefix}/cache_rows"] = np.array(
+                next(iter(eng.caches.values())).shape[1])
+            out[f"{prefix}/cache_shapes"] = np.array(
+                [list(v.shape) for v in eng.caches.values()])
             margins = TPW.record_margins(eng)
             reqs = [Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
                     for i, p, g, d in spec]

@@ -18,10 +18,15 @@ Usage:
   each rank's shard, as its ``~ok`` counts them);
 * ``lm/<model>``: ``make_prefill`` then greedy ``make_serve_step``s:
   every step's logits and the prefill's caches (the port's: each rank's
-  heads);
+  heads, or a Mamba stack's conv and ssm states of its channels);
 * ``engine``: both engines (with their policy and a feature store over
   all ranks) on the same requests: each request's status, tokens and
   features, the port's top-2 margins, each rank's tokens;
+* ``mamba_engine``: (torch only) the port's engine on reduced
+  ``falcon-mamba-7b`` with its policy and a feature store over all
+  ranks on the same requests, recorded as ``engine``; the test holds it
+  to the port's world-1 engine (the reference's engine runs a Mamba
+  state through a prompt's padding);
 * ``fs``: (torch only) the feature-store cases of
   ``tests/dist/serving_conformance.py`` at world W;
 * ``mem``: (torch only) each rank's parameter bytes, whole and by leaf.
@@ -38,7 +43,10 @@ import numpy as np
 MODELS = {"granite-3-2b": {}, "granite-moe-3b-a800m": {},
           # the KV heads do not split over the model axis: each rank
           # holds the one KV head its q heads read
-          "granite-3-2b/kv1": {"n_kv_heads": 1}}
+          "granite-3-2b/kv1": {"n_kv_heads": 1},
+          # a Mamba stack: each rank runs its block of the channels
+          "falcon-mamba-7b": {}}
+MAMBA_ENGINE = "falcon-mamba-7b"
 MOE_LAYERS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 # path -> capacity factors: none dropped (E / top_k for the shuffle:
 # C_send = the rows of a rank), the default, rows dropped; "fallback" is
@@ -224,8 +232,8 @@ def run_jax(world, out_path, weights_path):
         step = jax.jit(JM.make_serve_step(cfg, policy))
         logits, caches = prefill(params, {"tokens": jnp.asarray(
             prompt_tokens(cfg, 4))})
-        out[f"lm/{name}/k"] = np.asarray(caches["k"].astype(jnp.float32))
-        out[f"lm/{name}/v"] = np.asarray(caches["v"].astype(jnp.float32))
+        for c, v in caches.items():
+            out[f"lm/{name}/{c}"] = np.asarray(v.astype(jnp.float32))
         for i in range(G):
             lg = np.asarray(logits)
             out[f"lm/{name}/logits/{i}"] = lg
@@ -290,6 +298,68 @@ def record_margins(engine):
     engine._slot_prefill = prefill_hook
     engine._serve_step = serve_hook
     return margins
+
+
+def world1_engine(flat, arch, kw):
+    """The port's engine at world 1 (in the calling process, no process
+    group) on reduced ``arch`` with the weights of ``flat`` and a feature
+    store, on the requests of :func:`request_data`: its record as
+    :func:`engine_record` writes it under ``w1``, with the margins."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.context import make_context
+    from repro_torch.models import model as M
+    from repro_torch.serving import FeatureStore, Request, ServingEngine
+
+    cfg = get_reduced(arch)
+    params = M.params_from_jax(unflatten(flat, f"lm/{arch}"), cfg, "cpu")
+    feats, spec = request_data(cfg.vocab)
+    store = FeatureStore(make_context("cpu"), "drug_id", feats,
+                         probe_capacity=8, chunk_rows=8)
+    eng = ServingEngine(cfg, params, feature_stores={"drug_id": store},
+                        device="cpu", **kw)
+    margins = record_margins(eng)
+    reqs = [Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
+            for i, p, g, d in spec]
+    rejected, done = serve_all(eng, reqs)
+    out = {}
+    engine_record(out, done, rejected, eng, "w1")
+    for rid, m in margins.items():
+        out[f"w1/{rid}/margins"] = np.array(m, np.float32)
+    return out
+
+
+def compare_engine_to_world1(res, t, want, cfg, model, slots, tol):
+    """One rank's engine record ``res`` (under ``t``) of a Mamba stack
+    against the port's world-1 engine's ``want`` (:func:`world1_engine`):
+    the same rejections, counts, statuses and features, greedy tokens
+    equal up to the first that differs where world 1's margin is below
+    ``tol`` (the rule of ``tests/test_torch_model.py``), at least one
+    token compared; the rank's caches hold ``slots`` rows and E /
+    ``model`` channels."""
+    np.testing.assert_array_equal(res[f"{t}/rejected"], want["w1/rejected"])
+    np.testing.assert_array_equal(res[f"{t}/counts"], want["w1/counts"])
+    assert int(res[f"{t}/store_dropped"]) == 0
+    E = cfg.d_inner // model
+    for conv, ssm in np.asarray(res[f"{t}/cache_shapes"]).reshape(-1, 2, 4):
+        assert tuple(conv) == (cfg.n_layers, slots, cfg.ssm_conv - 1, E)
+        assert tuple(ssm) == (cfg.n_layers, slots, E, cfg.ssm_state)
+    compared = 0
+    for rid in range(len(SHAPES)):
+        assert str(res[f"{t}/{rid}/status"]) == str(want[f"w1/{rid}/status"])
+        np.testing.assert_array_equal(res[f"{t}/{rid}/d0"],
+                                      want[f"w1/{rid}/d0"])
+        toks, wtoks = res[f"{t}/{rid}/tokens"], want[f"w1/{rid}/tokens"]
+        assert len(toks) == len(wtoks)
+        if rid == 3:
+            assert str(res[f"{t}/{rid}/status"]) == "feature_miss"
+            continue
+        for g, w, m in zip(toks, wtoks, want[f"w1/{rid}/margins"]):
+            if m > tol:
+                assert g == w, (rid, toks, wtoks)
+                compared += 1
+            elif g != w:
+                break
+    assert compared >= 1
 
 
 def _leaves(tree, prefix=""):
@@ -371,8 +441,8 @@ def run_torch(world, out_path, weights_path, rank, store_path):
         step = M.make_serve_step(cfg, policy)
         logits, caches = prefill(params, {"tokens": torch.from_numpy(
             prompt_tokens(cfg, 4))})
-        for c in ("k", "v"):      # each rank's heads, in rank order
-            out[f"lm/{name}/{c}_ranks"] = gathered(caches[c].float())
+        for c, v in caches.items():   # each rank's heads or channels
+            out[f"lm/{name}/{c}_ranks"] = gathered(v.float())
         for i in range(G):
             out[f"lm/{name}/logits/{i}"] = logits.numpy()
             out[f"lm/{name}/logits_ranks/{i}"] = gathered(logits)
@@ -380,27 +450,31 @@ def run_torch(world, out_path, weights_path, rank, store_path):
                 logits, caches = step(params, caches, logits.argmax(-1)[
                     :, None].to(torch.int32), P + i)
 
-    cfg = get_reduced(ENGINE)
-    params = M.params_from_jax(unflatten(flat, f"lm/{ENGINE}"), cfg, "cpu",
-                               policy=policy)
-    feats, spec = request_data(cfg.vocab)
     ctx = make_context("cpu")
-    store = FeatureStore(ctx, "drug_id", feats, probe_capacity=8,
-                         chunk_rows=8)
-    eng = ServingEngine(cfg, params, policy=policy,
-                        feature_stores={"drug_id": store}, device="cpu",
-                        **ENGINE_KW)
-    margins = record_margins(eng)
-    reqs = [Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
-            for i, p, g, d in spec]
-    rejected, done = serve_all(eng, reqs)
-    engine_record(out, done, rejected, eng, "engine/torch")
-    for rid, m in margins.items():
-        out[f"engine/torch/{rid}/margins"] = np.array(m, np.float32)
-    tokens = np.concatenate([np.array(r.out_tokens, np.int32) for r in
-                             sorted(done, key=lambda r: r.req_id)])
-    out["engine/torch/tokens_ranks"] = gathered(torch.from_numpy(tokens))
-    out["engine/torch/store_dropped"] = np.array(store.dropped)
+    for arch, prefix in ((ENGINE, "engine/torch"),
+                         (MAMBA_ENGINE, "mamba_engine/torch")):
+        cfg = get_reduced(arch)
+        params = M.params_from_jax(unflatten(flat, f"lm/{arch}"), cfg,
+                                   "cpu", policy=policy)
+        feats, spec = request_data(cfg.vocab)
+        store = FeatureStore(ctx, "drug_id", feats, probe_capacity=8,
+                             chunk_rows=8)
+        eng = ServingEngine(cfg, params, policy=policy,
+                            feature_stores={"drug_id": store}, device="cpu",
+                            **ENGINE_KW)
+        margins = record_margins(eng)
+        reqs = [Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
+                for i, p, g, d in spec]
+        rejected, done = serve_all(eng, reqs)
+        engine_record(out, done, rejected, eng, prefix)
+        for rid, m in margins.items():
+            out[f"{prefix}/{rid}/margins"] = np.array(m, np.float32)
+        tokens = np.concatenate([np.array(r.out_tokens, np.int32) for r in
+                                 sorted(done, key=lambda r: r.req_id)])
+        out[f"{prefix}/tokens_ranks"] = gathered(torch.from_numpy(tokens))
+        out[f"{prefix}/store_dropped"] = np.array(store.dropped)
+        out[f"{prefix}/cache_shapes"] = gathered(torch.tensor(
+            [list(v.shape) for v in eng.caches.values()]))
 
     # the feature-store cases of serving_conformance.py at this world
     table, probe = feature_table()

@@ -58,7 +58,14 @@ CASES = {
                                        5.0),
     "lm100m/tp": ("lm100m", "tp", None),
     "qwen1.5-110b/fsdp_tp": ("qwen1.5-110b", "fsdp_tp", None),
+    # a Mamba stack: E over the model axis, in_proj's [x | z] cut per part
+    "falcon-mamba-7b/tp": ("falcon-mamba-7b", "tp", None),
+    "falcon-mamba-7b/fsdp_tp": ("falcon-mamba-7b", "fsdp_tp", None),
 }
+MAMBA = "falcon-mamba-7b"
+# the layout round trips: (label, mesh, flavor)
+LAYOUTS = (("2x2/tp", MESH, "tp"), ("2x2/fsdp_tp", MESH, "fsdp_tp"),
+           ("1x4", {"data": 1, "model": 4}, "fsdp_tp"))
 ARCHS = sorted({a for a, _, _ in CASES.values()})
 # the cases the reference runs too: granite-moe under fsdp_tp is held to
 # the port's own tp step (the reference's fsdp_tp arithmetic is qwen's)
@@ -154,7 +161,7 @@ def run_jax(out_path, weights_path, routes_path):
         return counts, ranks
 
     JMoe.radix_histogram_ranks = plan
-    out = {}
+    out, world1 = {}, {}
     assert REFERENCE_CASES[:len(PINNED_CASES)] == PINNED_CASES
     for name in REFERENCE_CASES:
         if name == REFERENCE_CASES[len(PINNED_CASES)]:
@@ -182,12 +189,15 @@ def run_jax(out_path, weights_path, routes_path):
             continue
         # the same step at world 1: how far the layout alone moves the
         # reference's moments (a MoE layer's auxiliary loss is a mean over
-        # the shards, another function at world 1)
-        _, opt, _ = jax.jit(JM.make_train_step(cfg, None, opt_cfg))(
-            params, JA.init(params, opt_cfg), batch)
-        for what in ("m", "v"):
-            for k, v in flatten(opt[what]).items():
-                out[f"{name}/world1/{what}/{k}"] = np.asarray(v, np.float32)
+        # the shards, another function at world 1); one for each arch
+        if arch not in world1:
+            _, opt, _ = jax.jit(JM.make_train_step(cfg, None, opt_cfg))(
+                params, JA.init(params, opt_cfg), batch)
+            world1[arch] = {f"{what}/{k}": np.asarray(v, np.float32)
+                            for what in ("m", "v")
+                            for k, v in flatten(opt[what]).items()}
+        for k, v in world1[arch].items():
+            out[f"{name}/world1/{k}"] = v
     np.savez(out_path, **out)
 
 
@@ -345,11 +355,87 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
         if ckpt_dir is not None and name == "lm100m/tp":
             checkpoint_cases(ckpt_dir, cfg, policy, params, new, opt,
                              layout, out)
+        if ckpt_dir is not None and name == f"{MAMBA}/tp":
+            # whole leaves, which the test restores at world 1
+            Ck.save(f"{ckpt_dir}_mamba", 1, (new, opt), layout=layout)
+    layout_cases(unflatten(flat, MAMBA), mesh, out)
     np.savez(f"{out_path}.rank{rank}.npz", **mine)
     dist.barrier()
     if rank == 0:
         np.savez(out_path, **out)
     dist.destroy_process_group()
+
+
+def layout_cases(tree, mesh, out):
+    """The layout round trips of reduced ``falcon-mamba-7b``'s training
+    state at each of ``LAYOUTS`` (``mesh`` is the ``2x2`` one), each
+    rank's booleans gathered into ``out["layout/<label>/<check>"]``:
+
+    * ``whole``: ``StateLayout.whole`` of the rank's slices
+      (``shard_params``) and of moments set to their 2D slices (``m``)
+      and twice those (``v``) gives back every whole leaf bit for bit,
+      ``in_proj`` in the reference's ``[x | z]`` order included;
+    * ``local``: ``StateLayout.local`` of each whole leaf is the rank's
+      slice bit for bit;
+    * ``gather_data``: under ``fsdp_tp`` the layer's 2D slices gathered
+      over data are the ``tp`` slices bit for bit (at ``1x4``: the slices
+      themselves);
+    * ``zero1``: under ``tp`` ``Zero1.local`` of each ``tp`` slice is the
+      ``fsdp_tp`` slice, and ``Zero1.whole`` of that gives the ``tp``
+      slice back, bit for bit."""
+    import torch
+    from repro_torch import checkpoint as Ck
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as Me
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as Sh
+    from repro_torch.optim import adamw as A
+
+    cfg = get_reduced(MAMBA)
+    whole = {k: torch.from_numpy(np.asarray(v, np.float32))
+             for k, v in flatten(tree).items()}
+    for label, shape, flavor in LAYOUTS:
+        m = mesh if shape == MESH else Me.make_mesh(shape)
+
+        def held(fl):
+            return A.flatten_params(M.params_from_jax(
+                tree, cfg, "cpu", master=True,
+                policy=Sh.make_policy(m, fl)))
+
+        policy = Sh.make_policy(m, flavor)
+        params = held(flavor)
+        zero = Sh.Zero1(policy, params)
+        local2d = {k: zero.local(k, p).clone() for k, p in params.items()}
+        opt = {"m": local2d, "v": {k: 2 * v for k, v in local2d.items()},
+               "step": torch.zeros((), dtype=torch.int32)}
+        tree_p = A.unflatten_params(params)
+        layout = Sh.train_state_layout(policy, tree_p, opt)
+        leaves = Ck.tree_leaves((tree_p, opt))
+        got = layout.whole(leaves)
+        # the same leaves whole, in the same order
+        want = Ck.tree_leaves((A.unflatten_params(whole), {
+            "m": whole, "v": {k: 2 * v for k, v in whole.items()},
+            "step": torch.zeros((), dtype=torch.int32)}))
+        ok_whole = got is None or (len(got) == len(want) and all(
+            np.array_equal(g, w.numpy()) and g.dtype == w.numpy().dtype
+            for g, w in zip(got, want)))
+        ok_local = all(
+            np.array_equal(layout.local(w.numpy(), i), leaf.numpy())
+            for i, (w, leaf) in enumerate(zip(want, leaves)))
+        tp = held("tp")
+        fsdp = held("fsdp_tp") if flavor == "tp" else params
+        gathered = A.flatten_params(Sh.gather_data(
+            A.unflatten_params(fsdp), Sh.make_policy(m, "fsdp_tp")))
+        ok_gather = all(torch.equal(gathered[k], tp[k]) for k in tp)
+        ok_zero = True
+        if flavor == "tp":
+            ok_zero = all(torch.equal(zero.local(k, tp[k]), fsdp[k])
+                          and torch.equal(zero.whole(
+                              k, fsdp[k].clone(), torch.zeros_like(tp[k])),
+                              tp[k]) for k in tp)
+        for check, ok in (("whole", ok_whole), ("local", ok_local),
+                          ("gather_data", ok_gather), ("zero1", ok_zero)):
+            out[f"layout/{label}/{check}"] = np.array(gather_objects(ok))
 
 
 def gather_objects(obj):

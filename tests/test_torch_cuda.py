@@ -761,6 +761,19 @@ def test_mamba_scan_ring_edges(cuda, E, S, N, bf16, rng):
     torch.testing.assert_close(h, wh, atol=SCAN_TOL, rtol=SCAN_TOL)
 
 
+@pytest.mark.parametrize("E,N", [(4096, 16), (64, 8), (32, 8)])
+def test_mamba_scan_model_rank_channels(cuda, E, N, rng):
+    """The channels one model rank holds, as a prefill at world > 1
+    scans them: Falcon-Mamba-7B's 8192 over two ranks, reduced
+    falcon-mamba-7b's 128 over two and four."""
+    args = scan_inputs(cuda, rng, 1, 300, E, N)
+    y, h = scan_ops.selective_scan(*args, return_state=True)
+    wy, wh = selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, wy, atol=SCAN_TOL, rtol=SCAN_TOL)
+    torch.testing.assert_close(h, wh, atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
 def test_mamba_scan_unaligned_inputs(cuda, rng):
     """Inputs that start 4 bytes past a 16-byte boundary take the
     element-wise and 4-byte staging."""

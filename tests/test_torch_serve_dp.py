@@ -24,6 +24,10 @@ processes at once, ``2x2`` in one and the other two in the other.
   same rejections, counts, statuses and features, greedy tokens equal up
   to the first margin below ``2 * LOGIT_TOL``, every rank's tokens
   equal; at ``2x2`` also with 3 slots, which stay whole on every rank.
+* ``make_prefill`` and greedy ``make_serve_step`` on reduced
+  ``falcon-mamba-7b`` (the reference's slot prefill runs a Mamba state
+  through the prompt's padding) at each mesh against the reference, and
+  the port's Mamba engine at ``2x2`` against its world-1 engine.
 * ``moe_decode`` at ``2x2`` on 4 x 8 rows a data rank at capacity factor
   0.5: rows drop in the reference, and every rank whose shard routes
   like the reference drops as many rows as the reference's shard.
@@ -55,6 +59,7 @@ SRC = os.path.join(os.path.dirname(HERE), "src")
 LIMIT_S = 600
 LOGIT_TOL = 2e-2
 BF16_TOL = 2e-2
+MAMBA_STATE_TOL = 2e-2
 
 _spec = importlib.util.spec_from_file_location("torch_dp_conformance",
                                                WORKER_PATH)
@@ -72,7 +77,7 @@ def _flatten(tree, prefix, out):
 
 def write_weights(path):
     flat = {}
-    for name in W.MODELS:
+    for name in W.MODELS + (W.MAMBA,):
         _flatten(JM.init_params(jax.random.PRNGKey(0),
                                 JC.get_reduced(name)), f"lm/{name}", flat)
     _flatten(JMoe.moe_init(jax.random.PRNGKey(10),
@@ -195,6 +200,65 @@ def test_prefill_and_decode_match_reference(runs, combo, name):
         n, same = greedy_agree(lg[b].argmax(-1), jl[b].argmax(-1),
                                margins[b], 2 * diffs[b])
         assert n >= 1 and diffs[b, :same + 1].max() <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("combo", list(W.COMBOS))
+def test_mamba_prefill_and_decode_match_reference(runs, combo):
+    """Reduced ``falcon-mamba-7b`` through ``make_prefill`` and greedy
+    ``make_serve_step`` (two rows a data rank, E / M channels a model
+    rank) against the reference at the same mesh: logits within
+    ``LOGIT_TOL``, greedy tokens by the module's rule, every rank's
+    logits the same bits, each rank's conv and ssm states its rows and
+    channels of the reference's, within ``MAMBA_STATE_TOL`` of their
+    largest."""
+    _, want, got = runs
+    D, Mw, _ = W.COMBOS[combo]
+    cfg = TC.get_reduced(W.MAMBA)
+    key = f"mamba/{combo}"
+    ranks = ranks_of(got, combo)
+    steps = [f"{key}/logits/{j}" for j in range(W.G)]
+    for res in ranks[1:]:
+        for s in steps:
+            np.testing.assert_array_equal(res[s], ranks[0][s])
+    E = cfg.d_inner // Mw
+    for res in ranks:
+        d, m = res["coord"]
+        rows = slice(d * W.SLOTS // D, (d + 1) * W.SLOTS // D)
+        chans = slice(m * E, (m + 1) * E)
+        for c, idx in (("conv", (slice(None), rows, slice(None), chans)),
+                       ("ssm", (slice(None), rows, chans))):
+            whole = want[f"{key}/{c}"]
+            assert res[f"{key}/{c}"].shape == whole[idx].shape, c
+            err = float(np.abs(res[f"{key}/{c}"] - whole[idx]).max())
+            assert err <= MAMBA_STATE_TOL * float(np.abs(whole).max()), \
+                (c, d, m, err)
+    lg = np.stack([ranks[0][s] for s in steps], 1)
+    jl = np.stack([want[s] for s in steps], 1)
+    top = np.sort(jl, -1)
+    margins = top[..., -1] - top[..., -2]
+    diffs = np.abs(lg - jl).max(-1)
+    for b in range(W.SLOTS):
+        n, same = greedy_agree(lg[b].argmax(-1), jl[b].argmax(-1),
+                               margins[b], 2 * diffs[b])
+        assert n >= 1 and diffs[b, :same + 1].max() <= LOGIT_TOL
+
+
+def test_mamba_engine_matches_world1_engine(runs):
+    """The port's Mamba engine at ``2x2`` (two slots a data rank, E / 2
+    channels a model rank) against its world-1 engine on the same
+    requests, by ``tests/test_torch_tp.py``'s rule; every rank's tokens
+    equal."""
+    weights, _, got = runs
+    want = W.TPW.world1_engine(weights, W.MAMBA, W.ENGINE_KW)
+    ranks = ranks_of(got, "2x2")
+    for res in ranks:
+        W.TPW.compare_engine_to_world1(
+            res, "mamba_engine", want, TC.get_reduced(W.MAMBA), 2,
+            W.SLOTS // 2, 2 * LOGIT_TOL)
+        for rid in range(len(W.SHAPES)):
+            np.testing.assert_array_equal(
+                res[f"mamba_engine/{rid}/tokens"],
+                ranks[0][f"mamba_engine/{rid}/tokens"])
 
 
 @pytest.mark.parametrize("prefix", [f"engine/{c}" for c in W.COMBOS]

@@ -17,8 +17,8 @@ without process groups (the sharded path at world 2 is
 * What the slice refuses at world > 1, with the ROADMAP item it waits
   for; what ``launch.train --mesh`` and ``--coordinator`` refuse.
 * ``launch.serve --mesh data=1,model=2 --device cpu``: two rank
-  processes serve reduced granite-moe, and ``--mesh data=1,model=1``
-  serves in-process.
+  processes serve reduced granite-moe and reduced falcon-mamba-7b, and
+  ``--mesh data=1,model=1`` serves in-process.
 * ``make_debug_mesh`` / ``make_production_mesh``: the reference's axis
   names, and the sizes they refuse outside a process group.
 """
@@ -202,9 +202,20 @@ def test_rank_memory_is_its_shards(arch):
     ("internvl2-2b", {"data": 1, "model": 2}, "vision"),
     ("granite-3-2b", {"pod": 2, "data": 2, "model": 1}, "data axis")])
 def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
+    """Encoder and vision configs at world > 1 wait for item 2b, a second
+    data axis for item 3; a Mamba stack is accepted at (data 2, model 1),
+    (1, 2) and (2, 2), in serving and in training."""
     cfg = TC.get_reduced(arch)
+    if what == "Mamba":
+        for shape in ({"data": 2, "model": 1}, {"data": 1, "model": 2},
+                      {"data": 2, "model": 2}):
+            for train in (False, True):
+                Tf.check_supported(cfg, Sh.make_policy(
+                    Me.abstract_mesh(shape), "fsdp_tp"), train=train)
+        return
     policy = Sh.make_policy(Me.abstract_mesh(sizes), "fsdp_tp")
-    with pytest.raises(NotImplementedError, match="Queue 1 item [23]") as e:
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 item (2b|3)") as e:
         Tf.check_supported(cfg, policy)
     assert what.lower() in str(e.value).lower()
     Tf.check_supported(cfg, Sh.make_policy(
@@ -214,13 +225,13 @@ def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
 @pytest.mark.parametrize("flag", ["--mesh", "--coordinator"])
 def test_train_refuses_mesh_and_coordinator(flag, monkeypatch):
     """Both flags train (tests/test_torch_train_mesh.py); they refuse what
-    the sharded path does not run, before any rank starts: a Mamba stack
-    over a mesh, and ``--coordinator`` without the rank's environment
-    (``RANK``, ``WORLD_SIZE``, as torchrun sets them)."""
+    the sharded path does not run, before any rank starts: an enc-dec
+    stack over a mesh, and ``--coordinator`` without the rank's
+    environment (``RANK``, ``WORLD_SIZE``, as torchrun sets them)."""
     if flag == "--mesh":
-        with pytest.raises(NotImplementedError, match="item 2"):
-            Tr.main(["--arch", "falcon-mamba-7b", "--reduced", "--device",
-                     "cpu", flag, "data=1,model=2"])
+        with pytest.raises(NotImplementedError, match="item 2b"):
+            Tr.main(["--arch", "seamless-m4t-large-v2", "--reduced",
+                     "--device", "cpu", flag, "data=1,model=2"])
         return
     for var in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
@@ -229,13 +240,19 @@ def test_train_refuses_mesh_and_coordinator(flag, monkeypatch):
                  "localhost:1"])
 
 
-@pytest.mark.parametrize("mesh", ["data=1,model=2", "data=1,model=1"])
-def test_serve_cli_mesh_on_the_cpu(mesh):
+@pytest.mark.parametrize("arch,mesh", [
+    pytest.param("granite-moe-3b-a800m", "data=1,model=2",
+                 id="data=1,model=2"),
+    pytest.param("granite-moe-3b-a800m", "data=1,model=1",
+                 id="data=1,model=1"),
+    pytest.param("falcon-mamba-7b", "data=1,model=2",
+                 id="falcon-mamba-7b-data=1,model=2")])
+def test_serve_cli_mesh_on_the_cpu(arch, mesh):
     env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
     env["PYTHONPATH"] = os.path.join(REPO, "src")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "granite-moe-3b-a800m", "--reduced", "--device", "cpu",
+         arch, "--reduced", "--device", "cpu",
          "--requests", "6", "--slots", "2", "--prompt-len", "8", "--gen",
          "4", "--mesh", mesh], env=env, capture_output=True, text=True,
         timeout=300)

@@ -27,12 +27,18 @@ writes.
   ``ROUTE_TOL`` relative where every id agrees; the ranks' outputs equal
   bit for bit.
 * ``make_prefill`` + greedy ``make_serve_step`` on reduced
-  ``granite-3-2b``, ``granite-moe-3b-a800m`` and ``granite-3-2b`` with
-  one KV head (each rank holds the KV head its q heads read): logits and
+  ``granite-3-2b``, ``granite-moe-3b-a800m``, ``granite-3-2b`` with
+  one KV head (each rank holds the KV head its q heads read) and
+  ``falcon-mamba-7b`` (each rank its half of the channels E): logits and
   the gathered prefill caches within ``LOGIT_TOL`` (the tolerance of
-  ``tests/test_torch_model.py`` at world 1; measured at most 3.2e-3 here),
-  greedy tokens by that module's rule, the ranks' logits equal bit for
-  bit.  Each rank's caches hold its KV heads (``kv_head_block``).
+  ``tests/test_torch_model.py`` at world 1; measured at most 3.2e-3 here)
+  or, for the Mamba conv and ssm states, within ``MAMBA_STATE_TOL`` of
+  their largest, greedy tokens by that module's rule, the ranks' logits
+  equal bit for bit.  Each rank's caches hold its KV heads
+  (``kv_head_block``) or its E / 2 channels.
+* The port's Mamba engine at world 2 against its world-1 engine on the
+  same requests (the reference's engine runs a Mamba state through a
+  prompt's padding, ROADMAP Queue 3 item 3).
 * Both engines with their policy and a feature store over both ranks on
   the same requests (reduced ``granite-moe-3b-a800m``): the same
   rejections, counts, statuses and features, greedy tokens equal up to
@@ -69,6 +75,7 @@ WORLD = 2
 LIMIT_S = 600
 LOGIT_TOL = 2e-2
 BF16_TOL = 2e-2
+MAMBA_STATE_TOL = 2e-2
 ROUTE_TOL = 1e-5
 
 _spec = importlib.util.spec_from_file_location("torch_tp_conformance",
@@ -219,17 +226,41 @@ def greedy_agree(got, want, margins, tol):
     return n, len(got)
 
 
+# the channel dim of a Mamba stack's caches: conv (L, B, K-1, E), ssm
+# (L, B, E, N)
+CHANNEL_DIM = {"conv": 3, "ssm": 2}
+
+
+def check_mamba_caches(got, want, key, cfg):
+    """Each rank's conv and ssm caches hold its E / WORLD channels, and
+    put together in rank order they are within ``MAMBA_STATE_TOL`` of
+    the reference's largest magnitude (``tests/test_torch_mamba.py``'s
+    rule)."""
+    for c, dim in CHANNEL_DIM.items():
+        per, whole = got[f"{key}/{c}_ranks"], want[f"{key}/{c}"]
+        for r in range(WORLD):
+            assert per[r].shape[dim] == cfg.d_inner // WORLD, (c, r)
+        mine = np.concatenate(list(per), axis=dim)
+        assert mine.shape == whole.shape, (c, mine.shape, whole.shape)
+        err = float(np.abs(mine - whole).max())
+        assert err <= MAMBA_STATE_TOL * float(np.abs(whole).max()), (c, err)
+
+
 @pytest.mark.parametrize("name", list(W.MODELS))
 def test_prefill_and_decode_match_reference(runs, name):
     _, want, got = runs
     key = f"lm/{name}"
     cfg = W.config(TC.get_reduced, name)
-    for c in ("k", "v"):
-        for r, kv in enumerate(got[f"{key}/{c}_ranks"]):
-            h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads, WORLD, r)
-            np.testing.assert_allclose(
-                kv, want[f"{key}/{c}"][:, :, h0:h0 + nh],
-                rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    if TM.has_mamba(cfg):
+        check_mamba_caches(got, want, key, cfg)
+    else:
+        for c in ("k", "v"):
+            for r, kv in enumerate(got[f"{key}/{c}_ranks"]):
+                h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads,
+                                          WORLD, r)
+                np.testing.assert_allclose(
+                    kv, want[f"{key}/{c}"][:, :, h0:h0 + nh],
+                    rtol=LOGIT_TOL, atol=LOGIT_TOL)
     steps = range(W.G)
     lg = np.stack([got[f"{key}/logits/{i}"] for i in steps], 1)
     jl = np.stack([want[f"{key}/logits/{i}"] for i in steps], 1)
@@ -269,6 +300,23 @@ def test_engine_matches_reference_engine(runs):
         compared += greedy_agree(toks, jtoks, margins, 2 * LOGIT_TOL)[0]
     assert compared >= 1
     ranks = got[f"{t}/tokens_ranks"]
+    for r in range(1, WORLD):
+        np.testing.assert_array_equal(ranks[r], ranks[0])
+
+
+def test_mamba_engine_matches_world1_engine(runs):
+    """The port's Mamba engine at world 2 against its world-1 engine on
+    the same requests (which ``tests/test_torch_model.py`` holds to the
+    reference's prefill at the true length): the same rejections, counts,
+    statuses and features, greedy tokens equal up to the first margin
+    below ``2 * LOGIT_TOL`` (world 1's margins), both ranks' tokens equal,
+    each rank's caches of its slots and E / 2 channels."""
+    weights, _, got = runs
+    want = W.world1_engine(weights, W.MAMBA_ENGINE, W.ENGINE_KW)
+    W.compare_engine_to_world1(got, "mamba_engine/torch", want,
+                               TC.get_reduced(W.MAMBA_ENGINE), WORLD,
+                               W.ENGINE_KW["slots"], 2 * LOGIT_TOL)
+    ranks = got["mamba_engine/torch/tokens_ranks"]
     for r in range(1, WORLD):
         np.testing.assert_array_equal(ranks[r], ranks[0])
 

@@ -12,8 +12,9 @@ killed past ``LIMIT_S``.  Both start from the reference's
 one ``make_train_step`` on ``lm_batch_at(0)`` of 2 x 32 tokens.
 
 * One step of reduced ``granite-moe-3b-a800m`` under ``tp`` at capacity
-  factors 5 (no row drops) and 1.25, reduced ``lm100m`` under ``tp`` and
-  reduced ``qwen1.5-110b`` under ``fsdp_tp`` (granite-moe under
+  factors 5 (no row drops) and 1.25, reduced ``lm100m`` under ``tp``,
+  reduced ``qwen1.5-110b`` under ``fsdp_tp`` and reduced
+  ``falcon-mamba-7b`` under both (granite-moe under
   ``fsdp_tp`` at 5 runs in the port only, held to its ``tp`` step and to
   world 1): ``loss``, ``grad_norm`` and ``moe_aux`` against the
   reference's within the tolerances of ``tests/test_torch_lm_train.py``,
@@ -46,6 +47,12 @@ one ``make_train_step`` on ``lm_batch_at(0)`` of 2 x 32 tokens.
   (``param_specs(for_opt=True)``) and equal that slice of the gathered
   moments bit for bit, and within the leaf rule's moment tolerances of
   the same slice of the world-1 step's.
+* The Mamba layout (a model rank holds ``in_proj``'s x and z columns of
+  its channels): at ``2x2`` under both flavors and at ``1x4`` the
+  training state's whole leaves and each rank's slices go through
+  ``StateLayout`` both ways bit for bit, and the data axis's gathers
+  need nothing new; the ``2x2`` Mamba step's checkpoint restores at
+  world 1 in both packages.
 * Checkpoints: a world-1 checkpoint restores at ``data=2, model=2`` into
   each rank's slices bit for bit, and a state saved there restores bit
   for bit; ``launch.train.main --mesh data=2,model=2`` for 4 steps with
@@ -59,8 +66,8 @@ one ``make_train_step`` on ``lm_batch_at(0)`` of 2 x 32 tokens.
 Every run of the module starts in one fixture (:func:`runs`): the
 worker's processes and the coordinator's ranks are started first, and
 the drill runs in this process while they do.
-* What stays refused at world > 1: Mamba, encoder and vision training,
-  and serving at a data axis of more than one rank.
+* What stays refused at world > 1: encoder and vision training (item
+  2b), and a second batch axis of several ranks (item 3).
 """
 import dataclasses
 import importlib.util
@@ -230,7 +237,8 @@ def started(tmp_path_factory):
              for r in range(W.WORLD)]
     return {"step": (flat, dict(np.load(want_path)),
                      dict(np.load(got_path)), ranks),
-            "drill": drill, "coord": tmp / "coord"}
+            "drill": drill, "coord": tmp / "coord",
+            "mamba_ckpt": tmp / "ckpt_mamba"}
 
 
 @pytest.fixture(scope="module")
@@ -520,8 +528,60 @@ def test_zero1_moments_are_2d_slices(runs, world1, name):
                 assert float(np.abs(mine - ref[idx]).max(initial=0)) \
                     <= tol * float(np.abs(ref).max()), (r, what, k)
     # the data axis halves each rank's moments of a 2D-cut leaf
-    m0 = ranks[0][f"{name}/m/layers.attn.wq.w"]
-    assert m0.size * W.WORLD == shapes["layers.attn.wq.w"].size
+    leaf = "layers.mamba.in_proj.w" if arch == W.MAMBA \
+        else "layers.attn.wq.w"
+    m0 = ranks[0][f"{name}/m/{leaf}"]
+    assert m0.size * W.WORLD == shapes[leaf].size
+
+
+@pytest.mark.parametrize("label", [label for label, _, _ in W.LAYOUTS])
+def test_mamba_layout_round_trip(runs, label):
+    """Reduced falcon-mamba-7b's training state at ``2x2`` under both
+    flavors and at ``1x4``: ``StateLayout.whole`` of every rank's slices
+    gives back each whole leaf bit for bit (``in_proj`` in the
+    reference's ``[x | z]`` order), ``StateLayout.local`` of the whole
+    leaves gives each rank's slices bit for bit, and the data axis's
+    gathers (``gather_data``, ``Zero1.local``, ``Zero1.whole``) take
+    ``in_proj``'s per-part model cut as it is (the worker's
+    ``layout_cases``)."""
+    _, _, got, _ = runs
+    for check in ("whole", "local", "gather_data", "zero1"):
+        ok = got[f"layout/{label}/{check}"]
+        assert len(ok) == W.WORLD and ok.all(), (check, ok)
+
+
+def test_mamba_mesh_checkpoint_restores_at_world1_in_both_packages(
+        started):
+    """The checkpoint reduced falcon-mamba-7b's ranks wrote after their
+    ``tp`` step at ``2x2`` holds whole leaves: the port and the reference
+    restore it at world 1, each to the arrays on disk bit for bit, and
+    its parameters and moments are the step's, gathered by
+    ``StateLayout`` (which ``test_step_matches_reference`` holds to the
+    reference's step)."""
+    _, _, got, _ = started["step"]
+    d = str(started["mamba_ckpt"])
+    name = f"{W.MAMBA}/tp"
+    arrays = _arrays(os.path.join(d, "step_1"))
+    cfg = TC.get_reduced(W.MAMBA)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            master=True)
+    template = (params, TA.init(TA.flatten_params(params), TA.AdamWConfig()))
+    step, (new, opt) = Ck.restore(d, template)
+    assert step == 1
+    assert _bits_equal([t.numpy() for t in Ck.tree_leaves((new, opt))],
+                       arrays)
+    for k, v in TA.flatten_params(new).items():
+        np.testing.assert_array_equal(v.numpy(), got[f"{name}/new/{k}"])
+    for what in ("m", "v"):
+        for k, v in opt[what].items():
+            np.testing.assert_array_equal(v.numpy(),
+                                          got[f"{name}/{what}/{k}"])
+    jparams = JM.init_params(jax.random.PRNGKey(0), JC.get_reduced(W.MAMBA))
+    step, jstate = JCk.restore(d, (jparams, JA.init(jparams,
+                                                    JA.AdamWConfig())))
+    assert step == 1
+    assert _bits_equal([np.asarray(a) for a in
+                        jax.tree_util.tree_leaves(jstate)], arrays)
 
 
 def test_world1_checkpoint_restores_at_mesh(runs):
@@ -594,13 +654,28 @@ def test_train_coordinator_matches_mesh(started):
                                        ("seamless-m4t-large-v2", "encoder"),
                                        ("internvl2-2b", "vision")])
 def test_world_gt1_training_refuses_the_next_slice(arch, what):
+    """Encoder and vision configs at world > 1 wait for ROADMAP Queue 1
+    item 2b, in training and in ``launch.train --mesh``; a Mamba stack
+    is accepted at (data 2, model 1), (1, 2) and (2, 2), in serving and
+    in training (its step is held to the reference by
+    :func:`test_step_matches_reference`)."""
     cfg = TC.get_reduced(arch)
-    for shape in ({"data": 2, "model": 1}, {"data": 1, "model": 2}):
+    shapes = ({"data": 2, "model": 1}, {"data": 1, "model": 2},
+              {"data": 2, "model": 2})
+    if what == "Mamba":
+        for shape in shapes:
+            policy = Sh.make_policy(Me.abstract_mesh(shape))
+            for train in (False, True):
+                Tf.check_supported(cfg, policy, train=train)
+            TM.make_train_step(cfg, policy, TA.AdamWConfig())
+            TM.make_prefill(cfg, policy, decode_len=8)
+        return
+    for shape in shapes[:2]:
         policy = Sh.make_policy(Me.abstract_mesh(shape))
-        with pytest.raises(NotImplementedError, match="item 2") as e:
+        with pytest.raises(NotImplementedError, match="item 2b") as e:
             Tf.check_supported(cfg, policy, train=True)
         assert what.lower() in str(e.value).lower()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 2b"):
         Tr.main(["--arch", arch, "--reduced", "--device", "cpu", "--mesh",
                  "data=2,model=1"])
 

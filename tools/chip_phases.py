@@ -1,18 +1,24 @@
-"""Run some of ``chip_smoke.py``'s MoE phases alone on one CUDA card, at
-depths other than the script's.
+"""Run some of ``chip_smoke.py``'s mesh and MoE phases alone on one CUDA
+card, at depths other than the script's.
 
     python3 tools/chip_phases.py serving_moe_dp2 moe_train \\
         [--dp-layers 8] [--tp-layers 4] [--moe-train-layers 12]
+    python3 tools/chip_phases.py serving_mamba_tp2 [--mamba-tp-layers 8]
 
 Each phase is ``chip_smoke.py``'s own function with every check of it:
 ``serving_moe_dp2`` and ``serving_moe_tp2`` (``run_serving_mesh``: the
 rank processes on the card, then their dispatch plans and first flash
-inputs held to the plain versions) and ``moe_train`` (``run_moe_train``:
+inputs held to the plain versions), ``moe_train`` (``run_moe_train``:
 the step that writes AdamW's state in place, and one that keeps the old
-state, with their peaks).  The kernels are built from this checkout's
-sources first.  Prints the card's name and power limit, then the phases'
-records as ``chip_smoke.py`` prints them, and the seconds each phase
-took.  Exits non-zero without a CUDA device or when a phase fails.
+state, with their peaks) and ``serving_mamba_tp2`` (``mamba_train`` and
+``serving_mamba`` at world 1, whose records the world-2 legs are held
+to, then ``run_mamba_tp2``: ``serving_mamba_tp2`` and
+``mamba_train_tp2`` in two rank processes, and case (j) of
+``mamba_scan`` held to the plain scan and timed; ``--mamba-tp-layers``
+sets the depth of both serving legs).  The kernels are built from this
+checkout's sources first.  Prints the card's name and power limit, then
+the phases' records as ``chip_smoke.py`` prints them, and the seconds
+each phase took.  Exits non-zero without a CUDA device or when a phase fails.
 
 The depths are set when this module is imported: a mesh phase's rank
 processes import it again (the ``spawn`` start method) with the same
@@ -29,7 +35,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as C  # noqa: E402
 
-PHASES = ("serving_moe_dp2", "serving_moe_tp2", "moe_train")
+PHASES = ("serving_moe_dp2", "serving_moe_tp2", "moe_train",
+          "serving_mamba_tp2")
 
 
 def parse_args(argv):
@@ -39,6 +46,8 @@ def parse_args(argv):
     ap.add_argument("--tp-layers", type=int, default=C.TP_LAYERS)
     ap.add_argument("--moe-train-layers", type=int,
                     default=C.MOE_TRAIN_LAYERS)
+    ap.add_argument("--mamba-tp-layers", type=int,
+                    default=C.SERVE_LAYERS[C.MAMBA_ARCH])
     return ap.parse_args(argv)
 
 
@@ -47,6 +56,29 @@ C.MESH_SERVE = {
     "serving_moe_tp2": (C.MESH_SERVE["serving_moe_tp2"][0], ARGS.tp_layers),
     "serving_moe_dp2": (C.MESH_SERVE["serving_moe_dp2"][0], ARGS.dp_layers)}
 C.MOE_TRAIN_LAYERS = ARGS.moe_train_layers
+C.SERVE_LAYERS = dict(C.SERVE_LAYERS, **{C.MAMBA_ARCH: ARGS.mamba_tp_layers})
+
+
+def mamba_tp2(m, device, name, tmp: Path) -> None:
+    """The world-1 Mamba legs that record what the world-2 ones are held
+    to, the world-2 legs, then case (j) held to the plain scan and
+    timed, as ``chip_smoke.py``'s timing phase times it."""
+    C.run_mamba_train(m, device, name, tmp)
+    C.run_serving_mamba(m, device, C.serve_config(m, C.MAMBA_ARCH),
+                        record=tmp / C.MAMBA_WORLD1)
+    _, cases = C.run_mamba_tp2(m, device, tmp)
+    C.compare_kernels(m, cases, device)
+    for case in cases["mamba_scan"]:
+        args = case["args"]
+        C.emit({"phase": "kernel_timing", "name": "mamba_scan",
+                "shape": case["shape"], "card": name,
+                "ms": C.event_ms(lambda: C._kernel(m, "mamba_scan", args)),
+                "kernel_ms": C.port_kernel_ms(
+                    lambda: C._kernel(m, "mamba_scan", args))[0],
+                "plain_ms": C.event_ms(
+                    lambda: C._plain(m, "mamba_scan", args), reps=3),
+                "bound_ms": C.bound("mamba_scan", args)[0],
+                "library_ms": None})
 
 
 def main() -> int:
@@ -63,6 +95,8 @@ def main() -> int:
             t0 = time.perf_counter()
             if phase == "moe_train":
                 C.run_moe_train(m, device, name)
+            elif phase == "serving_mamba_tp2":
+                mamba_tp2(m, device, name, Path(tmp))
             else:
                 _, cases = C.run_serving_mesh(m, device, Path(tmp), phase)
                 C.compare_kernels(m, cases, device)
