@@ -239,14 +239,17 @@ Phases, each fatal on failure:
    checkpoint (whole leaves) restores at world 1 in this process to the
    same bits;
 11e. the enc-dec and vision stacks (``serving_seamless``,
-   ``serving_internvl``): SeamlessM4T-Large-v2 (24 encoder and 24
+   ``serving_internvl``; with ``seamless_train`` run after phase 11c and
+   before ``serving_moe_tp2``'s ranks start, each writing the record
+   that phase 11g holds its leg at world 2 to): SeamlessM4T-Large-v2
+   (24 encoder and 24
    decoder layers, d_model 1024, 16 heads, gelu MLP 8192, vocab 256206
    padded to 256256, untied; 1.63 B parameters) and InternVL2-2B (24
    layers, d_model 2048, 16 q / 8 KV heads of 128, vocab 92553; 1.89 B)
    at their published widths and depth, random weights from
    ``torch.Generator`` seed 0, served through ``make_prefill`` +
    ``make_serve_step`` (the reference's entry points for these
-   families; its engine serves decoder-only configs): 4 one-shot
+   families; its engine serves decoder-only configs): 3 one-shot
    batches of 8 requests of 1024 tokens with 256 float frames (Seamless)
    or 256 float patch embeddings in front (InternVL; its decode starts
    at position 1280), from ``default_rng(0)``, 32 greedy tokens each.
@@ -267,6 +270,40 @@ Phases, each fatal on failure:
    steps on one 2 x 1024 batch of ``lm_batch_at(0)`` with its frames
    or patch embeddings, repeated, whose loss must fall; step ms, peak
    memory, a profile.  No kernel runs here;
+11g. the enc-dec and vision stacks at world 2, in ``serving_moe_tp2``'s
+   two rank processes after the Mamba legs (``ENCDEC_TP_LEGS``), each
+   rank under ``make_policy(mesh, "fsdp_tp")`` at data=1 x model=2
+   holding its slices of the seed-0 weights: ``serving_seamless_tp2``
+   (SeamlessM4T at full width and depth: 8 of the 16 heads of every
+   attention, the encoder's, the decoder's and the cross-attention's,
+   half the gelu MLP and of the vocabulary; 1.63 GB) and
+   ``serving_internvl_tp2`` (InternVL2-2B: 8 q / 4 KV heads, half the
+   SwiGLU MLP; 1.89 GB) each serve ``serving_seamless``'s /
+   ``serving_internvl``'s first batch (8 x 1024 tokens with their frames
+   or patch embeddings) through ``make_prefill`` + ``make_serve_step``,
+   ONESHOT_TP_GEN (8) greedy tokens.  Checked on each rank:
+   ``flash_attention`` exactly 72 or 24 launches a prefill and nothing
+   else, each leaf the rank's slice, caches k / v (24, 8, 8, 1032, 64)
+   and ck / cv (24, 8, 8, 256, 64) (Seamless) or k / v (24, 8, 4, 1288,
+   128) (InternVL2); against the world-1 leg's record (phases 11e and
+   11f run before these ranks start and write it): the prefill logits
+   within ``SERVE_LOGIT_TOL``, row 0's ck / cv (Seamless) or prefilled
+   k / v (InternVL2) of the first and last layer, gathered over the two
+   ranks, within ``CACHE_TOL`` of each layer's largest or twice what
+   plain attention moved them at world 1, greedy tokens by
+   ``greedy_agree``; the twin ``<leg>_xla``, the same
+   prefill on plain attention, its logits within ``SERVE_LOGIT_TOL`` of
+   the kernel run's; both ranks' tokens equal.
+   ``seamless_train_tp2``: ``seamless_train``'s config and seed-0
+   masters under ``tp``, SEAMLESS_TP_TRAIN_STEPS (1) step on its 2 x
+   1024 batch with frames; the first step's loss and grad norm within
+   2e-3 and 2e-2 of ``seamless_train``'s first step; both ranks' losses
+   equal.  Then rank 0's first InternVL2 flash call, case (n) (q (8, 8,
+   1280, 128) on 4 KV heads), and first Seamless cross-attention call,
+   case (o) (q (8, 8, 1024, 64), kv (8, 8, 256, 64)), held to
+   ``attention_ref`` within ``FLASH_TOL`` and timed beside SDPA.  Prefill
+   and decode-step ms, tokens/s, step ms, each rank's weight bytes and
+   peak, a profile;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time per call and the summed
    profiler device time of the port's kernels that call launches (two or
@@ -324,7 +361,10 @@ SERVE_QUEUE, SERVE_REQUESTS = 64, 32
 # engine serves decoder-only configs alone
 SEAMLESS_ARCH = "seamless-m4t-large-v2"
 INTERNVL_ARCH = "internvl2-2b"
-ONESHOT_BATCHES, ONESHOT_ROWS, ONESHOT_PROMPT, ONESHOT_GEN = 4, 8, 1024, 32
+# 3 batches, not 4: with the legs at world 2 the script took 1 187 s of
+# its 1 200 (H100 80GB HBM3, 700 W), and this was the last of the cuts
+# the slice allows (a batch is ~2 s; the legs' set-up dominates)
+ONESHOT_BATCHES, ONESHOT_ROWS, ONESHOT_PROMPT, ONESHOT_GEN = 3, 8, 1024, 32
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
 BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
@@ -3488,10 +3528,33 @@ TP_TWIN_REQUESTS = 4
 # it: Falcon-Mamba-7B served at serving_mamba's depth and held to its
 # record, and trained at mamba_train's config for MAMBA_TP_TRAIN_STEPS
 # steps, its first held to mamba_train's first
-MAMBA_TP_MESH = {"data": 1, "model": 2}
+TP2_MESH = {"data": 1, "model": 2}
 MAMBA_TP_LEGS = ("serving_mamba_tp2", "mamba_train_tp2")
 MAMBA_TP_TRAIN_STEPS = 2
 MAMBA_WORLD1 = "serving_mamba_world1.pt"
+# the enc-dec and vision legs at world 2, run by the same rank processes
+# after the Mamba legs: SeamlessM4T-Large-v2 and InternVL2-2B served at
+# full width and depth on the first one-shot batch (ONESHOT_TP_GEN greedy
+# tokens), held to their world-1 legs' records, and Seamless trained at
+# full size for SEAMLESS_TP_TRAIN_STEPS steps, its first held to
+# seamless_train's first.  8 tokens and 1 step, not 32 and 2: with them
+# the script took 1 187 s of its 1 200 (the legs 157 s; H100 80GB HBM3,
+# 700 W)
+ENCDEC_TP_LEGS = ("serving_seamless_tp2", "serving_internvl_tp2",
+                  "seamless_train_tp2")
+ONESHOT_TP = {"serving_seamless_tp2": (SEAMLESS_ARCH, "serving_seamless"),
+              "serving_internvl_tp2": (INTERNVL_ARCH, "serving_internvl")}
+ONESHOT_TP_GEN = 8
+SEAMLESS_TP_TRAIN_STEPS = 1
+SEAMLESS_TRAIN_WORLD1 = "seamless_train_world1.json"
+# row 0's gathered caches of a layer against world 1's: the largest
+# difference within CACHE_TOL of the largest |want| (the CPU tests hold
+# the caches at (1, 2), (2, 1) and (2, 2) to the reference within 2e-2),
+# or within twice what plain attention's other roundings move that
+# layer's caches at world 1 (the world-1 leg's twin): 24 random-weight
+# layers amplify one rounding's difference, and a model rank's partial
+# products are rounded before their sum
+CACHE_TOL = 2e-2
 
 
 class DispatchLog:
@@ -3576,14 +3639,15 @@ def mesh_rank(rank, world, store, tmp, legs):
     ``legs`` :func:`serve_mesh` (a leg of ``MESH_SERVE``),
     :func:`serve_mamba_mesh` or :func:`mamba_train_mesh`; writes each
     leg's record to ``tmp/<leg>_rank<r>.json`` (and rank 0 the kernel
-    inputs to ``tmp/<leg>_cases.pt``)."""
+    inputs to ``tmp/<leg>_cases.pt``); the legs of ``ENCDEC_TP_LEGS`` by
+    :func:`serve_oneshot_mesh` and :func:`seamless_train_mesh`."""
     m = _modules()
     device = m["serve"].rank_device(rank, world)
     m["Me"].init_rank(rank, world, store, device, timeout_s=600)
     tmp = Path(tmp)
     try:
         shape = MESH_SERVE[legs[0]][0] if legs[0] in MESH_SERVE \
-            else MAMBA_TP_MESH
+            else TP2_MESH
         mesh = m["Me"].make_mesh(shape)
         for leg in legs:
             t0 = time.perf_counter()
@@ -3595,6 +3659,13 @@ def mesh_rank(rank, world, store, tmp, legs):
             elif leg == "serving_mamba_tp2":
                 record, cases = serve_mamba_mesh(
                     m, device, m["Sh"].make_policy(mesh, "fsdp_tp"), tmp)
+            elif leg in ONESHOT_TP:
+                record, cases = serve_oneshot_mesh(
+                    m, device, m["Sh"].make_policy(mesh, "fsdp_tp"), leg,
+                    tmp)
+            elif leg == "seamless_train_tp2":
+                record = seamless_train_mesh(
+                    m, device, m["Sh"].make_policy(mesh, "tp"), tmp)
             else:
                 record = mamba_train_mesh(
                     m, device, m["Sh"].make_policy(mesh, "tp"), tmp)
@@ -3901,9 +3972,9 @@ def run_serving_mesh(m, device, tmpdir: Path, leg, then=()):
     that fails fails the phase, and so do ranks whose tokens differ.
     Then the first prefill's dispatch plans (one a layer) and one decode
     plan against the plain ranks, and the first flash call's q, k, v.
-    ``then``: the legs of ``MAMBA_TP_LEGS`` the same rank processes run
-    after it (:func:`mamba_tp2_results`).  Returns (legs, kernel
-    cases)."""
+    ``then``: the legs of ``MAMBA_TP_LEGS`` and ``ENCDEC_TP_LEGS`` the
+    same rank processes run after it (:func:`mamba_tp2_results`,
+    :func:`encdec_tp2_results`).  Returns (legs, kernel cases)."""
     mesh = MESH_SERVE[leg][0]
     world = math.prod(mesh.values())
     torch.save(mesh_world1(m, device, leg), tmpdir / f"{leg}_world1.pt")
@@ -3939,10 +4010,14 @@ def run_serving_mesh(m, device, tmpdir: Path, leg, then=()):
         a.to(device) if isinstance(a, torch.Tensor) else a
         for a in cases["flash"]))
     out = {"hash_partition": plans, "flash_attention": [flash]}
-    if then:
+    if set(MAMBA_TP_LEGS) & set(then):
         mamba_legs, mamba_cases = mamba_tp2_results(m, device, tmpdir)
         legs.update(mamba_legs)
         out.update(mamba_cases)
+    if set(ENCDEC_TP_LEGS) & set(then):
+        encdec_legs, encdec_cases = encdec_tp2_results(m, device, tmpdir)
+        legs.update(encdec_legs)
+        out["flash_attention"] += encdec_cases["flash_attention"]
     return legs, out
 
 
@@ -4217,6 +4292,273 @@ def run_mamba_tp2(m, device, tmpdir: Path):
     return mamba_tp2_results(m, device, tmpdir)
 
 
+def serve_oneshot_mesh(m, device, policy, leg, tmp: Path):
+    """A one-shot leg of ``ONESHOT_TP`` on this rank: its world-1 leg's
+    model at full width and depth (seed 0, this rank's slices under
+    ``policy``) on that leg's first batch through ``make_prefill`` +
+    ``make_serve_step``, ONESHOT_TP_GEN greedy tokens, counted
+    (flash_attention exactly :func:`flash_per_prefill`) and timed; each
+    rank's caches its rows and KV heads; held to the world-1 record
+    (``tmp/<leg>_world1.pt``): the prefill logits within SERVE_LOGIT_TOL,
+    row 0's caches gathered over the model group within CACHE_TOL, the
+    greedy tokens by :func:`greedy_agree`; then the same prefill on plain
+    attention, its logits within SERVE_LOGIT_TOL of the kernel run's.
+    Returns (this rank's record, the q, k, v and causal flag of the
+    prefill's first flash call (vision) or first cross-attention call
+    (enc-dec))."""
+    M, serve, ops, Sh = m["M"], m["serve"], m["ops"], m["Sh"]
+    arch, w1_leg = ONESHOT_TP[leg]
+    cfg = m["get_config"](arch)
+    rank = torch.distributed.get_rank()
+    t0 = time.perf_counter()
+    w1 = torch.load(tmp / f"{w1_leg}_world1.pt")
+    params = serve.sharded_params(cfg, device, 0, policy)
+    _free(device)
+    _sync(device)
+    check_held(m, leg, params, policy, w1["shapes"])
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    batch = oneshot_batches(cfg, 1, ONESHOT_ROWS, ONESHOT_PROMPT, device)[0]
+    gen, P = ONESHOT_TP_GEN, prefix_len(cfg)
+    decode_len = P + ONESHOT_PROMPT + gen
+    prefill = M.make_prefill(cfg, policy, decode_len=decode_len)
+    step = M.make_serve_step(cfg, policy)
+    pick = cfg.encoder_layers + 1 if cfg.is_encdec else 0
+    _sync(device)
+    resident = _allocated(device)
+    _reset_peak(device)
+    recorded = []
+
+    def drive():
+        t0 = time.perf_counter()
+        with recording(ops["flash_attention"], "flash_attention", recorded,
+                       picks={pick}):
+            run = greedy_run(cfg, params, batch, prefill, step, gen)
+        _sync(device)
+        return run, time.perf_counter() - t0
+
+    spent = {"init_s": time.perf_counter() - t0}
+    (run, seconds), launches = counted_run(m, drive, device)
+    spent["drive_s"] = seconds
+    t0 = time.perf_counter()
+    peak = _peak(device) - resident
+    expect_launches(leg, launches,
+                    {"flash_attention": flash_per_prefill(cfg)})
+    rows = Sh.batch_block(policy, ONESHOT_ROWS)
+    kv = (cfg.n_layers, rows.stop - rows.start,
+          Sh.local_kv_heads(cfg, policy))
+    want = {"k": kv + (decode_len, cfg.d_head),
+            "v": kv + (decode_len, cfg.d_head)}
+    if cfg.is_encdec:
+        frames = ONESHOT_PROMPT // cfg.enc_len_ratio
+        want.update(ck=kv + (frames, cfg.d_head), cv=kv + (frames, cfg.d_head))
+    shapes = {k: tuple(v.shape) for k, v in run["caches"].items()}
+    if shapes != want:
+        raise AssertionError(f"{leg}: caches {shapes}, expected {want}")
+
+    # against world 1: the prefill logits, row 0's caches gathered over
+    # the model ranks' heads (each layer's its largest from world 1's, and
+    # the tolerance: CACHE_TOL, or twice how far plain attention moved
+    # them at world 1), the greedy tokens; every check made before any
+    # fails
+    vs_world1 = float((run["prefill_logits"]
+                       - w1["prefill_logits"]).abs().max())
+    cache_err, cache_tol, failed = {}, {}, []
+    for c, mine in record_caches(cfg, run["caches"],
+                                 P + ONESHOT_PROMPT).items():
+        whole = torch.cat(m["all_gather"](mine.to(device).contiguous(),
+                                          policy.model_group), dim=1).cpu()
+        ref = w1["caches"][c]
+        top = ref.abs().amax(dim=(1, 2, 3))
+        cache_err[c] = ((whole - ref).abs().amax(dim=(1, 2, 3))
+                        / top).tolist()
+        cache_tol[c] = (2 * (w1["xla_caches"][c] - ref).abs().amax(
+            dim=(1, 2, 3)) / top).clamp(min=CACHE_TOL).tolist()
+        if any(e > t for e, t in zip(cache_err[c], cache_tol[c])):
+            failed.append(f"row 0's {c} (first, last layer) {cache_err[c]} "
+                          f"of their largest from world 1's, tolerance "
+                          f"{cache_tol[c]}")
+    if vs_world1 > SERVE_LOGIT_TOL:
+        failed.append(f"prefill logits {vs_world1} from world 1's > "
+                      f"{SERVE_LOGIT_TOL}")
+    try:
+        w1_compared = sum(greedy_agree(
+            run["tokens"][i], w1["tokens"][i, :gen].numpy(),
+            w1["margins"][i, :gen].numpy(), SERVE_LOGIT_TOL)
+            for i in range(ONESHOT_ROWS))
+    except AssertionError as e:
+        failed.append(f"greedy tokens: {e}")
+        w1_compared = None
+    if failed:
+        raise AssertionError(f"{leg}: " + "; ".join(failed) + f" (world 1's "
+                             f"plain-attention twin: logits "
+                             f"{w1['xla_logit_diff']})")
+
+    # the twin: the same prefill on plain attention
+    xprefill = M.make_prefill(cfg, policy, decode_len=decode_len,
+                              attn_impl="xla")
+    xlogits, xlaunches = counted_run(
+        m, lambda: xprefill(params, batch)[0].float().cpu(), device)
+    expect_launches(f"{leg}_xla", xlaunches, {})
+    twin = float((xlogits - run["prefill_logits"]).abs().max())
+    if twin > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: the plain twin's prefill logits differ "
+                             f"from the kernel run's by {twin} > "
+                             f"{SERVE_LOGIT_TOL}")
+    del xlogits, xprefill
+
+    # a prefill and a decode step by events (the greedy run warmed both),
+    # then one each profiled, on both ranks at once (their collectives
+    # pair up)
+    spent["checks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    caches = run.pop("caches")
+    toks = torch.zeros((ONESHOT_ROWS, 1), dtype=torch.int32, device=device)
+    last = decode_len - 1
+    prefill_ms = event_ms(lambda: prefill(params, batch), reps=1, warm=False)
+    step_ms = event_ms(lambda: step(params, caches, toks, last), reps=3,
+                       warm=False)
+    spent["event_timing_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_tp2({
+        "prefill": lambda: prefill(params, batch),
+        "decode_4_steps": lambda: [step(params, caches, toks, last)
+                                   for _ in range(4)]},
+        device, rank, warm=False)
+    spent["profile_s"] = time.perf_counter() - t0
+    tokens = ONESHOT_ROWS * gen
+    record = {
+        "phase": leg, "rank": rank, "coord": policy.mesh.coord,
+        "mesh": policy.mesh.shape, "arch": cfg.name,
+        "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+        "rows": ONESHOT_ROWS, "prompt": ONESHOT_PROMPT, "prefix": P,
+        "gen": gen, "device": str(device),
+        "backend": torch.distributed.get_backend(), "seconds": seconds,
+        "tokens": tokens, "tokens_per_s": tokens / seconds,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "weight_bytes": weight_bytes, "resident_bytes": resident,
+        "peak_bytes_above_resident": peak, "cache_shapes": shapes,
+        "launches": launches, "xla_launches": xlaunches,
+        "flash_per_prefill": flash_per_prefill(cfg),
+        "logit_diff_vs_world1": vs_world1,
+        "cache_diff_over_max_vs_world1": cache_err,
+        "cache_tol_first_last_layer": cache_tol,
+        "world1_xla_logit_diff": w1["xla_logit_diff"],
+        "world1_tokens_compared": w1_compared,
+        "logit_tol": SERVE_LOGIT_TOL, "cache_tol": CACHE_TOL,
+        "twin_prefill_logit_diff_max": twin, "profile": prof,
+        "spent": spent, "out_tokens": run["tokens"].tolist()}
+    case = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in recorded[0])
+    del params, caches, prefill, step, run, batch
+    return record, case
+
+
+def seamless_train_mesh(m, device, policy, tmp: Path) -> dict:
+    """``seamless_train_tp2`` on this rank: ``seamless_train``'s config
+    (SeamlessM4T-Large-v2 at full width and depth) and seed-0 masters,
+    this rank's slices of them under ``policy`` (ZeRO-1 moments, AdamW
+    in place), SEAMLESS_TP_TRAIN_STEPS steps on its batch; the first
+    step's loss and grad norm within LM_LOSS_RTOL and LM_GNORM_RTOL (the
+    CPU tests' LOSS_RTOL and GNORM_RTOL for a mesh step against world 1)
+    of ``seamless_train``'s (``tmp / SEAMLESS_TRAIN_WORLD1``).  Returns
+    this rank's record."""
+    M, A, Sh = m["M"], m["Aw"], m["Sh"]
+    leg = "seamless_train_tp2"
+    w1 = json.loads((tmp / SEAMLESS_TRAIN_WORLD1).read_text())
+    cfg = m["get_config"](SEAMLESS_ARCH)
+    params = Sh.shard_params(M.init_params(
+        torch.Generator(device).manual_seed(0), cfg, master=True), policy,
+        cfg=cfg)
+    _free(device)
+    flat = A.flatten_params(params)
+    opt_cfg = frontend_opt(m)
+    zero = Sh.Zero1(policy, flat)
+    opt = A.init({k: zero.local(k, p) for k, p in flat.items()}, opt_cfg)
+    step = M.make_train_step(cfg, policy, opt_cfg, donate=True)
+    batch = Sh.shard_batch(frontend_train_batch(m, cfg, device), policy)
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    norms = []
+    (params, opt, losses, ms), launches = counted_run(
+        m, lambda: timed_steps(step, params, opt,
+                               [batch] * SEAMLESS_TP_TRAIN_STEPS,
+                               norms=norms), device)
+    expect_launches(leg, launches, {})
+    peak = _peak(device) - resident
+    errs = {"loss": rel_err(losses[0], w1["loss"]),
+            "grad_norm": rel_err(norms[0], w1["grad_norm"])}
+    if errs["loss"] > LM_LOSS_RTOL or errs["grad_norm"] > LM_GNORM_RTOL:
+        raise AssertionError(f"{leg}: first step {losses[0]} / {norms[0]} "
+                             f"against world 1's {w1}: {errs}")
+    rows = next(iter(batch.values())).shape[0]
+    record = {"phase": leg, "rank": torch.distributed.get_rank(),
+              "coord": policy.mesh.coord, "mesh": policy.mesh.shape,
+              "flavor": policy.flavor, "arch": cfg.name,
+              "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+              "batch": rows, "seq": FRONTEND_TRAIN_SEQ,
+              "steps": SEAMLESS_TP_TRAIN_STEPS, "step_ms": ms,
+              "tokens_per_s": rows * FRONTEND_TRAIN_SEQ / ms[-1] * 1e3,
+              "losses": losses, "grad_norms": norms, "world1": w1,
+              "rel_err": errs, "loss_tol": LM_LOSS_RTOL,
+              "grad_norm_tol": LM_GNORM_RTOL, "launches": launches,
+              "master_bytes": sum(t.numel() * t.element_size()
+                                  for t in A.flatten_params(params).values()),
+              "resident_bytes": resident, "peak_bytes_above_resident": peak}
+    del params, opt, batch, step
+    return record
+
+
+def encdec_tp2_results(m, device, tmpdir: Path):
+    """The enc-dec and vision legs' records of both ranks
+    (``ENCDEC_TP_LEGS``): the ranks' tokens and losses equal; emitted as
+    phases.  Returns (legs, {"flash_attention": [cases (n), (o)]})."""
+    recs = {leg: [json.loads((tmpdir / f"{leg}_rank{r}.json").read_text())
+                  for r in range(2)] for leg in ENCDEC_TP_LEGS}
+    for leg in ONESHOT_TP:
+        if any(r["out_tokens"] != recs[leg][0]["out_tokens"]
+               for r in recs[leg]):
+            raise AssertionError(f"{leg}: the ranks' tokens differ")
+        for r in recs[leg]:
+            r.pop("out_tokens")
+    train = recs["seamless_train_tp2"]
+    if any(r["losses"] != train[0]["losses"] for r in train):
+        raise AssertionError("seamless_train_tp2: the ranks' losses differ")
+    for leg, ranks in recs.items():
+        emit({"phase": leg, "leg_s": max(r["leg_s"] for r in ranks),
+              "ranks": ranks})
+
+    def summed(key, ranks):
+        return {k: sum(r[key][k] for r in ranks) for k in ranks[0][key]}
+
+    legs = {"seamless_train_tp2": dict(
+        rows=SEAMLESS_TP_TRAIN_STEPS * FRONTEND_TRAIN_BATCH,
+        launches=summed("launches", train))}
+    for leg in ONESHOT_TP:
+        legs[leg] = dict(rows=ONESHOT_ROWS,
+                         launches=summed("launches", recs[leg]))
+        legs[f"{leg}_xla"] = dict(rows=ONESHOT_ROWS,
+                                  launches=summed("xla_launches", recs[leg]))
+    cases = []
+    for label, leg in (("(n) serving_internvl_tp2", "serving_internvl_tp2"),
+                       ("(o) serving_seamless_tp2 cross",
+                        "serving_seamless_tp2")):
+        cases.append(recorded_flash_case(label, tuple(
+            a.to(device) if isinstance(a, torch.Tensor) else a
+            for a in torch.load(tmpdir / f"{leg}_cases.pt"))))
+    return legs, {"flash_attention": cases}
+
+
+def run_encdec_tp2(m, device, tmpdir: Path):
+    """The enc-dec and vision legs at world 2 alone
+    (``tools/chip_phases.py``): two rank processes for
+    ``ENCDEC_TP_LEGS``; the world-1 records must be in ``tmpdir``.
+    Returns (legs, kernel cases)."""
+    m["serve"].spawn(2, mesh_rank, (str(tmpdir), ENCDEC_TP_LEGS),
+                     timeout_s=900)
+    return encdec_tp2_results(m, device, tmpdir)
+
+
 def with_sdpa(case):
     """Where Sq == Skv or without the mask the case's library call is
     ``scaled_dot_product_attention`` (its causal mask is top-left, so
@@ -4364,9 +4706,30 @@ def teacher_forced(M, cfg, params, batch, run, gen) -> float:
     return worst
 
 
+def oneshot_batches(cfg, batches, rows, prompt, device) -> list:
+    """The one-shot legs' batches: ``rows`` x ``prompt`` tokens each with
+    the config's frames or patch embeddings, drawn in turn from
+    ``default_rng(0)`` (the first batch is the same for any count)."""
+    rng = np.random.default_rng(0)
+    return [{k: torch.from_numpy(v).to(device) for k, v in dict(
+        tokens=rng.integers(0, cfg.vocab, (rows, prompt)).astype(np.int32),
+        **frontend_inputs(cfg, rows, prompt, rng)).items()}
+        for _ in range(batches)]
+
+
+def record_caches(cfg, caches, n) -> dict:
+    """Row 0's caches of the first and the last layer, float32 on the
+    host: an enc-dec config's ``ck``/``cv`` (the encoder memory), else
+    ``k``/``v`` at the ``n`` prefilled positions."""
+    if cfg.is_encdec:
+        return {c: caches[c][[0, -1], 0].float().cpu() for c in ("ck", "cv")}
+    return {c: caches[c][[0, -1], 0, :, :n].float().cpu() for c in ("k", "v")}
+
+
 def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
                         rows=ONESHOT_ROWS, prompt=ONESHOT_PROMPT,
-                        gen=ONESHOT_GEN, attn_impl=None, picks=(0,)):
+                        gen=ONESHOT_GEN, attn_impl=None, picks=(0,),
+                        record=None):
     """Serve ``batches`` one-shot batches of ``rows`` requests (``prompt``
     tokens each, with the config's frames or patch embeddings from
     ``default_rng(0)``) through ``make_prefill`` + ``make_serve_step``,
@@ -4378,8 +4741,11 @@ def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
     logits against the full forward, within SERVE_LOGIT_TOL), prefill
     and decode-step ms by CUDA events, and a profile of the prefill (an
     enc-dec config's by block) and of 4 decode steps.  ``attn_impl`` is
-    the first path (``None``: what the device implies).  Returns (legs, the
-    q, k, v and causal flag of the first prefill's flash calls whose
+    the first path (``None``: what the device implies).  With ``record``
+    (a path), the first batch's prefill logits, greedy tokens and
+    margins, row 0's caches (:func:`record_caches`) and every leaf's
+    whole shape are saved there, for the legs at world 2.  Returns (legs,
+    the q, k, v and causal flag of the first prefill's flash calls whose
     index is in ``picks``)."""
     M, ops = m["M"], m["ops"]
     wall = time.perf_counter()
@@ -4387,11 +4753,7 @@ def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
                            cfg)
     _sync(device)
     spent = {"init_s": time.perf_counter() - wall}
-    rng = np.random.default_rng(0)
-    data = [{k: torch.from_numpy(v).to(device) for k, v in dict(
-        tokens=rng.integers(0, cfg.vocab, (rows, prompt)).astype(np.int32),
-        **frontend_inputs(cfg, rows, prompt, rng)).items()}
-        for _ in range(batches)]
+    data = oneshot_batches(cfg, batches, rows, prompt, device)
     P = prefix_len(cfg)
     decode_len = P + prompt + gen
     prefill = M.make_prefill(cfg, decode_len=decode_len, attn_impl=attn_impl)
@@ -4399,7 +4761,7 @@ def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
     _sync(device)
     resident = _allocated(device)
     _reset_peak(device)
-    recorded = []
+    recorded, first_caches = [], {}
 
     def drive():
         out = []
@@ -4409,6 +4771,9 @@ def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
                            recorded, picks=set(picks)) if i == 0 \
                     else contextlib.nullcontext():
                 out.append(greedy_run(cfg, params, b, prefill, step, gen))
+            if i == 0 and record is not None:
+                first_caches.update(record_caches(cfg, out[0]["caches"],
+                                                  P + prompt))
             if i < len(data) - 1:       # the last batch's are timed below
                 del out[-1]["caches"]
         _sync(device)
@@ -4443,6 +4808,18 @@ def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
                    for i in range(rows))
     if compared == 0:
         raise AssertionError(f"{leg}: no token compared with the xla run")
+    if record is not None:
+        # with how far plain attention's other roundings move the
+        # logits and the caches at world 1
+        torch.save({"prefill_logits": runs[0]["prefill_logits"],
+                    "tokens": torch.from_numpy(runs[0]["tokens"]),
+                    "margins": torch.from_numpy(runs[0]["margins"]),
+                    "caches": first_caches, "xla_logit_diff": worst,
+                    "xla_caches": record_caches(cfg, xrun["caches"],
+                                                P + prompt),
+                    "shapes": {k: tuple(v.shape) for k, v in
+                               m["Aw"].flatten_params(params).items()}},
+                   record)
     del xrun
     spent["xla_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4516,31 +4893,44 @@ def run_serving_oneshot(m, device, cfg, *, leg, batches=ONESHOT_BATCHES,
 FRONTEND_TRAIN_STEPS, FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ = 3, 2, 1024
 
 
-def run_frontend_train(m, device, name, arch, leg):
-    """``arch`` at full width and depth from float32 masters (seed 0),
-    remat as its config says: FRONTEND_TRAIN_STEPS steps on one batch of
-    FRONTEND_TRAIN_BATCH x FRONTEND_TRAIN_SEQ tokens of ``lm_batch_at(0)``
-    with the config's frames or patch embeddings (``default_rng(0)``),
-    repeated; the loss must fall.  Step ms by CUDA events, tokens/s, peak
-    memory above the resident masters and moments, one profiled step.
-    Attention runs the plain path (the kernel is forward only)."""
-    wall = time.perf_counter()
-    M, A = m["M"], m["Aw"]
-    cfg = m["get_config"](arch)
-    # the other LM phases' schedule (100 warm-up steps): at warmup_steps=1
-    # SeamlessM4T's loss rose on the third step on an H100 80GB HBM3 at
-    # 700 W (12.695, 12.303, 13.307)
-    opt_cfg = A.AdamWConfig(lr=3e-4, total_steps=FRONTEND_TRAIN_STEPS)
-    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
-                           master=True)
-    step = M.make_train_step(cfg, None, opt_cfg)
-    opt = A.init(A.flatten_params(params), opt_cfg)
+def frontend_train_batch(m, cfg, device) -> dict:
+    """FRONTEND_TRAIN_BATCH x FRONTEND_TRAIN_SEQ tokens of
+    ``lm_batch_at(0)`` with the config's frames or patch embeddings
+    (``default_rng(0)``), on ``device``."""
     batch = lm_batch(m, cfg, 0, FRONTEND_TRAIN_BATCH, FRONTEND_TRAIN_SEQ,
                      device)
     batch.update({k: torch.from_numpy(v).to(device) for k, v in
                   frontend_inputs(cfg, FRONTEND_TRAIN_BATCH,
                                   FRONTEND_TRAIN_SEQ,
                                   np.random.default_rng(0)).items()})
+    return batch
+
+
+def frontend_opt(m):
+    # the other LM phases' schedule (100 warm-up steps): at warmup_steps=1
+    # SeamlessM4T's loss rose on the third step on an H100 80GB HBM3 at
+    # 700 W (12.695, 12.303, 13.307)
+    return m["Aw"].AdamWConfig(lr=3e-4, total_steps=FRONTEND_TRAIN_STEPS)
+
+
+def run_frontend_train(m, device, name, arch, leg, record=None):
+    """``arch`` at full width and depth from float32 masters (seed 0),
+    remat as its config says: FRONTEND_TRAIN_STEPS steps on one batch of
+    :func:`frontend_train_batch`, repeated; the loss must fall.  Step ms
+    by CUDA events, tokens/s, peak memory above the resident masters and
+    moments, one profiled step.  Attention runs the plain path (the
+    kernel is forward only).  With ``record`` (a path) the first step's
+    loss and grad norm are written there as JSON, for the leg at world
+    2."""
+    wall = time.perf_counter()
+    M, A = m["M"], m["Aw"]
+    cfg = m["get_config"](arch)
+    opt_cfg = frontend_opt(m)
+    params = M.init_params(torch.Generator(device).manual_seed(0), cfg,
+                           master=True)
+    step = M.make_train_step(cfg, None, opt_cfg)
+    opt = A.init(A.flatten_params(params), opt_cfg)
+    batch = frontend_train_batch(m, cfg, device)
     batches = [batch] * FRONTEND_TRAIN_STEPS
     _sync(device)
     _reset_peak(device)
@@ -4549,10 +4939,14 @@ def run_frontend_train(m, device, name, arch, leg):
     # with the second's, as in a training loop
     state = [params, opt]
     del params, opt
+    norms = []
     (params, opt, losses, ms), launches = counted_run(
-        m, lambda: timed_steps(step, state.pop(0), state.pop(0), batches),
-        device)
+        m, lambda: timed_steps(step, state.pop(0), state.pop(0), batches,
+                               norms=norms), device)
     expect_launches(leg, launches, {})
+    if record is not None:
+        record.write_text(json.dumps({"loss": losses[0],
+                                      "grad_norm": norms[0]}))
     peak = _peak(device) - resident
     prof = profile_step(lambda: step(params, opt, batch))
     step_ms = float(np.median(ms[1:]))
@@ -4569,7 +4963,7 @@ def run_frontend_train(m, device, name, arch, leg):
           "tokens_per_s": FRONTEND_TRAIN_BATCH * FRONTEND_TRAIN_SEQ
           / step_ms * 1e3,
           "peak_bytes_above_resident": peak, "resident_bytes": resident,
-          "losses": losses, "profile": prof,
+          "losses": losses, "grad_norms": norms, "profile": prof,
           "gemm_share": prof["gemm_ms"]
           / max(prof["gemm_ms"] + prof["other_ms"], 1e-9)})
     if not losses[-1] < losses[0]:
@@ -4923,9 +5317,11 @@ def profile_leg(run, top=8):
                                     for k in PORT_KERNEL_FNS)]}
 
 
-def event_ms(fn, reps=10):
-    """CUDA-event milliseconds per call over ``reps`` warmed calls."""
-    fn()
+def event_ms(fn, reps=10, warm=True):
+    """CUDA-event milliseconds per call over ``reps`` calls, after one
+    warm-up call (none with ``warm`` false: the caller ran ``fn``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -5092,6 +5488,39 @@ def library_times(m, cases, gdata, sizes, device) -> dict:
     return out
 
 
+def run_encdec_world1(m, device, name, tmpdir: Path, cases, errs) -> dict:
+    """``serving_seamless`` and ``serving_internvl`` with flash cases
+    (i)-(k) added to ``cases`` (their errors to ``errs``), then
+    ``seamless_train``; each writes its world-1 record to ``tmpdir``.
+    The encoder's self-attention and the decoder's cross-attention are
+    the first Seamless prefill's flash calls 0 and 25 (24 encoder layers,
+    then the decoder's layer 0: self, cross).  Returns the legs."""
+    seamless = m["get_config"](SEAMLESS_ARCH)
+    sizes = dict(batches=ONESHOT_BATCHES, rows=ONESHOT_ROWS,
+                 prompt=ONESHOT_PROMPT, gen=ONESHOT_GEN)
+    legs, seamless_qkv = run_serving_oneshot(
+        m, device, seamless, leg="serving_seamless",
+        picks=(0, seamless.encoder_layers + 1),
+        record=tmpdir / "serving_seamless_world1.pt", **sizes)
+    internvl_legs, internvl_qkv = run_serving_oneshot(
+        m, device, m["get_config"](INTERNVL_ARCH), leg="serving_internvl",
+        record=tmpdir / "serving_internvl_world1.pt", **sizes)
+    legs.update(internvl_legs)
+    new_cases = [recorded_flash_case(label, qkv) for label, qkv in (
+        ("(i) serving_seamless encoder", seamless_qkv[0]),
+        ("(j) serving_seamless cross", seamless_qkv[1]),
+        ("(k) serving_internvl", internvl_qkv[0]))]
+    del seamless_qkv, internvl_qkv
+    errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
+        m, {"flash_attention": new_cases}, device)["flash_attention"])
+    cases["flash_attention"] += new_cases
+    legs.update(run_frontend_train(m, device, name, SEAMLESS_ARCH,
+                                   "seamless_train",
+                                   record=tmpdir / SEAMLESS_TRAIN_WORLD1))
+    _free(device)
+    return legs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -5181,14 +5610,18 @@ def run_all(tmpdir: Path) -> int:
     errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
         m, {"flash_attention": [case_h]}, device)["flash_attention"])
     cases["flash_attention"].append(case_h)
-    # the same model at world 2: two ranks on the card; every dispatch
+    # the enc-dec and vision stacks at world 1, whose records the legs at
+    # world 2 are held to
+    legs.update(run_encdec_world1(m, device, name, tmpdir, cases, errs))
+    # the MoE model at world 2: two ranks on the card; every dispatch
     # plan recorded is held to the plain ranks, the first prefill's first
     # and the decode plan are timed with case (l); then, in the same
     # ranks, Falcon-Mamba served and trained at world 2, whose first
-    # prefill's first scan is case (j)
+    # prefill's first scan is case (j), and SeamlessM4T and InternVL2
+    # served and Seamless trained at world 2, cases (n) and (o)
     tp_legs, tp_cases = run_serving_mesh(m, device, tmpdir,
                                          "serving_moe_tp2",
-                                         then=MAMBA_TP_LEGS)
+                                         then=MAMBA_TP_LEGS + ENCDEC_TP_LEGS)
     legs.update(tp_legs)
     for kname, err in compare_kernels(m, tp_cases, device).items():
         errs[kname] = max(errs[kname], err)
@@ -5219,27 +5652,6 @@ def run_all(tmpdir: Path) -> int:
     _free(device)
     legs.update(run_lm_drill_mesh(m, device, name, tmpdir))
     _free(device)
-    # the enc-dec and vision stacks: the encoder's self-attention and the
-    # decoder's cross-attention are the first prefill's flash calls 0 and
-    # 25 (24 encoder layers, then the decoder's layer 0: self, cross)
-    seamless = m["get_config"](SEAMLESS_ARCH)
-    seamless_legs, seamless_qkv = run_serving_oneshot(
-        m, device, seamless, leg="serving_seamless",
-        picks=(0, seamless.encoder_layers + 1))
-    legs.update(seamless_legs)
-    internvl_legs, internvl_qkv = run_serving_oneshot(
-        m, device, m["get_config"](INTERNVL_ARCH), leg="serving_internvl")
-    legs.update(internvl_legs)
-    new_cases = [recorded_flash_case(label, qkv) for label, qkv in (
-        ("(i) serving_seamless encoder", seamless_qkv[0]),
-        ("(j) serving_seamless cross", seamless_qkv[1]),
-        ("(k) serving_internvl", internvl_qkv[0]))]
-    del seamless_qkv, internvl_qkv
-    errs["flash_attention"] = max(errs["flash_attention"], compare_kernels(
-        m, {"flash_attention": new_cases}, device)["flash_attention"])
-    cases["flash_attention"] += new_cases
-    legs.update(run_frontend_train(m, device, name, SEAMLESS_ARCH,
-                                   "seamless_train"))
     legs.update(run_frontend_train(m, device, name, INTERNVL_ARCH,
                                    "internvl_train"))
 

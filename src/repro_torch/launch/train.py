@@ -33,8 +33,13 @@ history.  ``--coordinator host:port`` runs this process as one rank of
 such a run, started once per rank (by ``torchrun`` or by hand): rank,
 world size and card from ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``,
 the mesh from ``--mesh`` (default ``data=WORLD_SIZE,model=1``); it
-returns this rank's history.  Mamba, encoder and vision configs train
-at world 1 only (ROADMAP Queue 1 item 4b).
+returns this rank's history.
+
+The batches carry tokens and labels only, as the reference launcher's
+do: a config whose model also reads frames (an encoder) or patch
+embeddings (a vision prefix) is refused before any rank starts, at
+every world.  Those train through ``models.model.make_train_step`` with
+their inputs in the batch, at world 1 or over a mesh.
 """
 import argparse
 import json
@@ -142,6 +147,19 @@ def _config(args):
     return get_reduced(args.arch) if args.reduced else get_config(args.arch)
 
 
+def _check_batches(cfg) -> None:
+    """Raise for a config whose model reads inputs besides the tokens,
+    which ``lm_batch_at``'s batches do not carry."""
+    what = "frames for its encoder" if cfg.is_encdec else \
+        "patch embeddings" if cfg.frontend == "vision" else None
+    if what:
+        raise ValueError(f"{cfg.name}: the launcher's batches carry tokens "
+                         f"and labels only, and this model also reads "
+                         f"{what}; train it through "
+                         "models.model.make_train_step with them in the "
+                         "batch")
+
+
 def _policy(cfg, shape: dict):
     return Sh.make_policy(Me.make_mesh(shape), cfg.train.sharding)
 
@@ -167,6 +185,7 @@ def _train_rank(rank: int, world: int, store: str, args, out: str) -> None:
 def main(argv=None) -> list[dict]:
     args = parse_args(argv)
     cfg = _config(args)
+    _check_batches(cfg)
     if args.coordinator:
         rank, world, device = Me.init_from_env(args.coordinator, args.device)
         try:

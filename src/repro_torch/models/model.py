@@ -175,14 +175,16 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
                         device=device)[None].expand(B, S)
 
 
-def _encode(params, cfg, frames, opts: StackOpts):
+def _encode(params, cfg, frames, opts: StackOpts, policy=None):
     """An enc-dec config's encoder over the stub frame embeddings (B,
     Senc, d): bf16, positions 0 .. Senc - 1, the stack not causal, then
-    the encoder's own norm."""
+    the encoder's own norm.  Under ``policy`` each layer runs on this
+    rank's heads and hidden units and, under ``fsdp_tp``, gathers its
+    own 2D leaves over the data group, as a decoder layer does."""
     x = frames.to(Ly.BF16)
     x, _, _ = Tf.stack_apply(params["encoder"]["layers"], cfg, x,
                              _positions(x.shape[0], x.shape[1], x.device),
-                             opts, causal=False)
+                             opts, causal=False, policy=policy)
     return Ly.rms_norm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
@@ -201,7 +203,7 @@ def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False,
         patches = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([patches, x], dim=1)
         n_prefix = patches.shape[1]
-    enc_out = _encode(params, cfg, batch["frames"], opts) \
+    enc_out = _encode(params, cfg, batch["frames"], opts, policy) \
         if cfg.is_encdec else None
     x, aux, caches = Tf.stack_apply(
         params["layers"], cfg, x, _positions(B, x.shape[1], tokens.device),
@@ -233,12 +235,20 @@ def _logits(params, cfg, x, policy=None, split: bool = False):
 
 
 def _top_gathered(params, policy):
-    """``params`` with the leaves outside the layer stack gathered over
+    """``params`` with the leaves outside the layer stacks gathered over
     the data group under ``fsdp_tp`` (``sharding.gather_data``; the
-    layers gather their own)."""
-    return dict(sharding.gather_data(
-        {k: v for k, v in params.items() if k != "layers"}, policy),
-        layers=params["layers"])
+    decoder's and an encoder's layers gather their own, a layer at a
+    time)."""
+    top = {k: v for k, v in params.items() if k not in ("layers",
+                                                        "encoder")}
+    if "encoder" in params:
+        top["encoder"] = {k: v for k, v in params["encoder"].items()
+                          if k != "layers"}
+    out = dict(sharding.gather_data(top, policy), layers=params["layers"])
+    if "encoder" in params:
+        out["encoder"] = dict(out["encoder"],
+                              layers=params["encoder"]["layers"])
+    return out
 
 
 def _rows_of(batch: dict, policy):
@@ -570,7 +580,8 @@ def cache_struct(cfg, batch_size: int, decode_len: int,
           cfg.d_head)
     out = {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
     if cfg.is_encdec:
-        ckv = (L, B, cfg.n_kv_heads, enc_len, cfg.d_head)
+        ckv = (L, B, sharding.local_kv_heads(cfg, policy), enc_len,
+               cfg.d_head)
         out.update(ck=(ckv, CACHE_DTYPE), cv=(ckv, CACHE_DTYPE))
     return out
 

@@ -26,7 +26,9 @@ every ``attn_period`` and MoE every ``moe_period`` layers) raise
 
 Every function takes the reference's ``policy`` (default ``None``, world
 1).  Under a policy whose model axis spans several ranks the layers
-compute on this rank's slices (``models/layers.py``), a Mamba block on
+compute on this rank's slices (``models/layers.py``; an encoder layer
+and a cross-attention on this rank's heads, as a decoder's
+self-attention), a Mamba block on
 this rank's channels (``models/mamba.py``), a MoE FFN runs
 ``moe_shuffle`` in train and prefill and ``moe_decode`` in a decode step,
 with ``StackOpts.moe_capacity`` as the shuffle's capacity factor.
@@ -91,10 +93,12 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
     periods, and one period of the only such config (Jamba-1.5-Large, 8
     layers) holds 88.3 GB of bf16 weights, more than one card's memory,
     so these wait for a path over several cards.  Under a ``policy``
-    over several ranks also: encoder and vision configs (item 2b), two
-    batch axes of several ranks (item 3), heads that do not split over
-    the model axis (in training: KV heads too, item 3), Mamba channels
-    that do not and a padded vocabulary that does not."""
+    over several ranks also: two batch axes of several ranks (item 3),
+    heads that do not split over the model axis (in training: KV heads
+    too, item 3), Mamba channels that do not and a padded vocabulary
+    that does not.  Encoder and vision configs run at every mesh these
+    allow (the encoder's and the cross-attention's heads split as the
+    decoder's do)."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
@@ -107,10 +111,6 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
         raise NotImplementedError(f"batch axes {policy.batch_axes} of "
                                   "several ranks each (a second data axis) "
                                   "wait for ROADMAP Queue 1 item 3")
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: encoder and vision configs "
-                                  "at world > 1 wait for ROADMAP Queue 1 "
-                                  "item 2b")
     if not policy.sharded:
         return
     kv_head_block(cfg.n_heads, cfg.n_kv_heads, policy.world_m, 0)
@@ -201,13 +201,16 @@ def _cache_pad(k, decode_len: int):
     return k
 
 
-def _cross_block(p, cfg, x, enc_out, opts: StackOpts):
+def _cross_block(p, cfg, x, enc_out, opts: StackOpts, policy=None):
     """A decoder layer's cross-attention on the encoder's output (its own
-    norm, no mask, no RoPE) -> (y, (ck, cv)), ck and cv unpadded."""
+    norm, no mask, no RoPE) -> (y, (ck, cv)), ck and cv unpadded (this
+    rank's heads under a sharded model axis, whose ``enc_out`` gradient
+    is summed over the model group)."""
     h = Ly.rms_norm(p["ln_cross"], x, cfg.norm_eps)
     return Ly.attn_apply(p["cross"], cfg, h, None, causal=False,
                          kv_x=enc_out, attn_impl=opts.attn_impl,
-                         q_chunk=opts.q_chunk, k_chunk=opts.k_chunk)
+                         q_chunk=opts.q_chunk, k_chunk=opts.k_chunk,
+                         policy=policy)
 
 
 def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
@@ -237,7 +240,7 @@ def layer_apply(p, cfg, x, positions, opts: StackOpts, *,
     if "cross" in p:
         if enc_out is None:
             raise ValueError("a layer with cross-attention needs enc_out")
-        y, (ck, cv) = _cross_block(p, cfg, x, enc_out, opts)
+        y, (ck, cv) = _cross_block(p, cfg, x, enc_out, opts, policy)
         x = x + y
         if want_cache:
             cache["ck"], cache["cv"] = ck, cv
@@ -261,7 +264,7 @@ def layer_decode(p, cfg, x, cache, cache_len, policy=None):
         hc = Ly.rms_norm(p["ln_cross"], x, cfg.norm_eps)
         y, _ = Ly.attn_decode(p["cross"], cfg, hc,
                               {"k": cache["ck"], "v": cache["cv"]},
-                              cache_len, cross=True)
+                              cache_len, cross=True, policy=policy)
         x = x + y
     x, _aux = _apply_ffn(p, cfg, x, policy, decode=True)
     return x, cache

@@ -19,6 +19,12 @@ mesh runs:
   ``G - 1`` greedy ``make_serve_step``s over all slots: each prefill's
   logits, each step's, and the caches after the prefills (the port's:
   each rank's block of the slots and its KV heads);
+* ``oneshot/<combo>/<model>``: reduced ``seamless-m4t-large-v2`` (its
+  frames) and ``internvl2-2b`` (its patch embeddings in front) through
+  ``make_prefill`` on ``SLOTS`` prompts of ``PCAP`` tokens (two a data
+  rank), then ``G - 1`` greedy ``make_serve_step``s (the engine does not
+  serve these families): each step's logits and the prefill's caches
+  (the port's: each rank's rows and KV heads, ``ck``/``cv`` too);
 * ``mamba/<combo>``: reduced ``falcon-mamba-7b`` through ``make_prefill``
   on ``SLOTS`` prompts of ``PCAP`` tokens (two a data rank), then
   ``G - 1`` greedy ``make_serve_step``s: each step's logits and the
@@ -57,6 +63,8 @@ import torch_tp_conformance as TPW  # noqa: E402
 
 MODELS = ("granite-3-2b", "granite-moe-3b-a800m")
 MAMBA = "falcon-mamba-7b"
+# served through make_prefill + make_serve_step only
+ONESHOT = ("seamless-m4t-large-v2", "internvl2-2b")
 ENGINE = "granite-moe-3b-a800m"
 MOE_ARCH = "granite-moe-3b-a800m"
 COMBOS = {"2x1": (2, 1, "fsdp_tp"), "2x2": (2, 2, "fsdp_tp"),
@@ -81,6 +89,15 @@ def prompts(cfg, seed):
 def mamba_prompts(cfg, seed=6):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab, (SLOTS, PCAP)).astype(np.int32)
+
+
+def oneshot_batch(cfg, seed=7):
+    """(``SLOTS`` prompts of ``PCAP`` tokens with the config's frontend
+    inputs, the position of the first decode step)."""
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (SLOTS, PCAP)).astype(np.int32)
+    return dict(tokens=toks, **TPW.frontend_inputs(cfg, SLOTS, PCAP, seed)), \
+        TPW.prefix_len(cfg) + PCAP
 
 
 def update_before(params, grads, state, cfg, zero=None):
@@ -228,6 +245,27 @@ def run_jax(out_path, weights_path, combos):
                 out[f"{key}/logits/{j}"] = lg
                 tok = lg.argmax(-1).astype(np.int32)
 
+        for name in ONESHOT:
+            cfg = get_reduced(name)
+            params = jax.tree_util.tree_map(
+                jnp.asarray, TPW.unflatten(flat, f"lm/{name}"))
+            batch, pos0 = oneshot_batch(cfg)
+            prefill = jax.jit(JM.make_prefill(cfg, policy,
+                                              decode_len=pos0 + G))
+            step = jax.jit(JM.make_serve_step(cfg, policy))
+            logits, caches = prefill(params, {k: jnp.asarray(v)
+                                              for k, v in batch.items()})
+            key = f"oneshot/{combo}/{name}"
+            for c, v in caches.items():
+                out[f"{key}/{c}"] = np.asarray(v.astype(jnp.float32))
+            for j in range(G):
+                lg = np.asarray(logits)
+                out[f"{key}/logits/{j}"] = lg
+                if j < G - 1:
+                    logits, caches = step(params, caches, jnp.asarray(
+                        lg.argmax(-1)[:, None].astype(np.int32)),
+                        jnp.int32(pos0 + j))
+
         cfg = get_reduced(MAMBA)
         params = jax.tree_util.tree_map(
             jnp.asarray, TPW.unflatten(flat, f"lm/{MAMBA}"))
@@ -344,6 +382,24 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
                                       np.array(LENS, np.int32) + j)
                 out[f"{key}/logits/{j}"] = logits.numpy()
                 tok = logits.argmax(-1).to(torch.int32)
+
+        for name in ONESHOT:
+            cfg = get_reduced(name)
+            params = M.params_from_jax(TPW.unflatten(flat, f"lm/{name}"),
+                                       cfg, "cpu", policy=policy)
+            batch, pos0 = oneshot_batch(cfg)
+            prefill = M.make_prefill(cfg, policy, decode_len=pos0 + G)
+            step = M.make_serve_step(cfg, policy)
+            logits, caches = prefill(params, {k: torch.from_numpy(v)
+                                              for k, v in batch.items()})
+            key = f"oneshot/{combo}/{name}"
+            for c, v in caches.items():   # bf16: float() copies
+                out[f"{key}/{c}"] = v.float().numpy()
+            for j in range(G):
+                out[f"{key}/logits/{j}"] = logits.numpy()
+                if j < G - 1:
+                    logits, caches = step(params, caches, logits.argmax(-1)[
+                        :, None].to(torch.int32), pos0 + j)
 
         cfg = get_reduced(MAMBA)
         params = M.params_from_jax(TPW.unflatten(flat, f"lm/{MAMBA}"), cfg,

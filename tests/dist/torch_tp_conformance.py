@@ -18,7 +18,10 @@ Usage:
   each rank's shard, as its ``~ok`` counts them);
 * ``lm/<model>``: ``make_prefill`` then greedy ``make_serve_step``s:
   every step's logits and the prefill's caches (the port's: each rank's
-  heads, or a Mamba stack's conv and ssm states of its channels);
+  heads, or a Mamba stack's conv and ssm states of its channels); an
+  enc-dec config's prompts come with their frames and its caches hold
+  the cross-attention's ``ck``/``cv``, a vision config's with their
+  patch embeddings in front, and its decode starts after them;
 * ``engine``: both engines (with their policy and a feature store over
   all ranks) on the same requests: each request's status, tokens and
   features, the port's top-2 margins, each rank's tokens;
@@ -45,7 +48,10 @@ MODELS = {"granite-3-2b": {}, "granite-moe-3b-a800m": {},
           # holds the one KV head its q heads read
           "granite-3-2b/kv1": {"n_kv_heads": 1},
           # a Mamba stack: each rank runs its block of the channels
-          "falcon-mamba-7b": {}}
+          "falcon-mamba-7b": {},
+          # an encoder and cross-attention, and a patch prefix: each rank
+          # runs its block of every attention's heads
+          "seamless-m4t-large-v2": {}, "internvl2-2b": {}}
 MAMBA_ENGINE = "falcon-mamba-7b"
 MOE_LAYERS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 # path -> capacity factors: none dropped (E / top_k for the shuffle:
@@ -100,6 +106,34 @@ def moe_inputs(cfg, path):
 def prompt_tokens(cfg, seed):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab, (3, P)).astype(np.int32)
+
+
+def frontend_inputs(cfg, rows, seq, seed):
+    """The float inputs of a config's stub frontend, drawn by numpy: an
+    enc-dec config's frames (``seq // enc_len_ratio`` a row), a vision
+    config's ``frontend_tokens`` patch embeddings a row; none else."""
+    rng = np.random.default_rng(100 + seed)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(size=(rows, seq // cfg.enc_len_ratio,
+                                         cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = rng.normal(size=(
+            rows, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def prefix_len(cfg):
+    """The positions a vision config puts in front of the tokens."""
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def lm_batch(cfg, seed=4):
+    """(the prompts of :func:`prompt_tokens` with the config's frontend
+    inputs, the position of the first decode step)."""
+    toks = prompt_tokens(cfg, seed)
+    return dict(tokens=toks, **frontend_inputs(cfg, len(toks), P, seed)), \
+        prefix_len(cfg) + P
 
 
 def request_data(vocab):
@@ -228,10 +262,12 @@ def run_jax(world, out_path, weights_path):
         cfg = config(get_reduced, name)
         params = jax.tree_util.tree_map(jnp.asarray,
                                         unflatten(flat, f"lm/{name}"))
-        prefill = jax.jit(JM.make_prefill(cfg, policy, decode_len=P + G))
+        batch, pos0 = lm_batch(cfg)
+        prefill = jax.jit(JM.make_prefill(cfg, policy,
+                                          decode_len=pos0 + G))
         step = jax.jit(JM.make_serve_step(cfg, policy))
-        logits, caches = prefill(params, {"tokens": jnp.asarray(
-            prompt_tokens(cfg, 4))})
+        logits, caches = prefill(params, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
         for c, v in caches.items():
             out[f"lm/{name}/{c}"] = np.asarray(v.astype(jnp.float32))
         for i in range(G):
@@ -240,7 +276,7 @@ def run_jax(world, out_path, weights_path):
             if i < G - 1:
                 logits, caches = step(params, caches, jnp.asarray(
                     lg.argmax(-1)[:, None].astype(np.int32)),
-                    jnp.int32(P + i))
+                    jnp.int32(pos0 + i))
 
     cfg = get_reduced(ENGINE)
     params = jax.tree_util.tree_map(jnp.asarray,
@@ -437,10 +473,11 @@ def run_torch(world, out_path, weights_path, rank, store_path):
             for leaf, t in _leaves(params):
                 out[f"mem/leaf/{leaf}"] = gathered(torch.tensor(
                     t.numel() * t.element_size())).astype(np.int64)
-        prefill = M.make_prefill(cfg, policy, decode_len=P + G)
+        batch, pos0 = lm_batch(cfg)
+        prefill = M.make_prefill(cfg, policy, decode_len=pos0 + G)
         step = M.make_serve_step(cfg, policy)
-        logits, caches = prefill(params, {"tokens": torch.from_numpy(
-            prompt_tokens(cfg, 4))})
+        logits, caches = prefill(params, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()})
         for c, v in caches.items():   # each rank's heads or channels
             out[f"lm/{name}/{c}_ranks"] = gathered(v.float())
         for i in range(G):
@@ -448,7 +485,7 @@ def run_torch(world, out_path, weights_path, rank, store_path):
             out[f"lm/{name}/logits_ranks/{i}"] = gathered(logits)
             if i < G - 1:
                 logits, caches = step(params, caches, logits.argmax(-1)[
-                    :, None].to(torch.int32), P + i)
+                    :, None].to(torch.int32), pos0 + i)
 
     ctx = make_context("cpu")
     for arch, prefix in ((ENGINE, "engine/torch"),

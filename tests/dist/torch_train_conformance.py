@@ -13,7 +13,9 @@ Usage:
 reduced arch of ``CASES``, flattened with ``/``, written by the test.
 Each case (``arch/flavor/capacity``) is one ``make_train_step`` under
 ``make_policy(mesh, flavor)`` on ``lm_batch_at(0)`` of ``B`` x ``S``
-tokens with ``OPT`` (the reference: the ``REFERENCE_CASES``): its
+tokens (:func:`batch_of`: with an enc-dec config's frames or a vision
+config's patch embeddings) with ``OPT`` (the reference: the
+``REFERENCE_CASES``): its
 metrics, every new parameter and AdamW moment
 whole (the reference's ``np.asarray`` of the global array, the port's
 gathered by ``sharding.StateLayout``), and for each MoE layer and rank
@@ -61,9 +63,18 @@ CASES = {
     # a Mamba stack: E over the model axis, in_proj's [x | z] cut per part
     "falcon-mamba-7b/tp": ("falcon-mamba-7b", "tp", None),
     "falcon-mamba-7b/fsdp_tp": ("falcon-mamba-7b", "fsdp_tp", None),
+    # an encoder and cross-attention (frames), and a patch prefix: every
+    # attention's heads over the model axis, the rows over data
+    "seamless-m4t-large-v2/tp": ("seamless-m4t-large-v2", "tp", None),
+    "seamless-m4t-large-v2/fsdp_tp": ("seamless-m4t-large-v2", "fsdp_tp",
+                                      None),
+    "internvl2-2b/tp": ("internvl2-2b", "tp", None),
 }
 MAMBA = "falcon-mamba-7b"
-# the layout round trips: (label, mesh, flavor)
+SEAMLESS = "seamless-m4t-large-v2"
+# the layout round trips of these archs' training states (a Mamba stack's
+# in_proj cut per part, an encoder subtree): (label, mesh, flavor)
+LAYOUT_ARCHS = (MAMBA, SEAMLESS)
 LAYOUTS = (("2x2/tp", MESH, "tp"), ("2x2/fsdp_tp", MESH, "fsdp_tp"),
            ("1x4", {"data": 1, "model": 4}, "fsdp_tp"))
 ARCHS = sorted({a for a, _, _ in CASES.values()})
@@ -82,6 +93,23 @@ def config(getter, name):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, moe_capacity_factor=cf))
     return cfg
+
+
+def batch_of(cfg, lm_batch_at):
+    """``lm_batch_at(0)`` (the calling package's) of ``B`` x ``S`` tokens
+    with the config's frontend inputs (numpy, seeded): an enc-dec
+    config's frames, ``S // enc_len_ratio`` a row; a vision config's
+    ``frontend_tokens`` patch embeddings a row, in front of the tokens
+    (the loss skips them)."""
+    batch = dict(lm_batch_at(0, vocab=cfg.vocab, batch=B, seq=S))
+    rng = np.random.default_rng(9)
+    if cfg.is_encdec:
+        batch["frames"] = rng.normal(size=(B, S // cfg.enc_len_ratio,
+                                           cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = rng.normal(size=(
+            B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def unflatten(flat, prefix):
@@ -170,8 +198,8 @@ def run_jax(out_path, weights_path, routes_path):
         cfg = config(get_reduced, name)
         params = jax.tree_util.tree_map(jnp.asarray,
                                         unflatten(flat, arch))
-        batch = {k: jnp.asarray(v) for k, v in
-                 lm_batch_at(0, vocab=cfg.vocab, batch=B, seq=S).items()}
+        batch = {k: jnp.asarray(v)
+                 for k, v in batch_of(cfg, lm_batch_at).items()}
         step = jax.jit(JM.make_train_step(cfg, make_policy(mesh, flavor),
                                           opt_cfg))
         calls.clear()
@@ -305,8 +333,7 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
         opt = A.init({k: zero.local(k, p) for k, p in
                       A.flatten_params(params).items()}, opt_cfg)
         batch = {k: torch.from_numpy(v) for k, v in Sh.shard_batch(
-            lm_batch_at(0, vocab=cfg.vocab, batch=B, seq=S),
-            policy).items()}
+            batch_of(cfg, lm_batch_at), policy).items()}
         plans.clear()
         Moe.drop_log = []
         try:
@@ -355,10 +382,12 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
         if ckpt_dir is not None and name == "lm100m/tp":
             checkpoint_cases(ckpt_dir, cfg, policy, params, new, opt,
                              layout, out)
-        if ckpt_dir is not None and name == f"{MAMBA}/tp":
+        if ckpt_dir is not None and name in (f"{MAMBA}/tp",
+                                             f"{SEAMLESS}/tp"):
             # whole leaves, which the test restores at world 1
-            Ck.save(f"{ckpt_dir}_mamba", 1, (new, opt), layout=layout)
-    layout_cases(unflatten(flat, MAMBA), mesh, out)
+            Ck.save(f"{ckpt_dir}_{arch}", 1, (new, opt), layout=layout)
+    for arch in LAYOUT_ARCHS:
+        layout_cases(arch, unflatten(flat, arch), mesh, out)
     np.savez(f"{out_path}.rank{rank}.npz", **mine)
     dist.barrier()
     if rank == 0:
@@ -366,10 +395,16 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
     dist.destroy_process_group()
 
 
-def layout_cases(tree, mesh, out):
-    """The layout round trips of reduced ``falcon-mamba-7b``'s training
-    state at each of ``LAYOUTS`` (``mesh`` is the ``2x2`` one), each
-    rank's booleans gathered into ``out["layout/<label>/<check>"]``:
+def layout_key(arch, label):
+    """The results' prefix of ``arch``'s layout round trip at ``label``
+    (the Mamba stack's under ``layout/<label>``)."""
+    return f"layout/{label}" if arch == MAMBA else f"layout/{arch}/{label}"
+
+
+def layout_cases(arch, tree, mesh, out):
+    """The layout round trips of reduced ``arch``'s training state at
+    each of ``LAYOUTS`` (``mesh`` is the ``2x2`` one), each rank's
+    booleans gathered into ``out[layout_key(arch, label) + "/<check>"]``:
 
     * ``whole``: ``StateLayout.whole`` of the rank's slices
       (``shard_params``) and of moments set to their 2D slices (``m``)
@@ -391,7 +426,7 @@ def layout_cases(tree, mesh, out):
     from repro_torch.models import sharding as Sh
     from repro_torch.optim import adamw as A
 
-    cfg = get_reduced(MAMBA)
+    cfg = get_reduced(arch)
     whole = {k: torch.from_numpy(np.asarray(v, np.float32))
              for k, v in flatten(tree).items()}
     for label, shape, flavor in LAYOUTS:
@@ -435,7 +470,8 @@ def layout_cases(tree, mesh, out):
                               tp[k]) for k in tp)
         for check, ok in (("whole", ok_whole), ("local", ok_local),
                           ("gather_data", ok_gather), ("zero1", ok_zero)):
-            out[f"layout/{label}/{check}"] = np.array(gather_objects(ok))
+            out[f"{layout_key(arch, label)}/{check}"] = np.array(
+                gather_objects(ok))
 
 
 def gather_objects(obj):

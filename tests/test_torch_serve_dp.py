@@ -24,6 +24,13 @@ processes at once, ``2x2`` in one and the other two in the other.
   same rejections, counts, statuses and features, greedy tokens equal up
   to the first margin below ``2 * LOGIT_TOL``, every rank's tokens
   equal; at ``2x2`` also with 3 slots, which stay whole on every rank.
+* ``make_prefill`` and greedy ``make_serve_step`` on four rows (two a
+  data rank) of reduced ``seamless-m4t-large-v2`` (frames through the
+  encoder, cross-attention) and ``internvl2-2b`` (patch embeddings in
+  front, decode from P + S) at each mesh against the reference: logits
+  within ``LOGIT_TOL``, greedy tokens by the module's rule, every rank's
+  logits the same bits, each rank's ``k``/``v`` (and ``ck``/``cv``)
+  within ``LOGIT_TOL`` of its rows and KV heads of the reference's.
 * ``make_prefill`` and greedy ``make_serve_step`` on reduced
   ``falcon-mamba-7b`` (the reference's slot prefill runs a Mamba state
   through the prompt's padding) at each mesh against the reference, and
@@ -77,7 +84,7 @@ def _flatten(tree, prefix, out):
 
 def write_weights(path):
     flat = {}
-    for name in W.MODELS + (W.MAMBA,):
+    for name in W.MODELS + (W.MAMBA,) + W.ONESHOT:
         _flatten(JM.init_params(jax.random.PRNGKey(0),
                                 JC.get_reduced(name)), f"lm/{name}", flat)
     _flatten(JMoe.moe_init(jax.random.PRNGKey(10),
@@ -202,6 +209,48 @@ def test_prefill_and_decode_match_reference(runs, combo, name):
         assert n >= 1 and diffs[b, :same + 1].max() <= LOGIT_TOL
 
 
+def check_logits(ranks, want, steps, rows):
+    """Every rank's logits at ``steps`` the same bits; rank 0's against
+    the reference's within ``LOGIT_TOL``, greedy tokens by the module's
+    rule, row by row over ``rows``."""
+    for res in ranks[1:]:
+        for s in steps:
+            np.testing.assert_array_equal(res[s], ranks[0][s])
+    lg = np.stack([ranks[0][s] for s in steps], 1)
+    jl = np.stack([want[s] for s in steps], 1)
+    top = np.sort(jl, -1)
+    margins = top[..., -1] - top[..., -2]
+    diffs = np.abs(lg - jl).max(-1)
+    for b in range(rows):
+        n, same = greedy_agree(lg[b].argmax(-1), jl[b].argmax(-1),
+                               margins[b], 2 * diffs[b])
+        assert n >= 1 and diffs[b, :same + 1].max() <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("name", W.ONESHOT)
+@pytest.mark.parametrize("combo", list(W.COMBOS))
+def test_oneshot_prefill_and_decode_match_reference(runs, combo, name):
+    """An enc-dec and a vision config through ``make_prefill`` and greedy
+    ``make_serve_step`` at each mesh: the batch's rows split over the
+    data ranks (frames and patch embeddings with their tokens), every
+    attention's heads over the model ranks."""
+    _, want, got = runs
+    D, Mw, _ = W.COMBOS[combo]
+    cfg = TC.get_reduced(name)
+    key = f"oneshot/{combo}/{name}"
+    ranks = ranks_of(got, combo)
+    for res in ranks:                   # each rank's rows and KV heads
+        d, m = res["coord"]
+        rows = slice(d * W.SLOTS // D, (d + 1) * W.SLOTS // D)
+        h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads, Mw, m)
+        for c in ("k", "v") + (("ck", "cv") if cfg.is_encdec else ()):
+            np.testing.assert_allclose(
+                res[f"{key}/{c}"], want[f"{key}/{c}"][:, rows, h0:h0 + nh],
+                rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    check_logits(ranks, want, [f"{key}/logits/{j}" for j in range(W.G)],
+                 W.SLOTS)
+
+
 @pytest.mark.parametrize("combo", list(W.COMBOS))
 def test_mamba_prefill_and_decode_match_reference(runs, combo):
     """Reduced ``falcon-mamba-7b`` through ``make_prefill`` and greedy
@@ -216,10 +265,6 @@ def test_mamba_prefill_and_decode_match_reference(runs, combo):
     cfg = TC.get_reduced(W.MAMBA)
     key = f"mamba/{combo}"
     ranks = ranks_of(got, combo)
-    steps = [f"{key}/logits/{j}" for j in range(W.G)]
-    for res in ranks[1:]:
-        for s in steps:
-            np.testing.assert_array_equal(res[s], ranks[0][s])
     E = cfg.d_inner // Mw
     for res in ranks:
         d, m = res["coord"]
@@ -232,15 +277,8 @@ def test_mamba_prefill_and_decode_match_reference(runs, combo):
             err = float(np.abs(res[f"{key}/{c}"] - whole[idx]).max())
             assert err <= MAMBA_STATE_TOL * float(np.abs(whole).max()), \
                 (c, d, m, err)
-    lg = np.stack([ranks[0][s] for s in steps], 1)
-    jl = np.stack([want[s] for s in steps], 1)
-    top = np.sort(jl, -1)
-    margins = top[..., -1] - top[..., -2]
-    diffs = np.abs(lg - jl).max(-1)
-    for b in range(W.SLOTS):
-        n, same = greedy_agree(lg[b].argmax(-1), jl[b].argmax(-1),
-                               margins[b], 2 * diffs[b])
-        assert n >= 1 and diffs[b, :same + 1].max() <= LOGIT_TOL
+    check_logits(ranks, want, [f"{key}/logits/{j}" for j in range(W.G)],
+                 W.SLOTS)
 
 
 def test_mamba_engine_matches_world1_engine(runs):

@@ -15,7 +15,8 @@ without process groups (the sharded path at world 2 is
 * Rank memory: at model = 2 each rank's bytes are the sum of its shards
   and a sharded leaf's shards sum to the whole.
 * What the slice refuses at world > 1, with the ROADMAP item it waits
-  for; what ``launch.train --mesh`` and ``--coordinator`` refuse.
+  for, and what it accepts (Mamba, encoder and vision configs); what
+  ``launch.train --mesh`` and ``--coordinator`` refuse.
 * ``launch.serve --mesh data=1,model=2 --device cpu``: two rank
   processes serve reduced granite-moe and reduced falcon-mamba-7b, and
   ``--mesh data=1,model=1`` serves in-process.
@@ -202,20 +203,21 @@ def test_rank_memory_is_its_shards(arch):
     ("internvl2-2b", {"data": 1, "model": 2}, "vision"),
     ("granite-3-2b", {"pod": 2, "data": 2, "model": 1}, "data axis")])
 def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
-    """Encoder and vision configs at world > 1 wait for item 2b, a second
-    data axis for item 3; a Mamba stack is accepted at (data 2, model 1),
-    (1, 2) and (2, 2), in serving and in training."""
+    """A second data axis waits for item 3; a Mamba stack, an encoder
+    config and a vision config are accepted at (data 2, model 1), (1, 2)
+    and (2, 2), in serving and in training, under both flavors."""
     cfg = TC.get_reduced(arch)
-    if what == "Mamba":
+    if what != "data axis":
         for shape in ({"data": 2, "model": 1}, {"data": 1, "model": 2},
                       {"data": 2, "model": 2}):
-            for train in (False, True):
-                Tf.check_supported(cfg, Sh.make_policy(
-                    Me.abstract_mesh(shape), "fsdp_tp"), train=train)
+            for flavor in ("tp", "fsdp_tp"):
+                for train in (False, True):
+                    Tf.check_supported(cfg, Sh.make_policy(
+                        Me.abstract_mesh(shape), flavor), train=train)
         return
     policy = Sh.make_policy(Me.abstract_mesh(sizes), "fsdp_tp")
     with pytest.raises(NotImplementedError,
-                       match="Queue 1 item (2b|3)") as e:
+                       match="Queue 1 item 3") as e:
         Tf.check_supported(cfg, policy)
     assert what.lower() in str(e.value).lower()
     Tf.check_supported(cfg, Sh.make_policy(
@@ -224,12 +226,13 @@ def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
 
 @pytest.mark.parametrize("flag", ["--mesh", "--coordinator"])
 def test_train_refuses_mesh_and_coordinator(flag, monkeypatch):
-    """Both flags train (tests/test_torch_train_mesh.py); they refuse what
-    the sharded path does not run, before any rank starts: an enc-dec
-    stack over a mesh, and ``--coordinator`` without the rank's
+    """Both flags train (tests/test_torch_train_mesh.py); they refuse
+    before any rank starts: an enc-dec stack, whose frames the
+    launcher's batches do not carry (at every world, as the reference's
+    launcher has none), and ``--coordinator`` without the rank's
     environment (``RANK``, ``WORLD_SIZE``, as torchrun sets them)."""
     if flag == "--mesh":
-        with pytest.raises(NotImplementedError, match="item 2b"):
+        with pytest.raises(ValueError, match="frames"):
             Tr.main(["--arch", "seamless-m4t-large-v2", "--reduced",
                      "--device", "cpu", flag, "data=1,model=2"])
         return

@@ -28,8 +28,11 @@ writes.
   bit for bit.
 * ``make_prefill`` + greedy ``make_serve_step`` on reduced
   ``granite-3-2b``, ``granite-moe-3b-a800m``, ``granite-3-2b`` with
-  one KV head (each rank holds the KV head its q heads read) and
-  ``falcon-mamba-7b`` (each rank its half of the channels E): logits and
+  one KV head (each rank holds the KV head its q heads read),
+  ``falcon-mamba-7b`` (each rank its half of the channels E),
+  ``seamless-m4t-large-v2`` (frames through the encoder; the
+  cross-attention's ``ck``/``cv`` cached too) and ``internvl2-2b``
+  (patch embeddings in front, decode from P + S): logits and
   the gathered prefill caches within ``LOGIT_TOL`` (the tolerance of
   ``tests/test_torch_model.py`` at world 1; measured at most 3.2e-3 here)
   or, for the Mamba conv and ssm states, within ``MAMBA_STATE_TOL`` of
@@ -254,7 +257,7 @@ def test_prefill_and_decode_match_reference(runs, name):
     if TM.has_mamba(cfg):
         check_mamba_caches(got, want, key, cfg)
     else:
-        for c in ("k", "v"):
+        for c in ("k", "v") + (("ck", "cv") if cfg.is_encdec else ()):
             for r, kv in enumerate(got[f"{key}/{c}_ranks"]):
                 h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads,
                                           WORLD, r)

@@ -4,6 +4,7 @@ card, at depths other than the script's.
     python3 tools/chip_phases.py serving_moe_dp2 moe_train \\
         [--dp-layers 8] [--tp-layers 4] [--moe-train-layers 12]
     python3 tools/chip_phases.py serving_mamba_tp2 [--mamba-tp-layers 8]
+    python3 tools/chip_phases.py serving_encdec_tp2
 
 Each phase is ``chip_smoke.py``'s own function with every check of it:
 ``serving_moe_dp2`` and ``serving_moe_tp2`` (``run_serving_mesh``: the
@@ -15,7 +16,13 @@ state, with their peaks) and ``serving_mamba_tp2`` (``mamba_train`` and
 to, then ``run_mamba_tp2``: ``serving_mamba_tp2`` and
 ``mamba_train_tp2`` in two rank processes, and case (j) of
 ``mamba_scan`` held to the plain scan and timed; ``--mamba-tp-layers``
-sets the depth of both serving legs).  The kernels are built from this
+sets the depth of both serving legs) and ``serving_encdec_tp2``
+(``serving_seamless``, ``serving_internvl`` and ``seamless_train`` at
+world 1 for their records, with flash cases (i)-(k), then
+``run_encdec_tp2``: ``serving_seamless_tp2``, ``serving_internvl_tp2``
+and ``seamless_train_tp2`` in two rank processes, then flash cases (n)
+and (o) held to ``attention_ref``; cases (i)-(k), (n) and (o) timed
+beside SDPA).  The kernels are built from this
 checkout's sources first.  Prints the card's name and power limit, then
 the phases' records as ``chip_smoke.py`` prints them, and the seconds
 each phase took.  Exits non-zero without a CUDA device or when a phase fails.
@@ -36,7 +43,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as C  # noqa: E402
 
 PHASES = ("serving_moe_dp2", "serving_moe_tp2", "moe_train",
-          "serving_mamba_tp2")
+          "serving_mamba_tp2", "serving_encdec_tp2")
 
 
 def parse_args(argv):
@@ -68,17 +75,36 @@ def mamba_tp2(m, device, name, tmp: Path) -> None:
                         record=tmp / C.MAMBA_WORLD1)
     _, cases = C.run_mamba_tp2(m, device, tmp)
     C.compare_kernels(m, cases, device)
-    for case in cases["mamba_scan"]:
-        args = case["args"]
-        C.emit({"phase": "kernel_timing", "name": "mamba_scan",
+    time_cases(m, name, "mamba_scan", cases["mamba_scan"])
+
+
+def encdec_tp2(m, device, name, tmp: Path) -> None:
+    """The world-1 enc-dec and vision legs that record what the world-2
+    ones are held to (with flash cases (i)-(k)), the world-2 legs, then
+    cases (n) and (o) held to the plain version; all five timed."""
+    cases, errs = {"flash_attention": []}, {"flash_attention": 0.0}
+    C.run_encdec_world1(m, device, name, tmp, cases, errs)
+    _, tp_cases = C.run_encdec_tp2(m, device, tmp)
+    C.compare_kernels(m, tp_cases, device)
+    time_cases(m, name, "flash_attention",
+               cases["flash_attention"] + tp_cases["flash_attention"])
+
+
+def time_cases(m, name, kname, cases) -> None:
+    """A ``kernel_timing`` record of each case, as ``chip_smoke.py``'s
+    timing phase writes one: ms, kernel ms, plain ms, bound and the
+    library call's ms."""
+    for case in cases:
+        args, lib = case["args"], case.get("library")
+        C.emit({"phase": "kernel_timing", "name": kname,
                 "shape": case["shape"], "card": name,
-                "ms": C.event_ms(lambda: C._kernel(m, "mamba_scan", args)),
+                "ms": C.event_ms(lambda: C._kernel(m, kname, args)),
                 "kernel_ms": C.port_kernel_ms(
-                    lambda: C._kernel(m, "mamba_scan", args))[0],
+                    lambda: C._kernel(m, kname, args))[0],
                 "plain_ms": C.event_ms(
-                    lambda: C._plain(m, "mamba_scan", args), reps=3),
-                "bound_ms": C.bound("mamba_scan", args)[0],
-                "library_ms": None})
+                    lambda: C._plain(m, kname, args), reps=3),
+                "bound_ms": C.bound(kname, args)[0],
+                "library_ms": C.event_ms(lib) if lib else None})
 
 
 def main() -> int:
@@ -97,6 +123,8 @@ def main() -> int:
                 C.run_moe_train(m, device, name)
             elif phase == "serving_mamba_tp2":
                 mamba_tp2(m, device, name, Path(tmp))
+            elif phase == "serving_encdec_tp2":
+                encdec_tp2(m, device, name, Path(tmp))
             else:
                 _, cases = C.run_serving_mesh(m, device, Path(tmp), phase)
                 C.compare_kernels(m, cases, device)
