@@ -97,8 +97,8 @@ Phases, each fatal on failure:
    ``flash_attention`` against ``attention_ref`` on the q, k, v one
    prefill gave it and on six more shapes; tokens/s, TTFT, prefill and
    decode-step times and a profile of one prefill and 8 decode steps;
-11b. the Mamba serving path: Falcon-Mamba-7B at its published widths, 16
-   of its 64 layers, random weights from ``torch.Generator`` seed 0,
+11b. the Mamba serving path: Falcon-Mamba-7B at its published widths, 8
+   of its 64 layers (SERVE_LAYERS), random weights from ``torch.Generator`` seed 0,
    the same engine settings and request stream as phase 11 (the Granite
    weights freed first); every prefill runs at the prompt's true length
    and the selective-scan kernel in every layer.  Checked: the
@@ -153,7 +153,8 @@ Phases, each fatal on failure:
    weight bytes, peak memory and dropped rows by layer;
 11c''. the MoE serving path at data=2 x model=2 (``serving_moe_dp2``):
    the same model at DP_LAYERS of its 32 layers, the same engine
-   settings, requests and feature stores (over all four ranks), served
+   settings and feature stores (over all four ranks), the first
+   DP_REQUESTS (16) of the requests, served
    by four rank processes on the one card through the same ``--mesh``
    set-up under ``make_policy(mesh, "fsdp_tp")``: each rank holds the
    2D slice of every matrix (a quarter of the attention and expert
@@ -167,14 +168,29 @@ Phases, each fatal on failure:
    engine on the first TP_TWIN_REQUESTS requests wherever no rank's
    prefill or step dropped a row (the drop counts by layer printed);
    the twin ``serving_moe_dp2_xla`` on plain attention and plain ranks
-   at ``capacity_factor = E / top_k`` (no row drops) against that
-   world-1 engine: prefill logits within ``SERVE_LOGIT_TOL`` and greedy
-   tokens by ``greedy_agree``.  Then its dispatch plans against the
-   plain ranks and case (m) within ``FLASH_TOL``; its decode plan (n 32
-   at P 25) timed.  Recorded: the bytes a rank gathers a forward;
+   at ``capacity_factor = E / top_k`` (no row drops), on the first
+   DP_TWIN_REQUESTS (2) requests, against that world-1 engine: prefill
+   logits within ``SERVE_LOGIT_TOL`` and greedy tokens by
+   ``greedy_agree``.  Then its dispatch plans against the plain ranks
+   and case (m) within ``FLASH_TOL``; its decode plan (n 32 at P 25)
+   timed.  Recorded: the bytes a rank gathers a forward.  Then, in the
+   same four ranks, ``serving_moe_pod2``: the same model and weights at
+   pod=2 x data=2 x model=1 (``fsdp_tp``: the slots over pod x data,
+   pod major, 2 a rank; each 2D leaf cut over data and gathered over it
+   a layer at a time, whole over pod) on the first TP_TWIN_REQUESTS
+   requests; at model=1 a MoE layer runs ``moe_dense``, as the
+   reference's ``moe_apply`` does.  Checked: the accounting identity,
+   tokens and features, exact launches (``flash_attention`` a layer a
+   prefill, ``hash_partition`` the stores' shuffles), each rank's leaves
+   its slices, the four ranks' tokens equal, every prefill's logits
+   within ``SERVE_LOGIT_TOL`` of the world-1 engine's and its tokens by
+   ``greedy_agree``; rank 0's first flash call, case (p), and the
+   stores' first ranking held to the plain versions; prefill and
+   decode-step ms by events on every rank, the bytes a rank gathers a
+   forward, the peak, a rank-0 profile;
 11c'''. the Mamba path at world 2, in the two rank processes of
    ``serving_moe_tp2``, after it: ``serving_mamba_tp2`` serves
-   Falcon-Mamba-7B at full width and SERVE_LAYERS' depth (16), the
+   Falcon-Mamba-7B at full width and SERVE_LAYERS' depth (8), the
    ``serving_mamba`` weights (seed 0), engine settings, requests and
    feature stores (over both ranks) under ``make_policy(mesh,
    "fsdp_tp")`` at data=1 x model=2: each rank holds the 4096 channels of
@@ -185,7 +201,7 @@ Phases, each fatal on failure:
    tokens and features, exact launch counts (``mamba_scan`` one a layer
    a prefill, ``hash_partition`` the stores' shuffles, nothing else),
    each rank's leaves its slices of the whole ones (``in_proj`` by its
-   per-part rule), caches ssm (16, 8, 4096, 16) and conv (16, 8, 3,
+   per-part rule), caches ssm (8, 8, 4096, 16) and conv (8, 8, 3,
    4096); against ``serving_mamba``'s own record of its first
    TP_TWIN_REQUESTS requests (world 1, the same process's earlier leg):
    the first request's prefill logits within ``SERVE_LOGIT_TOL``, its
@@ -222,14 +238,21 @@ Phases, each fatal on failure:
    moe_aux and grad norm beside it) to the port's world-1 step on the
    same weights and batch, in one microbatch per data rank and with its
    MoE layers pinned to the sharded step's routes, and ``fsdp_tp`` to
-   ``tp``.  Then MESH_TRAIN_LAYERS (4) layers, capacity 1.25, MESH_TRAIN_STEPS (3) steps on
+   ``tp``.  Then MESH_TRAIN_LAYERS (4) layers, capacity 1.25, MESH_TRAIN_STEPS (2) steps on
    one 4 x 1024 batch repeated: the loss must fall on every rank alike;
    ``hash_partition`` launched exactly twice per MoE layer and step on
    each rank (the plan and its recompute, n 8192 at P 40); the first
    step's 16 plans of rank 0 held to the plain ranks and its dropped
    rows to theirs; step ms, tokens/s, each rank's bytes and peak, one
    profiled step.  Times at world 4 on one card measure gloo's host
-   staging, not parallelism across cards;
+   staging, not parallelism across cards.  Then, in the same ranks,
+   ``moe_train_pod2``: 2 layers at pod=2 x data=2 x model=1 under
+   ``fsdp_tp`` (the moments cut over data only), one row of 1024 tokens
+   a batch rank, its first step held on rank 0 by the leaf rule (loss,
+   ``moe_aux``, grad norm beside it) to a world-1 step in one
+   microbatch a row with the ranks' routes and the whole batch's aux;
+   then one step timed; step ms, master and moment bytes a rank, the
+   peak; no kernel launched;
 11d''. the restart drill at data=2 x model=2 (``lm_drill_mesh``):
    ``launch.train.main --mesh data=2,model=2`` on lm100m at full size,
    DRILL_MESH_STEPS (4) steps of 2 x 512 tokens in order, a checkpoint
@@ -2406,8 +2429,10 @@ def run_moe_train(m, device, name):
 # where no row drops
 MESH_TRAIN = {"data": 2, "model": 2}
 MESH_TRAIN_LAYERS = 4
-# 3 steps, not 5: the script must end within 1 200 s
-MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 1024, 3
+# 2 steps, not 5: the script must end within 1 200 s (3 until the pod
+# legs took the script to 1 116 s of command; the third step took 4.08 s,
+# H100 80GB HBM3, 700 W)
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 1024, 2
 MESH_CHECK_LAYERS, MESH_CHECK_ROWS = 2, 1
 # the leaf rule of tests/test_torch_lm_train.py for one AdamW step, with
 # its floor on the gradients counted (SIGN_G, 200 AdamW eps)
@@ -2552,6 +2577,26 @@ def pinned_routes(Moe, ids, rows: int, model: int, row_block: int):
                     frac * p3[sl].reshape(-1, E).mean(dim=0)))
         return w, flat.to(torch.int32), torch.stack(auxes).mean()
     return route
+
+
+def whole_batch_routes(Moe, ids, rows: int):
+    """:func:`pinned_routes` for microbatches of ``rows`` rows, one shard
+    each, whose aux is a dense MoE layer's under a mesh: ``E * sum(frac *
+    pmean)`` with ``frac`` of the whole batch's first choices (a
+    constant) and ``pmean`` the microbatch's, so that the microbatches'
+    mean is the whole batch's aux, with its gradient."""
+    route, layers = pinned_routes(Moe, ids, rows, 1, rows), {}
+
+    def whole(router, x2d, top_k):
+        w, flat, _ = route(router, x2d, top_k)
+        L = layers.setdefault(router.data_ptr(), len(layers))
+        E = router.shape[1]
+        first = torch.from_numpy(ids[L][..., 0].reshape(-1)).long()
+        frac = torch.nn.functional.one_hot(first.to(x2d.device), E) \
+            .float().mean(dim=0)
+        probs = torch.softmax(x2d.float() @ router.float(), dim=-1)
+        return w, flat, E * torch.sum(frac * probs.mean(dim=0))
+    return whole
 
 
 def gather_objects(obj) -> list:
@@ -2783,13 +2828,21 @@ def mesh_train(m, device, rank, tmp: Path) -> dict:
 def mesh_train_rank(rank, world, store, tmp):
     """One rank of ``moe_train_mesh``: ``launch/train.py``'s ``--mesh``
     rank set-up (its device, the process group), then
-    :func:`mesh_train`; writes its record to ``tmp/mesh_rank<r>.json``."""
+    :func:`mesh_train`; writes its record to ``tmp/mesh_rank<r>.json``;
+    then ``moe_train_pod2`` (:func:`pod_train`) at POD_MESH, its record
+    in ``tmp/moe_train_pod2_rank<r>.json``."""
     m = _modules()
     device = m["serve"].rank_device(rank, world)
     m["Me"].init_rank(rank, world, store, device, timeout_s=900)
     try:
         record = mesh_train(m, device, rank, Path(tmp))
         Path(tmp, f"mesh_rank{rank}.json").write_text(json.dumps(record))
+        _free(device)
+        t0 = time.perf_counter()
+        record = pod_train(m, device, m["Me"].make_mesh(POD_MESH), rank)
+        record["leg_s"] = time.perf_counter() - t0
+        Path(tmp, f"moe_train_pod2_rank{rank}.json").write_text(
+            json.dumps(record))
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2840,6 +2893,7 @@ def run_moe_train_mesh(m, device, name, tmpdir: Path):
         rows=MESH_TRAIN_BATCH * MESH_TRAIN_STEPS,
         launches={k: sum(r["launches"][k] for r in recs)
                   for k in rec0["launches"]})}
+    legs.update(pod_train_results(m, tmpdir))
     return legs, {"hash_partition": cases}
 
 
@@ -3519,11 +3573,23 @@ MESH_SERVE = {"serving_moe_tp2": ({"data": 1, "model": 2}, TP_LAYERS),
 # 64, 32): with the mesh phases the script took 1 066-1 288 s of command
 # at half depth, and with the data=2 serving phase 999-1 225 s, and it
 # must end within 1 200 s
-SERVE_LAYERS = {SERVE_ARCH: 10, MAMBA_ARCH: 16, MOE_ARCH: 8}
+# Falcon-Mamba at 8 since the pod legs (16 before: serving_mamba and
+# serving_mamba_tp2 took 15.9 and 43.3 s; with the pod legs the script
+# took 1 116-1 341 s of its 1 200, the host's speed)
+SERVE_LAYERS = {SERVE_ARCH: 10, MAMBA_ARCH: 8, MOE_ARCH: 8}
 # requests of the plain-path twin and of the world-1 engine the mesh legs
 # are held to: the first 4 of the leg's 32 (8 made the world-2 phase take
 # 151 s; the twin is cut, never the main leg)
 TP_TWIN_REQUESTS = 4
+# serving_moe_dp2's twin on the first 2 of them: with the pod legs the
+# script took 1 116 s of command (the legs 78.1 s; H100 80GB HBM3, 700 W),
+# so the first cut; its 4-request twin took 15.3 s, and
+# the decode steps run until its longest request (33 tokens) either way
+DP_TWIN_REQUESTS = 2
+# serving_moe_dp2 itself on the first 16 of the 32 requests since the pod
+# legs (its engine drained 32 in 89.8 s; the script took 1 116-1 341 s of
+# its 1 200 with them, the host's speed; H100 80GB HBM3, 700 W)
+DP_REQUESTS = 16
 # the Mamba legs at world 2, run by serving_moe_tp2's rank processes after
 # it: Falcon-Mamba-7B served at serving_mamba's depth and held to its
 # record, and trained at mamba_train's config for MAMBA_TP_TRAIN_STEPS
@@ -3555,6 +3621,18 @@ SEAMLESS_TRAIN_WORLD1 = "seamless_train_world1.json"
 # layers amplify one rounding's difference, and a model rank's partial
 # products are rounded before their sum
 CACHE_TOL = 2e-2
+# two batch axes (pod x data, ROADMAP Queue 1 item 3) on the card: four
+# ranks at pod=2 x data=2 x model=1 in processes that exist already,
+# serving_moe_pod2 in serving_moe_dp2's after it (its config, DP_LAYERS
+# layers, the first TP_TWIN_REQUESTS requests, held to its world-1 record)
+# and moe_train_pod2 in moe_train_mesh's after it (MESH_CHECK_LAYERS
+# layers, one row of MESH_TRAIN_SEQ tokens a batch rank).  At model 1 a
+# MoE layer runs moe_dense, as the reference's moe_apply does: no
+# dispatch plan; the serving leg's hash_partition launches are its
+# feature stores' shuffles, and the training leg launches no kernel
+POD_MESH = {"pod": 2, "data": 2, "model": 1}
+POD_LEGS = ("serving_moe_pod2", "moe_train_pod2")
+POD_TRAIN_ROWS = 4
 
 
 class DispatchLog:
@@ -3633,26 +3711,37 @@ def profile_tp2(fns, device, rank, warm=True):
 
 
 def mesh_rank(rank, world, store, tmp, legs):
-    """One rank of mesh legs on one mesh, in turn: the normal ``--mesh``
-    rank set-up of ``launch/serve.py`` (its device, the process group,
-    the mesh and ``make_policy(mesh, "fsdp_tp")``), then for each leg of
-    ``legs`` :func:`serve_mesh` (a leg of ``MESH_SERVE``),
-    :func:`serve_mamba_mesh` or :func:`mamba_train_mesh`; writes each
-    leg's record to ``tmp/<leg>_rank<r>.json`` (and rank 0 the kernel
-    inputs to ``tmp/<leg>_cases.pt``); the legs of ``ENCDEC_TP_LEGS`` by
-    :func:`serve_oneshot_mesh` and :func:`seamless_train_mesh`."""
+    """One rank of mesh legs, in turn: the normal ``--mesh`` rank set-up
+    of ``launch/serve.py`` (its device, the process group, each leg's
+    mesh, made when a leg first needs it, and ``make_policy(mesh,
+    "fsdp_tp")``), then for each leg of ``legs`` :func:`serve_mesh` (a
+    leg of ``MESH_SERVE``), :func:`serve_mamba_mesh` or
+    :func:`mamba_train_mesh`; writes each leg's record to
+    ``tmp/<leg>_rank<r>.json`` (and rank 0 the kernel inputs to
+    ``tmp/<leg>_cases.pt``); the legs of ``ENCDEC_TP_LEGS`` by
+    :func:`serve_oneshot_mesh` and :func:`seamless_train_mesh`, those of
+    ``POD_LEGS`` by :func:`serve_pod_mesh` and :func:`pod_train`."""
     m = _modules()
     device = m["serve"].rank_device(rank, world)
     m["Me"].init_rank(rank, world, store, device, timeout_s=600)
     tmp = Path(tmp)
+    meshes = {}
     try:
-        shape = MESH_SERVE[legs[0]][0] if legs[0] in MESH_SERVE \
-            else TP2_MESH
-        mesh = m["Me"].make_mesh(shape)
         for leg in legs:
+            shape = POD_MESH if leg in POD_LEGS else MESH_SERVE[leg][0] \
+                if leg in MESH_SERVE else TP2_MESH
+            key = tuple(shape.items())
+            if key not in meshes:       # every rank makes it, in turn
+                meshes[key] = m["Me"].make_mesh(shape)
+            mesh = meshes[key]
             t0 = time.perf_counter()
             cases = None
-            if leg in MESH_SERVE:
+            if leg == "serving_moe_pod2":
+                record, cases = serve_pod_mesh(
+                    m, device, m["Sh"].make_policy(mesh, "fsdp_tp"), tmp)
+            elif leg == "moe_train_pod2":
+                record = pod_train(m, device, mesh, rank)
+            elif leg in MESH_SERVE:
                 record, cases = serve_mesh(
                     m, device, m["Sh"].make_policy(mesh, "fsdp_tp"), leg,
                     tmp / f"{leg}_world1.pt")
@@ -3704,7 +3793,7 @@ def gathered_bytes(Sh, policy, params) -> int:
             return sum(walk(v, spec[k]) for k, v in node.items())
         if Sh.data_dim(spec) is None:
             return 0
-        return node.numel() * node.element_size() * (policy.world_d - 1)
+        return node.numel() * node.element_size() * (policy.world_fsdp - 1)
     return walk(params, specs)
 
 
@@ -3721,7 +3810,7 @@ def serve_mesh(m, device, policy, leg, w1_path):
     M, serve, ops, Moe, Sh = m["M"], m["serve"], m["ops"], m["Moe"], m["Sh"]
     cfg = mesh_serve_config(m, leg)
     slots, prompt_cap, gen_cap = SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN
-    n_req = SERVE_REQUESTS
+    n_req = DP_REQUESTS if policy.world_d > 1 else SERVE_REQUESTS
     rank = torch.distributed.get_rank()
     no_tf32(leg)
     params = serve.sharded_params(cfg, device, 0, policy)
@@ -3848,8 +3937,8 @@ def serve_mesh(m, device, policy, leg, w1_path):
     xrec = Recorder(xla)
     xdrops = []
     xla._slot_prefill = _drops_logged(Moe, xla._slot_prefill, xdrops)
-    xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap,
-                                seed=0)[:TP_TWIN_REQUESTS]
+    xreqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)[
+        :DP_TWIN_REQUESTS if nodrop_twin else TP_TWIN_REQUESTS]
     Moe.radix_histogram_ranks = m["hp_ref"].radix_histogram_ranks_ref
     try:
         xdone, _, xseconds = serve.drive(xla, xreqs, slots)
@@ -4018,7 +4107,317 @@ def run_serving_mesh(m, device, tmpdir: Path, leg, then=()):
         encdec_legs, encdec_cases = encdec_tp2_results(m, device, tmpdir)
         legs.update(encdec_legs)
         out["flash_attention"] += encdec_cases["flash_attention"]
+    if "serving_moe_pod2" in then:
+        pod_legs, pod_cases = pod_serving_results(m, device, tmpdir)
+        legs.update(pod_legs)
+        for kname, more in pod_cases.items():
+            out[kname] += more
     return legs, out
+
+
+def serve_pod_mesh(m, device, policy, tmp: Path):
+    """``serving_moe_pod2`` on this rank: ``serving_moe_dp2``'s model
+    (Granite-3.0-MoE-3B-A800M at full width, DP_LAYERS layers, seed 0)
+    under ``policy`` (pod=2 x data=2 x model=1, ``fsdp_tp``: the slots
+    over pod x data, each 2D leaf cut over data and gathered over it a
+    layer at a time, whole over pod), the feature stores over every
+    rank, on the first TP_TWIN_REQUESTS of the leg's requests; held to
+    the world-1 record ``serving_moe_dp2`` wrote (the same weights and
+    requests, every expert on every token, as moe_dense runs them here):
+    every prefill's logits within SERVE_LOGIT_TOL and greedy tokens
+    wherever the margin clears it.  Times a full-length prefill and a
+    decode step of all slots by CUDA events on every rank at once,
+    profiles them on rank 0.  Returns (this rank's record, the kernel
+    inputs it recorded: the first flash call and the first shuffle's
+    ranking of the feature stores)."""
+    M, serve, ops, Sh = m["M"], m["serve"], m["ops"], m["Sh"]
+    leg = "serving_moe_pod2"
+    cfg = mesh_serve_config(m, "serving_moe_dp2")
+    slots, prompt_cap, gen_cap = SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN
+    rank = torch.distributed.get_rank()
+    no_tf32(leg)
+    params = serve.sharded_params(cfg, device, 0, policy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    experts_bf16(leg, params)
+    _sync(device)
+    resident = _allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    w1 = torch.load(tmp / "serving_moe_dp2_world1.pt")
+    check_held(m, leg, params, policy, w1["shapes"])
+
+    for op in ops.values():
+        op.launches = 0
+    flash, shuffles = [], []
+    with recording(m["D"], "radix_histogram_ranks", shuffles, picks={0}):
+        stores, tables = serve.feature_stores(m["make_context"](device), 0,
+                                              max(slots, 8))
+        lookups = count_lookups(stores)
+        engine = m["ServingEngine"](
+            cfg, params, policy=policy, slots=slots,
+            prompt_capacity=prompt_cap, gen_capacity=gen_cap,
+            queue_capacity=SERVE_QUEUE, feature_stores=stores, device=device)
+        reqs = serve.make_requests(cfg, SERVE_REQUESTS, prompt_cap, gen_cap,
+                                   seed=0)[:TP_TWIN_REQUESTS]
+        rec = Recorder(engine)
+        with recording(ops["flash_attention"], "flash_attention", flash,
+                       picks={0}):
+            done, rejected, seconds = serve.drive(engine, reqs, slots)
+    _sync(device)
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = torch.cuda.max_memory_allocated(device) - resident
+    mt = engine.metrics
+    check_engine_run(leg, engine, done, rejected, reqs, tables, stores)
+    # flash in every layer of each prefill; the stores' shuffles (moe_dense
+    # makes no dispatch plan at model 1)
+    expect_launches(leg, launches, {
+        "flash_attention": cfg.n_layers * mt.count("prefills"),
+        "hash_partition": store_chunks(serve, stores) + lookups[0],
+        "radix_sort": 0})
+    rows = Sh.batch_block(policy, slots)
+    if engine.caches["k"].shape[1] != rows.stop - rows.start:
+        raise AssertionError(f"{leg}: caches of "
+                             f"{engine.caches['k'].shape[1]} slots for "
+                             f"the rank's {rows}")
+    diffs = {rid: float((rec.logits[rid] - w1["logits"][rid]).abs().max())
+             for rid in w1["logits"]}
+    if max(diffs.values()) > SERVE_LOGIT_TOL:
+        raise AssertionError(f"{leg}: prefill logits differ from world 1's "
+                             f"by {diffs} > {SERVE_LOGIT_TOL}")
+    by_id = {r.req_id: r for r in done}
+    compared = sum(greedy_agree(by_id[rid].out_tokens, w1["tokens"][rid],
+                                w1["margins"][rid], SERVE_LOGIT_TOL)
+                   for rid in w1["tokens"])
+    if compared == 0:
+        raise AssertionError(f"{leg}: no token compared with world 1's")
+
+    prefill = M.make_slot_prefill(cfg, policy,
+                                  decode_len=prompt_cap + gen_cap)
+    full = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt_cap)).astype(np.int32)).to(device)}
+    step = M.make_serve_step(cfg, policy)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    lens = np.full(slots, prompt_cap - 1, np.int32)
+    prefill_ms = event_ms(lambda: prefill(params, full, prompt_cap), reps=3)
+    step_ms = event_ms(lambda: step(params, engine.caches, toks, lens),
+                       reps=4)
+    prof = profile_tp2({
+        "prefill": lambda: prefill(params, full, prompt_cap),
+        "decode_4_steps": lambda: [step(params, engine.caches, toks, lens)
+                                   for _ in range(4)]},
+        device, rank, warm=False)
+    tokens = mt.count("tokens_generated")
+    record = {
+        "phase": leg, "rank": rank, "coord": policy.mesh.coord,
+        "batch_rank": policy.batch_rank, "mesh": policy.mesh.shape,
+        "arch": cfg.name, "layers": cfg.n_layers, "requests": len(reqs),
+        "device": str(device), "backend": torch.distributed.get_backend(),
+        "completed": mt.count("completed"), "prefills": mt.count("prefills"),
+        "decode_steps": mt.count("decode_steps"), "tokens": tokens,
+        "seconds": seconds, "tokens_per_s": tokens / seconds,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "weight_bytes": weight_bytes, "resident_bytes": resident,
+        "gathered_bytes_per_forward": gathered_bytes(Sh, policy, params),
+        "cache_rows": int(engine.caches["k"].shape[1]),
+        "peak_bytes_above_resident": peak, "launches": launches,
+        "prefill_logit_diff_vs_world1": diffs,
+        "world1_tokens_compared": compared, "logit_tol": SERVE_LOGIT_TOL,
+        "profile": prof,
+        "out_tokens": {r.req_id: r.out_tokens for r in done}}
+    cases = {"flash": tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                            for a in flash[0]),
+             "shuffle": tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                              for a in shuffles[0])}
+    del engine, params
+    return record, cases
+
+
+def pod_serving_results(m, device, tmpdir: Path):
+    """``serving_moe_pod2``'s records (the ranks' tokens must agree) and
+    its kernel cases: rank 0's first flash call, case (p), and its
+    stores' first ranking.  Returns (legs, kernel cases)."""
+    leg = "serving_moe_pod2"
+    world = math.prod(POD_MESH.values())
+    recs = [json.loads(Path(tmpdir, f"{leg}_rank{r}.json").read_text())
+            for r in range(world)]
+    if any(r["out_tokens"] != recs[0]["out_tokens"] for r in recs):
+        raise AssertionError(f"{leg}: the ranks' tokens differ")
+    for r in recs:
+        r.pop("out_tokens")
+    emit({"phase": leg, "ranks": recs})
+    cases = torch.load(tmpdir / f"{leg}_cases.pt")
+    flash = recorded_flash_case(f"(p) {leg}", tuple(
+        a.to(device) if isinstance(a, torch.Tensor) else a
+        for a in cases["flash"]))
+    pid, P = cases["shuffle"]
+    pid = pid.to(device)
+    shuffle = dict(shape=f"(pod2) store shuffle n={pid.numel()} P={P}",
+                   args=(pid, P),
+                   library=lambda pid=pid: torch.argsort(pid, stable=True))
+    legs = {leg: dict(rows=recs[0]["requests"], launches={
+        k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]})}
+    return legs, {"flash_attention": [flash], "hash_partition": [shuffle]}
+
+
+def pod_train(m, device, mesh, rank) -> dict:
+    """``moe_train_pod2`` on this rank: Granite-3.0-MoE-3B-A800M at full
+    width and MESH_CHECK_LAYERS layers under ``fsdp_tp`` at ``mesh``
+    (pod=2 x data=2 x model=1: the rows over pod x data, the 2D leaves
+    and the AdamW moments cut over data and whole over pod, the
+    gradients averaged over all four), seed-0 weights, one step on
+    POD_TRAIN_ROWS rows of MESH_TRAIN_SEQ tokens (one a batch rank); on
+    rank 0 held to the port's world-1 step of the same weights and batch
+    in one microbatch a batch rank (the same grouping of bf16 sums) with
+    every MoE layer pinned to the routes the ranks took and the whole
+    batch's aux, as a dense MoE layer takes it at the mesh
+    (:func:`whole_batch_routes`), by the leaf rule (the noise allowance
+    from the same step in one microbatch, :func:`order_noise`), the
+    loss, ``moe_aux`` and the grad norm.  Then one more step, timed by CUDA
+    events, writing the state in place.  The layers run moe_dense and
+    plain attention: no kernel launches.  Returns this rank's record
+    (rank 0's with the check)."""
+    M, A, Sh, Moe, Ck, ops = (m["M"], m["Aw"], m["Sh"], m["Moe"], m["Ck"],
+                              m["ops"])
+    leg = "moe_train_pod2"
+    no_tf32(leg)
+    full = m["get_config"](MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_CHECK_LAYERS)
+    policy = Sh.make_policy(mesh, "fsdp_tp")
+    opt_cfg = A.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=2)
+    whole_batch = lm_batch(m, cfg, 0, POD_TRAIN_ROWS, MESH_TRAIN_SEQ,
+                           device)
+    params, opt = mesh_state(m, cfg, device, policy, opt_cfg)
+    held = lambda tree: sum(t.numel() * t.element_size()     # noqa: E731
+                            for t in A.flatten_params(tree).values())
+    master_bytes, moment_bytes = held(params), held(opt["m"]) + held(opt["v"])
+    ids, plain = [], Moe._route
+
+    def route(router, x2d, top_k):
+        out = plain(router, x2d, top_k)
+        if not Moe._recomputing:
+            ids.append(out[1].cpu().numpy())
+        return out
+
+    batch = Sh.shard_batch(whole_batch, policy)
+    for op in ops.values():
+        op.launches = 0
+    _sync(device)
+    _reset_peak(device)
+    resident = _allocated(device)
+    step = M.make_train_step(cfg, policy, opt_cfg, donate=True)
+    mets, events = [], []
+    Moe._route = route
+    try:
+        for i in range(2):
+            ev = event_pair()
+            ev[0].record()
+            params, opt, met = step(params, opt, batch)
+            ev[1].record()
+            mets.append({k: float(v) for k, v in met.items()})
+            events.append(ev)
+            if i == 0:       # the first step's state, whole on rank 0
+                torch.cuda.synchronize()
+                layout = Sh.train_state_layout(policy, params, opt, cfg)
+                whole = layout.whole(Ck.tree_leaves((params, opt)))
+                arrays = None if whole is None \
+                    else whole_arrays(m, params, opt, whole)
+                del whole
+        torch.cuda.synchronize()
+    finally:
+        Moe._route = plain
+    launches = {k: op.launches for k, op in ops.items()}
+    peak = _peak(device) - resident
+    ms = [a.elapsed_time(b) for a, b in events]
+    expect_launches(leg, launches, {k: 0 for k in launches})
+    routes = gather_objects(ids[:cfg.n_layers])
+    del params, opt
+    _free(device)
+    check = None
+    if rank == 0:
+        S = MESH_TRAIN_SEQ
+        # batch rank r (pod major) holds row r: the ranks in global order
+        layers = [np.concatenate([r[L].reshape(1, S, -1) for r in routes])
+                  for L in range(cfg.n_layers)]
+        w1s = {}
+        for micro in (POD_TRAIN_ROWS, 1):
+            w1cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, microbatches=micro))
+            w1p = M.init_params(torch.Generator(device).manual_seed(0),
+                                w1cfg, master=True)
+            Moe._route = whole_batch_routes(Moe, layers,
+                                            POD_TRAIN_ROWS // micro)
+            try:
+                new, w1opt, met = M.make_train_step(w1cfg, None, opt_cfg)(
+                    w1p, A.init(A.flatten_params(w1p), opt_cfg),
+                    whole_batch)
+                _sync(device)
+                w1s[micro] = (state_arrays(m, new, w1opt),
+                              {k: float(v) for k, v in met.items()})
+            finally:
+                Moe._route = plain
+            del w1p, new, w1opt
+            _free(device)
+        w1, w1met = w1s[POD_TRAIN_ROWS]
+        noise = order_noise(w1s[1][0], w1, device)
+        check = {"vs_world1": leaf_rule(arrays, w1, w1met["lr"], device,
+                                        noise),
+                 "world1": w1met, "pod": mets[0],
+                 "world1_one_microbatch": w1s[1][1],
+                 "order_noise_max": {
+                     mo: max(v for (x, _), v in noise.items() if x == mo)
+                     for mo in ("m", "v")}}
+        for k, tol in (("loss", LM_LOSS_RTOL), ("moe_aux", LM_LOSS_RTOL),
+                       ("grad_norm", LM_GNORM_RTOL)):
+            e = rel_err(mets[0][k], w1met[k])
+            check["vs_world1"][f"{k}_rel_err"] = e
+            if e > tol:
+                check["vs_world1"]["failed"].append(
+                    f"{k} {mets[0][k]} vs {w1met[k]}")
+        print(json.dumps({"moe_train_pod2_check": check}), flush=True)
+        if check["vs_world1"]["failed"]:
+            raise AssertionError(f"{leg}: {check}")
+    torch.distributed.barrier()
+    return {"phase": leg, "rank": torch.distributed.get_rank(),
+            "coord": mesh.coord, "batch_rank": policy.batch_rank,
+            "device": str(device), "backend": torch.distributed.get_backend(),
+            "arch": cfg.name, "layers": cfg.n_layers,
+            "of_layers": full.n_layers, "flavor": policy.flavor,
+            "rows": POD_TRAIN_ROWS, "seq": MESH_TRAIN_SEQ,
+            "step_ms": ms, "timed_step_ms": ms[-1],
+            "tokens_per_s": POD_TRAIN_ROWS * MESH_TRAIN_SEQ / ms[-1] * 1e3,
+            "master_bytes": master_bytes, "moment_bytes": moment_bytes,
+            "resident_bytes": resident, "peak_bytes_above_resident": peak,
+            "launches": launches, "losses": [x["loss"] for x in mets],
+            "moe_aux": [x["moe_aux"] for x in mets], "check": check}
+
+
+def pod_train_results(m, tmpdir: Path) -> dict:
+    """``moe_train_pod2``'s records: every rank's losses alike.  Returns
+    its leg."""
+    leg = "moe_train_pod2"
+    world = math.prod(POD_MESH.values())
+    recs = [json.loads(Path(tmpdir, f"{leg}_rank{r}.json").read_text())
+            for r in range(world)]
+    if any(r["losses"] != recs[0]["losses"] for r in recs):
+        raise AssertionError(f"{leg}: the ranks' losses differ")
+    emit({"phase": leg, "ranks": recs})
+    return {leg: dict(rows=POD_TRAIN_ROWS, launches={
+        k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]})}
+
+
+def run_pod2(m, device, tmpdir: Path):
+    """The two pod legs alone, in four rank processes of their own:
+    ``serving_moe_dp2``'s world-1 record first, then
+    :func:`serve_pod_mesh` and :func:`pod_train` in each rank.  Returns
+    (legs, kernel cases)."""
+    torch.save(mesh_world1(m, device, "serving_moe_dp2"),
+               tmpdir / "serving_moe_dp2_world1.pt")
+    m["serve"].spawn(math.prod(POD_MESH.values()), mesh_rank,
+                     (str(tmpdir), POD_LEGS), timeout_s=1000)
+    legs, cases = pod_serving_results(m, device, tmpdir)
+    legs.update(pod_train_results(m, tmpdir))
+    return legs, cases
 
 
 def check_held(m, leg, params, policy, shapes) -> None:
@@ -5633,12 +6032,22 @@ def run_all(tmpdir: Path) -> int:
     # and at data=2 x model=2: four ranks, the slots split over the data
     # ranks, the weights gathered over them; its plans and flash inputs
     # held to the plain versions, its decode plan (n 32) timed
+    # then, in the same ranks, pod=2 x data=2 x model=1: the slots over
+    # both batch axes, its first flash call (p) and a store shuffle held
+    # to the plain versions
     dp_legs, dp_cases = run_serving_mesh(m, device, tmpdir,
-                                         "serving_moe_dp2")
+                                         "serving_moe_dp2",
+                                         then=("serving_moe_pod2",))
     legs.update(dp_legs)
     for kname, err in compare_kernels(m, dp_cases, device).items():
         errs[kname] = max(errs[kname], err)
-    cases["hash_partition"].append(dp_cases["hash_partition"][-1])
+    cases["hash_partition"] += [c for c in dp_cases["hash_partition"]
+                                if c["shape"].startswith("(pod2)")]
+    cases["hash_partition"].append(
+        [c for c in dp_cases["hash_partition"]
+         if not c["shape"].startswith("(pod2)")][-1])
+    cases["flash_attention"] += [c for c in dp_cases["flash_attention"]
+                                 if c["shape"].startswith("(p)")]
     del dp_cases
     legs.update(run_moe_train(m, device, name))
     # training at data=2 x model=2: four ranks on the card; every dispatch

@@ -3,7 +3,10 @@
 A :class:`Mesh` is this process's view of a grid of ranks: the axis
 names, their sizes, this rank's coordinate on each axis and one
 ``torch.distributed`` group per axis, holding the ranks that differ from
-this one only along it.  Ranks are laid out row-major over the axes (the
+this one only along it; where the mesh has both batch axes (``pod`` and
+``data``), also one group of the two together, holding the ranks that
+share this one's model coordinate, pod major (a batch's rows are cut
+over them).  Ranks are laid out row-major over the axes (the
 last axis fastest), as ``jax.make_mesh`` lays out devices.  The kernels
 are ``ctypes`` calls on local tensors, so nothing propagates layouts
 between them: each layer holds its slice and calls the collective it
@@ -27,15 +30,33 @@ import torch.distributed as dist
 class Mesh:
     """``shape`` maps each axis name to its size, ``coord`` to this rank's
     index along it, ``groups`` to the process group of that axis (None
-    for an axis of one rank, or without a process group)."""
+    for an axis of one rank, or without a process group); ``joint`` maps
+    a tuple of axes to the group of those axes together
+    (:data:`BATCH_AXES`)."""
     axis_names: tuple[str, ...]
     shape: dict
     coord: dict
     groups: dict
+    joint: dict = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+    def group_of(self, axes: tuple[str, ...]):
+        """The process group of ``axes`` together (None for one rank):
+        ranks in the order of their index over ``axes``, the first axis
+        major."""
+        axes = tuple(a for a in axes if self.shape[a] > 1)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.groups[axes[0]]
+        return self.joint.get(axes)
+
+
+# the batch axes, in the order of ``models.sharding.make_policy``
+BATCH_AXES = ("pod", "data")
 
 
 def init_rank(rank: int, world: int, store_path: str, device,
@@ -97,6 +118,10 @@ def make_mesh(shape: dict) -> Mesh:
     names = tuple(shape)
     sizes = dict(shape)
     world = math.prod(sizes.values())
+    batch = [a for a in names if a in BATCH_AXES]
+    if batch != [a for a in BATCH_AXES if a in names]:
+        raise ValueError(f"mesh {sizes}: the batch axes go in the order "
+                         f"{BATCH_AXES} (a batch's rows are cut pod major)")
     if dist.is_initialized():
         have, rank = dist.get_world_size(), dist.get_rank()
     else:
@@ -113,25 +138,39 @@ def make_mesh(shape: dict) -> Mesh:
     for a in reversed(names):
         strides[a] = s
         s *= sizes[a]
-    groups = {}
-    for a in names:
-        if sizes[a] == 1 or not dist.is_initialized():
-            groups[a] = None
-            continue
-        # every line of ranks along axis a, in the same order on every rank
-        others = [b for b in names if b != a]
+
+    def group(axes):
+        """This rank's group of ``axes`` together: every rank calls
+        ``dist.new_group`` for every line of ranks along them, in the same
+        order (``new_group`` sorts its ranks, and the first axis is the
+        major one, so a group rank is the index over ``axes``)."""
+        others = [b for b in names if b not in axes]
+        n = math.prod(sizes[a] for a in axes)
         mine = None
-        for idx in range(world // sizes[a]):
+        for idx in range(world // n):
             base, rest = 0, idx
             for b in reversed(others):
                 base += (rest % sizes[b]) * strides[b]
                 rest //= sizes[b]
-            ranks = [base + i * strides[a] for i in range(sizes[a])]
-            g = dist.new_group(ranks)
+            ranks = []
+            for j in range(n):
+                off, rest = 0, j
+                for a in reversed(axes):
+                    off += (rest % sizes[a]) * strides[a]
+                    rest //= sizes[a]
+                ranks.append(base + off)
+            g = dist.new_group(sorted(ranks))
             if rank in ranks:
                 mine = g
-        groups[a] = mine
-    return Mesh(axis_names=names, shape=sizes, coord=coord, groups=groups)
+        return mine
+
+    live = dist.is_initialized()
+    groups = {a: group((a,)) if live and sizes[a] > 1 else None
+              for a in names}
+    batch = tuple(a for a in BATCH_AXES if a in names and sizes[a] > 1)
+    joint = {batch: group(batch)} if live and len(batch) > 1 else {}
+    return Mesh(axis_names=names, shape=sizes, coord=coord, groups=groups,
+                joint=joint)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lm100m \
         --reduced [--requests 32] [--slots 4] [--prompt-len 32] [--gen 16] \
         [--queue-capacity 64] [--no-features] [--seed 0] [--device cpu] \
-        [--mesh data=D,model=M]
+        [--mesh data=D,model=M] [--mesh pod=P,data=D,model=M]
 
 Thin CLI over :class:`repro_torch.serving.ServingEngine` (the port of
 ``repro.launch.serve``): it draws
@@ -34,12 +34,14 @@ split over the data ranks where they divide (each rank decodes its
 block; a slot's prefill runs on every data rank, its cache kept by the
 slot's owner); MoE layers dispatch by ``moe_shuffle`` in prefill and
 ``moe_decode`` in decode over the rank's model group, and the feature
-stores run over all D x M ranks.  Rank 0 prints the snapshot.  Dense
-and MoE configs serve this way.  Refused, before any rank starts: Mamba
-stacks and encoder or vision configs at more than one rank (ROADMAP
-Queue 1 item 2), a second batch axis of several ranks (item 3) and
-period stacks (item 4).  A mesh of one rank serves in this process, as
-without ``--mesh``.
+stores run over all D x M ranks.  Rank 0 prints the snapshot.
+``--mesh pod=P,data=D,model=M`` adds the second batch axis: the slots
+split over pod x data (pod major), the weights are cut over data and
+whole over pod (the reference's ``_dd``), so a pod gathers nothing.
+Dense, MoE and Mamba configs serve this way.  Refused, before any rank
+starts: what ``models.transformer.check_supported`` refuses (period
+stacks, ROADMAP Queue 1 item 4).  A mesh of one rank serves in this
+process, as without ``--mesh``.
 """
 import argparse
 import math

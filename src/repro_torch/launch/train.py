@@ -5,6 +5,7 @@ rank processes.
     PYTHONPATH=src python -m repro_torch.launch.train --arch lm100m \\
         [--steps 300] [--batch 8] [--seq 512] [--reduced] [--device cpu]
         [--mesh data=2,model=2]        # D x M rank processes
+        [--mesh pod=2,data=2,model=1]  # P x D x M rank processes
         [--coordinator host:port]      # this process is one rank
         [--ckpt-dir DIR] [--ckpt-every 50]
         [--fail-at 120]                # failure-injection drill
@@ -19,7 +20,10 @@ without it.  A run without ``--resume`` first removes the checkpoints
 in ``--ckpt-dir`` (``checkpoint.clear``; nothing else there).
 Runs on the CUDA card unless ``--device cpu``.
 
-``--mesh data=D,model=M`` trains over D x M rank processes
+``--mesh data=D,model=M`` trains over D x M rank processes, and
+``--mesh pod=P,data=D,model=M`` over P x D x M (the rows of a batch cut
+over pod x data, pod major; weights and moments cut over data and whole
+over pod, the gradients averaged over pod x data)
 (``launch.serve.spawn``; they meet through a ``file://`` store in a
 temporary directory): rank r on ``cuda:r`` when there are that many
 cards (NCCL), all on the one card when there is one (gloo, the
@@ -121,7 +125,7 @@ def train(args, cfg, device, policy=None, rank: int = 0) -> list[dict]:
                    for k, v in Sh.shard_batch(b, policy).items()}
             s += 1
 
-    layout = Sh.train_state_layout(policy, params, opt_state)
+    layout = Sh.train_state_layout(policy, params, opt_state, cfg)
     trainer = Trainer(step_fn=step_fn, ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every,
                       failure=FailureInjector(args.fail_at), layout=layout)

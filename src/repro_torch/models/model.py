@@ -25,23 +25,26 @@ holds its slice of the parameters (:func:`params_from_jax` with
 ``policy``, or ``sharding.shard_params`` of :func:`init_params`' tree;
 under ``fsdp_tp`` at a data axis of several ranks a 2D slice, gathered
 over the data group a layer at a time in every forward, and the
-top-level leaves once a forward), its heads' caches and, on a data
-axis of several ranks, its block of the batch's rows
-(``sharding.batch_block``; every row where they do not split, as a
-slot prefill's one row): :func:`cache_struct` holds that block, and the
-prefill and decode functions take the whole batch, run the rank's rows
-and return the logits of every row.  The logits' vocab blocks are
-gathered over the model group and the rows' blocks over the data
-group (where the rows do not split, data rank 0's logits are broadcast
-over it), so every rank holds the same full logits, bit for bit, and
-takes the same greedy tokens.
+top-level leaves once a forward), its heads' caches and, on batch axes
+of several ranks (``pod`` and ``data``), its block of the batch's rows
+(``sharding.batch_block``, pod major; every row where they do not
+split, as a slot prefill's one row): :func:`cache_struct` holds that
+block, and the prefill and decode functions take the whole batch, run
+the rank's rows and return the logits of every row.  The logits' vocab
+blocks are gathered over the model group and the rows' blocks over the
+batch group (where the rows do not split, batch rank 0's logits are
+broadcast over it), so every rank holds the same full logits, bit for
+bit, and takes the same greedy tokens.  Weights are cut over ``data``
+only and are whole over ``pod``.
 
 Training takes it too (:func:`make_train_step`, the reference's
-signature): each data rank computes the loss over its rows (its block
+signature): each batch rank computes the loss over its rows (its block
 of the batch, ``sharding.shard_batch``), the model axis as in serving
 with every collective carrying its gradient, and the gradients, averaged
-over the data group, land in the 2D layout of ``param_specs(for_opt=
-True)``, where AdamW keeps its moments (ZeRO-1, ``sharding.Zero1``).
+over pod x data, land in the 2D layout of ``param_specs(for_opt=
+True)``, where AdamW keeps its moments (ZeRO-1, ``sharding.Zero1``: cut
+over ``data``, whole over ``pod``).  Model ranks that share a KV head
+sum its gradient first.
 """
 from __future__ import annotations
 
@@ -215,11 +218,11 @@ def backbone(params, cfg, batch, opts: StackOpts, *, want_cache=False,
 
 def _logits(params, cfg, x, policy=None, split: bool = False):
     """Float32 logits over the whole vocabulary: under a sharded model
-    axis the ranks' vocab blocks, gathered in rank order.  On a data
-    axis of several ranks ``x`` holds this rank's rows of the batch:
-    with ``split`` its block (``sharding.batch_block``), and the data
-    ranks' blocks are gathered in rank order; else the whole batch, and
-    data rank 0's logits are broadcast.  Either way every rank holds the
+    axis the ranks' vocab blocks, gathered in rank order.  On batch
+    axes of several ranks ``x`` holds this rank's rows of the batch:
+    with ``split`` its block (``sharding.batch_block``), and the batch
+    ranks' blocks are gathered in batch-rank order; else the whole
+    batch, and batch rank 0's logits are broadcast.  Either way every rank holds the
     same bits."""
     logits = Ly.logits_out(
         params.get("lm_head"), x,
@@ -229,8 +232,8 @@ def _logits(params, cfg, x, policy=None, split: bool = False):
     if policy.sharded:
         logits = gather_dim(logits, policy.model_group, -1)
     if policy.world_d > 1:
-        logits = gather_dim(logits, policy.data_group, 0) if split \
-            else broadcast(logits, policy.data_group)
+        logits = gather_dim(logits, policy.batch_group, 0) if split \
+            else broadcast(logits, policy.batch_group)
     return logits
 
 
@@ -488,11 +491,12 @@ def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig, *,
     rank's slices in the flavor's layout (``sharding.shard_params``),
     ``batch`` its rows (``sharding.shard_batch``) and ``opt_state`` the
     moments of its 2D slices (``adamw.init`` of ``Zero1.local`` of each
-    parameter: ZeRO-1).  The gradients are averaged over the data group
-    into that 2D layout, AdamW updates the 2D slices (the global norm
-    over the whole mesh) and, under ``tp``, the new parameters are
-    gathered back over data.  The reported ``loss`` and ``moe_aux`` are
-    means over the data group.
+    parameter: ZeRO-1).  The gradients are averaged over the batch
+    ranks (pod x data) into that 2D layout (a KV head shared by model
+    ranks summed over them first), AdamW updates the 2D slices (the
+    global norm over the whole mesh) and, under ``tp``, the new
+    parameters are gathered back over data.  The reported ``loss`` and
+    ``moe_aux`` are means over the batch ranks.
 
     With ``donate`` the step writes the new parameters and AdamW state
     into the tensors it is given (``adamw.update``: the reference's
@@ -542,10 +546,10 @@ def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig, *,
         metrics = {k: v.detach() for k, v in metrics.items()}
         zero = None
         if meshed:
-            zero = sharding.Zero1(policy, flat)
+            zero = sharding.Zero1(policy, flat, cfg)
             grads = {k: zero.grad(k, g) for k, g in grads.items()}
             if policy.world_d > 1:
-                metrics = {k: all_reduce(v, policy.data_group)
+                metrics = {k: all_reduce(v, policy.batch_group)
                            / policy.world_d for k, v in metrics.items()}
         flat, opt_state, om = adamw.update(flat, grads, opt_state, opt_cfg,
                                            zero=zero, donate=donate)

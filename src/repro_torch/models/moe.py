@@ -61,8 +61,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..core.context import copy_to_group, gather_dim, grad_all_to_all, \
-    sum_over_group
+from ..core.context import all_reduce, copy_to_group, gather_dim, \
+    grad_all_to_all, sum_over_group
 from ..kernels.hash_partition.ops import radix_histogram_ranks
 from . import layers as Ly
 from . import sharding
@@ -137,14 +137,56 @@ def _expert_ffn(eg, eu, ed, xb):
     return torch.matmul(g * u, ed.to(bf))
 
 
-def moe_dense(p, cfg, x):
+class _BatchMean(torch.autograd.Function):
+    """The mean of ``x`` over a group (the same bits on every rank); its
+    gradient passes to each rank's ``x`` whole: every rank's loss holds
+    the mean and the train step averages the ranks' gradients, so the
+    mean's gradient reaches each ``x`` with weight 1 / D, as the whole
+    batch's loss gives it."""
+
+    @staticmethod
+    def forward(ctx, x, group, D):
+        return all_reduce(x, group) / D
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _batch_aux(router, x2d, ids, policy):
+    """The reference's ``aux`` of ``moe_dense`` under a mesh, whose
+    compiler takes ``frac`` and ``pmean`` over the whole batch: this
+    rank's (its rows, ``ids`` as routed), averaged over the batch
+    group (equal blocks of rows)."""
+    probs = torch.softmax(x2d.float() @ router.float(), dim=-1)
+    E = router.shape[1]
+    group, D = policy.batch_group, policy.world_d
+    frac = all_reduce(F.one_hot(ids[:, 0].long(), E).to(F32).mean(dim=0),
+                      group) / D
+    pmean = _BatchMean.apply(probs.mean(dim=0), group, D)
+    return E * torch.sum(frac * pmean)
+
+
+def _global_aux(policy, router) -> bool:
+    """Whether a dense MoE layer takes :func:`_batch_aux`: on batch axes
+    of several ranks, where the aux reaches a loss (the router takes a
+    gradient; serving discards the aux)."""
+    return policy is not None and policy.world_d > 1 \
+        and torch.is_grad_enabled() and router.requires_grad
+
+
+def moe_dense(p, cfg, x, policy=None):
     """x (B, S, d) -> (y (B, S, d) in x's dtype, aux): every one of the
     ``cfg.n_experts`` experts on every token, combined in float32 with
-    the gates, which are zero outside each token's top-k."""
+    the gates, which are zero outside each token's top-k.  Under a
+    ``policy`` on batch axes of several ranks, in training, ``aux`` is
+    the whole batch's (:func:`_batch_aux`)."""
     B, S, d = x.shape
     E = cfg.n_experts
     x2 = x.reshape(B * S, d)
     w, ids, aux = _route(p["router"], x2, cfg.top_k)
+    if _global_aux(policy, p["router"]):
+        aux = _batch_aux(p["router"], x2, ids, policy)
     gates = torch.zeros((B * S, E), dtype=F32, device=x.device) \
         .scatter(1, ids.long(), w)                            # (T, E)
     o = _expert_ffn(p["e_gate"][:E], p["e_up"][:E], p["e_down"][:E],
@@ -168,7 +210,7 @@ def _dense_fallback(p, cfg, x, policy):
     model axis on this rank's block of the experts (its slice from
     ``shard_params``), summed over the model group."""
     if not policy.sharded:
-        return moe_dense(p, cfg, x)
+        return moe_dense(p, cfg, x, policy)
     B, S, d = x.shape
     E = cfg.n_experts
     group = policy.model_group
@@ -177,6 +219,8 @@ def _dense_fallback(p, cfg, x, policy):
     hi = min(lo + p["e_gate"].shape[0], E)
     x2 = x.reshape(B * S, d)
     w, ids, aux = _route(p["router"], x2, cfg.top_k)
+    if _global_aux(policy, p["router"]):
+        aux = _batch_aux(p["router"], x2, ids, policy)
     # every rank routes every token alike; the gates' and the tokens'
     # gradients from its own experts are summed over the group
     gates = copy_to_group(torch.zeros((B * S, E), dtype=F32,
@@ -304,7 +348,7 @@ def moe_apply(p, cfg, x, policy=None, *, decode: bool = False,
     or a sequence shorter than the axis and ``moe_shuffle`` for the
     rest, as the reference's ``moe_apply``."""
     if policy is None or not policy.sharded:
-        return moe_dense(p, cfg, x)
+        return moe_dense(p, cfg, x, policy)
     if decode or x.shape[1] < policy.world_m:
         return moe_decode(p, cfg, x, policy)
     return moe_shuffle(p, cfg, x, policy, capacity_factor)

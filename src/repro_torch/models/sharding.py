@@ -28,16 +28,22 @@ caches are its own.  The spec entry that says so is the rule every
 slicer and gatherer follows (:func:`shard_slices`, :func:`shard_params`,
 :class:`StateLayout`).
 
-The data axis: each data rank holds its block of a batch's rows
-(:func:`batch_block`, the layout of ``P(batch_axes, None)``; every data
-rank holds the whole batch where its rows do not split, as the
+The batch axes (``pod`` and ``data``): each batch rank holds its block
+of a batch's rows, by its index over both, pod major
+(:func:`batch_block`, the layout of ``P(("pod", "data"), None)``; every
+batch rank holds the whole batch where its rows do not split, as the
 reference's ``_batch_axes_for``): training's batch
-(:func:`shard_batch`) and serving's slots alike.  Under ``fsdp_tp`` a
-layer gathers its 2D leaves over the data group before use, and the
-forward its top-level leaves (:func:`gather_data`).  In training the AdamW moments
-and the averaged gradients are held in the 2D layout of
+(:func:`shard_batch`) and serving's slots alike.  The 2D weight dim is
+cut over ``data`` alone (the reference's ``_dd``) and is whole over
+``pod``.  Under ``fsdp_tp`` a layer gathers its 2D leaves over the
+data group before use, and the forward its top-level leaves
+(:func:`gather_data`).  In training the AdamW moments and the averaged
+gradients (the mean over pod x data) are held in the 2D layout of
 ``param_specs(for_opt=True)`` (ZeRO-1, :class:`Zero1`); a checkpoint
 holds whole leaves, which :class:`StateLayout` gathers and slices.
+Where the KV heads do not split over the model axis, the model ranks
+whose q heads read one KV head each hold its columns
+(:class:`KVHeads`), and in training they sum its gradient.
 """
 from __future__ import annotations
 
@@ -118,26 +124,50 @@ class Policy:
         return math.prod(self.size(a) for a in self.batch_axes)
 
     @property
-    def data_axis(self) -> str | None:
-        """The batch axis of more than one rank (``None`` if there is
-        none; ``transformer.check_supported`` refuses two)."""
-        return next((a for a in self.batch_axes if self.size(a) > 1), None)
+    def batch_rank(self) -> int:
+        """This rank's index over the batch axes together, the first
+        (``pod``) major: the block of a batch's rows it holds."""
+        index = 0
+        for a in self.batch_axes:
+            index = index * self.size(a) + (0 if self.mesh is None
+                                            else self.mesh.coord[a])
+        return index
 
     @property
-    def data_rank(self) -> int:
-        a = self.data_axis
-        return 0 if a is None else self.mesh.coord[a]
+    def batch_group(self):
+        """The process group of the batch axes together, ranks in
+        :attr:`batch_rank` order (None for one rank)."""
+        return None if self.mesh is None \
+            else self.mesh.group_of(self.batch_axes)
 
     @property
-    def data_group(self):
-        """The process group of the data axis (None for one rank)."""
-        a = self.data_axis
-        return None if a is None else self.mesh.groups[a]
+    def world_fsdp(self) -> int:
+        """Ranks along ``data``, the axis that cuts the 2D weight dim and
+        the ZeRO-1 moments (the reference's ``_dd``); other batch axes
+        (``pod``) hold them whole."""
+        return 1 if self.mesh is None else self.mesh.shape.get(DATA, 1)
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.mesh.coord[DATA] if self.world_fsdp > 1 else 0
+
+    @property
+    def fsdp_group(self):
+        """The process group of ``data`` (None for one rank)."""
+        return self.mesh.groups[DATA] if self.world_fsdp > 1 else None
+
+    @property
+    def pod_group(self):
+        """The process group of the batch axes but ``data`` (``pod``),
+        over which weights and moments are replicated (None for one
+        rank)."""
+        return None if self.mesh is None else self.mesh.group_of(
+            tuple(a for a in self.batch_axes if a != DATA))
 
     @property
     def fsdp(self) -> bool:
         """Whether the layers hold 2D leaves and gather them over data."""
-        return self.flavor == "fsdp_tp" and self.world_d > 1
+        return self.flavor == "fsdp_tp" and self.world_fsdp > 1
 
     # ------------------------------------------------------- parameter rules
     def _dd(self, use2d: bool):
@@ -258,11 +288,64 @@ def _part_blocks(n: int, k: int, parts: int, index: int) -> np.ndarray:
                            for j in range(k)])
 
 
+class KVHeads(str):
+    """A spec entry: the model axis cutting attention's k / v columns
+    (``wk``, ``wv``, their biases and moments) by :func:`kv_head_block`
+    where the KV heads do not split over it: each model rank holds the
+    KV heads its block of q heads reads, so the ranks of a group share
+    one.  It is the axis name (it compares equal to it, as the
+    reference's spec does, whose compiler replicates those columns);
+    only the port's slicers and gatherers read the heads."""
+
+    def __new__(cls, axis: str, n_heads: int, n_kv_heads: int,
+                d_head: int):
+        obj = super().__new__(cls, axis)
+        obj.heads = (n_heads, n_kv_heads, d_head)
+        return obj
+
+    def __getnewargs__(self):
+        return (str(self),) + self.heads
+
+    def __repr__(self):
+        return f"KVHeads({str(self)!r}, *{self.heads})"
+
+    def cols(self, world: int, rank: int) -> slice:
+        """The columns model rank ``rank`` of ``world`` holds."""
+        n_heads, n_kv, d_head = self.heads
+        h0, nh = kv_head_block(n_heads, n_kv, world, rank)
+        return slice(h0 * d_head, (h0 + nh) * d_head)
+
+    def first_holders(self, world: int) -> list[int]:
+        """For each KV head, the first model rank that holds it."""
+        n_heads, n_kv, _ = self.heads
+        out = {}
+        for r in range(world):
+            h0, nh = kv_head_block(n_heads, n_kv, world, r)
+            for h in range(h0, h0 + nh):
+                out.setdefault(h, r)
+        return [out[h] for h in range(n_kv)]
+
+
+def with_kv_heads(spec: tuple, path: str, cfg, world_m: int) -> tuple:
+    """``spec`` of the leaf at dotted ``path`` with its model entry as
+    :class:`KVHeads` where it is an attention's ``wk`` / ``wv`` (weight
+    or bias) and the config's KV heads do not split over a model axis of
+    ``world_m``; else ``spec`` itself."""
+    names = path.split(".")
+    if cfg is None or not cfg.n_heads or cfg.n_kv_heads % world_m == 0 \
+            or len(names) < 2 or names[-2] not in ("wk", "wv") \
+            or not spec or spec[-1] is None:
+        return spec
+    return tuple(spec[:-1]) + (KVHeads(spec[-1], cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.d_head),)
+
+
 def shard_slices(shape, spec, sizes: dict, coord: dict) -> tuple:
     """The index of each dim that the rank at ``coord`` holds: a dim
     whose spec names axes is cut into the product of their sizes, in the
-    order named (the first axis major), as one block (a slice) or, for a
-    :class:`PerPart` entry, a block of each part (an index array)."""
+    order named (the first axis major), as one block (a slice), for a
+    :class:`PerPart` entry a block of each part (an index array), for a
+    :class:`KVHeads` entry the columns of the rank's KV heads."""
     out = []
     for n, entry in zip(shape, spec):
         parts, index = 1, 0
@@ -271,6 +354,8 @@ def shard_slices(shape, spec, sizes: dict, coord: dict) -> tuple:
             index = index * sizes[a] + coord[a]
         if parts == 1:
             out.append(slice(None))
+        elif isinstance(entry, KVHeads):
+            out.append(entry.cols(parts, index))
         elif _parts(entry) > 1:
             out.append(_part_blocks(n, _parts(entry), parts, index))
         else:
@@ -306,29 +391,21 @@ def shard_params(params, policy: Policy, coord: dict | None = None,
     each mesh axis to this rank's index (default: the mesh's own).  With
     ``cfg``, attention's ``wk``/``wv`` columns (and biases) follow
     :func:`kv_head_block` where the KV heads do not split over the model
-    axis.  Under ``fsdp_tp`` a dim cut over a data axis of several ranks
-    must split evenly (the layers gather equal blocks)."""
+    axis (:func:`with_kv_heads`).  Under ``fsdp_tp`` a dim cut over a data
+    axis of several ranks must split evenly (the layers gather equal
+    blocks)."""
     if policy.mesh is None:
         return params
     coord = dict(policy.mesh.coord if coord is None else coord)
     sizes = dict(policy.mesh.shape)
     specs = policy.param_specs(params)
-    m = policy.model_axis
-    grouped = cfg is not None and cfg.n_heads and \
-        cfg.n_kv_heads % sizes[m] != 0
 
     def walk(node, spec, names):
         if isinstance(node, dict):
             return {k: walk(v, spec[k], names + (k,))
                     for k, v in node.items()}
-        if grouped and len(names) > 1 and names[-2] in ("wk", "wv"):
-            h0, nh = kv_head_block(cfg.n_heads, cfg.n_kv_heads, sizes[m],
-                                   coord[m])
-            cols = slice(h0 * cfg.d_head, (h0 + nh) * cfg.d_head)
-            idx = shard_slices(node.shape[:-1], spec[:-1], sizes,
-                               coord) + (cols,)
-        else:
-            idx = shard_slices(node.shape, spec, sizes, coord)
+        spec = with_kv_heads(spec, ".".join(names), cfg, policy.world_m)
+        idx = shard_slices(node.shape, spec, sizes, coord)
         dim = data_dim(spec)
         if policy.fsdp and dim is not None \
                 and node.shape[dim] % sizes[DATA]:
@@ -347,30 +424,31 @@ def data_dim(spec) -> int | None:
 
 
 # --------------------------------------------------------------------------
-# the data axis
+# the batch axes
 # --------------------------------------------------------------------------
 
 
 def _batch_axes_for(policy: Policy, B: int) -> tuple[str, ...]:
     """The reference's rule: the batch axes that a batch of ``B`` rows is
     cut over (none where ``B`` does not split over them, and then every
-    data rank holds the whole batch)."""
+    batch rank holds the whole batch)."""
     return policy.batch_axes if B % policy.world_d == 0 else ()
 
 
 def batch_block(policy: Policy | None, B: int) -> slice:
-    """The rows of a batch of ``B`` that this data rank holds: rank d
-    ``[d B / D, (d + 1) B / D)``, the block layout of ``P(batch_axes,
-    None)``; all ``B`` where they do not split over the batch axes (or
-    there is one data rank)."""
+    """The rows of a batch of ``B`` that this rank holds: batch rank b
+    (:attr:`Policy.batch_rank`, over pod and data, pod major) ``[b B / D,
+    (b + 1) B / D)``, the block layout of ``P(batch_axes, None)``; all
+    ``B`` where they do not split over the batch axes (or there is one
+    batch rank)."""
     if policy is None or policy.world_d == 1 \
             or not _batch_axes_for(policy, B):
         return slice(0, B)
-    return block(B, policy.world_d, policy.data_rank)
+    return block(B, policy.world_d, policy.batch_rank)
 
 
 def shard_batch(batch: dict, policy: Policy | None) -> dict:
-    """This data rank's rows (:func:`batch_block`) of every array of
+    """This rank's rows (:func:`batch_block`) of every array of
     ``batch`` (leading dim ``B``)."""
     if policy is None or policy.world_d == 1:
         return batch
@@ -384,11 +462,12 @@ def gather_data(tree: dict, policy: Policy | None) -> dict:
     leaf gathered over the data group along its data dim
     (``core.context.gather_params``: in training the backward
     reduce-scatters the gradient; serving's leaves take none); else
-    ``tree`` itself."""
+    ``tree`` itself.  A ``pod`` axis gathers nothing: the leaves are
+    whole over it."""
     if policy is None or not policy.fsdp:
         return tree
     specs = policy.param_specs(tree, use2d=True)
-    group = policy.data_group
+    group = policy.fsdp_group
 
     def walk(node, spec):
         if isinstance(node, dict):
@@ -438,28 +517,70 @@ def _gather_blocks(x: torch.Tensor, group, dim: int,
     return out.to(x.device, non_blocking=True).movedim(0, dim).contiguous()
 
 
+def _gather_kv_heads(x: torch.Tensor, entry: KVHeads, group,
+                     dim: int) -> torch.Tensor:
+    """The whole k / v columns of ``dim`` from the model ranks' KV heads
+    (:class:`KVHeads`): each rank's block gathered in rank order, then
+    each KV head's columns from the first rank that holds it."""
+    world = torch.distributed.get_world_size(group)
+    per = x.shape[dim]
+    d_head = entry.heads[2]
+    out = _gather_blocks(x, group, dim, n=world * per)
+    cols = []
+    for h, r in enumerate(entry.first_holders(world)):
+        j = h - entry.cols(world, r).start // d_head
+        cols.append(torch.arange(r * per + j * d_head,
+                                 r * per + (j + 1) * d_head))
+    return out.index_select(dim, torch.cat(cols).to(out.device))
+
+
+def _sum_kv_heads(g: torch.Tensor, entry: KVHeads, policy: Policy,
+                  dim: int) -> torch.Tensor:
+    """The gradient of this rank's KV head columns summed over the model
+    ranks that hold the same heads: each rank's gradient placed at its
+    columns of a zeroed whole, all-reduced over the model group (the
+    same bits on every rank and every run), its columns taken back.  The
+    reference's GSPMD replicates those columns over ``model`` and sums
+    their gradient so."""
+    n_kv, d_head = entry.heads[1], entry.heads[2]
+    cols = entry.cols(policy.world_m, policy.model_rank)
+    whole = g.new_zeros(g.shape[:dim] + (n_kv * d_head,) + g.shape[dim + 1:])
+    whole.narrow(dim, cols.start, cols.stop - cols.start).copy_(g)
+    whole = all_reduce(whole, policy.model_group)
+    return whole.narrow(dim, cols.start, cols.stop - cols.start)
+
+
 class Zero1:
     """One rank's ZeRO-1 layout for AdamW over the flat parameters
     ``flat`` (``flatten_params`` keys) as the rank holds them: the
     moments and the averaged gradients in the 2D layout of
-    ``param_specs(for_opt=True)``.  Under ``tp`` a rank holds its model
-    slice of each parameter whole over data, and its 2D slice is a view
-    of it; under ``fsdp_tp`` it holds the 2D slice.  Used by
-    ``optim.adamw.update``."""
+    ``param_specs(for_opt=True)``, cut over ``data`` and whole over
+    ``pod``.  Under ``tp`` a rank holds its model slice of each parameter
+    whole over data, and its 2D slice is a view of it; under ``fsdp_tp``
+    it holds the 2D slice.  ``cfg``, where the train step passes it,
+    marks attention's k / v columns shared by model ranks
+    (:func:`with_kv_heads`).  Used by ``optim.adamw.update``."""
 
-    def __init__(self, policy: Policy, flat: dict):
+    def __init__(self, policy: Policy, flat: dict, cfg=None):
         self.policy = policy
-        self.spec = {k: policy.leaf_spec(k, p.dim(), True)
+        self.spec = {k: with_kv_heads(policy.leaf_spec(k, p.dim(), True),
+                                      k, cfg, policy.world_m)
                      for k, p in flat.items()}
         self.ddim = {k: data_dim(s) for k, s in self.spec.items()}
-        self.D, self.d = policy.world_d, policy.data_rank
-        self.group = policy.data_group
+        self.D, self.d = policy.world_fsdp, policy.fsdp_rank
+        self.group = policy.fsdp_group
         sizes, coord = policy.mesh.shape, policy.mesh.coord
-        # a leaf replicated over an axis is counted on one rank of it
-        self._counted = {
-            k: all(coord[a] == 0 for a in policy.mesh.axis_names
-                   if sizes[a] > 1 and not any(a in _axes(e) for e in s))
-            for k, s in self.spec.items()}
+
+        def counted(s):
+            # a leaf replicated over an axis is counted on one rank of it,
+            # a KV head shared by model ranks on the first that holds it
+            kv = next((e for e in s if isinstance(e, KVHeads)), None)
+            return all(coord[a] == 0 for a in policy.mesh.axis_names
+                       if sizes[a] > 1 and not any(a in _axes(e)
+                                                   for e in s)) \
+                and (kv is None or policy.model_rank in
+                     kv.first_holders(policy.world_m))
+        self._counted = {k: counted(s) for k, s in self.spec.items()}
 
     def local(self, k: str, p: torch.Tensor) -> torch.Tensor:
         """This rank's 2D slice of parameter ``k`` as held (a view)."""
@@ -471,16 +592,29 @@ class Zero1:
 
     def grad(self, k: str, g: torch.Tensor) -> torch.Tensor:
         """The gradient of ``k`` from this rank's rows -> the mean over
-        the data ranks, in the 2D layout.  Under ``fsdp_tp`` a 2D leaf's
-        gradient is already summed over data by its gather's backward."""
-        if self.D == 1:
+        the batch ranks (pod x data), in the 2D layout: a KV head's
+        gradient first summed over the model ranks that share it
+        (``layers.attn_apply``'s input gradient needs nothing: its
+        ``copy_to_group`` sums it over the model group), then summed over
+        ``data`` (under ``fsdp_tp`` a 2D leaf's is already, by its
+        gather's backward; under ``tp`` reduce-scattered) and over
+        ``pod``, or over both at once for a leaf without a data dim."""
+        kv = next((i for i, e in enumerate(self.spec[k])
+                   if isinstance(e, KVHeads)), None)
+        if kv is not None:
+            g = _sum_kv_heads(g, self.spec[k][kv], self.policy, kv)
+        policy = self.policy
+        if policy.world_d == 1:
             return g
         dim = self.ddim[k]
-        if dim is None:
-            g = all_reduce(g, self.group)
-        elif not self.policy.fsdp:
-            g = reduce_scatter(g, self.group, dim)
-        return g / self.D
+        if dim is None or self.D == 1:
+            g = all_reduce(g, policy.batch_group)
+        else:
+            if not policy.fsdp:
+                g = reduce_scatter(g, self.group, dim)
+            if policy.pod_group is not None:
+                g = all_reduce(g, policy.pod_group)
+        return g / policy.world_d
 
     def whole(self, k: str, new: torch.Tensor,
               held: torch.Tensor) -> torch.Tensor:
@@ -511,10 +645,11 @@ class _Spec:
         self.spec = spec
 
 
-def _specs_tree(specs):
+def _specs_tree(specs, cfg, world_m, path=()):
     if isinstance(specs, dict):
-        return {k: _specs_tree(v) for k, v in specs.items()}
-    return _Spec(specs)
+        return {k: _specs_tree(v, cfg, world_m, path + (k,))
+                for k, v in specs.items()}
+    return _Spec(with_kv_heads(specs, ".".join(path), cfg, world_m))
 
 
 class StateLayout:
@@ -535,7 +670,8 @@ class StateLayout:
 
     def whole(self, leaves: list):
         """Every leaf gathered whole as a numpy array, on the writer (the
-        other ranks get None); every rank must call it."""
+        other ranks get None); every rank must call it.  A :class:`KVHeads`
+        dim takes one copy of each KV head."""
         out = []
         on_host = torch.distributed.get_backend() == "gloo"
         for leaf, spec in zip(leaves, self.specs):
@@ -546,9 +682,13 @@ class StateLayout:
                 axes = [a for a in _axes(entry) if self.sizes[a] > 1]
                 if len(axes) > 1:
                     raise NotImplementedError(f"a dim cut over {axes}")
-                if axes:
-                    x = _gather_blocks(x, self.policy.mesh.groups[axes[0]],
-                                       dim, parts=_parts(entry))
+                if not axes:
+                    continue
+                group = self.policy.mesh.groups[axes[0]]
+                if isinstance(entry, KVHeads):
+                    x = _gather_kv_heads(x, entry, group, dim)
+                else:
+                    x = _gather_blocks(x, group, dim, parts=_parts(entry))
             out.append(x.cpu().numpy() if self.writer else None)
         return out if self.writer else None
 
@@ -561,17 +701,20 @@ class StateLayout:
         torch.distributed.barrier()
 
 
-def train_state_layout(policy: Policy, params: dict, opt: dict):
+def train_state_layout(policy: Policy, params: dict, opt: dict, cfg=None):
     """The :class:`StateLayout` of ``(params, opt_state)`` as the train
     step holds them: parameters in the flavor's layout, the moments
-    ``m`` and ``v`` (flat dicts) in the 2D one, the step replicated.
-    None without a mesh of more than one rank."""
+    ``m`` and ``v`` (flat dicts) in the 2D one, the step replicated;
+    with ``cfg``, attention's k / v columns as :func:`shard_params` cuts
+    them where model ranks share KV heads.  None without a mesh of more
+    than one rank."""
     from ..checkpoint import tree_leaves
     if policy is None or policy.mesh is None or policy.mesh.size == 1:
         return None
-    moments = {k: _Spec(policy.leaf_spec(k, v.dim(), True))
+    moments = {k: _Spec(with_kv_heads(policy.leaf_spec(k, v.dim(), True), k,
+                                      cfg, policy.world_m))
                for k, v in opt["m"].items()}
-    tree = (_specs_tree(policy.param_specs(params)),
+    tree = (_specs_tree(policy.param_specs(params), cfg, policy.world_m),
             {"m": moments, "v": moments, "step": _Spec(())})
     return StateLayout(policy, [s.spec for s in tree_leaves(tree)])
 

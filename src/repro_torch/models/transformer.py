@@ -37,8 +37,8 @@ gather of the layer's 2D leaves over the data group
 (``sharding.gather_data``) just before the layer runs, one layer at a
 time (serving never holds two layers' gathered weights); in training
 it is made inside the layer's remat body, so that the recompute gathers
-again.  Each data rank runs its block of the batch's rows (all of them
-where they do not split: a slot prefill's one row).  Every collective carries its gradient, so
+again.  Each batch rank (pod x data) runs its block of the batch's
+rows (all of them where they do not split: a slot prefill's one row).  Every collective carries its gradient, so
 a rematerialised layer re-issues its collectives in the backward, in
 the same order on every rank.  :func:`check_supported` refuses what the
 sharded path does not run yet.
@@ -93,33 +93,23 @@ def check_supported(cfg, policy=None, *, train: bool = False) -> None:
     periods, and one period of the only such config (Jamba-1.5-Large, 8
     layers) holds 88.3 GB of bf16 weights, more than one card's memory,
     so these wait for a path over several cards.  Under a ``policy``
-    over several ranks also: two batch axes of several ranks (item 3),
-    heads that do not split over the model axis (in training: KV heads
-    too, item 3), Mamba channels that do not and a padded vocabulary
-    that does not.  Encoder and vision configs run at every mesh these
-    allow (the encoder's and the cross-attention's heads split as the
-    decoder's do)."""
+    over several ranks also: heads that do not split over the model
+    axis, a block of q heads that spans KV heads unevenly, Mamba
+    channels that do not split and a padded vocabulary that does not.
+    Both batch axes (``pod`` x ``data``) run, and KV heads shared by
+    model ranks run in serving and training (``train`` is kept for the
+    callers: nothing is refused for training alone).  Encoder and
+    vision configs run at every mesh these allow (the encoder's and the
+    cross-attention's heads split as the decoder's do)."""
     if cfg.attn_period > 1 or cfg.moe_period > 1:
         raise NotImplementedError(f"{cfg.name}: period stacks (attention "
                                   f"every {cfg.attn_period}, MoE every "
                                   f"{cfg.moe_period} layers) wait for "
                                   "ROADMAP Queue 1 item 4: one period of "
                                   "the full config does not fit one card")
-    if policy is None or policy.mesh is None or policy.mesh.size == 1:
-        return
-    if sum(policy.size(a) > 1 for a in policy.batch_axes) > 1:
-        raise NotImplementedError(f"batch axes {policy.batch_axes} of "
-                                  "several ranks each (a second data axis) "
-                                  "wait for ROADMAP Queue 1 item 3")
-    if not policy.sharded:
+    if policy is None or policy.mesh is None or not policy.sharded:
         return
     kv_head_block(cfg.n_heads, cfg.n_kv_heads, policy.world_m, 0)
-    if train and cfg.n_kv_heads % policy.world_m:
-        raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} KV heads do not "
-                         f"split over a model axis of {policy.world_m} "
-                         "(in training a KV head held by several ranks "
-                         "would need its gradient summed over them: "
-                         "ROADMAP Queue 1 item 3)")
     if any(layer_kind(cfg, i)[0] == "mamba" for i in range(cfg.n_layers)) \
             and cfg.d_inner % policy.world_m:
         raise ValueError(f"{cfg.name}: {cfg.d_inner} Mamba channels do not "

@@ -32,15 +32,16 @@ Under a ``policy`` over several ranks (the reference's
 ``ServingEngine(..., policy=)``) every rank runs its own engine on the
 same requests: it holds its slice of the weights (under ``fsdp_tp`` at
 a data axis of several ranks a 2D slice, gathered over the data group a
-layer at a time in every forward) and its heads' caches.  The slots
-split over the data ranks in contiguous blocks where they divide
-(``sharding.batch_block``; else every data rank holds them all, as the
-reference keeps an indivisible batch whole): a rank's cache holds its
-block.  Admission, refill and the choice of slot stay global, so every
-rank makes the same choices; a slot prefill (one row) runs whole on
-every data rank and its cache is written only by the slot's owner; a
-decode step runs each rank's block and its greedy tokens come from the
-logits gathered over the data and model groups, the same bits on every
+layer at a time in every forward; whole over ``pod``) and its heads'
+caches.  The slots split over the batch ranks (pod x data, pod major)
+in contiguous blocks where they divide (``sharding.batch_block``; else
+every batch rank holds them all, as the reference keeps an indivisible
+batch whole): a rank's cache holds its block.  Admission, refill and
+the choice of slot stay global, so every rank makes the same choices; a
+slot prefill (one row) runs whole on every batch rank and its cache is
+written only by the slot's owner; a decode step runs each rank's block
+and its greedy tokens come from the logits gathered over the batch and
+model groups, the same bits on every
 rank, so the ranks take the same steps.  The feature stores are given a
 context over all ranks and run their shuffles at that world size.
 

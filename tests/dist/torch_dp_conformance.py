@@ -35,7 +35,9 @@ mesh runs:
   ``tests/dist/torch_tp_conformance.py``: each request's status, tokens
   and features, the port's top-2 margins;
 
-and at ``2x2`` under ``fsdp_tp`` only:
+and the ``lm`` cases under ``fsdp_tp`` at each of ``POD_COMBOS`` (the
+``2x2`` ranks; each rank also writes its batch and model coordinates,
+``lm/<combo>/coord``); and at ``2x2`` under ``fsdp_tp`` only:
 
 * ``engine3``: the same engine with 3 slots, which do not split over the
   data ranks (every rank holds them all);
@@ -70,6 +72,11 @@ MOE_ARCH = "granite-moe-3b-a800m"
 COMBOS = {"2x1": (2, 1, "fsdp_tp"), "2x2": (2, 2, "fsdp_tp"),
           "2x2tp": (2, 2, "tp")}
 MESHES = {"2x1": ("2x1",), "2x2": ("2x2", "2x2tp")}
+# two batch axes, run by the 2x2 ranks on a mesh of their own: the slots
+# over pod x data (pod major), the weights cut over data and whole over
+# pod; lm cases only
+POD_COMBOS = {"pod2x2x1": {"pod": 2, "data": 2, "model": 1},
+              "pod2x1x2": {"pod": 2, "data": 1, "model": 2}}
 SLOTS, PCAP, G = 4, 12, 5          # slots, prompt capacity, tokens each
 LENS = (5, 12, 1, 9)               # the slots' prompt lengths
 ENGINE_KW = dict(slots=4, prompt_capacity=12, gen_capacity=6,
@@ -155,7 +162,7 @@ def adamw_case(tree, policy=None, steps=3, seed=5):
     local = zero.local if zero else (lambda k, p: p)
     state = A.init({k: local(k, p) for k, p in held.items()}, cfg)
     gen = torch.Generator().manual_seed(
-        seed + (policy.data_rank if policy else 0))
+        seed + (policy.batch_rank if policy else 0))
 
     def storage():
         return [t.data_ptr() for t in [*held.values(), *state["m"].values(),
@@ -205,13 +212,8 @@ def run_jax(out_path, weights_path, combos):
 
     flat = dict(np.load(weights_path))
     out = {}
-    for combo in combos:
-        D, Mw, flavor = COMBOS[combo]
-        devs = jax.devices()[:D * Mw]
-        # Auto axes: the reference's GSPMD constraints need them
-        mesh = jax.make_mesh((D, Mw), ("data", "model"), devices=devs,
-                             axis_types=(AxisType.Auto, AxisType.Auto))
-        policy = make_policy(mesh, flavor)
+
+    def lm_cases(combo, policy):
         for name in MODELS:
             cfg = get_reduced(name)
             params = jax.tree_util.tree_map(
@@ -244,6 +246,21 @@ def run_jax(out_path, weights_path, combos):
                 lg = np.asarray(logits)
                 out[f"{key}/logits/{j}"] = lg
                 tok = lg.argmax(-1).astype(np.int32)
+
+    for combo in combos:
+        if combo in POD_COMBOS:
+            sizes = POD_COMBOS[combo]
+            mesh = jax.make_mesh(tuple(sizes.values()), tuple(sizes),
+                                 axis_types=(AxisType.Auto,) * 3)
+            lm_cases(combo, make_policy(mesh, "fsdp_tp"))
+            continue
+        D, Mw, flavor = COMBOS[combo]
+        devs = jax.devices()[:D * Mw]
+        # Auto axes: the reference's GSPMD constraints need them
+        mesh = jax.make_mesh((D, Mw), ("data", "model"), devices=devs,
+                             axis_types=(AxisType.Auto, AxisType.Auto))
+        policy = make_policy(mesh, flavor)
+        lm_cases(combo, policy)
 
         for name in ONESHOT:
             cfg = get_reduced(name)
@@ -354,8 +371,8 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
     mesh = Me.make_mesh({"data": D, "model": Mw})
     flat = dict(np.load(weights_path))
     out = {"coord": np.array([mesh.coord["data"], mesh.coord["model"]])}
-    for combo in MESHES[mesh_name]:
-        policy = Sh.make_policy(mesh, COMBOS[combo][2])
+
+    def lm_cases(combo, policy):
         rows = Sh.batch_block(policy, SLOTS)
         for name in MODELS:
             cfg = get_reduced(name)
@@ -382,6 +399,10 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
                                       np.array(LENS, np.int32) + j)
                 out[f"{key}/logits/{j}"] = logits.numpy()
                 tok = logits.argmax(-1).to(torch.int32)
+
+    for combo in MESHES[mesh_name]:
+        policy = Sh.make_policy(mesh, COMBOS[combo][2])
+        lm_cases(combo, policy)
 
         for name in ONESHOT:
             cfg = get_reduced(name)
@@ -473,6 +494,11 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
         for flavor in ("tp", "fsdp_tp"):
             out[f"adamw/{flavor}"] = np.array(adamw_case(
                 tree, Sh.make_policy(mesh, flavor)))
+        for combo, sizes in POD_COMBOS.items():
+            policy = Sh.make_policy(Me.make_mesh(sizes), "fsdp_tp")
+            out[f"lm/{combo}/coord"] = np.array([policy.batch_rank,
+                                                 policy.model_rank])
+            lm_cases(combo, policy)
 
     dist.barrier()
     np.savez(f"{out_path}.rank{rank}.npz", **out)

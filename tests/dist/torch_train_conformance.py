@@ -1,7 +1,7 @@
 """Subprocess worker for tests/test_torch_train_mesh.py: one train step at
-``data=2, model=2``, run by the JAX package over four forced host devices
-or by four PyTorch ranks, on the same weights and batch, written to one
-``.npz``.
+``data=2, model=2``, ``pod=2, data=2, model=1`` or ``data=1, model=4``,
+run by the JAX package over four forced host devices or by four PyTorch
+ranks, on the same weights and batch, written to one ``.npz``.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
@@ -11,11 +11,11 @@ Usage:
 
 ``WEIGHTS.npz`` holds the reference's ``init_params(PRNGKey(0))`` of each
 reduced arch of ``CASES``, flattened with ``/``, written by the test.
-Each case (``arch/flavor/capacity``) is one ``make_train_step`` under
-``make_policy(mesh, flavor)`` on ``lm_batch_at(0)`` of ``B`` x ``S``
-tokens (:func:`batch_of`: with an enc-dec config's frames or a vision
-config's patch embeddings) with ``OPT`` (the reference: the
-``REFERENCE_CASES``): its
+Each case (``[mesh/]arch/flavor[/capacity]``) is one ``make_train_step``
+under ``make_policy(mesh, flavor)`` at its mesh (``MESHES``) on
+``lm_batch_at(0)`` of ``ROWS[mesh]`` x ``S`` tokens (:func:`batch_of`:
+with an enc-dec config's frames or a vision config's patch embeddings)
+with ``OPT`` (the reference: the ``REFERENCE_CASES``): its
 metrics, every new parameter and AdamW moment
 whole (the reference's ``np.asarray`` of the global array, the port's
 gathered by ``sharding.StateLayout``), and for each MoE layer and rank
@@ -48,67 +48,123 @@ import time
 
 import numpy as np
 
-WORLD, MESH = 4, {"data": 2, "model": 2}
-B, S = 2, 32
+WORLD = 4
+MESHES = {"2x2": {"data": 2, "model": 2},
+          # two batch axes: the rows over pod x data, the weights and
+          # moments cut over data and whole over pod
+          "pod": {"pod": 2, "data": 2, "model": 1},
+          # reduced granite-3-2b's 2 KV heads over 4 model ranks: two
+          # ranks share each
+          "1x4": {"data": 1, "model": 4}}
+MESH = MESHES["2x2"]
+# rows of a case's batch: one or two a batch rank
+ROWS = {"2x2": 2, "pod": 4, "1x4": 2}
+B, S = ROWS["2x2"], 32
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
-# name -> (arch, flavor, capacity factor or None); at 5 >= E / top_k no
-# row can drop, at 1.25 rows drop
+# an arch with its config changed: (arch, replaced fields); the weights
+# are the reference's init_params of the changed config
+VARIANTS = {"granite-3-2b-kv1": ("granite-3-2b", {"n_kv_heads": 1})}
+# name -> (arch, flavor, capacity factor or None, mesh); at 5 >= E /
+# top_k no row can drop, at 1.25 rows drop
 CASES = {
-    "granite-moe-3b-a800m/tp/5": ("granite-moe-3b-a800m", "tp", 5.0),
-    "granite-moe-3b-a800m/tp/1.25": ("granite-moe-3b-a800m", "tp", 1.25),
+    "granite-moe-3b-a800m/tp/5": ("granite-moe-3b-a800m", "tp", 5.0, "2x2"),
+    "granite-moe-3b-a800m/tp/1.25": ("granite-moe-3b-a800m", "tp", 1.25,
+                                     "2x2"),
     "granite-moe-3b-a800m/fsdp_tp/5": ("granite-moe-3b-a800m", "fsdp_tp",
-                                       5.0),
-    "lm100m/tp": ("lm100m", "tp", None),
-    "qwen1.5-110b/fsdp_tp": ("qwen1.5-110b", "fsdp_tp", None),
+                                       5.0, "2x2"),
+    "lm100m/tp": ("lm100m", "tp", None, "2x2"),
+    "qwen1.5-110b/fsdp_tp": ("qwen1.5-110b", "fsdp_tp", None, "2x2"),
     # a Mamba stack: E over the model axis, in_proj's [x | z] cut per part
-    "falcon-mamba-7b/tp": ("falcon-mamba-7b", "tp", None),
-    "falcon-mamba-7b/fsdp_tp": ("falcon-mamba-7b", "fsdp_tp", None),
+    "falcon-mamba-7b/tp": ("falcon-mamba-7b", "tp", None, "2x2"),
+    "falcon-mamba-7b/fsdp_tp": ("falcon-mamba-7b", "fsdp_tp", None, "2x2"),
     # an encoder and cross-attention (frames), and a patch prefix: every
     # attention's heads over the model axis, the rows over data
-    "seamless-m4t-large-v2/tp": ("seamless-m4t-large-v2", "tp", None),
+    "seamless-m4t-large-v2/tp": ("seamless-m4t-large-v2", "tp", None,
+                                 "2x2"),
     "seamless-m4t-large-v2/fsdp_tp": ("seamless-m4t-large-v2", "fsdp_tp",
-                                      None),
-    "internvl2-2b/tp": ("internvl2-2b", "tp", None),
+                                      None, "2x2"),
+    "internvl2-2b/tp": ("internvl2-2b", "tp", None, "2x2"),
+    # pod x data: one row a batch rank.  At model 1 a MoE layer runs
+    # moe_dense in both packages (the reference's moe_apply), no dispatch
+    # plan to pin, and its aux is the whole batch's
+    "pod/granite-3-2b/tp": ("granite-3-2b", "tp", None, "pod"),
+    "pod/granite-3-2b/fsdp_tp": ("granite-3-2b", "fsdp_tp", None, "pod"),
+    "pod/granite-moe-3b-a800m/fsdp_tp": ("granite-moe-3b-a800m", "fsdp_tp",
+                                         None, "pod"),
+    # KV heads shared by model ranks: each rank's k / v gradient summed
+    # over the ranks that hold its head
+    "1x4/granite-3-2b/tp": ("granite-3-2b", "tp", None, "1x4"),
+    "1x4/granite-3-2b/fsdp_tp": ("granite-3-2b", "fsdp_tp", None, "1x4"),
+    "granite-3-2b-kv1/tp": ("granite-3-2b-kv1", "tp", None, "2x2"),
 }
 MAMBA = "falcon-mamba-7b"
 SEAMLESS = "seamless-m4t-large-v2"
+GRANITE = "granite-3-2b"
 # the layout round trips of these archs' training states (a Mamba stack's
-# in_proj cut per part, an encoder subtree): (label, mesh, flavor)
-LAYOUT_ARCHS = (MAMBA, SEAMLESS)
-LAYOUTS = (("2x2/tp", MESH, "tp"), ("2x2/fsdp_tp", MESH, "fsdp_tp"),
-           ("1x4", {"data": 1, "model": 4}, "fsdp_tp"))
-ARCHS = sorted({a for a, _, _ in CASES.values()})
-# the cases the reference runs too: granite-moe under fsdp_tp is held to
-# the port's own tp step (the reference's fsdp_tp arithmetic is qwen's)
-REFERENCE_CASES = [n for n in CASES if n != "granite-moe-3b-a800m/fsdp_tp/5"]
+# in_proj cut per part, an encoder subtree; granite-3-2b at pod x data
+# and with its KV heads shared at 1x4): arch -> (label, mesh, flavor)
+LAYOUTS_OF = {a: (("2x2/tp", "2x2", "tp"), ("2x2/fsdp_tp", "2x2", "fsdp_tp"),
+                  ("1x4", "1x4", "fsdp_tp")) for a in (MAMBA, SEAMLESS)}
+LAYOUTS_OF[GRANITE] = (("pod/tp", "pod", "tp"),
+                       ("pod/fsdp_tp", "pod", "fsdp_tp"),
+                       ("1x4/tp", "1x4", "tp"),
+                       ("1x4/fsdp_tp", "1x4", "fsdp_tp"))
+LAYOUTS = LAYOUTS_OF[MAMBA]
+# the cases whose state after the step each rank saves, whole leaves the
+# test restores at world 1: case -> the checkpoint's tag
+MESH_CKPTS = {"falcon-mamba-7b/tp": MAMBA,
+              "seamless-m4t-large-v2/tp": SEAMLESS,
+              "pod/granite-3-2b/tp": "pod"}
+ARCHS = sorted({c[0] for c in CASES.values()})
+# MoE cases at model 1, whose layers run moe_dense: the reference's routes
+# come from its router (whole batch), not from a dispatch plan
+DENSE_MOE_CASES = ["pod/granite-moe-3b-a800m/fsdp_tp"]
 # the port takes the reference's routes in these (its MoE cases run first)
-PINNED_CASES = [n for n in REFERENCE_CASES if CASES[n][2] is not None]
+PINNED_CASES = [n for n in CASES if CASES[n][2] is not None
+                and n != "granite-moe-3b-a800m/fsdp_tp/5"] + DENSE_MOE_CASES
+# the cases the reference runs too, the pinned ones first: granite-moe
+# under fsdp_tp at 2x2 is held to the port's own tp step (the reference's
+# fsdp_tp arithmetic is qwen's)
+REFERENCE_CASES = PINNED_CASES + [
+    n for n in CASES if n not in PINNED_CASES
+    and n != "granite-moe-3b-a800m/fsdp_tp/5"]
 ROUTES_WAIT_S = 500
 
 
+def reduced(getter, arch):
+    """The reduced config of ``arch`` (a name of ``VARIANTS`` too)."""
+    base, fields = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(getter(base), **fields)
+
+
 def config(getter, name):
-    arch, _, cf = CASES[name]
-    cfg = getter(arch)
+    arch, _, cf, _ = CASES[name]
+    cfg = reduced(getter, arch)
     if cf is not None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, moe_capacity_factor=cf))
     return cfg
 
 
-def batch_of(cfg, lm_batch_at):
-    """``lm_batch_at(0)`` (the calling package's) of ``B`` x ``S`` tokens
-    with the config's frontend inputs (numpy, seeded): an enc-dec
+def rows_of(name):
+    """The rows of case ``name``'s batch."""
+    return ROWS[CASES[name][3]]
+
+
+def batch_of(cfg, lm_batch_at, rows=B):
+    """``lm_batch_at(0)`` (the calling package's) of ``rows`` x ``S``
+    tokens with the config's frontend inputs (numpy, seeded): an enc-dec
     config's frames, ``S // enc_len_ratio`` a row; a vision config's
     ``frontend_tokens`` patch embeddings a row, in front of the tokens
     (the loss skips them)."""
-    batch = dict(lm_batch_at(0, vocab=cfg.vocab, batch=B, seq=S))
+    batch = dict(lm_batch_at(0, vocab=cfg.vocab, batch=rows, seq=S))
     rng = np.random.default_rng(9)
     if cfg.is_encdec:
-        batch["frames"] = rng.normal(size=(B, S // cfg.enc_len_ratio,
+        batch["frames"] = rng.normal(size=(rows, S // cfg.enc_len_ratio,
                                            cfg.d_model)).astype(np.float32)
     if cfg.frontend == "vision":
         batch["patch_embeds"] = rng.normal(size=(
-            B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+            rows, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -170,8 +226,9 @@ def run_jax(out_path, weights_path, routes_path):
 
     assert len(jax.devices()) == WORLD
     # Auto axes: the reference's GSPMD constraints need them
-    mesh = jax.make_mesh(tuple(MESH.values()), tuple(MESH),
-                         axis_types=(AxisType.Auto, AxisType.Auto))
+    meshes = {k: jax.make_mesh(tuple(v.values()), tuple(v),
+                               axis_types=(AxisType.Auto,) * len(v))
+              for k, v in MESHES.items()}
     flat = dict(np.load(weights_path))
     opt_cfg = JA.AdamWConfig(**OPT)
     calls, lock = {}, threading.Lock()
@@ -189,23 +246,41 @@ def run_jax(out_path, weights_path, routes_path):
         return counts, ranks
 
     JMoe.radix_histogram_ranks = plan
+    plain_route, dense = JMoe._route, []
+
+    def route(router, x2d, top_k):
+        w, ids, aux = plain_route(router, x2d, top_k)
+
+        def keep(i):
+            with lock:
+                dense.append(np.asarray(i))
+
+        jax.debug.callback(keep, ids)      # the whole batch's
+        return w, ids, aux
+
     out, world1 = {}, {}
     assert REFERENCE_CASES[:len(PINNED_CASES)] == PINNED_CASES
     for name in REFERENCE_CASES:
         if name == REFERENCE_CASES[len(PINNED_CASES)]:
             write_routes(routes_path, out)
-        arch, flavor, cf = CASES[name]
+        arch, flavor, cf, mesh = CASES[name]
         cfg = config(get_reduced, name)
         params = jax.tree_util.tree_map(jnp.asarray,
                                         unflatten(flat, arch))
-        batch = {k: jnp.asarray(v)
-                 for k, v in batch_of(cfg, lm_batch_at).items()}
-        step = jax.jit(JM.make_train_step(cfg, make_policy(mesh, flavor),
-                                          opt_cfg))
+        batch = {k: jnp.asarray(v) for k, v in batch_of(
+            cfg, lm_batch_at, rows_of(name)).items()}
+        step = jax.jit(JM.make_train_step(
+            cfg, make_policy(meshes[mesh], flavor), opt_cfg))
         calls.clear()
+        dense.clear()
+        JMoe._route = route if name in DENSE_MOE_CASES else plain_route
         new, opt, met = step(params, JA.init(params, opt_cfg), batch)
         jax.block_until_ready(new)
         jax.effects_barrier()
+        JMoe._route = plain_route
+        for L, ids in enumerate(dense[:cfg.n_layers]):
+            # the forward's routes, layer by layer (a recompute follows)
+            out[f"{name}/ids/{L}"] = ids.astype(np.int32)
         for k, v in met.items():
             out[f"{name}/met/{k}"] = np.asarray(v, np.float32)
         for what, tree in (("new", new), ("m", opt["m"]), ("v", opt["v"])):
@@ -217,14 +292,16 @@ def run_jax(out_path, weights_path, routes_path):
             continue
         # the same step at world 1: how far the layout alone moves the
         # reference's moments (a MoE layer's auxiliary loss is a mean over
-        # the shards, another function at world 1); one for each arch
-        if arch not in world1:
+        # the shards, another function at world 1; at model 1 it is the
+        # whole batch's); one for each arch and batch
+        key = (arch, rows_of(name))
+        if key not in world1:
             _, opt, _ = jax.jit(JM.make_train_step(cfg, None, opt_cfg))(
                 params, JA.init(params, opt_cfg), batch)
-            world1[arch] = {f"{what}/{k}": np.asarray(v, np.float32)
-                            for what in ("m", "v")
-                            for k, v in flatten(opt[what]).items()}
-        for k, v in world1[arch].items():
+            world1[key] = {f"{what}/{k}": np.asarray(v, np.float32)
+                           for what in ("m", "v")
+                           for k, v in flatten(opt[what]).items()}
+        for k, v in world1[key].items():
             out[f"{name}/world1/{k}"] = v
     np.savez(out_path, **out)
 
@@ -301,7 +378,7 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
 
     torch.set_num_threads(1)
     Me.init_rank(rank, WORLD, store_path, "cpu", timeout_s=120)
-    mesh = Me.make_mesh(MESH)
+    meshes = {k: Me.make_mesh(v) for k, v in MESHES.items()}
     flat = dict(np.load(weights_path))
     opt_cfg = A.AdamWConfig(**OPT)
     plain = Moe.radix_histogram_ranks
@@ -318,22 +395,28 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
     d, m = divmod(rank, MESH["model"])
     route, routes = Moe._route, None
     for name in sorted(CASES, key=lambda n: n in PINNED_CASES):
-        arch, flavor, cf = CASES[name]
+        arch, flavor, cf, mesh = CASES[name]
         cfg = config(get_reduced, name)
         differ = {}
+        policy = Sh.make_policy(meshes[mesh], flavor)
         if name in PINNED_CASES:
             routes = routes or read_routes(routes_path)
-            Moe._route = pin_routes(
-                [routes[f"{name}/ids/{L}/{d}/{m}"].reshape(-1, cfg.top_k)
-                 for L in range(cfg.n_layers)], differ)
-        policy = Sh.make_policy(mesh, flavor)
+            if name in DENSE_MOE_CASES:     # this rank's rows of the batch
+                rows = Sh.batch_block(policy, rows_of(name))
+                picks = [routes[f"{name}/ids/{L}"].reshape(
+                    rows_of(name), S, -1)[rows].reshape(-1, cfg.top_k)
+                    for L in range(cfg.n_layers)]
+            else:
+                picks = [routes[f"{name}/ids/{L}/{d}/{m}"].reshape(
+                    -1, cfg.top_k) for L in range(cfg.n_layers)]
+            Moe._route = pin_routes(picks, differ)
         params = M.params_from_jax(unflatten(flat, arch), cfg, "cpu",
                                    master=True, policy=policy)
         zero = Sh.Zero1(policy, A.flatten_params(params))
         opt = A.init({k: zero.local(k, p) for k, p in
                       A.flatten_params(params).items()}, opt_cfg)
         batch = {k: torch.from_numpy(v) for k, v in Sh.shard_batch(
-            batch_of(cfg, lm_batch_at), policy).items()}
+            batch_of(cfg, lm_batch_at, rows_of(name)), policy).items()}
         plans.clear()
         Moe.drop_log = []
         try:
@@ -344,7 +427,7 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
             Moe._route = route
         for k, v in met.items():
             out[f"{name}/met/{k}"] = v.numpy()
-        layout = Sh.train_state_layout(policy, new, opt)
+        layout = Sh.train_state_layout(policy, new, opt, cfg)
         whole = layout.whole(Ck.tree_leaves((new, opt)))
         if whole is not None:
             keys = [f"new/{k}" for k in A.flatten_params(new)]
@@ -382,12 +465,12 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
         if ckpt_dir is not None and name == "lm100m/tp":
             checkpoint_cases(ckpt_dir, cfg, policy, params, new, opt,
                              layout, out)
-        if ckpt_dir is not None and name in (f"{MAMBA}/tp",
-                                             f"{SEAMLESS}/tp"):
+        if ckpt_dir is not None and name in MESH_CKPTS:
             # whole leaves, which the test restores at world 1
-            Ck.save(f"{ckpt_dir}_{arch}", 1, (new, opt), layout=layout)
-    for arch in LAYOUT_ARCHS:
-        layout_cases(arch, unflatten(flat, arch), mesh, out)
+            Ck.save(f"{ckpt_dir}_{MESH_CKPTS[name]}", 1, (new, opt),
+                    layout=layout)
+    for arch in LAYOUTS_OF:
+        layout_cases(arch, unflatten(flat, arch), meshes, out)
     np.savez(f"{out_path}.rank{rank}.npz", **mine)
     dist.barrier()
     if rank == 0:
@@ -401,10 +484,11 @@ def layout_key(arch, label):
     return f"layout/{label}" if arch == MAMBA else f"layout/{arch}/{label}"
 
 
-def layout_cases(arch, tree, mesh, out):
+def layout_cases(arch, tree, meshes, out):
     """The layout round trips of reduced ``arch``'s training state at
-    each of ``LAYOUTS`` (``mesh`` is the ``2x2`` one), each rank's
-    booleans gathered into ``out[layout_key(arch, label) + "/<check>"]``:
+    each of ``LAYOUTS_OF[arch]`` (``meshes``: the port's mesh of each
+    name of ``MESHES``), each rank's booleans gathered into
+    ``out[layout_key(arch, label) + "/<check>"]``:
 
     * ``whole``: ``StateLayout.whole`` of the rank's slices
       (``shard_params``) and of moments set to their 2D slices (``m``)
@@ -426,11 +510,11 @@ def layout_cases(arch, tree, mesh, out):
     from repro_torch.models import sharding as Sh
     from repro_torch.optim import adamw as A
 
-    cfg = get_reduced(arch)
+    cfg = reduced(get_reduced, arch)
     whole = {k: torch.from_numpy(np.asarray(v, np.float32))
              for k, v in flatten(tree).items()}
-    for label, shape, flavor in LAYOUTS:
-        m = mesh if shape == MESH else Me.make_mesh(shape)
+    for label, mesh, flavor in LAYOUTS_OF[arch]:
+        m = meshes[mesh]
 
         def held(fl):
             return A.flatten_params(M.params_from_jax(
@@ -444,7 +528,7 @@ def layout_cases(arch, tree, mesh, out):
         opt = {"m": local2d, "v": {k: 2 * v for k, v in local2d.items()},
                "step": torch.zeros((), dtype=torch.int32)}
         tree_p = A.unflatten_params(params)
-        layout = Sh.train_state_layout(policy, tree_p, opt)
+        layout = Sh.train_state_layout(policy, tree_p, opt, cfg)
         leaves = Ck.tree_leaves((tree_p, opt))
         got = layout.whole(leaves)
         # the same leaves whole, in the same order

@@ -41,7 +41,12 @@ processes at once, ``2x2`` in one and the other two in the other.
 * At ``2x2`` under ``fsdp_tp`` each rank holds its 2D slices: its
   parameter bytes are the sum of its slices', and a leaf cut over both
   axes sums over the four ranks to the whole leaf.
-* ``launch.serve --mesh data=2,model=2`` on the CPU prints ``serve OK``.
+* The slot prefill and greedy decode of reduced ``granite-3-2b`` and
+  ``granite-moe-3b-a800m`` at two batch axes, ``pod=2, data=2, model=1``
+  and ``pod=2, data=1, model=2`` under ``fsdp_tp`` (the ``2x2`` ranks on
+  meshes of their own, the reference in its second process), as above.
+* ``launch.serve --mesh data=2,model=2`` and ``--mesh pod=2,data=2,model=1``
+  on the CPU print ``serve OK``.
 """
 import importlib.util
 import os
@@ -57,6 +62,7 @@ from repro import configs as JC
 from repro.models import model as JM
 from repro.models import moe as JMoe
 from repro_torch import configs as TC
+from repro_torch.launch import mesh as Me
 from repro_torch.models import model as TM
 from repro_torch.models import sharding as Sh
 
@@ -118,7 +124,7 @@ def runs(tmp_path_factory):
     of the worker on each side."""
     tmp = tmp_path_factory.mktemp("dp")
     weights = write_weights(tmp / "weights.npz")
-    shares = ("2x2", "2x1,2x2tp")
+    shares = ("2x2", ",".join(["2x1", "2x2tp", *W.POD_COMBOS]))
     procs = [(_start(["jax", str(tmp / f"jax{i}.npz"),
                       str(tmp / "weights.npz"), combos],
                      {"XLA_FLAGS": "--xla_force_host_platform_device_count=4",
@@ -147,7 +153,17 @@ def runs(tmp_path_factory):
 
 
 def ranks_of(got, combo):
-    return got[combo[:3]]
+    """Each rank's results of ``combo`` (the pod meshes' are the 2x2
+    ranks')."""
+    return got["2x2" if combo in W.POD_COMBOS else combo[:3]]
+
+
+def combo_mesh(combo):
+    """(batch ranks, model ranks) of ``combo``."""
+    if combo in W.POD_COMBOS:
+        sizes = W.POD_COMBOS[combo]
+        return sizes["pod"] * sizes["data"], sizes["model"]
+    return W.COMBOS[combo][:2]
 
 
 def close(got, want, tol):
@@ -170,10 +186,14 @@ def greedy_agree(got, want, margins, tol):
 
 
 @pytest.mark.parametrize("name", W.MODELS)
-@pytest.mark.parametrize("combo", list(W.COMBOS))
+@pytest.mark.parametrize("combo", list(W.COMBOS) + list(W.POD_COMBOS))
 def test_prefill_and_decode_match_reference(runs, combo, name):
+    """At each mesh, pod x data (pod major) among them: every rank's
+    logits the same bits, each rank's caches its block of the slots
+    (by its index over the batch axes) and its KV heads, the logits
+    against the reference's by the module's rule."""
     _, want, got = runs
-    D, Mw, _ = W.COMBOS[combo]
+    D, Mw = combo_mesh(combo)
     cfg = TC.get_reduced(name)
     key = f"lm/{combo}/{name}"
     ranks = ranks_of(got, combo)
@@ -183,7 +203,8 @@ def test_prefill_and_decode_match_reference(runs, combo, name):
         for s in steps:
             np.testing.assert_array_equal(res[s], ranks[0][s])
     for res in ranks:                   # each rank's block of the caches
-        d, m = res["coord"]
+        d, m = res[f"lm/{combo}/coord"] if combo in W.POD_COMBOS \
+            else res["coord"]
         rows = slice(d * W.SLOTS // D, (d + 1) * W.SLOTS // D)
         h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads, Mw, m)
         for c in ("k", "v"):
@@ -388,18 +409,28 @@ def test_each_rank_holds_its_2d_slices(runs):
                                   total)
 
 
-def test_serve_cli_at_data2_model2_on_the_cpu():
+def run_serve_cli(mesh):
     env = {k: v for k, v in os.environ.items() if not k.startswith("REPRO_")}
     env["PYTHONPATH"] = SRC
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "granite-moe-3b-a800m", "--reduced", "--device", "cpu",
          "--requests", "6", "--slots", "4", "--prompt-len", "8", "--gen",
-         "4", "--mesh", "data=2,model=2"], env=env, capture_output=True,
+         "4", "--mesh", mesh], env=env, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert proc.stdout.count("serve OK") == 1      # rank 0 prints
-    assert "{'data': 2, 'model': 2}" in proc.stdout
+    assert str(Me.parse_mesh(mesh)) in proc.stdout
+
+
+def test_serve_cli_at_data2_model2_on_the_cpu():
+    run_serve_cli("data=2,model=2")
+
+
+def test_serve_cli_at_pod2_data2_on_the_cpu():
+    """Four rank processes: the slots over pod x data, the weights cut
+    over data and whole over pod."""
+    run_serve_cli("pod=2,data=2,model=1")
 
 
 @pytest.mark.parametrize("flavor", ["tp", "fsdp_tp"])

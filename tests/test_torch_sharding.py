@@ -45,6 +45,7 @@ from repro_torch.launch import train as Tr
 from repro_torch.models import model as TM
 from repro_torch.models import sharding as Sh
 from repro_torch.models import transformer as Tf
+from repro_torch.optim import adamw as TA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"data,model": {"data": 1, "model": 1},
@@ -203,25 +204,164 @@ def test_rank_memory_is_its_shards(arch):
     ("internvl2-2b", {"data": 1, "model": 2}, "vision"),
     ("granite-3-2b", {"pod": 2, "data": 2, "model": 1}, "data axis")])
 def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
-    """A second data axis waits for item 3; a Mamba stack, an encoder
-    config and a vision config are accepted at (data 2, model 1), (1, 2)
-    and (2, 2), in serving and in training, under both flavors."""
+    """A Mamba stack, an encoder config and a vision config are accepted
+    at (data 2, model 1), (1, 2) and (2, 2), and a second batch axis
+    (pod 2 x data 2) at model 1 and 2, in serving and in training, under
+    both flavors; the train step and the prefill build there.  What is
+    still refused: a period stack (Jamba, item 4)."""
     cfg = TC.get_reduced(arch)
-    if what != "data axis":
-        for shape in ({"data": 2, "model": 1}, {"data": 1, "model": 2},
-                      {"data": 2, "model": 2}):
-            for flavor in ("tp", "fsdp_tp"):
-                for train in (False, True):
-                    Tf.check_supported(cfg, Sh.make_policy(
-                        Me.abstract_mesh(shape), flavor), train=train)
-        return
-    policy = Sh.make_policy(Me.abstract_mesh(sizes), "fsdp_tp")
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 3") as e:
-        Tf.check_supported(cfg, policy)
-    assert what.lower() in str(e.value).lower()
-    Tf.check_supported(cfg, Sh.make_policy(
-        Me.abstract_mesh({"data": 1, "model": 1})))
+    shapes = ({"data": 2, "model": 1}, {"data": 1, "model": 2},
+              {"data": 2, "model": 2})
+    if what == "data axis":
+        shapes = (sizes, dict(sizes, model=2))
+    for shape in shapes:
+        for flavor in ("tp", "fsdp_tp"):
+            policy = Sh.make_policy(Me.abstract_mesh(shape), flavor)
+            for train in (False, True):
+                Tf.check_supported(cfg, policy, train=train)
+            if what == "data axis":
+                TM.make_train_step(cfg, policy, None)
+                TM.make_prefill(cfg, policy, decode_len=8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        Tf.check_supported(TC.get_reduced("jamba-1.5-large-398b"),
+                           Sh.make_policy(Me.abstract_mesh(sizes)))
+
+
+def _abstract_policies(sizes, flavor):
+    """The policy of every rank of an abstract mesh of ``sizes``."""
+    names = list(sizes)
+    out = []
+    for r in range(int(np.prod(list(sizes.values())))):
+        coord, rest = {}, r
+        for a in reversed(names):
+            coord[a] = rest % sizes[a]
+            rest //= sizes[a]
+        out.append(Sh.make_policy(Me.abstract_mesh(sizes, coord), flavor))
+    return out
+
+
+def test_pod_without_data_cuts_nothing():
+    """At pod 2 x data 1 x model 1 the reference's ``_dd`` names
+    ``data``, of one rank: no leaf is cut and nothing is gathered, under
+    ``fsdp_tp`` (``gather_data`` returns its tree, every leaf whole) and
+    for ZeRO-1 (``Zero1`` holds whole moments, the layout names no axis
+    of several ranks), while the rows split over the two pods."""
+    cfg = TC.get_reduced("granite-moe-3b-a800m")
+    tree = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                          master=True)
+    flat = TA.flatten_params(tree)
+    sizes = {"pod": 2, "data": 1, "model": 1}
+    for policy in _abstract_policies(sizes, "fsdp_tp"):
+        assert not policy.fsdp and policy.world_fsdp == 1
+        assert policy.world_d == 2
+        held = Sh.shard_params(tree, policy, cfg=cfg)
+        got = TA.flatten_params(Sh.gather_data(held, policy))
+        assert all(torch.equal(got[k], v) for k, v in flat.items())
+        assert Sh.batch_block(policy, 4) == slice(2 * policy.batch_rank,
+                                                  2 * policy.batch_rank + 2)
+    for policy in _abstract_policies(sizes, "tp"):
+        zero = Sh.Zero1(policy, flat, cfg)
+        assert zero.D == 1
+        assert all(zero.local(k, p) is p for k, p in flat.items())
+        assert all(zero.counted(k) == (policy.batch_rank == 0)
+                   for k in flat)
+        opt = TA.init(flat, TA.AdamWConfig())
+        layout = Sh.train_state_layout(policy, tree, opt, cfg)
+        assert all(sizes[a] == 1 for spec in layout.specs for e in spec
+                   for a in Sh._axes(e))
+
+
+@pytest.mark.parametrize("sizes", [{"pod": 2, "data": 2, "model": 1},
+                                   {"pod": 2, "data": 1, "model": 2},
+                                   {"pod": 2, "data": 2, "model": 2}])
+def test_batch_rank_is_pod_major(sizes):
+    """A rank's block of a batch's rows follows its index over pod x
+    data, pod major (the reference's ``P(("pod", "data"))``); the 2D
+    weight dim and the ZeRO-1 moments follow ``data`` alone, and a leaf
+    is counted in the global norm on pod 0 only."""
+    D = sizes["pod"] * sizes["data"]
+    cfg = TC.get_reduced("granite-3-2b")
+    flat = TA.flatten_params(TM.init_params(
+        torch.Generator().manual_seed(0), cfg, master=True))
+    for policy in _abstract_policies(sizes, "fsdp_tp"):
+        c = policy.mesh.coord
+        assert policy.batch_rank == c["pod"] * sizes["data"] + c["data"]
+        assert policy.world_d == D
+        assert Sh.batch_block(policy, 2 * D) == slice(
+            2 * policy.batch_rank, 2 * policy.batch_rank + 2)
+        assert Sh.batch_block(policy, D + 1) == slice(0, D + 1)
+        assert policy.fsdp == (sizes["data"] > 1)
+        assert policy.fsdp_rank == (c["data"] if sizes["data"] > 1 else 0)
+        zero = Sh.Zero1(policy, flat, cfg)
+        assert zero.D == sizes["data"]
+        if c["pod"]:
+            assert not any(zero.counted(k) for k in flat)
+
+
+def test_mesh_refuses_data_before_pod():
+    with pytest.raises(ValueError, match="pod major"):
+        Me.make_mesh({"data": 1, "pod": 1, "model": 1})
+
+
+@pytest.mark.parametrize("sizes,holders", [
+    ({"data": 1, "model": 4}, [0, 2]),
+    ({"data": 2, "model": 2}, [0])])
+def test_shared_kv_heads_are_counted_once(sizes, holders):
+    """Reduced granite-3-2b's 2 KV heads over 4 model ranks (and one KV
+    head over 2): the ranks whose q heads read a KV head hold its
+    columns (``KVHeads``, from ``with_kv_heads``), and only the first of
+    them counts it in the global norm; ``wq`` as before."""
+    cfg = TC.get_reduced("granite-3-2b")
+    if sizes["model"] == 2:
+        cfg = dataclasses.replace(cfg, n_kv_heads=1)
+    tree = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                          master=True)
+    for policy in _abstract_policies(sizes, "tp"):
+        held = TA.flatten_params(Sh.shard_params(tree, policy, cfg=cfg))
+        zero = Sh.Zero1(policy, held, cfg)
+        m = policy.model_rank
+        for k in ("layers.attn.wk.w", "layers.attn.wv.w"):
+            spec = zero.spec[k]
+            assert isinstance(spec[-1], Sh.KVHeads) and spec[-1] == "model"
+            h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads,
+                                      policy.world_m, m)
+            assert held[k].shape[-1] == nh * cfg.d_head
+            # the 2D leaf's moments are cut over data: each data rank
+            # counts its rows
+            assert zero.counted(k) == (m in holders)
+        assert zero.counted("layers.attn.wq.w")
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_meshes_train_what_they_serve(multi_pod):
+    """On ``make_production_mesh``'s shapes, (16, 16) and (2, 16, 16),
+    ``check_supported(train=True)`` accepts every config that it accepts
+    for serving (KV heads shared by model ranks included); only Jamba's
+    period stack is refused, in both."""
+    shape = {"pod": 2, "data": 16, "model": 16} if multi_pod \
+        else {"data": 16, "model": 16}
+    served = []
+    for arch in TC.ARCH_IDS:
+        cfg = TC.get_config(arch)
+        for flavor in ("tp", "fsdp_tp"):
+            policy = Sh.make_policy(Me.abstract_mesh(shape), flavor)
+            try:
+                Tf.check_supported(cfg, policy)
+            except NotImplementedError:
+                assert cfg.attn_period > 1 or cfg.moe_period > 1, arch
+                with pytest.raises(NotImplementedError):
+                    Tf.check_supported(cfg, policy, train=True)
+                continue
+            except ValueError:
+                with pytest.raises(ValueError):
+                    Tf.check_supported(cfg, policy, train=True)
+                continue
+            Tf.check_supported(cfg, policy, train=True)
+            served.append(arch)
+    assert "jamba-1.5-large-398b" not in served
+    for arch in ("granite-3-2b", "qwen1.5-110b", "mistral-large-123b",
+                 "qwen3-moe-235b-a22b", "internvl2-2b"):
+        assert arch in served, arch
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--coordinator"])

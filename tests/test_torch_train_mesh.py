@@ -195,6 +195,10 @@ def world1_state(cfg, tree):
 CLI = ["--arch", "lm100m", "--reduced", "--device", "cpu", "--batch", "2",
        "--seq", "32", "--log-every", "0"]
 DRILL = ["--mesh", "data=2,model=2", "--steps", "4", "--ckpt-every", "2"]
+# launch.train at two batch axes, 2 steps of 4 rows (one or two a batch
+# rank): pod x data, and pod without data, where no leaf is cut
+POD_MESHES = ("pod=2,data=2,model=1", "pod=2,data=1,model=1")
+POD_RUN = ["--steps", "2", "--ckpt-every", "2", "--batch", "4"]
 
 
 def _free_port():
@@ -215,8 +219,8 @@ def started(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("train_mesh")
     flat = {}
     for arch in W.ARCHS:
-        _flatten(JM.init_params(jax.random.PRNGKey(0), JC.get_reduced(arch)),
-                 arch, flat)
+        _flatten(JM.init_params(jax.random.PRNGKey(0),
+                                W.reduced(JC.get_reduced, arch)), arch, flat)
     np.savez(tmp / "weights.npz", **flat)
     ckpt = tmp / "ckpt"
     cfg = W.config(TC.get_reduced, "lm100m/tp")
@@ -239,6 +243,11 @@ def started(tmp_path_factory):
                               *DRILL, "--coordinator", f"localhost:{port}",
                               "--ckpt-dir", str(tmp / "coord")], env),
                       f"coordinator rank {rank}"))
+    # the launcher at pod x data: each run's last checkpoint in pod/<mesh>
+    for mesh in POD_MESHES:
+        procs.append((_start(["-m", "repro_torch.launch.train", *CLI,
+                              "--mesh", mesh, *POD_RUN, "--ckpt-dir",
+                              str(tmp / "pod" / mesh)]), f"--mesh {mesh}"))
     drill = {}
     try:
         for what, extra in (("plain", []), ("failed", ["--fail-at", "2"])):
@@ -255,9 +264,9 @@ def started(tmp_path_factory):
              for r in range(W.WORLD)]
     return {"step": (flat, dict(np.load(want_path)),
                      dict(np.load(got_path)), ranks),
-            "drill": drill, "coord": tmp / "coord",
-            "mesh_ckpt": {a: tmp / f"ckpt_{a}"
-                          for a in (W.MAMBA, W.SEAMLESS)}}
+            "drill": drill, "coord": tmp / "coord", "pod": tmp / "pod",
+            "mesh_ckpt": {t: tmp / f"ckpt_{t}"
+                          for t in W.MESH_CKPTS.values()}}
 
 
 @pytest.fixture(scope="module")
@@ -321,28 +330,43 @@ def mesh_ids(got, name, cfg):
     return out
 
 
+def world1_micro(name):
+    """The microbatches of case ``name``'s world-1 step: one a batch rank
+    (each rank's bf16 gradients rounded and then summed in float32, as
+    the microbatches' are); one where a dense MoE layer's aux is the whole
+    batch's (model 1 under a mesh, as the reference's compiler takes it),
+    which one microbatch a rank would not give."""
+    cfg = W.config(TC.get_reduced, name)
+    sizes = W.MESHES[W.CASES[name][3]]
+    if cfg.n_experts and sizes["model"] == 1:
+        return 1
+    return sizes.get("pod", 1) * sizes["data"]
+
+
 @pytest.fixture(scope="module")
 def world1(runs):
-    """The port's world-1 step of every case that drops nothing, in one
-    microbatch per data rank (the rows each data rank holds: each
-    microbatch's gradients are rounded and then summed in float32, as
-    the data ranks' are); MoE layers pinned to the sharded step's routes
-    (:func:`pinned_routes`)."""
-    flat, _, got, _ = runs
+    """The port's world-1 step of every case that drops nothing, in
+    :func:`world1_micro` microbatches; MoE layers at a sharded model axis
+    pinned to the sharded step's routes (:func:`pinned_routes`), and at
+    model 1 to the reference's, which the sharded step took."""
+    flat, want, got, _ = runs
     out = {}
-    D = W.MESH["data"]
     for name in NODROP_CASES:
-        arch, _, cf = W.CASES[name]
+        arch, _, cf, _ = W.CASES[name]
+        D = world1_micro(name)
         cfg = W.config(TC.get_reduced, name)
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, microbatches=D))
         params, opt = world1_state(cfg, W.unflatten(flat, arch))
-        batch = {k: torch.from_numpy(v)
-                 for k, v in W.batch_of(cfg, lm_batch_at).items()}
+        batch = {k: torch.from_numpy(v) for k, v in W.batch_of(
+            cfg, lm_batch_at, W.rows_of(name)).items()}
         route = TMoe._route
         if cf is not None:
             TMoe._route = pinned_routes(mesh_ids(got, name, cfg),
                                         W.B // D, W.MESH["model"])
+        elif name in W.DENSE_MOE_CASES:     # the reference's, as the mesh's
+            TMoe._route = W.pin_routes([want[f"{name}/ids/{L}"] for L in
+                                        range(cfg.n_layers)], {})
         try:
             new, opt, met = TM.make_train_step(
                 cfg, None, TA.AdamWConfig(**W.OPT))(params, opt, batch)
@@ -464,6 +488,7 @@ def test_step_matches_reference(runs, name):
     if name in MOE_CASES:
         # the port's ranks routed as the reference did (pinned)
         assert all(same_routes(got, want, name, cfg).values())
+    if cfg.n_experts:
         assert rel(got[f"{name}/met/moe_aux"],
                    want[f"{name}/met/moe_aux"]) <= LOSS_RTOL
     else:
@@ -544,17 +569,20 @@ def test_zero1_moments_are_2d_slices(runs, world1, name):
     flat, want, got, ranks = runs
     noise = reference_layout_noise(want, name)
     cfg = W.config(TC.get_reduced, name)
-    arch, flavor, _ = W.CASES[name]
+    arch, flavor, _, mesh_name = W.CASES[name]
     shapes = TA.flatten_params(W.unflatten(flat, arch))
-    mesh = W.MESH
+    mesh = W.MESHES[mesh_name]
     for r in range(W.WORLD):
-        coord = dict(zip(mesh, divmod(r, mesh["model"])))
+        coord, rest = {}, r
+        for a in reversed(list(mesh)):
+            coord[a], rest = rest % mesh[a], rest // mesh[a]
         policy = Sh.make_policy(Me.abstract_mesh(mesh, coord), flavor)
         for what, rtol in (("m", M_RTOL), ("v", V_RTOL)):
             for k, whole in shapes.items():
                 tol = rtol if noise is None \
                     else max(rtol, 2 * noise[(what, k)])
-                spec = policy.leaf_spec(k, whole.ndim, True)
+                spec = Sh.with_kv_heads(policy.leaf_spec(k, whole.ndim, True),
+                                        k, cfg, policy.world_m)
                 idx = Sh.shard_slices(whole.shape, spec, mesh, coord)
                 mine = ranks[r][f"{name}/{what}/{k}"]
                 np.testing.assert_array_equal(
@@ -562,11 +590,12 @@ def test_zero1_moments_are_2d_slices(runs, world1, name):
                 ref = world1[name][f"{what}/{k}"]
                 assert float(np.abs(mine - ref[idx]).max(initial=0)) \
                     <= tol * float(np.abs(ref).max()), (r, what, k)
-    # the data axis halves each rank's moments of a 2D-cut leaf
+    # the data and model axes cut each rank's moments of a 2D-cut leaf;
+    # a pod holds them whole
     leaf = "layers.mamba.in_proj.w" if arch == W.MAMBA \
         else "layers.attn.wq.w"
     m0 = ranks[0][f"{name}/m/{leaf}"]
-    assert m0.size * W.WORLD == shapes[leaf].size
+    assert m0.size * mesh["data"] * mesh["model"] == shapes[leaf].size
 
 
 @pytest.mark.parametrize("label", [label for label, _, _ in W.LAYOUTS])
@@ -618,10 +647,30 @@ def test_seamless_mesh_checkpoint_restores_at_world1_in_both_packages(
     check_mesh_checkpoint(started, W.SEAMLESS)
 
 
-def check_mesh_checkpoint(started, arch):
+def test_pod_mesh_checkpoint_restores_at_world1_in_both_packages(started):
+    """The same for reduced granite-3-2b's ``tp`` step at ``pod=2, data=2,
+    model=1``: the moments cut over data are gathered over it alone, and
+    a pod's copies are not gathered."""
+    check_mesh_checkpoint(started, W.GRANITE, "pod", "pod/granite-3-2b/tp")
+
+
+@pytest.mark.parametrize("label",
+                         [label for label, _, _ in W.LAYOUTS_OF[W.GRANITE]])
+def test_granite_layout_round_trip(runs, label):
+    """Reduced granite-3-2b's training state at ``pod=2, data=2, model=1``
+    under both flavors (the 2D cut over data, whole over pod) and at
+    ``1x4``, where two model ranks share each KV head (``KVHeads``: a
+    whole leaf takes one copy of each head's columns, and each rank's
+    slice is its head's), through the round trips of the worker's
+    ``layout_cases``."""
+    _, _, got, _ = runs
+    check_layout(got, W.GRANITE, label)
+
+
+def check_mesh_checkpoint(started, arch, tag=None, name=None):
     _, _, got, _ = started["step"]
-    d = str(started["mesh_ckpt"][arch])
-    name = f"{arch}/tp"
+    d = str(started["mesh_ckpt"][tag or arch])
+    name = name or f"{arch}/tp"
     arrays = _arrays(os.path.join(d, "step_1"))
     cfg = TC.get_reduced(arch)
     params = TM.init_params(torch.Generator().manual_seed(0), cfg,
@@ -702,6 +751,35 @@ def test_mesh_checkpoint_restores_at_world1_in_both_packages(drill):
                         jax.tree_util.tree_leaves(jstate)], arrays)
 
 
+@pytest.mark.parametrize("mesh", POD_MESHES)
+def test_pod_mesh_launcher_checkpoint_restores_at_world1(started, mesh):
+    """``launch.train --mesh`` over two batch axes (rank processes on the
+    CPU): its last checkpoint holds whole leaves, which the port restores
+    at world 1 in one process and the reference too, each to the arrays
+    on disk bit for bit.  At ``pod=2, data=1`` no leaf is cut (the
+    reference's ``_dd`` names ``data``, of one rank), so every moment is
+    whole on each rank; a layout that cut them over the pods would save
+    half of each as if whole."""
+    d = str(started["pod"] / mesh)
+    arrays = _arrays(os.path.join(d, "step_2"))
+    cfg = TC.get_reduced("lm100m")
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            master=True)
+    template = (params, TA.init(TA.flatten_params(params), TA.AdamWConfig()))
+    # every leaf whole: the parameters' and the moments' shapes at world 1
+    assert [a.shape for a in arrays] == \
+        [tuple(t.shape) for t in Ck.tree_leaves(template)]
+    step, state = Ck.restore(d, template)
+    assert step == 2
+    assert _bits_equal([t.numpy() for t in Ck.tree_leaves(state)], arrays)
+    jparams = JM.init_params(jax.random.PRNGKey(0), JC.get_reduced("lm100m"))
+    step, jstate = JCk.restore(d, (jparams, JA.init(jparams,
+                                                    JA.AdamWConfig())))
+    assert step == 2
+    assert _bits_equal([np.asarray(a) for a in
+                        jax.tree_util.tree_leaves(jstate)], arrays)
+
+
 def test_train_coordinator_matches_mesh(started):
     """Four ranks started by hand and joined through ``--coordinator``
     end as the drill's ``--mesh data=2,model=2`` run does, bit for
@@ -740,10 +818,11 @@ def test_world_gt1_training_refuses_the_next_slice(arch, what):
 
 
 def test_serving_at_data_gt1_is_refused_training_is_not():
-    """Serving at a data axis of several ranks is no longer refused
-    (``tests/test_torch_serve_dp.py`` holds it to the reference); a
-    second batch axis of several ranks still is, in serving and in
-    training, and so are KV heads that do not split in training."""
+    """Serving and training accept a data axis of several ranks, a second
+    batch axis (``pod`` x ``data``: ``test_step_matches_reference`` holds
+    the pod cases to the reference) and, in training, KV heads that do
+    not split over the model axis (the ``1x4`` and ``kv1`` cases); only a
+    period stack is refused."""
     cfg = TC.get_reduced("granite-moe-3b-a800m")
     policy = Sh.make_policy(Me.abstract_mesh({"data": 2, "model": 2}))
     Tf.check_supported(cfg, policy, train=True)
@@ -752,8 +831,11 @@ def test_serving_at_data_gt1_is_refused_training_is_not():
     pods = Sh.make_policy(Me.abstract_mesh({"pod": 2, "data": 2,
                                             "model": 1}))
     for train in (False, True):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            Tf.check_supported(cfg, pods, train=train)
+        Tf.check_supported(cfg, pods, train=train)
+    TM.make_train_step(cfg, pods, TA.AdamWConfig())
     lm = dataclasses.replace(TC.get_reduced("granite-3-2b"), n_kv_heads=1)
-    with pytest.raises(ValueError, match="KV heads"):
-        Tf.check_supported(lm, policy, train=True)
+    Tf.check_supported(lm, policy, train=True)
+    TM.make_train_step(lm, policy, TA.AdamWConfig())
+    with pytest.raises(NotImplementedError, match="item 4"):
+        Tf.check_supported(TC.get_reduced("jamba-1.5-large-398b"), pods,
+                           train=True)
