@@ -38,10 +38,11 @@ stores run over all D x M ranks.  Rank 0 prints the snapshot.
 ``--mesh pod=P,data=D,model=M`` adds the second batch axis: the slots
 split over pod x data (pod major), the weights are cut over data and
 whole over pod (the reference's ``_dd``), so a pod gathers nothing.
-Dense, MoE and Mamba configs serve this way.  Refused, before any rank
-starts: what ``models.transformer.check_supported`` refuses (period
-stacks, ROADMAP Queue 1 item 4).  A mesh of one rank serves in this
-process, as without ``--mesh``.
+Dense, MoE, Mamba and hybrid (Jamba's period stacks) configs serve this
+way.  Refused, before any rank starts: what
+``models.transformer.check_supported`` refuses (heads, channels or a
+vocabulary that do not split over the model axis).  A mesh of one rank
+serves in this process, as without ``--mesh``.
 """
 import argparse
 import math

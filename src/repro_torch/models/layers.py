@@ -51,12 +51,11 @@ BF16 = torch.bfloat16
 
 def normal(gen: torch.Generator, shape, std: float, dtype=BF16):
     """``std``-scaled standard normal draws of ``shape`` on the
-    generator's device, one leading index at a time (a float32 temporary
-    of one slice only)."""
+    generator's device, each leading index's slice drawn in place
+    (``normal_``: no float32 temporary)."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
     for i in range(shape[0]):
-        out[i] = torch.randn(shape[1:], generator=gen,
-                             device=gen.device) * std
+        out[i].normal_(0.0, std, generator=gen)
     return out
 
 

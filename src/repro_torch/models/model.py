@@ -306,8 +306,9 @@ def make_serve_step(cfg, policy=None):
     def serve_step(params, caches, tokens, cache_len):
         cl = cache_len if isinstance(cache_len, torch.Tensor) \
             else torch.as_tensor(np.array(cache_len))
-        if "k" in caches:
-            S = caches["k"].shape[3]
+        leaves = dict(cache_leaves(caches))
+        if "k" in leaves:
+            S = leaves["k"].shape[3]
             if int(cl.min()) < 0 or int(cl.max()) >= S:
                 raise ValueError(f"cache_len {cl.tolist()} outside "
                                  f"[0, {S})")
@@ -315,7 +316,7 @@ def make_serve_step(cfg, policy=None):
         split = rows.stop - rows.start < tokens.shape[0]
         tokens = tokens[rows]
         cl = (cl[rows] if cl.dim() else cl).to(tokens.device)
-        held = next(iter(caches.values())).shape[1]
+        held = next(iter(leaves.values())).shape[1]
         if held != tokens.shape[0]:
             raise ValueError(f"caches of {held} rows for this rank's "
                              f"{tokens.shape[0]} rows of the batch")
@@ -367,7 +368,8 @@ def make_slot_prefill(cfg, policy=None, *, decode_len: int,
 def write_cache_slot(caches, one, slot: int, rows: slice | None = None):
     """Write a batch-1 cache (as ``make_slot_prefill`` gives it) into the
     running batch cache at batch index ``slot``, in place: every cache
-    leaf is stacked ``(n_layers, B, ...)``, so the slot axis is 1.
+    leaf is stacked ``(groups, B, ...)`` (a period stack's under its
+    ``sub{j}``), so the slot axis is 1.
     ``rows``, the slots this rank's cache holds
     (``sharding.batch_block``; default all): a slot outside them is not
     written, one inside at its index among them."""
@@ -376,7 +378,10 @@ def write_cache_slot(caches, one, slot: int, rows: slice | None = None):
             return caches
         slot -= rows.start
     for name, buf in caches.items():
-        buf[:, slot:slot + 1] = one[name].to(buf.dtype)
+        if isinstance(buf, dict):          # a period stack's sub-layer
+            write_cache_slot(buf, one[name], slot)
+        else:
+            buf[:, slot:slot + 1] = one[name].to(buf.dtype)
     return caches
 
 
@@ -566,34 +571,55 @@ def make_train_step(cfg, policy, opt_cfg: adamw.AdamWConfig, *,
 def cache_struct(cfg, batch_size: int, decode_len: int,
                  enc_len: int = 0, policy=None) -> dict:
     """name -> (shape, dtype) of the stacked cache that ``stack_apply``
-    emits: ``{"k", "v"}`` (n_layers, B, Hkv, decode_len, D) bf16 for an
-    attention stack, and for an enc-dec decoder also ``{"ck", "cv"}``
-    (n_layers, B, Hkv, enc_len, D) bf16; ``{"conv" (n_layers, B, K-1, E),
-    "ssm" (n_layers, B, E, N)}`` float32 for a Mamba stack.  Under a
-    sharded ``policy`` Hkv is the KV heads this rank holds and E its
-    E/M channels, and on a data axis of several ranks B its rows of
+    emits, the reference's layout: for each layer kind ``{"k", "v"}``
+    (groups, B, Hkv, decode_len, D) bf16 for attention, and for an
+    enc-dec decoder also ``{"ck", "cv"}`` (groups, B, Hkv, enc_len, D)
+    bf16; ``{"conv" (groups, B, K-1, E), "ssm" (groups, B, E, N)}``
+    float32 for a Mamba layer.  The groups are the layers of a uniform
+    stack, and the periods of a period stack, whose tree holds one
+    ``{"sub{j}": ...}`` of these a layer of the period.  Under a sharded
+    ``policy`` Hkv is the KV heads this rank holds and E its E/M
+    channels, and on batch axes of several ranks B its rows of
     ``batch_size`` (``sharding.batch_block``)."""
     Tf.check_supported(cfg, policy)
     rows = sharding.batch_block(policy, batch_size)
-    L, B = cfg.n_layers, rows.stop - rows.start
-    if has_mamba(cfg):
-        E = cfg.d_inner // (1 if policy is None else policy.world_m)
-        return {"conv": ((L, B, cfg.ssm_conv - 1, E), torch.float32),
-                "ssm": ((L, B, E, cfg.ssm_state), torch.float32)}
-    kv = (L, B, sharding.local_kv_heads(cfg, policy), decode_len,
-          cfg.d_head)
-    out = {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
-    if cfg.is_encdec:
-        ckv = (L, B, sharding.local_kv_heads(cfg, policy), enc_len,
-               cfg.d_head)
-        out.update(ck=(ckv, CACHE_DTYPE), cv=(ckv, CACHE_DTYPE))
-    return out
+    per = Tf._period(cfg)
+    L, B = cfg.n_layers // per, rows.stop - rows.start
+
+    def one(i):
+        mixer, _, cross = Tf.layer_kind(cfg, i)
+        if mixer == "mamba":
+            E = cfg.d_inner // (1 if policy is None else policy.world_m)
+            c = {"conv": ((L, B, cfg.ssm_conv - 1, E), F32),
+                 "ssm": ((L, B, E, cfg.ssm_state), F32)}
+        else:
+            kv = (L, B, sharding.local_kv_heads(cfg, policy), decode_len,
+                  cfg.d_head)
+            c = {"k": (kv, CACHE_DTYPE), "v": (kv, CACHE_DTYPE)}
+        if cross:
+            ckv = (L, B, sharding.local_kv_heads(cfg, policy), enc_len,
+                   cfg.d_head)
+            c.update(ck=(ckv, CACHE_DTYPE), cv=(ckv, CACHE_DTYPE))
+        return c
+
+    return one(0) if per == 1 else {f"sub{j}": one(j) for j in range(per)}
 
 
 def init_caches(cfg, batch_size: int, decode_len: int, device,
                 enc_len: int = 0, policy=None) -> dict:
     """Zero caches of :func:`cache_struct`'s layout on ``device``."""
-    return {k: torch.zeros(shape, dtype=dtype, device=device)
-            for k, (shape, dtype) in
-            cache_struct(cfg, batch_size, decode_len, enc_len,
-                         policy).items()}
+    def zeros(node):
+        return {k: zeros(v) if isinstance(v, dict)
+                else torch.zeros(v[0], dtype=v[1], device=device)
+                for k, v in node.items()}
+    return zeros(cache_struct(cfg, batch_size, decode_len, enc_len, policy))
+
+
+def cache_leaves(caches: dict):
+    """(name, leaf) of every leaf of a cache tree, in order; a period
+    stack's ``sub{j}`` levels are walked through."""
+    for name, v in caches.items():
+        if isinstance(v, dict):
+            yield from cache_leaves(v)
+        else:
+            yield name, v

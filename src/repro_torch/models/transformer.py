@@ -9,7 +9,13 @@ layers, ``{"conv" (n_layers, B, K-1, E), "ssm" (n_layers, B, E, N)}``
 float32 for Mamba layers; an enc-dec decoder's layers also keep their
 cross-attention's ``{"ck", "cv"}`` (n_layers, B, Hkv, Senc, D) bf16, the
 encoder memory's k and v, which decode reads and never writes; the
-reference's ``lax.scan`` over the stack is a loop over that axis.  Three
+reference's ``lax.scan`` over the stack is a loop over that axis.  A
+period stack (Jamba: attention on the last layer of every
+``attn_period``, MoE on the odd layers) is stacked over its
+``n_layers // attn_period`` periods instead: its tree holds one
+``{"sub{j}": ...}`` entry for each layer ``j`` of a period, of the kind
+of layer ``j``, and so do its caches; the loop runs the periods, and the
+sub-layers in order inside each.  Three
 traversal modes share the layer definitions: ``train`` (no cache; each
 layer's body under ``torch.utils.checkpoint`` as ``StackOpts.remat``
 says, the reference's ``jax.checkpoint`` of its scan body), ``prefill``
@@ -18,11 +24,9 @@ token).  ``train`` and
 ``prefill`` also return the sum over the layers of the MoE layers'
 auxiliary load-balancing loss (0 without MoE layers); ``decode`` drops
 it, as the reference does.  The port runs uniform stacks (dense, MoE or
-Mamba), an enc-dec config's encoder stack (attention and the family's
-MLP, not causal) and its decoder (self-attention, then cross-attention
-on the encoder's output, then the MLP); period stacks (Jamba's attention
-every ``attn_period`` and MoE every ``moe_period`` layers) raise
-``NotImplementedError``.
+Mamba), period stacks, an enc-dec config's encoder stack (attention and
+the family's MLP, not causal) and its decoder (self-attention, then
+cross-attention on the encoder's output, then the MLP).
 
 Every function takes the reference's ``policy`` (default ``None``, world
 1).  Under a policy whose model axis spans several ranks the layers
@@ -36,7 +40,8 @@ The data axis adds nothing inside a layer but, under ``fsdp_tp``, the
 gather of the layer's 2D leaves over the data group
 (``sharding.gather_data``) just before the layer runs, one layer at a
 time (serving never holds two layers' gathered weights); in training
-it is made inside the layer's remat body, so that the recompute gathers
+it is made inside the remat body (one layer, or one period of a period
+stack, as the reference's scan body), so that the recompute gathers
 again.  Each batch rank (pod x data) runs its block of the batch's
 rows (all of them where they do not split: a slot prefill's one row).  Every collective carries its gradient, so
 a rematerialised layer re-issues its collectives in the backward, in
@@ -87,26 +92,23 @@ def layer_kind(cfg, i: int) -> tuple[str, str, bool]:
     return mixer, ffn, cfg.is_encdec
 
 
+def _period(cfg) -> int:
+    """Layers one group of the stack holds: ``attn_period`` for a period
+    stack, else 1 (the reference's ``_period``)."""
+    return cfg.attn_period if cfg.attn_period > 1 else 1
+
+
 def check_supported(cfg, policy=None, *, train: bool = False) -> None:
-    """Raise for a config whose layers the port does not run: period
-    stacks (ROADMAP Queue 1 item 4).  A stack is a whole number of
-    periods, and one period of the only such config (Jamba-1.5-Large, 8
-    layers) holds 88.3 GB of bf16 weights, more than one card's memory,
-    so these wait for a path over several cards.  Under a ``policy``
-    over several ranks also: heads that do not split over the model
-    axis, a block of q heads that spans KV heads unevenly, Mamba
-    channels that do not split and a padded vocabulary that does not.
-    Both batch axes (``pod`` x ``data``) run, and KV heads shared by
-    model ranks run in serving and training (``train`` is kept for the
-    callers: nothing is refused for training alone).  Encoder and
-    vision configs run at every mesh these allow (the encoder's and the
-    cross-attention's heads split as the decoder's do)."""
-    if cfg.attn_period > 1 or cfg.moe_period > 1:
-        raise NotImplementedError(f"{cfg.name}: period stacks (attention "
-                                  f"every {cfg.attn_period}, MoE every "
-                                  f"{cfg.moe_period} layers) wait for "
-                                  "ROADMAP Queue 1 item 4: one period of "
-                                  "the full config does not fit one card")
+    """Raise, under a ``policy`` over several ranks, for heads that do not
+    split over the model axis, a block of q heads that spans KV heads
+    unevenly, Mamba channels that do not split and a padded vocabulary
+    that does not.  Every stack runs at world 1 (uniform, period and
+    enc-dec stacks).  Both batch axes (``pod`` x ``data``) run, and KV
+    heads shared by model ranks run in serving and training (``train``
+    is kept for the callers: nothing is refused for training alone).
+    Encoder and vision configs run at every mesh these allow (the
+    encoder's and the cross-attention's heads split as the decoder's
+    do)."""
     if policy is None or policy.mesh is None or not policy.sharded:
         return
     kv_head_block(cfg.n_heads, cfg.n_kv_heads, policy.world_m, 0)
@@ -133,14 +135,13 @@ def layer_at(stack: dict, i: int) -> dict:
 
 
 def layer_init(gen: torch.Generator, cfg, n: int, dtype=Ly.BF16, *,
-               encoder: bool = False) -> dict:
-    """``n`` stacked layers of the stack's one kind (attention + swiglu,
-    gelu MLP or MoE, or a Mamba block alone; an enc-dec decoder's with
-    cross-attention after the self-attention; ``encoder``: attention and
-    the family's MLP, no cross-attention), matmul weights in ``dtype`` (a
-    MoE router stays float32)."""
-    check_supported(cfg)
-    mixer, ffn, cross = layer_kind(cfg, 0)
+               i: int = 0, encoder: bool = False) -> dict:
+    """``n`` stacked layers of the kind of layer ``i`` (attention or a
+    Mamba block, then swiglu, gelu MLP, MoE or nothing; an enc-dec
+    decoder's with cross-attention after the self-attention;
+    ``encoder``: attention and the family's MLP, no cross-attention),
+    matmul weights in ``dtype`` (a MoE router stays float32)."""
+    mixer, ffn, cross = layer_kind(cfg, i)
     if encoder:
         mixer, ffn, cross = "attn", ("gelu" if cfg.family == "audio"
                                      else "mlp"), False
@@ -268,9 +269,33 @@ def layer_decode(p, cfg, x, cache, cache_len, policy=None):
 def stack_init(gen: torch.Generator, cfg, dtype=Ly.BF16, *,
                encoder: bool = False) -> dict:
     """The decoder stack (``cfg.n_layers``), or with ``encoder`` an
-    enc-dec config's encoder stack (``cfg.encoder_layers``)."""
+    enc-dec config's encoder stack (``cfg.encoder_layers``).  A period
+    stack is ``{"sub{j}": ...}``, sub-layer ``j`` of the kind of layer
+    ``j``, each stacked over the ``n_layers // attn_period`` periods (the
+    reference's ``init_period``)."""
     n = cfg.encoder_layers if encoder else cfg.n_layers
-    return layer_init(gen, cfg, n, dtype, encoder=encoder)
+    per = 1 if encoder else _period(cfg)
+    if per == 1:
+        return layer_init(gen, cfg, n, dtype, encoder=encoder)
+    return {f"sub{j}": layer_init(gen, cfg, n // per, dtype, i=j)
+            for j in range(per)}
+
+
+def sub_layers(group: dict) -> list[tuple[str | None, dict]]:
+    """The layers of one group of a stacked tree (parameters or caches),
+    in order: ``(f"sub{j}", its tree)`` for each sub-layer of a period,
+    ``[(None, group)]`` for a uniform stack's one layer."""
+    if "sub0" not in group:
+        return [(None, group)]
+    return [(f"sub{j}", group[f"sub{j}"]) for j in range(len(group))]
+
+
+def _stack_trees(trees: list[dict]) -> dict:
+    """Trees of the same layout -> one tree, each leaf stacked over
+    them."""
+    return {k: _stack_trees([t[k] for t in trees])
+            if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 def unstack(stack: dict) -> list[dict]:
@@ -335,27 +360,39 @@ def stack_apply(stack_params, cfg, x, positions, opts: StackOpts, *,
                 causal: bool = True, enc_out=None,
                 want_cache: bool = False, policy=None):
     """Run the stack (an encoder stack with ``causal=False``; a decoder
-    with cross-attention on ``enc_out``).  Returns (x, the MoE auxiliary
-    loss summed over the layers, stacked caches | None): each layer's
-    cache leaves stacked over the layers (see the module docstring)."""
+    with cross-attention on ``enc_out``), one group (a layer, or a period
+    of sub-layers) at a time, each group one remat body.  Returns (x, the
+    MoE auxiliary loss summed over the MoE layers, stacked caches | None):
+    each layer's cache leaves stacked over the groups, a period's under
+    its ``sub{j}`` (see the module docstring)."""
     def body(p, x, enc_out):
-        return layer_apply(gather_data(p, policy), cfg, x, positions, opts,
-                           causal=causal, enc_out=enc_out,
-                           want_cache=want_cache, policy=policy)
+        auxes, caches = [], {}
+        for name, sub in sub_layers(p):
+            x, a, cache = layer_apply(gather_data(sub, policy), cfg, x,
+                                      positions, opts, causal=causal,
+                                      enc_out=enc_out,
+                                      want_cache=want_cache, policy=policy)
+            if a is not None:
+                auxes.append(a)
+            if name is None:
+                caches = cache
+            else:
+                caches[name] = cache
+        return x, auxes, caches
 
     grads = torch.is_grad_enabled() and (x.requires_grad
                                          or _requires_grad(stack_params))
     aux = torch.zeros((), dtype=F32, device=x.device)
     caches = []
     for p in unstack(stack_params):
-        x, a, cache = _wrap_remat(body, opts.remat, grads)(p, x, enc_out)
-        if a is not None:
+        x, auxes, cache = _wrap_remat(body, opts.remat, grads)(p, x,
+                                                               enc_out)
+        for a in auxes:                  # the reference's order of sums
             aux = aux + a
         caches.append(cache)
     if not want_cache:
         return x, aux, None
-    return x, aux, {k: torch.stack([c[k] for c in caches])
-                    for k in caches[0]}
+    return x, aux, _stack_trees(caches)
 
 
 def stack_decode(stack_params, cfg, x, caches, cache_len, policy=None):
@@ -363,7 +400,11 @@ def stack_decode(stack_params, cfg, x, caches, cache_len, policy=None):
     as ``stack_apply(want_cache=True)`` makes them and are updated in
     place.  Under ``fsdp_tp`` each layer's 2D leaves are gathered over
     the data group just before the layer runs.  Returns (x, caches)."""
-    for i in range(cfg.n_layers):
-        x, _ = layer_decode(gather_data(layer_at(stack_params, i), policy),
-                            cfg, x, layer_at(caches, i), cache_len, policy)
+    groups = cfg.n_layers // _period(cfg)
+    for g in range(groups):
+        cache = layer_at(caches, g)
+        for name, sub in sub_layers(layer_at(stack_params, g)):
+            x, _ = layer_decode(gather_data(sub, policy), cfg, x,
+                                cache if name is None else cache[name],
+                                cache_len, policy)
     return x, caches

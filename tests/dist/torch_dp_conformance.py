@@ -30,6 +30,11 @@ mesh runs:
   ``G - 1`` greedy ``make_serve_step``s: each step's logits and the
   prefill's conv and ssm states (the port's: each rank's rows and
   channels);
+* ``jamba/<combo>``: at ``JAMBA_COMBOS``, reduced
+  ``jamba-1.5-large-398b`` (period stacks; its MoE sub-layers at
+  ``JAMBA_CF``, where no row drops) as ``mamba/<combo>``: each
+  sub-layer's caches (the port's: each rank's rows, channels and KV
+  heads) under ``sub{j}``;
 * ``engine/<combo>``: the MoE engine (``ENGINE_KW``, 4 slots: 2 a data
   rank) with a feature store over all ranks on the requests of
   ``tests/dist/torch_tp_conformance.py``: each request's status, tokens
@@ -41,9 +46,9 @@ and the ``lm`` cases under ``fsdp_tp`` at each of ``POD_COMBOS`` (the
 
 * ``engine3``: the same engine with 3 slots, which do not split over the
   data ranks (every rank holds them all);
-* ``mamba_engine``: (torch only) the port's engine on reduced
-  ``falcon-mamba-7b`` (``ENGINE_KW``), which the test holds to the
-  port's world-1 engine;
+* ``mamba_engine``, ``jamba_engine``: (torch only) the port's engine on
+  reduced ``falcon-mamba-7b`` and ``jamba-1.5-large-398b``
+  (``ENGINE_KW``), which the test holds to the port's world-1 engine;
 * ``moe``: ``moe_decode`` of one MoE layer on 8 x 8 rows (4 x 8 a data
   rank) at capacity factor 0.5, where rows drop: the output, each rank's
   routed ids and dropped rows (the reference's per shard, from its own
@@ -65,6 +70,10 @@ import torch_tp_conformance as TPW  # noqa: E402
 
 MODELS = ("granite-3-2b", "granite-moe-3b-a800m")
 MAMBA = "falcon-mamba-7b"
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_COMBOS = ("2x2",)
+# the Jamba cases' MoE capacity factor: E / top_k, where no row drops
+JAMBA_CF = 4.0
 # served through make_prefill + make_serve_step only
 ONESHOT = ("seamless-m4t-large-v2", "internvl2-2b")
 ENGINE = "granite-moe-3b-a800m"
@@ -83,6 +92,17 @@ ENGINE_KW = dict(slots=4, prompt_capacity=12, gen_capacity=6,
                  queue_capacity=4)
 MOE_CF = 0.5
 SHAPES = TPW.SHAPES
+
+
+def served_config(getter, arch):
+    """The reduced config of ``arch`` as the cases serve it: Jamba's at
+    ``JAMBA_CF``."""
+    import dataclasses
+    cfg = getter(arch)
+    if arch != JAMBA:
+        return cfg
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, moe_capacity_factor=JAMBA_CF))
 
 
 def prompts(cfg, seed):
@@ -283,23 +303,27 @@ def run_jax(out_path, weights_path, combos):
                         lg.argmax(-1)[:, None].astype(np.int32)),
                         jnp.int32(pos0 + j))
 
-        cfg = get_reduced(MAMBA)
-        params = jax.tree_util.tree_map(
-            jnp.asarray, TPW.unflatten(flat, f"lm/{MAMBA}"))
-        prefill = jax.jit(JM.make_prefill(cfg, policy, decode_len=PCAP + G))
-        step = jax.jit(JM.make_serve_step(cfg, policy))
-        logits, caches = prefill(params, {"tokens": jnp.asarray(
-            mamba_prompts(cfg))})
-        key = f"mamba/{combo}"
-        for c, v in caches.items():
-            out[f"{key}/{c}"] = np.asarray(v)
-        for j in range(G):
-            lg = np.asarray(logits)
-            out[f"{key}/logits/{j}"] = lg
-            if j < G - 1:
-                logits, caches = step(params, caches, jnp.asarray(
-                    lg.argmax(-1)[:, None].astype(np.int32)),
-                    jnp.int32(PCAP + j))
+        for arch, key in ((MAMBA, f"mamba/{combo}"),
+                          (JAMBA, f"jamba/{combo}")):
+            if arch == JAMBA and combo not in JAMBA_COMBOS:
+                continue
+            cfg = served_config(get_reduced, arch)
+            params = jax.tree_util.tree_map(
+                jnp.asarray, TPW.unflatten(flat, f"lm/{arch}"))
+            prefill = jax.jit(JM.make_prefill(cfg, policy,
+                                              decode_len=PCAP + G))
+            step = jax.jit(JM.make_serve_step(cfg, policy))
+            logits, caches = prefill(params, {"tokens": jnp.asarray(
+                mamba_prompts(cfg))})
+            for c, v in TPW._leaves(caches):
+                out[f"{key}/{c}"] = np.asarray(v.astype(jnp.float32))
+            for j in range(G):
+                lg = np.asarray(logits)
+                out[f"{key}/logits/{j}"] = lg
+                if j < G - 1:
+                    logits, caches = step(params, caches, jnp.asarray(
+                        lg.argmax(-1)[:, None].astype(np.int32)),
+                        jnp.int32(PCAP + j))
 
         cfg = get_reduced(ENGINE)
         params = jax.tree_util.tree_map(
@@ -422,30 +446,34 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
                     logits, caches = step(params, caches, logits.argmax(-1)[
                         :, None].to(torch.int32), pos0 + j)
 
-        cfg = get_reduced(MAMBA)
-        params = M.params_from_jax(TPW.unflatten(flat, f"lm/{MAMBA}"), cfg,
-                                   "cpu", policy=policy)
-        prefill = M.make_prefill(cfg, policy, decode_len=PCAP + G)
-        step = M.make_serve_step(cfg, policy)
-        logits, caches = prefill(params, {"tokens": torch.from_numpy(
-            mamba_prompts(cfg))})
-        key = f"mamba/{combo}"
-        for c, v in caches.items():   # a copy: decode writes in place
-            out[f"{key}/{c}"] = v.numpy().copy()
-        for j in range(G):
-            out[f"{key}/logits/{j}"] = logits.numpy()
-            if j < G - 1:
-                logits, caches = step(params, caches, logits.argmax(-1)[
-                    :, None].to(torch.int32), PCAP + j)
+        for arch, key in ((MAMBA, f"mamba/{combo}"),
+                          (JAMBA, f"jamba/{combo}")):
+            if arch == JAMBA and combo not in JAMBA_COMBOS:
+                continue
+            cfg = served_config(get_reduced, arch)
+            params = M.params_from_jax(TPW.unflatten(flat, f"lm/{arch}"),
+                                       cfg, "cpu", policy=policy)
+            prefill = M.make_prefill(cfg, policy, decode_len=PCAP + G)
+            step = M.make_serve_step(cfg, policy)
+            logits, caches = prefill(params, {"tokens": torch.from_numpy(
+                mamba_prompts(cfg))})
+            for c, v in TPW._leaves(caches):  # a copy: decode writes
+                out[f"{key}/{c}"] = v.float().numpy().copy()   # in place
+            for j in range(G):
+                out[f"{key}/logits/{j}"] = logits.numpy()
+                if j < G - 1:
+                    logits, caches = step(params, caches, logits.argmax(-1)[
+                        :, None].to(torch.int32), PCAP + j)
 
-        held = {arch: (get_reduced(arch), M.params_from_jax(
+        held = {arch: (served_config(get_reduced, arch), M.params_from_jax(
             TPW.unflatten(flat, f"lm/{arch}"), get_reduced(arch), "cpu",
-            policy=policy)) for arch in (ENGINE, MAMBA)}
+            policy=policy)) for arch in (ENGINE, MAMBA, JAMBA)}
         cfg, params = held[ENGINE]
         runs = [("engine/" + combo, ENGINE, ENGINE_KW)]
         if combo == "2x2":
             runs += [("engine3", ENGINE, dict(ENGINE_KW, slots=3)),
-                     ("mamba_engine", MAMBA, ENGINE_KW)]
+                     ("mamba_engine", MAMBA, ENGINE_KW),
+                     ("jamba_engine", JAMBA, ENGINE_KW)]
         for prefix, arch, kw in runs:
             feats, spec = TPW.request_data(held[arch][0].vocab)
             store = FeatureStore(make_context("cpu"), "drug_id", feats,
@@ -454,9 +482,9 @@ def run_torch(mesh_name, out_path, weights_path, rank, store_path):
                                 feature_stores={"drug_id": store},
                                 device="cpu", **kw)
             out[f"{prefix}/cache_rows"] = np.array(
-                next(iter(eng.caches.values())).shape[1])
-            out[f"{prefix}/cache_shapes"] = np.array(
-                [list(v.shape) for v in eng.caches.values()])
+                next(iter(M.cache_leaves(eng.caches)))[1].shape[1])
+            for c, v in TPW._leaves(eng.caches):
+                out[f"{prefix}/cache_shapes/{c}"] = np.array([v.shape])
             margins = TPW.record_margins(eng)
             reqs = [Request(req_id=i, prompt=p, gen_len=g, drug_id=d)
                     for i, p, g, d in spec]

@@ -21,15 +21,17 @@ Usage:
   heads, or a Mamba stack's conv and ssm states of its channels); an
   enc-dec config's prompts come with their frames and its caches hold
   the cross-attention's ``ck``/``cv``, a vision config's with their
-  patch embeddings in front, and its decode starts after them;
+  patch embeddings in front, and its decode starts after them; a period
+  stack's (Jamba's) caches are written under each ``sub{j}``;
 * ``engine``: both engines (with their policy and a feature store over
   all ranks) on the same requests: each request's status, tokens and
   features, the port's top-2 margins, each rank's tokens;
-* ``mamba_engine``: (torch only) the port's engine on reduced
-  ``falcon-mamba-7b`` with its policy and a feature store over all
-  ranks on the same requests, recorded as ``engine``; the test holds it
-  to the port's world-1 engine (the reference's engine runs a Mamba
-  state through a prompt's padding);
+* ``mamba_engine``, ``jamba_engine``: (torch only) the port's engine on
+  reduced ``falcon-mamba-7b`` and ``jamba-1.5-large-398b`` with its
+  policy and a feature store over all ranks on the same requests,
+  recorded as ``engine``; the test holds it to the port's world-1 engine
+  (the reference's engine runs a Mamba state through a prompt's
+  padding);
 * ``fs``: (torch only) the feature-store cases of
   ``tests/dist/serving_conformance.py`` at world W;
 * ``mem``: (torch only) each rank's parameter bytes, whole and by leaf.
@@ -51,8 +53,12 @@ MODELS = {"granite-3-2b": {}, "granite-moe-3b-a800m": {},
           "falcon-mamba-7b": {},
           # an encoder and cross-attention, and a patch prefix: each rank
           # runs its block of every attention's heads
-          "seamless-m4t-large-v2": {}, "internvl2-2b": {}}
+          "seamless-m4t-large-v2": {}, "internvl2-2b": {},
+          # a period stack: Mamba sub-layers on their channels, the
+          # attention sub-layer on its heads, MoE sub-layers dispatched
+          "jamba-1.5-large-398b": {}}
 MAMBA_ENGINE = "falcon-mamba-7b"
+JAMBA_ENGINE = "jamba-1.5-large-398b"
 MOE_LAYERS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 # path -> capacity factors: none dropped (E / top_k for the shuffle:
 # C_send = the rows of a rank), the default, rows dropped; "fallback" is
@@ -268,7 +274,7 @@ def run_jax(world, out_path, weights_path):
         step = jax.jit(JM.make_serve_step(cfg, policy))
         logits, caches = prefill(params, {k: jnp.asarray(v)
                                           for k, v in batch.items()})
-        for c, v in caches.items():
+        for c, v in _leaves(caches):
             out[f"lm/{name}/{c}"] = np.asarray(v.astype(jnp.float32))
         for i in range(G):
             lg = np.asarray(logits)
@@ -370,15 +376,23 @@ def compare_engine_to_world1(res, t, want, cfg, model, slots, tol):
     the same rejections, counts, statuses and features, greedy tokens
     equal up to the first that differs where world 1's margin is below
     ``tol`` (the rule of ``tests/test_torch_model.py``), at least one
-    token compared; the rank's caches hold ``slots`` rows and E /
-    ``model`` channels."""
+    token compared; the rank's Mamba caches hold ``slots`` rows and E /
+    ``model`` channels (a period stack's in each Mamba sub-layer, over
+    its periods)."""
     np.testing.assert_array_equal(res[f"{t}/rejected"], want["w1/rejected"])
     np.testing.assert_array_equal(res[f"{t}/counts"], want["w1/counts"])
     assert int(res[f"{t}/store_dropped"]) == 0
     E = cfg.d_inner // model
-    for conv, ssm in np.asarray(res[f"{t}/cache_shapes"]).reshape(-1, 2, 4):
-        assert tuple(conv) == (cfg.n_layers, slots, cfg.ssm_conv - 1, E)
-        assert tuple(ssm) == (cfg.n_layers, slots, E, cfg.ssm_state)
+    L = cfg.n_layers // (cfg.attn_period if cfg.attn_period > 1 else 1)
+    shapes = {k[len(f"{t}/cache_shapes/"):]: v for k, v in res.items()
+              if k.startswith(f"{t}/cache_shapes/")}
+    assert any(k.endswith("ssm") for k in shapes), shapes
+    for k, per_rank in shapes.items():
+        want_shape = {"conv": (L, slots, cfg.ssm_conv - 1, E),
+                      "ssm": (L, slots, E, cfg.ssm_state)}.get(
+            k.rsplit("/", 1)[-1])
+        for got_shape in per_rank:
+            assert want_shape is None or tuple(got_shape) == want_shape, k
     compared = 0
     for rid in range(len(SHAPES)):
         assert str(res[f"{t}/{rid}/status"]) == str(want[f"w1/{rid}/status"])
@@ -478,7 +492,7 @@ def run_torch(world, out_path, weights_path, rank, store_path):
         step = M.make_serve_step(cfg, policy)
         logits, caches = prefill(params, {k: torch.from_numpy(v)
                                           for k, v in batch.items()})
-        for c, v in caches.items():   # each rank's heads or channels
+        for c, v in _leaves(caches):  # each rank's heads or channels
             out[f"lm/{name}/{c}_ranks"] = gathered(v.float())
         for i in range(G):
             out[f"lm/{name}/logits/{i}"] = logits.numpy()
@@ -489,7 +503,8 @@ def run_torch(world, out_path, weights_path, rank, store_path):
 
     ctx = make_context("cpu")
     for arch, prefix in ((ENGINE, "engine/torch"),
-                         (MAMBA_ENGINE, "mamba_engine/torch")):
+                         (MAMBA_ENGINE, "mamba_engine/torch"),
+                         (JAMBA_ENGINE, "jamba_engine/torch")):
         cfg = get_reduced(arch)
         params = M.params_from_jax(unflatten(flat, f"lm/{arch}"), cfg,
                                    "cpu", policy=policy)
@@ -510,8 +525,9 @@ def run_torch(world, out_path, weights_path, rank, store_path):
                                  sorted(done, key=lambda r: r.req_id)])
         out[f"{prefix}/tokens_ranks"] = gathered(torch.from_numpy(tokens))
         out[f"{prefix}/store_dropped"] = np.array(store.dropped)
-        out[f"{prefix}/cache_shapes"] = gathered(torch.tensor(
-            [list(v.shape) for v in eng.caches.values()]))
+        for c, v in _leaves(eng.caches):
+            out[f"{prefix}/cache_shapes/{c}"] = gathered(
+                torch.tensor(list(v.shape)))
 
     # the feature-store cases of serving_conformance.py at this world
     table, probe = feature_table()

@@ -24,7 +24,10 @@ reference's from a ``jax.debug.callback`` in its dispatch plan, as its
 ``~ok`` counts them).  The reference also takes the same step at world 1
 and writes its moments (the cases without MoE layers).
 
-The reference runs its MoE cases first and then writes their routed ids
+A MoE layer is counted among the stack's MoE layers (:func:`n_moe`: a
+period stack's MoE sub-layers over its periods), in the forward's
+order.  The reference runs its MoE cases first and then writes their
+routed ids
 to ``ROUTES.npz``; the port's ranks run their other cases, wait for that
 file, and take the reference's routes in the MoE cases it ran
 (:func:`pin_routes`), so that a near tie of the router's top-k, which
@@ -96,15 +99,25 @@ CASES = {
     "1x4/granite-3-2b/tp": ("granite-3-2b", "tp", None, "1x4"),
     "1x4/granite-3-2b/fsdp_tp": ("granite-3-2b", "fsdp_tp", None, "1x4"),
     "granite-3-2b-kv1/tp": ("granite-3-2b-kv1", "tp", None, "2x2"),
+    # a period stack (Jamba: Mamba, attention and MoE sub-layers) under
+    # both flavors, and at 1x4, where two model ranks share each KV head
+    "jamba-1.5-large-398b/tp/5": ("jamba-1.5-large-398b", "tp", 5.0,
+                                  "2x2"),
+    "jamba-1.5-large-398b/fsdp_tp/5": ("jamba-1.5-large-398b", "fsdp_tp",
+                                       5.0, "2x2"),
+    "1x4/jamba-1.5-large-398b/tp/5": ("jamba-1.5-large-398b", "tp", 5.0,
+                                      "1x4"),
 }
 MAMBA = "falcon-mamba-7b"
 SEAMLESS = "seamless-m4t-large-v2"
 GRANITE = "granite-3-2b"
+JAMBA = "jamba-1.5-large-398b"
 # the layout round trips of these archs' training states (a Mamba stack's
 # in_proj cut per part, an encoder subtree; granite-3-2b at pod x data
 # and with its KV heads shared at 1x4): arch -> (label, mesh, flavor)
 LAYOUTS_OF = {a: (("2x2/tp", "2x2", "tp"), ("2x2/fsdp_tp", "2x2", "fsdp_tp"),
-                  ("1x4", "1x4", "fsdp_tp")) for a in (MAMBA, SEAMLESS)}
+                  ("1x4", "1x4", "fsdp_tp")) for a in (MAMBA, SEAMLESS,
+                                                       JAMBA)}
 LAYOUTS_OF[GRANITE] = (("pod/tp", "pod", "tp"),
                        ("pod/fsdp_tp", "pod", "fsdp_tp"),
                        ("1x4/tp", "1x4", "tp"),
@@ -114,20 +127,24 @@ LAYOUTS = LAYOUTS_OF[MAMBA]
 # test restores at world 1: case -> the checkpoint's tag
 MESH_CKPTS = {"falcon-mamba-7b/tp": MAMBA,
               "seamless-m4t-large-v2/tp": SEAMLESS,
-              "pod/granite-3-2b/tp": "pod"}
+              "pod/granite-3-2b/tp": "pod",
+              "jamba-1.5-large-398b/tp/5": JAMBA}
 ARCHS = sorted({c[0] for c in CASES.values()})
 # MoE cases at model 1, whose layers run moe_dense: the reference's routes
 # come from its router (whole batch), not from a dispatch plan
 DENSE_MOE_CASES = ["pod/granite-moe-3b-a800m/fsdp_tp"]
+# MoE cases under fsdp_tp at 2x2, held to the port's own tp step at the
+# same mesh (the reference's fsdp_tp arithmetic is qwen's)
+FSDP_MOE_CASES = {"granite-moe-3b-a800m/fsdp_tp/5":
+                  "granite-moe-3b-a800m/tp/5",
+                  "jamba-1.5-large-398b/fsdp_tp/5":
+                  "jamba-1.5-large-398b/tp/5"}
 # the port takes the reference's routes in these (its MoE cases run first)
 PINNED_CASES = [n for n in CASES if CASES[n][2] is not None
-                and n != "granite-moe-3b-a800m/fsdp_tp/5"] + DENSE_MOE_CASES
-# the cases the reference runs too, the pinned ones first: granite-moe
-# under fsdp_tp at 2x2 is held to the port's own tp step (the reference's
-# fsdp_tp arithmetic is qwen's)
+                and n not in FSDP_MOE_CASES] + DENSE_MOE_CASES
+# the cases the reference runs too, the pinned ones first
 REFERENCE_CASES = PINNED_CASES + [
-    n for n in CASES if n not in PINNED_CASES
-    and n != "granite-moe-3b-a800m/fsdp_tp/5"]
+    n for n in CASES if n not in PINNED_CASES and n not in FSDP_MOE_CASES]
 ROUTES_WAIT_S = 500
 
 
@@ -149,6 +166,17 @@ def config(getter, name):
 def rows_of(name):
     """The rows of case ``name``'s batch."""
     return ROWS[CASES[name][3]]
+
+
+def n_moe(cfg) -> int:
+    """The MoE layers of ``cfg``'s stack (a period stack's MoE
+    sub-layers, counted over its periods)."""
+    return sum(cfg._layer_has_moe(i) for i in range(cfg.n_layers))
+
+
+def model_ranks(name) -> int:
+    """The model ranks of case ``name``'s mesh."""
+    return MESHES[CASES[name][3]]["model"]
 
 
 def batch_of(cfg, lm_batch_at, rows=B):
@@ -195,8 +223,8 @@ def flatten(tree, prefix=""):
 def record_routes(out, key, calls, n_layers, capacity):
     """Each rank's routed ids and dropped rows of the forward's MoE
     layers: ``calls`` maps (data, model) to that shard's dispatch plans,
-    (flat ids, ranks) in call order, the first ``n_layers`` the
-    forward's."""
+    (flat ids, ranks) in call order, the first ``n_layers`` (the MoE
+    layers, :func:`n_moe`) the forward's."""
     for (d, m), plans in sorted(calls.items()):
         for layer, (eid, ranks) in enumerate(plans[:n_layers]):
             eid, ranks = np.asarray(eid), np.asarray(ranks)
@@ -278,7 +306,7 @@ def run_jax(out_path, weights_path, routes_path):
         jax.block_until_ready(new)
         jax.effects_barrier()
         JMoe._route = plain_route
-        for L, ids in enumerate(dense[:cfg.n_layers]):
+        for L, ids in enumerate(dense[:n_moe(cfg)]):
             # the forward's routes, layer by layer (a recompute follows)
             out[f"{name}/ids/{L}"] = ids.astype(np.int32)
         for k, v in met.items():
@@ -287,7 +315,7 @@ def run_jax(out_path, weights_path, routes_path):
             for k, v in flatten(tree).items():
                 out[f"{name}/{what}/{k}"] = np.asarray(v, np.float32)
         if cf is not None:
-            record_routes(out, name, calls, cfg.n_layers,
+            record_routes(out, name, calls, n_moe(cfg),
                           (cf, cfg.top_k, cfg.n_experts))
             continue
         # the same step at world 1: how far the layout alone moves the
@@ -392,11 +420,12 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
 
     Moe.radix_histogram_ranks = plan
     out, mine = {}, {}
-    d, m = divmod(rank, MESH["model"])
     route, routes = Moe._route, None
     for name in sorted(CASES, key=lambda n: n in PINNED_CASES):
         arch, flavor, cf, mesh = CASES[name]
         cfg = config(get_reduced, name)
+        Mm = model_ranks(name)
+        d, m = divmod(rank, Mm)
         differ = {}
         policy = Sh.make_policy(meshes[mesh], flavor)
         if name in PINNED_CASES:
@@ -405,10 +434,10 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
                 rows = Sh.batch_block(policy, rows_of(name))
                 picks = [routes[f"{name}/ids/{L}"].reshape(
                     rows_of(name), S, -1)[rows].reshape(-1, cfg.top_k)
-                    for L in range(cfg.n_layers)]
+                    for L in range(n_moe(cfg))]
             else:
                 picks = [routes[f"{name}/ids/{L}/{d}/{m}"].reshape(
-                    -1, cfg.top_k) for L in range(cfg.n_layers)]
+                    -1, cfg.top_k) for L in range(n_moe(cfg))]
             Moe._route = pin_routes(picks, differ)
         params = M.params_from_jax(unflatten(flat, arch), cfg, "cpu",
                                    master=True, policy=policy)
@@ -440,23 +469,23 @@ def run_torch(out_path, weights_path, routes_path, rank, store_path,
                 mine[f"{name}/{what}/{k}"] = v.numpy()
         if cf is not None:
             fwd = [e for e in log if not isinstance(e, Moe.Recomputed)]
-            assert len(fwd) == cfg.n_layers, log
+            assert len(fwd) == n_moe(cfg), log
             # every rank's plans and drops, gathered in rank order
-            calls = {divmod(r, MESH["model"]): got
+            calls = {divmod(r, Mm): got
                      for r, got in enumerate(gather_objects(
                          [(e.numpy(), rk.numpy()) for e, rk in plans]))}
-            record_routes(out, name, calls, cfg.n_layers,
+            record_routes(out, name, calls, n_moe(cfg),
                           (cf, cfg.top_k, cfg.n_experts))
             drops = gather_objects([int(x) for x in fwd])
             for r, ds in enumerate(drops):
-                rd, rm = divmod(r, MESH["model"])
+                rd, rm = divmod(r, Mm)
                 for layer, n in enumerate(ds):
                     out[f"{name}/log_dropped/{layer}/{rd}/{rm}"] = \
                         np.array(n, np.int64)
         if name in PINNED_CASES:
-            assert sorted(differ) == list(range(cfg.n_layers)), differ
+            assert sorted(differ) == list(range(n_moe(cfg))), differ
             for r, got in enumerate(gather_objects(differ)):
-                rd, rm = divmod(r, MESH["model"])
+                rd, rm = divmod(r, Mm)
                 for layer, (rows, gap) in got.items():
                     out[f"{name}/own_differ/{layer}/{rd}/{rm}"] = \
                         np.array(rows, np.int64)

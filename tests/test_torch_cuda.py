@@ -875,3 +875,19 @@ def test_reduced_mamba_engine_on_the_card(cuda):
             compared += 1
     assert compared >= 1
     assert sum(gpu_toks[k] == cpu_toks[k] for k in cpu_toks) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 1024), (2, 8, 64), (4, 17), (2, 5)])
+def test_layer_init_draws_as_randn_times_std(cuda, dtype, shape):
+    """``layers.normal`` on a CUDA generator (each slice drawn in place)
+    gives the bits that ``randn`` of the slice times ``std``, rounded to
+    the leaf's dtype, gives from the same generator state."""
+    from repro_torch.models import layers as Ly
+    got = Ly.normal(torch.Generator(device=cuda).manual_seed(7), shape,
+                    0.02, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    want = torch.stack([(torch.randn(shape[1:], generator=gen,
+                                     device=cuda) * 0.02).to(dtype)
+                        for _ in range(shape[0])])
+    assert got.dtype == want.dtype and torch.equal(got, want)

@@ -2,8 +2,11 @@
 ``lm100m``, ``granite-3-2b`` (GQA), ``falcon-mamba-7b``,
 ``granite-moe-3b-a800m`` (MoE, 8 experts top-2),
 ``seamless-m4t-large-v2`` (encoder and cross-attention, 8 frames a row)
-and ``internvl2-2b`` (16 patch embeddings a row in front of the tokens,
-which the loss skips) at B 2, S 32, the frames and patch embeddings
+``internvl2-2b`` (16 patch embeddings a row in front of the tokens,
+which the loss skips) and ``jamba-1.5-large-398b``'s period stacks
+(reduced, 4 layers in periods of 2; ``/8``: 8 layers in periods of 4,
+with a (Mamba, MoE) sub-layer; the remat body one period) at B 2, S 32,
+the frames and patch embeddings
 float32 from a numpy seed, and lm100m and granite-moe at 2 microbatches:
 the reference's
 ``init_params(PRNGKey(0))`` weights carried across as float32 masters
@@ -25,13 +28,24 @@ stack's within ``ENCDEC_MOMENTS`` times those: its gradients pass
 through three blocks a decoder layer and the encoder, and each package's
 bf16 gradient lies up to 0.74 % (the port) and 0.98 % (the reference) of
 the leaf's largest from the port's float32 gradient, which measured the
-two 1.26 % apart in ``m`` and 2.5 % in ``v`` on ``embed``); the elements
+two 1.26 % apart in ``m`` and 2.5 % in ``v`` on ``embed``; Jamba's
+hybrid stack's too: each package's ``m`` lies up to 2.0-3.0 % (the
+port) and 1.7-2.2 % (the reference) of a leaf's largest from the port's
+float32 step, ``v`` up to 5.9 / 4.4 %, and the two 1.49 % apart in ``m``
+and 2.37 % in ``v``); the elements
 whose reference gradient is at least ``SURE_FRAC`` of their leaf's
 largest, whose sign bf16 sums cannot flip, within ``STEP_TOL·lr`` (in
 the enc-dec stack only those of at least ``ENCDEC_SIGN_G``); and
 no more than ``LOOSE_SHARE`` of all elements beyond ``STEP_TOL·lr`` (of
 those of at least ``ENCDEC_SIGN_G`` in the enc-dec stack).
 Both packages run bf16 products with float32 sums in different orders.
+In the Jamba cases the port's step takes the reference's routes (the
+ids its router picked in the step's forward, recorded by a callback on
+its ``_route``; the train worker's ``pin_routes``): a near tie of the
+router's top-k, which the two packages' float32 products in other
+orders may break differently, would move a row to another expert (the
+8-layer case has one, at a gap of 1.7e-4); the port's own top-k must
+pick the same experts but at near ties (``TIE_GAP``).
 ``IN_ORDER_STEPS`` steps on the batches in order hold every step's loss
 and grad norm to the same tolerances.  The chunked selective
 scan against the reference's ``_scan_chunked_xla``, forward and VJP,
@@ -41,6 +55,8 @@ run.  Remat ``none``, ``full`` and ``dots`` give the same gradients
 (``REMAT_TOL``), and ``launch.train.main`` with ``--fail-at`` ends bit
 for bit where the run without it does."""
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -53,6 +69,7 @@ from repro.configs import get_reduced as j_reduced
 from repro.data.synthetic import lm_batch_at as j_lm_batch_at
 from repro.models import mamba as JMb
 from repro.models import model as JM
+from repro.models import moe as JMoe
 from repro.optim import adamw as JA
 from repro_torch import checkpoint as Ck
 from repro_torch.configs import TrainSettings, get_reduced
@@ -60,8 +77,16 @@ from repro_torch.data.synthetic import lm_batch_at
 from repro_torch.launch import train as train_cli
 from repro_torch.models import mamba as TMb
 from repro_torch.models import model as TM
+from repro_torch.models import moe as TMoe
 from repro_torch.models.transformer import StackOpts
 from repro_torch.optim import adamw as TA
+
+_spec = importlib.util.spec_from_file_location(
+    "torch_train_conformance", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "dist",
+        "torch_train_conformance.py"))
+W = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(W)
 
 LOSS_RTOL, GNORM_RTOL, SCAN_RTOL, REMAT_TOL = 2e-3, 2e-2, 1e-5, 1e-6
 M_RTOL, V_RTOL = 1e-2, 2e-2
@@ -73,10 +98,13 @@ SURE_FRAC, STEP_TOL, LOOSE_SHARE = 0.05, 1e-3, 0.02
 ENCDEC_SIGN_G = 2e-6
 IN_ORDER_STEPS = 8
 B, S = 2, 32
+JAMBA = "jamba-1.5-large-398b"
 ARCHS = ("lm100m", "granite-3-2b", "falcon-mamba-7b", "granite-moe-3b-a800m",
-         "seamless-m4t-large-v2", "internvl2-2b")
+         "seamless-m4t-large-v2", "internvl2-2b", JAMBA, JAMBA + "/8")
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 AUX_COEFF = 0.01                 # make_loss_fn's default, in both packages
+# a near tie: the router's probabilities of two picks this close
+TIE_GAP = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -132,16 +160,35 @@ def case(request):
     on lm_batch_at(0) (compiled once), and the port's masters."""
     arch, _, micro = request.param.partition("/")
     jcfg, cfg = j_reduced(arch), get_reduced(arch)
-    if micro:
+    if micro == "8":                 # Jamba at 8 layers in periods of 4
+        jcfg, cfg = (dataclasses.replace(c, n_layers=8, attn_period=4)
+                     for c in (jcfg, cfg))
+    elif micro:
         jcfg = dataclasses.replace(
             jcfg, train=dataclasses.replace(jcfg.train, microbatches=2))
         cfg = with_micro(cfg, 2)
     jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
     jopt_cfg = JA.AdamWConfig(**OPT)
-    step = jax.jit(JM.make_train_step(jcfg, None, jopt_cfg))
-    jnew, jopt, jmet = step(jparams, JA.init(jparams, jopt_cfg),
-                            jbatch(jcfg))
+    plain, routes = JMoe._route, []
+    if arch == JAMBA:
+        def route(router, x2d, top_k):
+            w, ids, aux = plain(router, x2d, top_k)
+            jax.debug.callback(lambda i: routes.append(np.asarray(i)), ids)
+            return w, ids, aux
+        JMoe._route = route
+    try:
+        step = jax.jit(JM.make_train_step(jcfg, None, jopt_cfg))
+        jnew, jopt, jmet = step(jparams, JA.init(jparams, jopt_cfg),
+                                jbatch(jcfg))
+        jax.effects_barrier()
+    finally:
+        JMoe._route = plain
+    n_moe = sum(cfg._layer_has_moe(i) for i in range(cfg.n_layers))
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, jstep_fn=step,
+                # the first step's forward, one (T, k) a MoE layer (its
+                # recompute follows); ``route_log`` keeps what later
+                # calls of ``jstep_fn`` route
+                routes=routes[:n_moe], route_log=routes, n_moe=n_moe,
                 jopt_cfg=jopt_cfg,
                 params=TM.params_from_jax(np_tree(jparams), cfg, "cpu",
                                           master=True),
@@ -212,8 +259,19 @@ def test_train_step_matches_reference(case):
     opt_cfg = TA.AdamWConfig(**OPT)
     params = case["params"]
     opt = TA.init(TA.flatten_params(params), opt_cfg)
-    new, opt, met = TM.make_train_step(cfg, None, opt_cfg)(params, opt,
-                                                     tbatch(cfg))
+    route, differ = TMoe._route, {}
+    if case["routes"]:
+        TMoe._route = W.pin_routes(case["routes"], differ)
+    try:
+        new, opt, met = TM.make_train_step(cfg, None, opt_cfg)(
+            params, opt, tbatch(cfg))
+    finally:
+        TMoe._route = route
+    if case["routes"]:
+        # the port's own top-k picked the reference's experts but at near
+        # ties
+        assert sorted(differ) == list(range(len(case["routes"])))
+        assert all(gap <= TIE_GAP for _, gap in differ.values()), differ
     jmet = case["jmet"]
     reported = as_reference_reports(cfg, met)
     assert rel(reported["loss"], jmet["loss"]) <= LOSS_RTOL, \
@@ -232,10 +290,12 @@ def test_train_step_matches_reference(case):
     got = TA.flatten_params(new)
     assert list(got) == list(want)
     jm, jv = (TA.flatten_params(case[j]) for j in ("jm", "jv"))
+    # the enc-dec branch, for Jamba's hybrid stack too
+    deep = cfg.is_encdec or cfg.family == "hybrid"
     loose = total = 0
     for k, w in want.items():
         assert got[k].dtype == torch.float32, k
-        f = ENCDEC_MOMENTS if cfg.is_encdec else 1
+        f = ENCDEC_MOMENTS if deep else 1
         for moment, ref, tol in (("m", jm, f * M_RTOL), ("v", jv, f * V_RTOL)):
             merr = float(np.abs(opt[moment][k].numpy() - ref[k]).max())
             assert merr <= tol * float(np.abs(ref[k]).max()), \
@@ -244,7 +304,7 @@ def test_train_step_matches_reference(case):
         assert float(err.max()) <= 2 * lr + 1e-6, (k, float(err.max()))
         gm = np.abs(jm[k])
         # the elements whose step is lr sign(g) (m = 0.1 g)
-        sign_like = gm >= 0.1 * ENCDEC_SIGN_G if cfg.is_encdec \
+        sign_like = gm >= 0.1 * ENCDEC_SIGN_G if deep \
             else np.ones(gm.shape, bool)
         sure = sign_like & (gm >= SURE_FRAC * gm.max())
         assert float(err[sure].max(initial=0)) <= STEP_TOL * lr, \
@@ -258,16 +318,25 @@ def test_train_steps_in_order_follow_reference(case):
     """IN_ORDER_STEPS steps on ``lm_batch_at(0..)`` in order from the
     same masters: every step's loss and grad norm within the first
     step's tolerances of the reference's, so the port's training follows
-    the reference's past its first update."""
+    the reference's past its first update (in the Jamba cases each step
+    on the reference's routes of that step)."""
     cfg = case["cfg"]
     opt_cfg = TA.AdamWConfig(**OPT)
     params, jparams = case["params"], case["jparams"]
     opt = TA.init(TA.flatten_params(params), opt_cfg)
     jopt = JA.init(jparams, case["jopt_cfg"])
     step = TM.make_train_step(cfg, None, opt_cfg)
+    route, log = TMoe._route, case["route_log"]
     for s in range(IN_ORDER_STEPS):
-        params, opt, met = step(params, opt, tbatch(cfg, s))
+        log.clear()
         jparams, jopt, jmet = case["jstep_fn"](jparams, jopt, jbatch(cfg, s))
+        jax.effects_barrier()
+        if case["routes"]:           # the reference's routes of this step
+            TMoe._route = W.pin_routes(log[:case["n_moe"]], {})
+        try:
+            params, opt, met = step(params, opt, tbatch(cfg, s))
+        finally:
+            TMoe._route = route
         met = as_reference_reports(cfg, met)
         for k, tol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL),
                        ("moe_aux", LOSS_RTOL)):
@@ -348,7 +417,7 @@ def test_scan_chunked_takes_any_length():
 
 @pytest.mark.parametrize("arch", ["lm100m", "falcon-mamba-7b",
                                   "granite-moe-3b-a800m",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", JAMBA])
 def test_remat_modes_give_equal_gradients(arch):
     cfg = get_reduced(arch)
     params = TM.init_params(torch.Generator().manual_seed(0), cfg,

@@ -6,10 +6,14 @@ and per-slot ``cache_len``) on the same numpy tokens, on reduced
 ``granite-moe-3b-a800m`` (MoE layers: 8 experts, top-2),
 ``seamless-m4t-large-v2`` (an encoder over numpy-seeded float frames,
 P / 4 of them, and a decoder with cross-attention, whose ``ck``/``cv``
-caches are compared like the KV caches) and ``internvl2-2b`` (16
+caches are compared like the KV caches), ``internvl2-2b`` (16
 numpy-seeded float patch embeddings in front of the tokens: its caches
-hold P + S + G positions and its first decode step is at P + S) too, and
-the configs' analytic sizes.
+hold P + S + G positions and its first decode step is at P + S) and
+``jamba-1.5-large-398b``'s period stacks (reduced: 4 layers in periods
+of 2, (Mamba, MLP) then (attention, MoE); ``JAMBA8``: 8 layers in
+periods of 4, which adds the (Mamba, MoE) kind; parameters and caches
+under ``sub{j}``, compared leaf by leaf) too, and the configs' analytic
+sizes.
 
 Tolerance: logits within ``LOGIT_TOL = 2e-2`` absolute and KV caches
 within 2e-2 (rtol and atol); a Mamba stack's conv and ssm states within
@@ -47,9 +51,20 @@ from repro_torch.models import transformer as TT
 
 LOGIT_TOL = 2e-2
 DENSE = ("granite-3-2b", "lm100m")
+JAMBA = "jamba-1.5-large-398b"
+JAMBA8 = JAMBA + "/8"         # 8 layers in two periods of 4
 ARCHS = DENSE + ("falcon-mamba-7b", "granite-moe-3b-a800m",
-                 "seamless-m4t-large-v2", "internvl2-2b")
+                 "seamless-m4t-large-v2", "internvl2-2b", JAMBA, JAMBA8)
 P, G = 16, 6                      # prompt length and tokens generated
+
+
+def reduced(get, arch):
+    """``get(arch)`` (a package's ``get_reduced``), and for ``JAMBA8``
+    reduced Jamba at 8 layers in periods of 4."""
+    name, _, layers = arch.partition("/")
+    cfg = get(name)
+    return dataclasses.replace(cfg, n_layers=8, attn_period=4) if layers \
+        else cfg
 
 
 def margin(logits: np.ndarray) -> np.ndarray:
@@ -80,11 +95,15 @@ def close(got, want, tol=LOGIT_TOL):
 
 
 def close_caches(got, want):
-    """Every cache leaf of ``want`` in ``got``, same shape and dtype: KV
-    caches within LOGIT_TOL, Mamba states within LOGIT_TOL of the leaf's
-    largest magnitude."""
+    """Every cache leaf of ``want`` in ``got``, same shape and dtype, a
+    period stack's ``sub{j}`` levels walked through: KV caches within
+    LOGIT_TOL, Mamba states within LOGIT_TOL of the leaf's largest
+    magnitude."""
     assert set(got) == set(want)
     for k, w in want.items():
+        if isinstance(w, dict):
+            close_caches(got[k], w)
+            continue
         w = np.asarray(jnp.asarray(w, jnp.float32))
         assert tuple(got[k].shape) == w.shape, k
         if k in ("k", "v", "ck", "cv"):
@@ -103,9 +122,9 @@ def pair(request):
     reference's jitted prefill and serve step, shared by the tests so each
     compiles once per shape)."""
     arch = request.param
-    cfg = JC.get_reduced(arch)
+    cfg = reduced(JC.get_reduced, arch)
     jp = JM.init_params(jax.random.PRNGKey(0), cfg)
-    tcfg = TC.get_reduced(arch)
+    tcfg = reduced(TC.get_reduced, arch)
     tp = TM.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
                             "cpu")
     return (cfg, jp, tcfg, tp,
@@ -177,8 +196,30 @@ def test_prefill_matches_jax(pair):
     close_caches(tc, jc)
     struct = TM.cache_struct(tcfg, 3, cap(cfg),
                              P // cfg.enc_len_ratio if cfg.is_encdec else 0)
-    assert {k: tuple(v.shape) for k, v in tc.items()} == \
-        {k: s for k, (s, _) in struct.items()}
+    assert shapes(tc) == shapes(struct)
+    assert shapes(tc) == jax.tree_util.tree_map(
+        lambda s: s.shape, JM.cache_struct(
+            cfg, 3, cap(cfg), P // cfg.enc_len_ratio if cfg.is_encdec
+            else 0))
+
+
+def shapes(tree):
+    """The shapes of a cache tree, or of ``cache_struct``'s (shape,
+    dtype) pairs."""
+    return {k: shapes(v) if isinstance(v, dict)
+            else tuple(v[0] if isinstance(v, tuple) else v.shape)
+            for k, v in tree.items()}
+
+
+def ssm_leaves(tree):
+    """The Mamba ssm states of a cache tree (a period stack's under each
+    ``sub{j}``), as float32 numpy."""
+    if "ssm" in tree:
+        return [np.asarray(jnp.asarray(tree["ssm"], jnp.float32))
+                if not isinstance(tree["ssm"], torch.Tensor)
+                else tree["ssm"].numpy()]
+    return [a for v in tree.values() if isinstance(v, dict)
+            for a in ssm_leaves(v)]
 
 
 def test_slot_prefill_matches_jax(pair):
@@ -196,9 +237,9 @@ def test_slot_prefill_matches_jax(pair):
         # state ran on through the padding and is not the prompt's
         _, jtrue = jprefill(jp, {"tokens": jnp.asarray(toks[:, :length])})
         close_caches(tc, jtrue)
-        padded = np.asarray(jc["ssm"])
-        assert np.abs(tc["ssm"].numpy() - padded).max() \
-            > LOGIT_TOL * np.abs(padded).max()
+        # (the first Mamba layer's state differs from the padded one)
+        got, padded = ssm_leaves(tc)[0], ssm_leaves(jc)[0]
+        assert np.abs(got - padded).max() > LOGIT_TOL * np.abs(padded).max()
     else:
         close_caches(tc, jc)
     # the slot's logits are the unpadded prompt's last-position logits
@@ -280,6 +321,23 @@ def test_write_cache_slot_in_place():
         assert bool((v[:, 1] == 2).all()) and bool((v[:, [0, 2]] == 0).all())
 
 
+def test_write_cache_slot_walks_period_caches():
+    """A period stack's caches (a ``sub{j}`` a layer of the period): every
+    leaf written in place at the slot, on the slot's owner only."""
+    cfg = TC.get_reduced(JAMBA)
+    caches = TM.init_caches(cfg, 3, 10, "cpu")
+    one = jax.tree_util.tree_map(
+        lambda v: torch.full(v.shape[:1] + (1,) + v.shape[2:], 2.0,
+                             dtype=v.dtype), caches)
+    ids = [id(v) for v in jax.tree_util.tree_leaves(caches)]
+    TM.write_cache_slot(caches, one, 2, rows=slice(0, 2))   # not held here
+    out = TM.write_cache_slot(caches, one, 1)
+    leaves = jax.tree_util.tree_leaves(out)
+    assert [id(v) for v in leaves] == ids and len(leaves) == 4
+    for v in leaves:
+        assert bool((v[:, 1] == 2).all()) and bool((v[:, [0, 2]] == 0).all())
+
+
 @pytest.mark.parametrize("arch", JC.ARCH_IDS + ("lm100m",))
 def test_config_sizes_match_reference(arch):
     for get_j, get_t in ((JC.get_config, TC.get_config),
@@ -322,14 +380,32 @@ def test_encdec_and_vision_configs_supported(arch, cross):
         assert "cross" not in enc and "ffn_gelu" in enc
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("jamba-1.5-large-398b", "period")])
-def test_later_slices_raise(arch, what):
-    cfg = TC.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        TT.check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        TM.init_params(torch.Generator().manual_seed(0), cfg)
+@pytest.mark.parametrize("arch", [JAMBA, JAMBA8])
+def test_jamba_period_stacks_supported(arch):
+    """Jamba's period stacks: every sub-layer ``j`` of the kind of layer
+    ``j``, each leaf stacked over the periods, the caches nested the same
+    way (the reference's ``cache_struct``)."""
+    for get in (TC.get_config, TC.get_reduced):
+        TT.check_supported(get(JAMBA))
+    cfg = reduced(TC.get_reduced, arch)
+    per = cfg.attn_period
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    layers = params["layers"]
+    assert list(layers) == [f"sub{j}" for j in range(per)]
+    for j in range(per):
+        mixer, ffn, _ = TT.layer_kind(cfg, j)
+        sub = layers[f"sub{j}"]
+        assert ("attn" if mixer == "attn" else "mamba") in sub
+        assert ("ffn_moe" if ffn == "moe" else "ffn_mlp") in sub
+        assert all(v.shape[0] == cfg.n_layers // per
+                   for v in jax.tree_util.tree_leaves(sub))
+    kinds = {TT.layer_kind(cfg, j)[:2] for j in range(per)}
+    assert ("mamba", "moe") in kinds if per == 4 else \
+        kinds == {("mamba", "mlp"), ("attn", "moe")}
+    struct = TM.cache_struct(cfg, 2, 8)
+    assert set(struct[f"sub{per - 1}"]) == {"k", "v"}
+    assert all(set(struct[f"sub{j}"]) == {"conv", "ssm"}
+               for j in range(per - 1))
 
 
 def _layer_tree(tree, seed):

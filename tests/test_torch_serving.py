@@ -27,9 +27,14 @@
   difference measured (the rule of ``tests/test_torch_model.py``).
 * Reduced ``granite-moe-3b-a800m`` (MoE layers) through both engines on
   the same requests, held as the dense run is.
+* Reduced ``jamba-1.5-large-398b`` (period stacks: 4 layers in periods
+  of 2, and 8 in periods of 4) served by the port's engine, held to the
+  reference's true-length prefill and decode as the Mamba stack is (its
+  Mamba sub-layers see no padding); its nested caches in the engine.
 * ``append_rows`` and ``ChunkedTable`` against the reference, and the
   ``repro_torch.launch.serve`` CLI on the CPU (``lm100m``,
-  ``granite-moe-3b-a800m`` and ``falcon-mamba-7b``).
+  ``granite-moe-3b-a800m``, ``falcon-mamba-7b`` and
+  ``jamba-1.5-large-398b``).
 """
 import collections
 import dataclasses
@@ -569,6 +574,64 @@ def test_mamba_engine_caches_are_float32_states(mamba_weights):
 
 
 # --------------------------------------------------------------------------
+# period stacks: reduced jamba-1.5-large-398b
+# --------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+# reduced Jamba as it is (periods of 2), and at 8 layers in periods of 4
+JAMBA_LAYOUTS = {"period2": {}, "period4": dict(n_layers=8, attn_period=4)}
+
+
+@pytest.fixture(scope="module", params=sorted(JAMBA_LAYOUTS))
+def jamba_weights(request):
+    fields = JAMBA_LAYOUTS[request.param]
+    cfg = dataclasses.replace(jax_reduced(JAMBA), **fields)
+    jp = JM.init_params(jax.random.PRNGKey(0), cfg)
+    tcfg = dataclasses.replace(get_reduced(JAMBA), **fields)
+    return cfg, jp, tcfg, M.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), tcfg, "cpu")
+
+
+def test_jamba_engine_matches_the_true_length_reference(jamba_weights):
+    """Right-padded prompts through the engine's slot refills: every
+    position within LOGIT_TOL of the reference's true-length prefill and
+    decode fed the engine's tokens, and the tokens by its margins."""
+    cfg, jp, tcfg, tp = jamba_weights
+    eng = ServingEngine(tcfg, tp, device="cpu", **MAMBA_KW)
+    logits = record_logits(eng)
+    reqs = [Request(req_id=i, prompt=p, gen_len=g) for i, p, g in
+            mamba_requests([(5, 6), (12, 4), (1, 5), (8, 3)], seed=5)]
+    for r in reqs:
+        assert eng.submit(r)
+    done = eng.run_until_drained()
+    assert sorted(r.req_id for r in done) == [0, 1, 2, 3]
+    compared = 0
+    for r in done:
+        assert r.status == "done" and len(r.out_tokens) == r.gen_len
+        want = jax_true_length_logits(cfg, jp, r, r.out_tokens)
+        compared += agree_under_margins(
+            r.out_tokens, [int(w.argmax()) for w in want],
+            logits[r.req_id], want)
+    assert compared >= 1
+
+
+def test_jamba_engine_caches_nest_by_sub_layer(jamba_weights):
+    """The engine's caches: a ``sub{j}`` a layer of the period, each leaf
+    stacked over the periods with one row a slot (the reference's
+    ``cache_struct``)."""
+    cfg, _, tcfg, tp = jamba_weights
+    eng = ServingEngine(tcfg, tp, device="cpu", **MAMBA_KW)
+    want = JM.cache_struct(cfg, MAMBA_KW["slots"],
+                           MAMBA_KW["prompt_capacity"]
+                           + MAMBA_KW["gen_capacity"])
+    got = {j: {k: (tuple(v.shape), v.dtype) for k, v in sub.items()}
+           for j, sub in eng.caches.items()}
+    assert got == {j: {k: (v.shape, torch.bfloat16 if k in ("k", "v")
+                           else torch.float32) for k, v in sub.items()}
+                   for j, sub in want.items()}
+
+
+# --------------------------------------------------------------------------
 # append_rows and ChunkedTable against the reference
 # --------------------------------------------------------------------------
 
@@ -647,6 +710,18 @@ def test_serve_cli_serves_falcon_mamba_on_the_cpu():
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          MAMBA, "--reduced", "--device", "cpu", "--requests", "6",
+         "--prompt-len", "16", "--gen", "4"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "serve OK" in proc.stdout
+    assert "counter          completed = 6" in proc.stdout
+
+
+def test_serve_cli_serves_jamba_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         JAMBA, "--reduced", "--device", "cpu", "--requests", "6",
          "--prompt-len", "16", "--gen", "4"],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]

@@ -207,8 +207,9 @@ def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
     """A Mamba stack, an encoder config and a vision config are accepted
     at (data 2, model 1), (1, 2) and (2, 2), and a second batch axis
     (pod 2 x data 2) at model 1 and 2, in serving and in training, under
-    both flavors; the train step and the prefill build there.  What is
-    still refused: a period stack (Jamba, item 4)."""
+    both flavors; the train step and the prefill build there.  A period
+    stack (Jamba) is accepted at the same meshes, and its train step and
+    prefill build there too."""
     cfg = TC.get_reduced(arch)
     shapes = ({"data": 2, "model": 1}, {"data": 1, "model": 2},
               {"data": 2, "model": 2})
@@ -222,9 +223,14 @@ def test_sharded_path_refuses_the_next_slice(arch, sizes, what):
             if what == "data axis":
                 TM.make_train_step(cfg, policy, None)
                 TM.make_prefill(cfg, policy, decode_len=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        Tf.check_supported(TC.get_reduced("jamba-1.5-large-398b"),
-                           Sh.make_policy(Me.abstract_mesh(sizes)))
+    jamba = TC.get_reduced("jamba-1.5-large-398b")
+    for shape in shapes:
+        for flavor in ("tp", "fsdp_tp"):
+            policy = Sh.make_policy(Me.abstract_mesh(shape), flavor)
+            for train in (False, True):
+                Tf.check_supported(jamba, policy, train=train)
+            TM.make_train_step(jamba, policy, None)
+            TM.make_prefill(jamba, policy, decode_len=8)
 
 
 def _abstract_policies(sizes, flavor):
@@ -336,8 +342,8 @@ def test_shared_kv_heads_are_counted_once(sizes, holders):
 def test_production_meshes_train_what_they_serve(multi_pod):
     """On ``make_production_mesh``'s shapes, (16, 16) and (2, 16, 16),
     ``check_supported(train=True)`` accepts every config that it accepts
-    for serving (KV heads shared by model ranks included); only Jamba's
-    period stack is refused, in both."""
+    for serving (KV heads shared by model ranks included), Jamba's
+    period stack among them."""
     shape = {"pod": 2, "data": 16, "model": 16} if multi_pod \
         else {"data": 16, "model": 16}
     served = []
@@ -358,9 +364,9 @@ def test_production_meshes_train_what_they_serve(multi_pod):
                 continue
             Tf.check_supported(cfg, policy, train=True)
             served.append(arch)
-    assert "jamba-1.5-large-398b" not in served
     for arch in ("granite-3-2b", "qwen1.5-110b", "mistral-large-123b",
-                 "qwen3-moe-235b-a22b", "internvl2-2b"):
+                 "qwen3-moe-235b-a22b", "internvl2-2b",
+                 "jamba-1.5-large-398b"):
         assert arch in served, arch
 
 

@@ -32,16 +32,19 @@ writes.
   ``falcon-mamba-7b`` (each rank its half of the channels E),
   ``seamless-m4t-large-v2`` (frames through the encoder; the
   cross-attention's ``ck``/``cv`` cached too) and ``internvl2-2b``
-  (patch embeddings in front, decode from P + S): logits and
+  (patch embeddings in front, decode from P + S) and
+  ``jamba-1.5-large-398b`` (a period stack: each Mamba sub-layer on its
+  channels, the attention sub-layer on its heads, each MoE sub-layer
+  dispatched; its caches under each ``sub{j}``): logits and
   the gathered prefill caches within ``LOGIT_TOL`` (the tolerance of
   ``tests/test_torch_model.py`` at world 1; measured at most 3.2e-3 here)
   or, for the Mamba conv and ssm states, within ``MAMBA_STATE_TOL`` of
   their largest, greedy tokens by that module's rule, the ranks' logits
   equal bit for bit.  Each rank's caches hold its KV heads
   (``kv_head_block``) or its E / 2 channels.
-* The port's Mamba engine at world 2 against its world-1 engine on the
-  same requests (the reference's engine runs a Mamba state through a
-  prompt's padding, ROADMAP Queue 3 item 3).
+* The port's Mamba engine and its Jamba engine at world 2 against its
+  world-1 engine on the same requests (the reference's engine runs a
+  Mamba state through a prompt's padding, ROADMAP Queue 3 item 3).
 * Both engines with their policy and a feature store over both ranks on
   the same requests (reduced ``granite-moe-3b-a800m``): the same
   rejections, counts, statuses and features, greedy tokens equal up to
@@ -249,21 +252,35 @@ def check_mamba_caches(got, want, key, cfg):
         assert err <= MAMBA_STATE_TOL * float(np.abs(whole).max()), (c, err)
 
 
+def check_kv_caches(got, want, key, cfg, names):
+    """Each rank's caches ``names`` hold its KV heads (``kv_head_block``)
+    within LOGIT_TOL of the reference's."""
+    for c in names:
+        for r, kv in enumerate(got[f"{key}/{c}_ranks"]):
+            h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads, WORLD, r)
+            np.testing.assert_allclose(
+                kv, want[f"{key}/{c}"][:, :, h0:h0 + nh],
+                rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
 @pytest.mark.parametrize("name", list(W.MODELS))
 def test_prefill_and_decode_match_reference(runs, name):
     _, want, got = runs
     key = f"lm/{name}"
     cfg = W.config(TC.get_reduced, name)
-    if TM.has_mamba(cfg):
+    if cfg.attn_period > 1:            # each sub-layer's own caches
+        struct = TM.cache_struct(cfg, 1, 1)
+        assert len(struct) == cfg.attn_period
+        for j, sub in struct.items():
+            if "ssm" in sub:
+                check_mamba_caches(got, want, f"{key}/{j}", cfg)
+            else:
+                check_kv_caches(got, want, f"{key}/{j}", cfg, ("k", "v"))
+    elif TM.has_mamba(cfg):
         check_mamba_caches(got, want, key, cfg)
     else:
-        for c in ("k", "v") + (("ck", "cv") if cfg.is_encdec else ()):
-            for r, kv in enumerate(got[f"{key}/{c}_ranks"]):
-                h0, nh = Sh.kv_head_block(cfg.n_heads, cfg.n_kv_heads,
-                                          WORLD, r)
-                np.testing.assert_allclose(
-                    kv, want[f"{key}/{c}"][:, :, h0:h0 + nh],
-                    rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        check_kv_caches(got, want, key, cfg, ("k", "v") + (
+            ("ck", "cv") if cfg.is_encdec else ()))
     steps = range(W.G)
     lg = np.stack([got[f"{key}/logits/{i}"] for i in steps], 1)
     jl = np.stack([want[f"{key}/logits/{i}"] for i in steps], 1)
@@ -320,6 +337,21 @@ def test_mamba_engine_matches_world1_engine(runs):
                                TC.get_reduced(W.MAMBA_ENGINE), WORLD,
                                W.ENGINE_KW["slots"], 2 * LOGIT_TOL)
     ranks = got["mamba_engine/torch/tokens_ranks"]
+    for r in range(1, WORLD):
+        np.testing.assert_array_equal(ranks[r], ranks[0])
+
+
+def test_jamba_engine_matches_world1_engine(runs):
+    """The port's engine on reduced Jamba (period stacks) at world 2
+    against its world-1 engine on the same requests, as the Mamba
+    engine: its Mamba sub-layers' caches hold the rank's E / 2 channels
+    over the periods."""
+    weights, _, got = runs
+    want = W.world1_engine(weights, W.JAMBA_ENGINE, W.ENGINE_KW)
+    W.compare_engine_to_world1(got, "jamba_engine/torch", want,
+                               TC.get_reduced(W.JAMBA_ENGINE), WORLD,
+                               W.ENGINE_KW["slots"], 2 * LOGIT_TOL)
+    ranks = got["jamba_engine/torch/tokens_ranks"]
     for r in range(1, WORLD):
         np.testing.assert_array_equal(ranks[r], ranks[0])
 

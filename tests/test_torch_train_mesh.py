@@ -15,19 +15,23 @@ one ``make_train_step`` on ``lm_batch_at(0)`` of 2 x 32 tokens.
   factors 5 (no row drops) and 1.25, reduced ``lm100m`` under ``tp``,
   reduced ``qwen1.5-110b`` under ``fsdp_tp``, reduced
   ``falcon-mamba-7b`` and ``seamless-m4t-large-v2`` (its frames through
-  the encoder and every cross-attention) under both and reduced
-  ``internvl2-2b`` (its patch embeddings in front) under ``tp``
-  (granite-moe under
-  ``fsdp_tp`` at 5 runs in the port only, held to its ``tp`` step and to
-  world 1): ``loss``, ``grad_norm`` and ``moe_aux`` against the
+  the encoder and every cross-attention) under both, reduced
+  ``internvl2-2b`` (its patch embeddings in front) under ``tp`` and
+  reduced ``jamba-1.5-large-398b`` (period stacks: Mamba, attention and
+  MoE sub-layers, capacity 5) under ``tp`` at ``2x2`` and at ``1x4``,
+  where two model ranks share each KV head (granite-moe and Jamba under
+  ``fsdp_tp`` at 5 run in the port only, held to their ``tp`` steps and
+  to world 1): ``loss``, ``grad_norm`` and ``moe_aux`` against the
   reference's within the tolerances of ``tests/test_torch_lm_train.py``,
   and every new parameter and AdamW moment by that module's leaf rule
   (:func:`leaf_rule`; in the MoE and enc-dec cases its enc-dec branch,
   which counts only elements whose gradient is at least ``SIGN_G``: the
   encoder's q and k gradients are about 1e-7, where a first AdamW step
-  is no sign; in the enc-dec cases also its moment tolerance,
+  is no sign; in the enc-dec and Jamba cases also its moment tolerance,
   ``ENCDEC_MOMENTS`` times the plain one, plus the reference's own
-  layout move).  In the MoE
+  layout move: the hybrid stack's bf16 moments lie up to 2-3 % of a
+  leaf's largest from its float32 step's in each package and layout,
+  ``tests/test_torch_lm_train.py``).  In the MoE
   cases the port's ranks take the
   reference's routes (the worker's ``pin_routes``): a near tie of the
   router's top-k, which the two packages' float32 products in other
@@ -55,12 +59,13 @@ one ``make_train_step`` on ``lm_batch_at(0)`` of 2 x 32 tokens.
   moments bit for bit, and within the leaf rule's moment tolerances of
   the same slice of the world-1 step's.
 * The Mamba layout (a model rank holds ``in_proj``'s x and z columns of
-  its channels) and reduced Seamless's (the encoder subtree, the
-  decoder's ``cross`` and ``ln_cross``): at ``2x2`` under both flavors
+  its channels), reduced Seamless's (the encoder subtree, the
+  decoder's ``cross`` and ``ln_cross``) and reduced Jamba's (the
+  ``sub{j}`` level of its period stacks): at ``2x2`` under both flavors
   and at ``1x4`` the training state's whole leaves and each rank's
   slices go through ``StateLayout`` both ways bit for bit, and the data
-  axis's gathers need nothing new; the ``2x2`` Mamba and Seamless
-  steps' checkpoints restore at world 1 in both packages.
+  axis's gathers need nothing new; the ``2x2`` Mamba, Seamless and
+  Jamba steps' checkpoints restore at world 1 in both packages.
 * Checkpoints: a world-1 checkpoint restores at ``data=2, model=2`` into
   each rank's slices bit for bit, and a state saved there restores bit
   for bit; ``launch.train.main --mesh data=2,model=2`` for 4 steps with
@@ -314,14 +319,21 @@ def pinned_routes(ids, rows: int, model: int):
     return route
 
 
+def mesh_axes(name):
+    """(data ranks, model ranks) of case ``name``'s mesh."""
+    sizes = W.MESHES[W.CASES[name][3]]
+    return sizes["data"], sizes["model"]
+
+
 def mesh_ids(got, name, cfg):
     """The sharded step's routed ids of each MoE layer in world-1 token
     layout (B, S, k)."""
-    D, Mm = W.MESH["data"], W.MESH["model"]
-    b, s = W.B // D, W.S // Mm
+    D, Mm = mesh_axes(name)
+    B = W.rows_of(name)
+    b, s = B // D, W.S // Mm
     out = []
-    for layer in range(cfg.n_layers):
-        ids = np.zeros((W.B, W.S, cfg.top_k), np.int32)
+    for layer in range(W.n_moe(cfg)):
+        ids = np.zeros((B, W.S, cfg.top_k), np.int32)
         for d in range(D):
             for m in range(Mm):
                 ids[d * b:(d + 1) * b, m * s:(m + 1) * s] = \
@@ -363,10 +375,11 @@ def world1(runs):
         route = TMoe._route
         if cf is not None:
             TMoe._route = pinned_routes(mesh_ids(got, name, cfg),
-                                        W.B // D, W.MESH["model"])
+                                        W.rows_of(name) // D,
+                                        mesh_axes(name)[1])
         elif name in W.DENSE_MOE_CASES:     # the reference's, as the mesh's
             TMoe._route = W.pin_routes([want[f"{name}/ids/{L}"] for L in
-                                        range(cfg.n_layers)], {})
+                                        range(W.n_moe(cfg))], {})
         try:
             new, opt, met = TM.make_train_step(
                 cfg, None, TA.AdamWConfig(**W.OPT))(params, opt, batch)
@@ -468,12 +481,13 @@ def rel(got, want):
 
 
 def same_routes(got, want, name, cfg):
-    """{(layer, data, model): whether that rank routed every row as the
-    reference did}."""
+    """{(MoE layer, data, model): whether that rank routed every row as
+    the reference did}."""
+    D, Mm = mesh_axes(name)
     return {(L, d, m): np.array_equal(got[f"{name}/ids/{L}/{d}/{m}"],
                                       want[f"{name}/ids/{L}/{d}/{m}"])
-            for L in range(cfg.n_layers) for d in range(W.MESH["data"])
-            for m in range(W.MESH["model"])}
+            for L in range(W.n_moe(cfg)) for d in range(D)
+            for m in range(Mm)}
 
 
 @pytest.mark.parametrize("name", W.REFERENCE_CASES)
@@ -497,7 +511,7 @@ def test_step_matches_reference(runs, name):
     leaf_rule(result(got, f"{name}/"), result(want, f"{name}/"),
               float(want[f"{name}/met/lr"]),
               reference_layout_noise(want, name), sign_g(name, cfg),
-              encdec_moments=cfg.is_encdec)
+              encdec_moments=cfg.is_encdec or cfg.family == "hybrid")
 
 
 @pytest.mark.parametrize("name", W.PINNED_CASES)
@@ -507,16 +521,16 @@ def test_own_routes_match_reference(runs, name):
     experts (or another order) only at near ties."""
     _, _, got, _ = runs
     cfg = W.config(TC.get_reduced, name)
-    keys = [(L, d, m) for L in range(cfg.n_layers)
-            for d in range(W.MESH["data"]) for m in range(W.MESH["model"])]
+    D, Mm = mesh_axes(name)
+    keys = [(L, d, m) for L in range(W.n_moe(cfg))
+            for d in range(D) for m in range(Mm)]
     for key in keys:
         rows = int(got[f"{name}/own_differ/%d/%d/%d" % key])
         gap = float(got[f"{name}/own_gap/%d/%d/%d" % key])
         assert gap <= TIE_GAP, (key, rows, gap)
     assert any(all(int(got[f"{name}/own_differ/{L}/{d}/{m}"]) == 0
-                   for d in range(W.MESH["data"])
-                   for m in range(W.MESH["model"]))
-               for L in range(cfg.n_layers))
+                   for d in range(D) for m in range(Mm))
+               for L in range(W.n_moe(cfg)))
 
 
 @pytest.mark.parametrize("name", NODROP_CASES)
@@ -528,16 +542,32 @@ def test_step_matches_world1(runs, world1, name):
                    ("moe_aux", LOSS_RTOL)):
         g, w = float(got[f"{name}/met/{k}"]), float(w1[f"met/{k}"])
         assert abs(g - w) <= tol * abs(w), (k, g, w)
+    # Jamba's hybrid stack: the enc-dec branch with its moment tolerance
+    # (tests/test_torch_lm_train.py: each layout's bf16 moments lie up to
+    # 2-3 % of a leaf's largest from the float32 step's)
+    hybrid = cfg.family == "hybrid"
     leaf_rule(result(got, f"{name}/"), result(w1),
               float(w1["met/lr"]), reference_layout_noise(want, name),
-              SIGN_G if cfg.is_encdec else None)
+              SIGN_G if cfg.is_encdec or hybrid else None,
+              encdec_moments=hybrid)
 
 
 def test_fsdp_matches_tp(runs):
     """``fsdp_tp`` and ``tp`` at the same mesh route alike (the same
     forward numbers) and give the same step by the leaf rule."""
+    check_fsdp_matches_tp(runs, "granite-moe-3b-a800m/fsdp_tp/5")
+
+
+def test_jamba_fsdp_matches_tp(runs):
+    """The same for reduced Jamba's period stack: each sub-layer gathers
+    its own 2D leaves over data in the forward and the recompute of its
+    period."""
+    check_fsdp_matches_tp(runs, "jamba-1.5-large-398b/fsdp_tp/5")
+
+
+def check_fsdp_matches_tp(runs, fsdp):
     _, _, got, _ = runs
-    tp, fsdp = "granite-moe-3b-a800m/tp/5", "granite-moe-3b-a800m/fsdp_tp/5"
+    tp = W.FSDP_MOE_CASES[fsdp]
     cfg = W.config(TC.get_reduced, tp)
     assert all(same_routes({k.replace(fsdp, tp): v for k, v in got.items()
                             if k.startswith(fsdp)}, got, tp, cfg).values())
@@ -581,6 +611,8 @@ def test_zero1_moments_are_2d_slices(runs, world1, name):
             for k, whole in shapes.items():
                 tol = rtol if noise is None \
                     else max(rtol, 2 * noise[(what, k)])
+                if cfg.family == "hybrid":      # as test_step_matches_world1
+                    tol = ENCDEC_MOMENTS * rtol
                 spec = Sh.with_kv_heads(policy.leaf_spec(k, whole.ndim, True),
                                         k, cfg, policy.world_m)
                 idx = Sh.shard_slices(whole.shape, spec, mesh, coord)
@@ -592,8 +624,8 @@ def test_zero1_moments_are_2d_slices(runs, world1, name):
                     <= tol * float(np.abs(ref).max()), (r, what, k)
     # the data and model axes cut each rank's moments of a 2D-cut leaf;
     # a pod holds them whole
-    leaf = "layers.mamba.in_proj.w" if arch == W.MAMBA \
-        else "layers.attn.wq.w"
+    leaf = {W.MAMBA: "layers.mamba.in_proj.w",
+            W.JAMBA: "layers.sub1.attn.wq.w"}.get(arch, "layers.attn.wq.w")
     m0 = ranks[0][f"{name}/m/{leaf}"]
     assert m0.size * mesh["data"] * mesh["model"] == shapes[leaf].size
 
@@ -652,6 +684,25 @@ def test_pod_mesh_checkpoint_restores_at_world1_in_both_packages(started):
     model=1``: the moments cut over data are gathered over it alone, and
     a pod's copies are not gathered."""
     check_mesh_checkpoint(started, W.GRANITE, "pod", "pod/granite-3-2b/tp")
+
+
+@pytest.mark.parametrize("label",
+                         [label for label, _, _ in W.LAYOUTS_OF[W.JAMBA]])
+def test_jamba_layout_round_trip(runs, label):
+    """Reduced Jamba's training state (its ``sub{j}`` level: Mamba, MoE
+    and attention sub-layers, stacked over the periods) through the same
+    round trips: the spec table reads its leaves by name, and the level
+    between is transparent."""
+    _, _, got, _ = runs
+    check_layout(got, W.JAMBA, label)
+
+
+def test_jamba_mesh_checkpoint_restores_at_world1_in_both_packages(
+        started):
+    """The checkpoint reduced Jamba's ranks wrote after their ``tp`` step
+    at ``2x2``: whole leaves under ``sub{j}``, restored at world 1 in both
+    packages."""
+    check_mesh_checkpoint(started, W.JAMBA, name=f"{W.JAMBA}/tp/5")
 
 
 @pytest.mark.parametrize("label",
@@ -821,8 +872,8 @@ def test_serving_at_data_gt1_is_refused_training_is_not():
     """Serving and training accept a data axis of several ranks, a second
     batch axis (``pod`` x ``data``: ``test_step_matches_reference`` holds
     the pod cases to the reference) and, in training, KV heads that do
-    not split over the model axis (the ``1x4`` and ``kv1`` cases); only a
-    period stack is refused."""
+    not split over the model axis (the ``1x4`` and ``kv1`` cases), and a
+    period stack (Jamba) at all of them."""
     cfg = TC.get_reduced("granite-moe-3b-a800m")
     policy = Sh.make_policy(Me.abstract_mesh({"data": 2, "model": 2}))
     Tf.check_supported(cfg, policy, train=True)
@@ -836,6 +887,9 @@ def test_serving_at_data_gt1_is_refused_training_is_not():
     lm = dataclasses.replace(TC.get_reduced("granite-3-2b"), n_kv_heads=1)
     Tf.check_supported(lm, policy, train=True)
     TM.make_train_step(lm, policy, TA.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Tf.check_supported(TC.get_reduced("jamba-1.5-large-398b"), pods,
-                           train=True)
+    jamba = TC.get_reduced("jamba-1.5-large-398b")
+    for p in (policy, pods, Sh.make_policy(Me.abstract_mesh(
+            {"data": 1, "model": 4}))):
+        for train in (False, True):
+            Tf.check_supported(jamba, p, train=train)
+        TM.make_train_step(jamba, p, TA.AdamWConfig())

@@ -6,6 +6,7 @@ card, at depths other than the script's.
     python3 tools/chip_phases.py serving_mamba_tp2 [--mamba-tp-layers 8]
     python3 tools/chip_phases.py serving_encdec_tp2
     python3 tools/chip_phases.py pod2
+    python3 tools/chip_phases.py serving_jamba
 
 Each phase is ``chip_smoke.py``'s own function with every check of it:
 ``serving_moe_dp2`` and ``serving_moe_tp2`` (``run_serving_mesh``: the
@@ -28,7 +29,11 @@ record, then ``serving_moe_pod2`` and ``moe_train_pod2`` in four rank
 processes at pod=2 x data=2 x model=1, which the whole script runs in
 ``serving_moe_dp2``'s and ``moe_train_mesh``'s; flash case (p) and the
 stores' shuffle held to the plain versions and timed; ``--dp-layers``
-sets the serving leg's depth).  The kernels are built from this
+sets the serving leg's depth) and ``serving_jamba``
+(``run_serving_jamba``: one period of Jamba-1.5-Large at its published
+widths and 8 of its 16 experts served with its twin, then its flash
+case (q) and scan case (k) held to the plain versions and timed, the
+flash case beside SDPA).  The kernels are built from this
 checkout's sources first.  Prints the card's name and power limit, then
 the phases' records as ``chip_smoke.py`` prints them, and the seconds
 each phase took.  Exits non-zero without a CUDA device or when a phase fails.
@@ -49,7 +54,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as C  # noqa: E402
 
 PHASES = ("serving_moe_dp2", "serving_moe_tp2", "moe_train",
-          "serving_mamba_tp2", "serving_encdec_tp2", "pod2")
+          "serving_mamba_tp2", "serving_encdec_tp2", "pod2",
+          "serving_jamba")
 
 
 def parse_args(argv):
@@ -131,6 +137,11 @@ def main() -> int:
                 mamba_tp2(m, device, name, Path(tmp))
             elif phase == "serving_encdec_tp2":
                 encdec_tp2(m, device, name, Path(tmp))
+            elif phase == "serving_jamba":
+                _, cases = C.run_serving_jamba(m, device)
+                C.compare_kernels(m, cases, device)
+                for kname, more in cases.items():
+                    time_cases(m, name, kname, more)
             elif phase == "pod2":
                 _, cases = C.run_pod2(m, device, Path(tmp))
                 C.compare_kernels(m, cases, device)
