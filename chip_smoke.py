@@ -356,6 +356,18 @@ Phases, each fatal on failure:
    call, case (q), and first scan, case (k), held to the plain versions
    and timed (the flash case beside SDPA).  Prefill and decode-step ms,
    tokens/s, TTFT, weight bytes and peak, a profile;
+11i. the dry-run (``dryrun``), after phase 11h, on the host alone:
+   ``launch/dryrun.py``'s cells of Granite-3.0-2B (train_4k,
+   prefill_32k, decode_32k) at full width on the 16 x 16 production
+   mesh, rank 0 of 256 on ``torch.distributed``'s ``fake`` backend and
+   ``meta`` tensors, each record ok with its roofline terms, and no
+   process group left after it; the resident bytes ``launch/specs.py``
+   predicts for the parameters and the engine's caches of phases 11 and
+   11h (measured with ``torch.cuda.memory_allocated`` around their
+   weights' draw and their engine's making) within RESIDENT_TOL (0.5 %);
+   phase 11's 1024-token prefill counted on ``meta`` and priced with the
+   H100 roofline: its measured ms, the roofline's step ms and MFU, and
+   the measured MFU, which must lie in (0, 1], on a line of their own;
 12. timings: each leg's median of 3 warmed runs and peak memory, a
    profile, and each kernel's CUDA-event time per call and the summed
    profiler device time of the port's kernels that call launches (two or
@@ -390,6 +402,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the kernels' bound and the H100 SXM rates it prices them at, one copy
+from repro_torch.roofline.cost import bound  # noqa: E402
 SORTMERGE_ROWS = 10_000_000
 HASH_ROWS = 500_000
 GROUPBY_ROWS = 10_000_000      # Table 5 groupby/unique leg
@@ -431,11 +446,6 @@ JAMBA_REQUESTS, JAMBA_GEN, JAMBA_TWIN_REQUESTS = 8, 32, 2
 # the slice allows (a batch is ~2 s; the legs' set-up dominates)
 ONESHOT_BATCHES, ONESHOT_ROWS, ONESHOT_PROMPT, ONESHOT_GEN = 3, 8, 1024, 32
 AGGS = {"v": ["sum", "count", "mean", "min", "max"]}
-BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
-# special-function (exp2) results: 16 per SM per clock, 132 SMs, 1.98 GHz
-EXP_PER_S = 16 * 132 * 1.98e9
 _START = time.perf_counter()
 KERNELS = ("hash_partition", "fused_bucketing", "hash_join", "radix_sort",
            "hash_groupby", "hash_semi", "flash_attention", "mamba_scan")
@@ -453,7 +463,8 @@ PORT_KERNEL_FNS = ("count_upsweep", "count_scan", "rank_downsweep",
 def _modules():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import checkpoint
-    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import ShapeCell, cells_for, get_config, \
+        get_reduced
     from repro_torch.core import dist_ops
     from repro_torch.core import local_ops
     from repro_torch.core import morsel
@@ -462,7 +473,9 @@ def _modules():
     from repro_torch.kernels import bucketing, build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.launch import mesh, serve, train, unomt_e2e
+    from repro_torch.launch import dryrun, mesh, serve, specs, train, \
+        unomt_e2e
+    from repro_torch.roofline import analysis as roofline
     from repro_torch.models import attention as attn
     from repro_torch.models import layers
     from repro_torch.models import model
@@ -502,7 +515,8 @@ def _modules():
                 A=attn, Ly=layers, Mb=mamba,
                 Moe=moe, Tf=transformer, Me=mesh, Sh=sharding,
                 serve=serve, ServingEngine=ServingEngine, Ck=checkpoint,
-                Sy=synthetic, Tr=train, Ue=unomt_e2e)
+                Sy=synthetic, Tr=train, Ue=unomt_e2e, Dr=dryrun, SP=specs,
+                Ro=roofline, ShapeCell=ShapeCell, cells_for=cells_for)
 
 
 def card() -> str:
@@ -3541,6 +3555,8 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     M, serve = m["M"], m["serve"]
     ops = m["ops"]
     moe = cfg.n_experts > 0
+    _sync(device)
+    base = _allocated(device)
     params = M.init_params(torch.Generator(device=device).manual_seed(0),
                            cfg)
     expert_bytes = experts_bf16(leg, params) if moe else 0
@@ -3557,10 +3573,14 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
     stores, tables = serve.feature_stores(m["make_context"](device), 0,
                                           max(slots, 8))
     lookups = count_lookups(stores)
+    before_engine = _allocated(device)
     engine = m["ServingEngine"](
         cfg, params, slots=slots, prompt_capacity=prompt_cap,
         gen_capacity=gen_cap, queue_capacity=queue, feature_stores=stores,
         attn_impl=attn_impl, device=device)
+    res_check = resident_check(m, cfg, slots, prompt_cap + gen_cap,
+                               resident - base,
+                               _allocated(device) - before_engine)
     reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
     pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
     routes, xroutes = (RouteLog(m["Moe"]), RouteLog(m["Moe"])) if moe \
@@ -3681,6 +3701,7 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
         "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
         "decode_attention_ms_per_layer": decode_attention_ms,
         "peak_bytes_above_resident": peak, "resident_bytes": resident,
+        "resident_check": res_check,
         "weight_bytes": sum(t.numel() * t.element_size()
                             for t in _leaves(params)),
         "expert_bytes": expert_bytes, "routing": routing,
@@ -3699,7 +3720,9 @@ def run_serving(m, device, cfg, *, prompt_cap=SERVE_PROMPT,
             for rid, r in want.items()),
         "busy_share_prefill_plus_8_decode": busy, "profile": prof}
     emit(summary)
-    legs = {leg: dict(launches=launches, rows=n_req),
+    legs = {leg: dict(launches=launches, rows=n_req, resident=res_check,
+                      prefill=dict(ms=prefill_ms, prompt=prompt_cap,
+                                   decode_len=prompt_cap + gen_cap)),
             f"{leg}_xla": dict(launches=xlaunches, rows=len(xreqs))}
     del params, engine, xla, stores, prefill, step, full
     _free(device)
@@ -5896,6 +5919,7 @@ def run_serving_jamba(m, device, *, prompt_cap=SERVE_PROMPT,
                            cfg)
     expert_bytes = experts_bf16(leg, params)
     _sync(device)
+    weight_alloc = _allocated(device) - resident
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     emit({"phase": f"{leg}_memory", "arch": cfg.name,
           "layers": cfg.n_layers, "experts_published": full.n_experts,
@@ -5911,10 +5935,14 @@ def run_serving_jamba(m, device, *, prompt_cap=SERVE_PROMPT,
     stores, tables = serve.feature_stores(m["make_context"](device), 0,
                                           max(slots, 8))
     lookups = count_lookups(stores)
+    before_engine = _allocated(device)
     engine = m["ServingEngine"](
         cfg, params, slots=slots, prompt_capacity=prompt_cap,
         gen_capacity=gen_cap, queue_capacity=queue, feature_stores=stores,
         attn_impl=attn_impl, mamba_impl=mamba_impl, device=device)
+    res_check = resident_check(m, cfg, slots, prompt_cap + gen_cap,
+                               weight_alloc,
+                               _allocated(device) - before_engine)
     reqs = serve.make_requests(cfg, n_req, prompt_cap, gen_cap, seed=0)
     pick = [r.req_id for r in reqs if r.gen_len > 1][:2]
     first_ssm = first_prefill_ssm(engine)
@@ -6043,6 +6071,7 @@ def run_serving_jamba(m, device, *, prompt_cap=SERVE_PROMPT,
         "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
         "peak_bytes_above_resident": peak, "resident_bytes": resident,
         "weight_bytes": weight_bytes, "expert_bytes": expert_bytes,
+        "resident_check": res_check,
         "cache_bytes": sum(v.numel() * v.element_size()
                            for _, v in M.cache_leaves(engine.caches)),
         "feature_lookups": n_lookups, "dropped": 0, "launches": launches,
@@ -6053,7 +6082,7 @@ def run_serving_jamba(m, device, *, prompt_cap=SERVE_PROMPT,
         "tokens_compared_with_xla": compared,
         "first_prefill_ssm_diff_over_max": states,
         "busy_share_prefill_plus_8_decode": busy, "profile": prof})
-    legs = {leg: dict(launches=launches, rows=n_req),
+    legs = {leg: dict(launches=launches, rows=n_req, resident=res_check),
             f"{leg}_xla": dict(launches=xlaunches, rows=len(xreqs))}
     x = scan_rec[0][0]
     cases = {"flash_attention": [recorded_flash_case("(q) serving_jamba",
@@ -6065,6 +6094,83 @@ def run_serving_jamba(m, device, *, prompt_cap=SERVE_PROMPT,
     del params, engine, xla, stores, prefill, step, fullb
     _free(device)
     return legs, cases
+
+
+# --------------------------------------------------------------------------
+# the dry-run: specs and the roofline held to the card
+# --------------------------------------------------------------------------
+
+# predicted resident bytes against torch.cuda.memory_allocated: within
+RESIDENT_TOL = 0.005
+
+
+def resident_check(m, cfg, slots, decode_len, weight_bytes,
+                   cache_bytes) -> dict:
+    """The bytes ``launch/specs.py`` predicts one card holds for a serving
+    leg at world 1 (the parameters and the engine's caches of ``slots``
+    rows of ``decode_len`` positions) beside those measured: the growth
+    of ``torch.cuda.memory_allocated`` over the weights' draw and over
+    the engine's making."""
+    SP = m["SP"]
+    cell = m["ShapeCell"]("serving", decode_len, slots, "decode")
+    predicted = {"params": SP.tree_bytes(SP.param_specs(cfg, None)),
+                 "caches": SP.tree_bytes(SP.cache_specs(cfg, cell, None))}
+    measured = {"params": weight_bytes, "caches": cache_bytes}
+    p, q = sum(predicted.values()), sum(measured.values())
+    return {"predicted": predicted, "measured": measured,
+            "predicted_bytes": p, "measured_bytes": q,
+            "rel_err": abs(p - q) / q if q else None}
+
+
+def run_dryrun(m, name, legs) -> None:
+    """Phase 11i: the dry-run of Granite-3.0-2B's cells on the 16 x 16
+    mesh on this torch (the ``fake`` backend and ``meta`` tensors, no
+    device memory), the resident bytes predicted for the Granite and
+    Jamba serving legs against their measured ones, and the Granite
+    leg's 1024-token prefill priced with the roofline."""
+    import torch.distributed as dist
+    Dr, Ro = m["Dr"], m["Ro"]
+    t0 = time.perf_counter()
+    cells = {}
+    for cell in m["cells_for"](SERVE_ARCH):
+        rec = Dr.run_cell(SERVE_ARCH, cell, False)
+        if not rec["ok"] or not rec["compute_s"] > 0 \
+                or rec["bound"] not in ("compute", "memory", "collective"):
+            raise AssertionError(f"dryrun: {cell} {rec}")
+        cells[cell] = {k: rec[k] for k in (
+            "compute_s", "memory_s", "collective_s", "bound", "step_s",
+            "mfu", "flops_per_dev", "bytes_per_dev", "run_s")}
+        cells[cell]["resident_bytes"] = rec["memory_per_dev"]["total_bytes"]
+    if dist.is_initialized():
+        raise AssertionError("dryrun: a process group is left initialised")
+    resident = {}
+    for leg in ("serving", "serving_jamba"):
+        r = legs[leg]["resident"]
+        if not r["rel_err"] <= RESIDENT_TOL:
+            raise AssertionError(f"dryrun: {leg}'s resident bytes {r} "
+                                 f"beyond {RESIDENT_TOL}")
+        resident[leg] = r
+    info = legs["serving"]["prefill"]
+    cfg = serve_config(m, SERVE_ARCH)
+    cell = m["ShapeCell"]("serving_prefill", info["prompt"], 1, "prefill")
+    roof = Dr.measure(cfg, cell, None, decode_len=info["decode_len"])
+    measured_s = info["ms"] / 1e3
+    measured_mfu = roof["model_flops"] / (measured_s * Ro.PEAK_FLOPS)
+    if not 0 < measured_mfu <= 1:
+        raise AssertionError(f"dryrun: the prefill's MFU {measured_mfu}")
+    emit({"phase": "dryrun_prefill", "card": name, "arch": cfg.name,
+          "layers": cfg.n_layers, "tokens": info["prompt"],
+          "measured_ms": info["ms"], "roofline_step_ms": roof["step_s"] * 1e3,
+          "roofline_bound": roof["bound"], "roofline_mfu": roof["mfu"],
+          "measured_mfu": measured_mfu,
+          "roofline_over_measured": roof["step_s"] / measured_s,
+          "compute_ms": roof["compute_s"] * 1e3,
+          "memory_ms": roof["memory_s"] * 1e3,
+          "flops": roof["flops_per_dev"], "bytes": roof["bytes_per_dev"],
+          "model_flops": roof["model_flops"], "kernels": roof["kernels"]})
+    emit({"phase": "dryrun", "card": name, "arch": SERVE_ARCH,
+          "mesh": "16x16", "cells": cells, "resident": resident,
+          "seconds": time.perf_counter() - t0})
 
 
 # --------------------------------------------------------------------------
@@ -6161,95 +6267,6 @@ def port_kernel_ms(fn, reps=5, tries=3):
         if mine:
             break
     return (sum(mine.values()) if mine else None), mine
-
-
-def bound(name, args):
-    """(least milliseconds, what bounds it): each input read once, each
-    output written once, at the device memory rate; the key compares and
-    value updates at the float32 rate, counted for this run's data."""
-    if name == "radix_sort" and len(args) == 5:
-        _, words, _, bits, _ = args
-        n = words.numel()
-        # words and perm in, both out in the new order (the cases keep the
-        # words), and the pass's (2^bits,) histogram out; the per-block
-        # histograms are the kernels' scratch, not the function's
-        nbytes = 16 * n + 4 * (1 << bits)
-        ops = n
-    elif name == "radix_sort":
-        words, _, bits, _ = args
-        n = words.numel()
-        # words in; ranks and the pass's (2^bits,) histogram out
-        nbytes = 4 * n + 4 * n + 4 * (1 << bits)
-        ops = n
-    elif name == "hash_groupby":
-        kb, occ, vals = args
-        B, K, C = kb.shape
-        V = vals.shape[1]
-        # the occupancy and the keys and values of the occupied slots in
-        # (an empty slot's results do not depend on its keys or values),
-        # every slot's results out; each occupied slot is compared with
-        # the occupied slots of its bucket
-        filled = (occ > 0).sum(1).double()
-        nbytes = 4 * (B * C + int(filled.sum()) * (K + V)) \
-            + 4 * B * C * (2 + 3 * V)
-        pairs = int((filled ** 2).sum())
-        ops = pairs * (K + 2 + 3 * V)
-    elif name == "flash_attention":
-        # q, k, v in and the output out, once each (bf16); 4 D operations
-        # (the two products) for each live (query, key) pair
-        q, k, v, causal = args
-        B, Hq, Sq, D = q.shape
-        Skv = k.shape[2]
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        live = sum(min(Skv, i + Skv - Sq + 1) for i in range(Sq)) \
-            if causal else Sq * Skv
-        t_bytes = nbytes / BYTES_PER_S * 1e3
-        t_ops = 4 * D * B * Hq * live / BF16_OPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops \
-            else (t_ops, "operations")
-    elif name == "mamba_scan":
-        # x and y once each, delta, A, B, C and D read once, hT written
-        # once when asked; B S E N exponentials at the special-function
-        # rate and 5 float32 operations each (the decay, the two products
-        # of the update, the product with C and its sum)
-        x, delta, A, Bm, Cm, D, with_state = args
-        Bsz, S, E = x.shape
-        N = A.shape[1]
-        nbytes = 2 * x.numel() * x.element_size() + 4 * (
-            delta.numel() + A.numel() + Bm.numel() + Cm.numel() + D.numel()
-            + (Bsz * E * N if with_state else 0))
-        cells = Bsz * S * E * N
-        t_bytes = nbytes / BYTES_PER_S * 1e3
-        t_ops = max(cells / EXP_PER_S, 5 * cells / OPS_PER_S) * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops \
-            else (t_ops, "operations")
-    elif name == "hash_partition":
-        pid, P = args
-        n = pid.numel()
-        nbytes, ops = 4 * n + 4 * P + 4 * n, n
-    elif name == "fused_bucketing":
-        bits, valid, P = args
-        n, K = valid.numel(), len(bits)
-        nbytes = 4 * K * n + n + 4 * n + 4 * (P + 1) + 4 * n
-        ops = 12 * K * n
-    elif name == "hash_semi":
-        pb, po, bb, bo = args
-        B, K, Lc = pb.shape
-        # both occupancy slabs and the key planes of the occupied slots in,
-        # one member flag per probe slot out; each occupied slot's key
-        # compared once (a hash table meets about one key a probe)
-        occupied = int((po > 0).sum()) + int((bo > 0).sum())
-        nbytes = 4 * (po.numel() + bo.numel() + B * Lc + K * occupied)
-        ops = K * occupied
-    else:
-        pb, po, bb, bo = args
-        B, K, Lc = pb.shape
-        C = bb.shape[2]
-        nbytes = 4 * (pb.numel() + po.numel() + bb.numel() + bo.numel()
-                      + B * Lc + B * Lc * C)
-        ops = B * Lc * C * K
-    t_bytes, t_ops = nbytes / BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_times(m, cases, gdata, sizes, device) -> dict:
@@ -6423,6 +6440,9 @@ def run_all(tmpdir: Path) -> int:
         errs[kname] = max(errs[kname], err)
         cases[kname] += jamba_cases[kname]
     del jamba_cases
+    # the port's dry-run on this torch, its resident bytes against the
+    # two serving legs', and the Granite leg's prefill priced with it
+    run_dryrun(m, name, legs)
     # the enc-dec and vision stacks at world 1, whose records the legs at
     # world 2 are held to
     legs.update(run_encdec_world1(m, device, name, tmpdir, cases, errs))

@@ -38,6 +38,20 @@ import torch.distributed as dist
 
 from .kernel_backend import resolve_device
 
+# observers of the collectives (the dry-run's cost counter,
+# ``roofline/cost.py``): each is called with the collective's name (as
+# HLO names it), the bytes of its result on this rank and its group
+observers: list = []
+
+
+def _observe(op: str, result: torch.Tensor, group, world: int = 1) -> None:
+    """Tell the observers of one collective whose result on this rank is
+    ``world`` tensors of ``result``'s size."""
+    if observers:
+        nbytes = world * result.numel() * result.element_size()
+        for observe in observers:
+            observe(op, nbytes, group)
+
 
 def _staged(t: torch.Tensor, group) -> bool:
     """Whether ``t`` goes through host buffers: a CUDA tensor on gloo."""
@@ -61,6 +75,7 @@ def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
     """Block ``d`` of axis 0 goes to rank ``d`` of ``group``; block ``s``
     of the result came from rank ``s``."""
     send = send.contiguous()
+    _observe("all-to-all", send, group)
     if _staged(send, group):
         hs = _host(send)
         hr = _pinned(hs)
@@ -74,6 +89,7 @@ def all_to_all(send: torch.Tensor, group=None) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over ``group``, as a new tensor (every rank gets the
     same bits)."""
+    _observe("all-reduce", x, group)
     if _staged(x, group):
         h = _host(x)
         dist.all_reduce(h, group=group)
@@ -87,6 +103,7 @@ def all_gather(x: torch.Tensor, group=None) -> list[torch.Tensor]:
     """Every rank's ``x`` (equal shapes), in rank order."""
     x = x.contiguous()
     world = dist.get_world_size(group)
+    _observe("all-gather", x, group, world)
     if _staged(x, group):
         h = _host(x)
         out = [_pinned(h) for _ in range(world)]
@@ -101,6 +118,7 @@ def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
     """Rank ``src`` of ``group``'s ``x`` on every rank of it, as a new
     tensor (the same bits everywhere)."""
     root = dist.get_global_rank(group, src)
+    _observe("broadcast", x, group)
     if _staged(x, group):
         h = _host(x)
         dist.broadcast(h, root, group=group)
@@ -137,6 +155,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                           device=send.device, pin_memory=staged)
         try:
             dist.reduce_scatter_tensor(out, send, group=group)
+            _observe("reduce-scatter", out, group)
         except RuntimeError as e:
             if "support" not in str(e):
                 raise
@@ -144,6 +163,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
             out = None
     if out is None:
         if staged:
+            _observe("all-reduce", send, group)
             dist.all_reduce(send, group=group)     # the host copy
         else:
             send = all_reduce(send, group)

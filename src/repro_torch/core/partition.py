@@ -2,8 +2,8 @@
 
 Key hashing is the murmur3-style 32-bit chain of
 ``kernels/fused_bucketing/ref.py`` over the key columns' bits; partition
-id = hash % P.  The shuffle ranks the ids with the
-``kernels/hash_partition`` kernel.
+id = hash % P.  The shuffle and :func:`plan_partitions` rank the ids
+with the ``kernels/hash_partition`` kernel.
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from ..kernels.fused_bucketing.ref import hash_chain, hash_chain_np
+from ..kernels.hash_partition import partition_plan
+from .kernel_backend import table_kernel_impl
 from .table import Table, flush_subnormals, flush_subnormals_np
 
 
@@ -50,3 +52,20 @@ def partition_ids(table: Table, key_cols: Sequence[str],
     pid = (h % num_partitions).to(torch.int32)
     return torch.where(table.valid_mask, pid, 0)
 
+
+def plan_partitions(table: Table, key_cols: Sequence[str],
+                    num_partitions: int, impl: str | None = None):
+    """(hist, dest-slot, pid) over *valid* rows only, all int32.
+
+    Padding rows are routed to a one-past-the-end trash partition so they
+    never consume real slots.  The ``hash_partition`` kernel ranks the ids
+    on a CUDA table, its plain version on a CPU table; ``impl`` (``ref`` or
+    ``cuda``), where given, may only confirm what the device implies."""
+    pid = partition_ids(table, key_cols, num_partitions)
+    if impl is not None and impl != table_kernel_impl(pid.device):
+        raise ValueError(f"impl={impl!r} cannot run on a {pid.device.type} "
+                         "table: the kernel runs on CUDA tensors and its "
+                         "plain version on CPU tensors")
+    pid = torch.where(table.valid_mask, pid, num_partitions)
+    hist, dest = partition_plan(pid, num_partitions + 1)
+    return hist[:num_partitions], dest, pid

@@ -73,11 +73,12 @@ def narrow_column(name: str, v: np.ndarray) -> np.ndarray:
                     f"[{lo}, {hi}] outside the int32 range "
                     f"[{info.min}, {info.max}]; refusing to truncate "
                     "(aliased keys make false join matches) — "
-                    "dictionary-encode wide keys first")
+                    "dictionary-encode wide keys first "
+                    "(repro_torch.data.dictionary)")
         return v.astype(np.int32)
     raise TypeError(
         f"column {name!r} dtype {v.dtype} unsupported; dictionary-"
-        "encode strings first")
+        "encode strings first (repro_torch.data.dictionary)")
 
 
 def _is_float(x: torch.Tensor) -> bool:

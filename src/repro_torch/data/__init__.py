@@ -1,3 +1,4 @@
 """Application data for the port: the UNOMT data-engineering pipeline
-(``unomt``) and the step-addressable synthetic LM batches
-(``synthetic``)."""
+(``unomt``), the step-addressable synthetic LM batches
+(``synthetic``) and the dictionary encoding of string columns
+(``dictionary``)."""

@@ -32,6 +32,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
+# observers of the kernels' calls on the ``meta`` device (the dry-run's
+# cost counter, ``roofline/cost.py``): each is called with the kernel's
+# name and the arguments its bound counts
+meta_observers: list = []
+
+
+def on_meta(name: str, args: tuple, out):
+    """A kernel's call on ``meta`` tensors: nothing runs, every observer
+    is told of the call, and ``out`` (empty tensors of the outputs'
+    shapes) is returned, as a meta kernel gives shapes only.  A dry-run
+    bills the kernel's own work, not its plain version's op trace."""
+    for observe in meta_observers:
+        observe(name, args)
+    return out
+
+
+# how a loop of identical iterations runs on ``meta`` tensors while a
+# dry-run's cost counter (``roofline/cost.py``) counts: it puts here a
+# ``repeat(n, fn, *args, carry=())`` that runs ``fn(*args)``, the first
+# iteration, once and counts its ops, forward and backward, ``n`` times
+meta_loops: list = []
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME")

@@ -89,8 +89,14 @@ def _flash_cuda(q, k, v, causal):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """softmax(q kᵀ / sqrt(D)) v per head, query head ``h`` on KV head
-    ``h // (Hq / Hkv)`` -> ``(B, Hq, Sq, D)`` in ``q.dtype``."""
+    ``h // (Hq / Hkv)`` -> ``(B, Hq, Sq, D)`` in ``q.dtype``.  The kernel
+    runs for a CUDA tensor, the plain version for a CPU tensor; a meta
+    tensor gets the output's shape (``build.on_meta``)."""
     _check_shapes(q, k, v, causal)
     if q.device.type == "cuda":
         return _flash_cuda(q, k, v, causal)
+    if q.is_meta:
+        return build.on_meta("flash_attention", (q, k, v, causal),
+                             torch.empty(q.shape, dtype=q.dtype,
+                                         device=q.device))
     return attention_ref(q, k, v, causal=causal)

@@ -63,7 +63,13 @@ def _radix_histogram_ranks_cuda(pid: torch.Tensor, num_partitions: int):
 
 def radix_histogram_ranks(pid: torch.Tensor, num_partitions: int):
     """hist (P,), ranks (n,) — stable within-partition ranks.  The CUDA
-    kernels run for a CUDA tensor, the plain version for a CPU tensor."""
+    kernels run for a CUDA tensor, the plain version for a CPU tensor; a
+    meta tensor gets the outputs' shapes (``build.on_meta``)."""
+    if pid.is_meta:
+        return build.on_meta(
+            "hash_partition", (pid, num_partitions),
+            (torch.empty(num_partitions, dtype=torch.int32, device=pid.device),
+             torch.empty(pid.shape, dtype=torch.int32, device=pid.device)))
     if table_kernel_impl(pid.device) == "ref":
         return radix_histogram_ranks_ref(pid, num_partitions)
     return _radix_histogram_ranks_cuda(pid, num_partitions)

@@ -79,9 +79,18 @@ def _scan_cuda(x, delta, A, Bm, Cm, D, return_state):
 
 def selective_scan(x, delta, A, Bm, Cm, D, *, return_state: bool = False):
     """y (Bsz, S, E) in ``x.dtype``, and with ``return_state`` also the
-    final state hT (Bsz, E, N) float32; the state starts at 0."""
+    final state hT (Bsz, E, N) float32; the state starts at 0.  The
+    kernel runs for a CUDA tensor, the plain scan for a CPU tensor; a meta
+    tensor gets the outputs' shapes (``build.on_meta``)."""
     _check_shapes(x, delta, A, Bm, Cm, D)
     if x.device.type == "cuda":
         return _scan_cuda(x, delta, A, Bm, Cm, D, return_state)
+    if x.is_meta:
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        hT = torch.empty((x.shape[0], x.shape[2], A.shape[1]),
+                         dtype=torch.float32, device=x.device)
+        return build.on_meta("mamba_scan",
+                             (x, delta, A, Bm, Cm, D, return_state),
+                             (y, hT) if return_state else y)
     y, hT = selective_scan_ref(x, delta, A, Bm, Cm, D)
     return (y, hT) if return_state else y

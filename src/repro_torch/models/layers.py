@@ -52,8 +52,11 @@ BF16 = torch.bfloat16
 def normal(gen: torch.Generator, shape, std: float, dtype=BF16):
     """``std``-scaled standard normal draws of ``shape`` on the
     generator's device, each leading index's slice drawn in place
-    (``normal_``: no float32 temporary)."""
+    (``normal_``: no float32 temporary).  On the ``meta`` device nothing
+    is drawn: the tree of shapes and dtypes alone (``launch/specs.py``)."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     for i in range(shape[0]):
         out[i].normal_(0.0, std, generator=gen)
     return out
@@ -235,9 +238,9 @@ def attn_decode(p, cfg, x, cache, cache_len, *, cross: bool = False,
             k_new = rms_norm(p["k_norm"], k_new, cfg.norm_eps)
         q = rope(q, pos, cfg.rope_theta)
         k_new = rope(k_new, pos, cfg.rope_theta)
-        if cl.dim() == 0:
-            kc[:, :, cl] = k_new[:, :, 0].to(kc.dtype)
-            vc[:, :, cl] = v_new[:, :, 0].to(vc.dtype)
+        if cl.dim() == 0:            # no host read of the position
+            kc.index_copy_(2, cl.reshape(1), k_new.to(kc.dtype))
+            vc.index_copy_(2, cl.reshape(1), v_new.to(vc.dtype))
         else:                        # per-slot write position
             rows = torch.arange(x.shape[0], device=x.device)
             kc[rows, :, cl] = k_new[:, :, 0].to(kc.dtype)

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import build
 from ..kernels.mamba_scan import ops as scan_ops
 from . import layers as Ly
 
@@ -153,11 +154,27 @@ def scan_chunked(x, delta, A, Bm, Cm, D, h0=None, chunk: int = 128):
     Bsz, S, E = x.shape
     h = x.new_zeros((Bsz, E, A.shape[1])) if h0 is None else h0
     c = max(1, min(chunk, S))
-    ys = []
-    for s0 in range(0, S, c):
+    ys, start = [], 0
+
+    def one(s0, x, delta, A, Bm, Cm, h):
         t = slice(s0, s0 + c)
-        y, h = checkpoint(_scan_steps, x[:, t], delta[:, t], A, Bm[:, t],
+        return checkpoint(_scan_steps, x[:, t], delta[:, t], A, Bm[:, t],
                           Cm[:, t], h, use_reentrant=False)
+
+    n = S // c - 2           # the whole chunks between the first and last
+    if x.is_meta and n > 1 and build.meta_loops:
+        # a dry-run's count (``kernels/build.meta_loops``): the whole
+        # chunks between the first (whose h takes no gradient) and the
+        # last (whose h may give none) run the same ops, so the second
+        # runs and counts for all of them
+        y, h = one(0, x, delta, A, Bm, Cm, h)
+        ys.append(y)
+        y, h = build.meta_loops[-1](n, one, c, x, delta, A, Bm, Cm, h,
+                                    carry=(6,))
+        ys += [y] + [y.detach()] * (n - 1)
+        start = (n + 1) * c
+    for s0 in range(start, S, c):
+        y, h = one(s0, x, delta, A, Bm, Cm, h)
         ys.append(y)
     y = torch.cat(ys, dim=1) if ys else x.new_zeros(x.shape)
     return y + x * D, h

@@ -69,6 +69,23 @@ def test_hash_partition_equals_plain(cuda, P, n, rng):
                  radix_histogram_ranks_ref(pid, P))
 
 
+@pytest.mark.parametrize("P", [1, 3, 16])
+def test_plan_partitions_launches_the_kernel(cuda, P, rng):
+    """``core.partition.plan_partitions`` on a CUDA table: one launch of
+    the kernel, (hist, dest, pid) equal to the same table's on the CPU."""
+    from repro_torch.core.partition import plan_partitions
+    cols = {"k": rng.integers(-50, 50, 5000).astype(np.int32),
+            "f": rng.choice(np.array([0.0, -0.0, 1e-40, 2.5], np.float32),
+                            5000)}
+    before = hp_ops.launches
+    got = plan_partitions(Table.from_dict(cols, 6000, device=cuda),
+                          ["k", "f"], P, impl="cuda")
+    assert hp_ops.launches == before + 1
+    want = plan_partitions(Table.from_dict(cols, 6000, device="cpu"),
+                           ["k", "f"], P)
+    assert equal([g.cpu() for g in got], want)
+
+
 @pytest.mark.parametrize("P", [2, 9, 512])
 @pytest.mark.parametrize("K,kind", [(1, "int"), (2, "float")])
 def test_fused_bucketing_equals_plain(cuda, P, K, kind, rng):

@@ -7,6 +7,7 @@ card, at depths other than the script's.
     python3 tools/chip_phases.py serving_encdec_tp2
     python3 tools/chip_phases.py pod2
     python3 tools/chip_phases.py serving_jamba
+    python3 tools/chip_phases.py dryrun
 
 Each phase is ``chip_smoke.py``'s own function with every check of it:
 ``serving_moe_dp2`` and ``serving_moe_tp2`` (``run_serving_mesh``: the
@@ -33,7 +34,12 @@ sets the serving leg's depth) and ``serving_jamba``
 (``run_serving_jamba``: one period of Jamba-1.5-Large at its published
 widths and 8 of its 16 experts served with its twin, then its flash
 case (q) and scan case (k) held to the plain versions and timed, the
-flash case beside SDPA).  The kernels are built from this
+flash case beside SDPA) and ``dryrun`` (``run_serving`` on
+Granite-3.0-2B and ``run_serving_jamba``, whose resident bytes and
+prefill time it needs, then ``run_dryrun``: Granite-3.0-2B's dry-run
+cells on the 16 x 16 mesh, the predicted resident bytes against both
+legs' and the prefill priced with the roofline).  The kernels are built
+from this
 checkout's sources first.  Prints the card's name and power limit, then
 the phases' records as ``chip_smoke.py`` prints them, and the seconds
 each phase took.  Exits non-zero without a CUDA device or when a phase fails.
@@ -55,7 +61,7 @@ import chip_smoke as C  # noqa: E402
 
 PHASES = ("serving_moe_dp2", "serving_moe_tp2", "moe_train",
           "serving_mamba_tp2", "serving_encdec_tp2", "pod2",
-          "serving_jamba")
+          "serving_jamba", "dryrun")
 
 
 def parse_args(argv):
@@ -142,6 +148,11 @@ def main() -> int:
                 C.compare_kernels(m, cases, device)
                 for kname, more in cases.items():
                     time_cases(m, name, kname, more)
+            elif phase == "dryrun":
+                legs, _ = C.run_serving(m, device,
+                                        C.serve_config(m, C.SERVE_ARCH))
+                legs.update(C.run_serving_jamba(m, device)[0])
+                C.run_dryrun(m, name, legs)
             elif phase == "pod2":
                 _, cases = C.run_pod2(m, device, Path(tmp))
                 C.compare_kernels(m, cases, device)
